@@ -1,0 +1,630 @@
+#!/usr/bin/env python3
+"""Check that the PyTorch port runs on one CUDA card, through its own kernels.
+
+    python3 chip_smoke.py [--seed N] [--out report.json]
+
+Phases (any failure exits non-zero):
+  1. the card's name and power limit (nvidia-smi); build every CUDA kernel
+     of the port from src/repro_torch/csrc (one nvcc per source, in
+     parallel) and print the build seconds and the ptxas report;
+  2. kernels: each wrapper runs on the card at the main path's shapes and is
+     held against its plain torch version on the same inputs — the GRAU unit
+     bit-exact, paged decode / chunked prefill within the stated tolerances
+     with the fused GRAU epilogue bit-exact on the kernel's own f32 output —
+     then timed with CUDA events beside its plain version, a PyTorch library
+     call for the same function where one exists, and the card's bound;
+  3. the slice: full-width llama3.2-3b in bf16 (weights drawn from --seed on
+     the card) serves 8 requests through ServeEngine with the kernels,
+     (a) with float activations and (b) with the GRAU MLP activation plus
+     the fused GRAU attention epilogue, then once through the gather path.
+     Launch counters are zeroed before and read after each served run.
+The last two lines are the kernels JSON and the result line.
+
+Without a CUDA card, or outside a checkout of the repository, it prints why
+on stderr and exits 2. `--rehearse` runs the same phases at smoke size on
+the CPU (plain versions, no timings) to check the control flow, and exits 1.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
+PEAK_OPS = {                      # dense peaks, H100 SXM
+    "bf16": 989e12,               # tensor cores (data sheet)
+    # the data sheet has no int32 entry: 64 INT32 lanes per SM are half the
+    # 128 FP32 lanes behind its 67e12 float32 rate
+    "int32": 33.5e12,
+}
+# Kernel vs plain, element by element: |got - want| <= atol + rtol * |want|.
+F32_TOL = 2e-5      # f32: the same sums in another order (FMA contraction)
+# bf16 output: both sides round an f32 result (held at F32_TOL) to bf16, so
+# they may land one bf16 ulp (<= 2**-7 * |want|) apart, and no further
+BF16_RTOL, BF16_ATOL = 2 ** -7, 1e-6
+SLICE_TOL = {"float": 2e-2, "grau": 5e-2}   # relative L2, first decode logits
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def need(cond, what):
+    if not cond:
+        raise SmokeError(what)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+def device_ms(torch, fn, iters=20, warmup=3):
+    """Mean device time per call from CUDA events around `iters` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes, ops, kind):
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels
+# ---------------------------------------------------------------------------
+
+def random_specs(np, make_spec, rng, n):
+    """Register files with negative pre-shifts and shift counts >= 32."""
+    out = []
+    for i in range(n):
+        segments, ne = int(rng.integers(1, 9)), int(rng.integers(1, 17))
+        bps = (np.sort(rng.choice(np.arange(-(1 << 24), 1 << 24),
+                                  size=segments - 1, replace=False))
+               if segments > 1 else np.empty((0,), np.int64))
+        pre = int(rng.choice([-40, -31, -5, -1, 0, 3, 20, 28, 33]))
+        out.append(make_spec(bps, rng.integers(0, 2, size=(segments, ne)),
+                             rng.choice([-1, 1], size=segments),
+                             rng.integers(-200, 201, size=segments),
+                             pre_shift=pre, num_exponents=ne,
+                             out_bits=int(rng.choice([4, 8])),
+                             out_signed=bool(i % 2)))
+    return out
+
+
+def check_grau(torch, np, dev, shapes, rng, timed):
+    from repro_torch.kernels import grau as gk
+    from repro_torch.kernels import ops
+    from repro_torch.nn.common import build_lm_grau
+    from repro_torch.pwlf.spec import make_spec
+
+    specs = [build_lm_grau("silu").spec, build_lm_grau("identity").spec]
+    specs += random_specs(np, make_spec, rng, 8)
+    rows, cols = shapes["grau"]
+    n = rows * cols
+    x = rng.integers(-(1 << 31), 1 << 31, size=(rows, cols), dtype=np.int64)
+    x.reshape(-1)[:6] = [-(1 << 31), -(1 << 31) + 1, -1, 0, (1 << 31) - 2,
+                         (1 << 31) - 1]
+    x = torch.from_numpy(x.astype(np.int32)).to(dev)
+    small = torch.from_numpy(rng.integers(-5000, 5000, size=(rows, cols),
+                                          dtype=np.int64).astype(np.int32)).to(dev)
+    modes = set()
+    for spec in specs:
+        for inp in (x, small, x[:, 1:]):            # ragged + unaligned view
+            got = ops.grau(inp, spec)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            regs = spec.packed(dev)
+            want = gk.grau_plain(inp, regs, num_exponents=spec.num_exponents,
+                                 qmin=spec.qmin, qmax=spec.qmax)
+            need(torch.equal(got.to(torch.int32), want),
+                 f"grau kernel differs from plain (pre={int(spec.pre_shift)})")
+            modes.add(got.dtype)
+    need(modes == {torch.int8, torch.uint8}, f"bus modes covered: {modes}")
+    log(f"grau: bit-exact on {len(specs)} specs x 3 inputs, modes "
+        f"{sorted(str(m) for m in modes)}")
+    row = {"name": "grau", "route": "cuda",
+           "source": "src/repro_torch/csrc/grau.cu",
+           "replaces": "src/repro/kernels/grau.py:103", "max_abs_err": 0}
+    if timed:
+        spec = specs[0]
+        regs = spec.packed(dev)
+        kw = dict(num_exponents=spec.num_exponents, qmin=spec.qmin,
+                  qmax=spec.qmax)
+        row["ms"] = device_ms(torch, lambda: gk.grau_unit(small, regs, **kw))
+        row["plain_ms"] = device_ms(torch, lambda: gk.grau_plain(small, regs,
+                                                                 **kw), 5, 1)
+        # per element: 7 compares + 3 selects + per stage (shift, test, add)
+        # + multiply-add + clamp
+        ops_per = 7 + 3 + 3 * spec.num_exponents + 4
+        row["bound_ms"], row["bound_by"] = bound(5 * n, ops_per * n, "int32")
+        row["library_ms"] = None
+    return row
+
+
+def paged_case(torch, np, dev, dtype, shapes, rng):
+    s = shapes
+    slots, h, kvh, d, bs, max_len = (s["slots"], s["h"], s["kvh"], s["d"],
+                                     s["bs"], s["max_len"])
+    bps = max_len // bs
+    nb = slots * bps + 1
+    k = torch.randn((nb, bs, kvh, d), device=dev).to(dtype)
+    v = torch.randn((nb, bs, kvh, d), device=dev).to(dtype)
+    # fragmented: every slot's blocks drawn from a shuffled pool
+    perm = rng.permutation(np.arange(1, nb))[:slots * bps].reshape(slots, bps)
+    lengths = rng.integers(1, max_len + 1, size=slots)
+    lengths[0], lengths[1], lengths[2] = 0, max_len, 1       # idle, full, 1
+    table = perm.astype(np.int32)
+    table[lengths == 0] = 0
+    q = torch.randn((slots, h, d), device=dev).to(dtype)
+    return (q, k, v, torch.from_numpy(table).to(dev),
+            torch.from_numpy(lengths.astype(np.int32)).to(dev))
+
+
+def live_bytes(lengths_or_ends, bs, kvh, d, esize):
+    blocks = sum(max(-(-int(n) // bs), 1) for n in lengths_or_ends)
+    return 2 * blocks * bs * kvh * d * esize + 4 * blocks
+
+
+def sdpa_yardstick(torch, q, k, v, table, ends, g, causal_rows=None):
+    """F.scaled_dot_product_attention on the gathered view (the view is
+    built outside the timed call); returns a zero-argument timed call."""
+    import torch.nn.functional as F
+    b = table.shape[0]
+    kvh, d = k.shape[2], k.shape[3]
+    kd = k[table.long()].reshape(b, -1, kvh, d).transpose(1, 2)
+    vd = v[table.long()].reshape(b, -1, kvh, d).transpose(1, 2)
+    kd = kd.repeat_interleave(g, dim=1).contiguous()
+    vd = vd.repeat_interleave(g, dim=1).contiguous()
+    pos = torch.arange(kd.shape[2], device=q.device)
+    if causal_rows is None:                               # decode
+        qd = q[:, :, None, :]                             # (b, h, 1, d)
+        mask = (pos[None] < ends[:, None])[:, None, None, :]
+    else:
+        qd = q.transpose(1, 2)                            # (b, h, C, d)
+        mask = (pos[None, None] <= causal_rows[..., None])[:, None]
+    return lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
+
+
+def close(got, want, rtol, atol):
+    """(every element within atol + rtol * |want|, max |got - want|)."""
+    diff = (got.float() - want.float()).abs()
+    ok = bool((diff <= atol + rtol * want.float().abs()).all())
+    return ok, float(diff.max())
+
+
+def check_paged(torch, np, dev, shapes, rng, timed):
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import attn_output_quant
+    from repro_torch.nn.common import build_lm_grau
+
+    g = build_lm_grau("identity")
+    s = shapes
+    group = s["h"] // s["kvh"]
+    rows = {}
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    for name in ("paged_attention", "paged_prefill"):
+        worst = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, table, lengths = paged_case(torch, np, dev, dtype, s,
+                                                 rng)
+            if name == "paged_attention":
+                kern, plain = pa.paged_attention, pa.paged_attention_plain
+                args = (q, k, v, table, lengths)
+            else:
+                kern, plain = pa.paged_prefill_attention, pa.paged_prefill_plain
+                C = s["chunk"]
+                starts = torch.tensor(
+                    [0, C, s["max_len"] // 2, s["max_len"] - C][:q.shape[0]],
+                    dtype=torch.int32, device=dev)
+                qp = torch.randn((starts.shape[0], C, s["h"], s["d"]),
+                                 device=dev).to(dtype)
+                args = (qp, k, v,
+                        table[1:1 + starts.shape[0]].contiguous(), starts)
+            # the f32 result before the output cast, at F32_TOL
+            f32 = kern(*args, out_dtype=torch.float32)
+            sync()
+            ok, err32 = close(f32, plain(*args, out_dtype=torch.float32),
+                              F32_TOL, F32_TOL)
+            need(ok, f"{name} {dtype}: f32 output off by {err32:.3g} "
+                 f"> {F32_TOL} (1 + |want|)")
+            got = kern(*args)
+            sync()
+            need(torch.isfinite(got.float()).all(), f"{name}: non-finite")
+            rtol, atol = ((F32_TOL, F32_TOL) if dtype == torch.float32 else
+                          (BF16_RTOL, BF16_ATOL))
+            ok, err = close(got, plain(*args), rtol, atol)
+            need(ok, f"{name} {dtype}: output off by {err:.3g} > {atol} + "
+                 f"{rtol:.3g} |want|")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+            quant = kern(*args, spec=g.spec, s_in=g.s_in)
+            sync()
+            need(torch.equal(quant, attn_output_quant(f32, g.spec, g.s_in)),
+                 f"{name} {dtype}: GRAU epilogue not bit-exact")
+            qref = plain(*args, spec=g.spec, s_in=g.s_in)
+            flips = int((quant.to(torch.int32) - qref.to(torch.int32))
+                        .abs().gt(1).sum())
+            need(flips == 0, f"{name} {dtype}: epilogue vs plain off by > 1")
+            log(f"{name} {dtype}: max |kernel - plain| = {err:.3g} (each "
+                f"element within {atol:.3g} + {rtol:.3g} |want|), f32 output "
+                f"{err32:.3g} (within {F32_TOL} (1 + |want|)); epilogue "
+                "bit-exact on the kernel's f32 output")
+        row = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/csrc/paged_attention.cu",
+               "replaces": ("src/repro/kernels/paged_attention.py:189"
+                            if name == "paged_attention" else
+                            "src/repro/kernels/paged_attention.py:401"),
+               "max_abs_err": worst}
+        if timed:
+            row.update(time_paged(torch, np, dev, name, s, group, rng))
+        rows[name] = row
+    return rows
+
+
+def time_paged(torch, np, dev, name, s, group, rng):
+    """Times at the main path's shape in bf16: a decode tick at the widest
+    bucket (8 slots, ragged up to max_len), or one prefill chunk (b = 1)
+    starting mid-prompt."""
+    from repro_torch.kernels import paged_attention as pa
+    q, k, v, table, lengths = paged_case(torch, np, dev, torch.bfloat16, s,
+                                         rng)
+    h, d, kvh, bs = s["h"], s["d"], s["kvh"], s["bs"]
+    if name == "paged_attention":
+        args = (q, k, v, table, lengths)
+        ends = [int(n) for n in lengths.cpu()]
+        nbytes = live_bytes(ends, bs, kvh, d, 2) + 2 * 2 * q.numel() + 4 * len(ends)
+        flops = sum(4 * h * d * n for n in ends)
+        lib = sdpa_yardstick(torch, q, k, v, table, lengths, group)
+        kern, plain = pa.paged_attention, pa.paged_attention_plain
+    else:
+        C = s["chunk"]
+        start = torch.tensor([s["max_len"] // 2 - C], dtype=torch.int32,
+                             device=dev)
+        width = -(-(int(start) + C) // bs)
+        tab = table[1:2, :width].contiguous()
+        qp = torch.randn((1, C, h, d), device=dev).to(torch.bfloat16)
+        args = (qp, k, v, tab, start)
+        end = int(start) + C
+        nbytes = live_bytes([end], bs, kvh, d, 2) + 2 * 2 * qp.numel()
+        flops = sum(4 * h * d * (int(start) + r + 1) for r in range(C))
+        rows_end = start[:, None] + torch.arange(C, device=dev)[None]
+        lib = sdpa_yardstick(torch, qp, k, v, tab, None, group, rows_end)
+        kern, plain = pa.paged_prefill_attention, pa.paged_prefill_plain
+    t_bound, by = bound(nbytes, flops, "bf16")
+    return {"ms": device_ms(torch, lambda: kern(*args)),
+            "plain_ms": device_ms(torch, lambda: plain(*args), 5, 1),
+            "bound_ms": t_bound, "bound_by": by,
+            "library_ms": device_ms(torch, lib),
+            "library_call": "torch.nn.functional.scaled_dot_product_attention "
+                            "on the gathered view"}
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the slice
+# ---------------------------------------------------------------------------
+
+def make_requests(np, Request, vocab, n, lo, hi, max_new, seed):
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(2, vocab,
+                                               size=int(rng.integers(lo, hi + 1))),
+                    max_new_tokens=max_new) for i in range(n)]
+
+
+def serve(torch, np, dev, cfg, params, ecfg_kw, reqs_fn):
+    from repro_torch import kernels
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+    eng = ServeEngine(cfg, params, EngineConfig(**ecfg_kw), device=dev)
+    eng.warmup()
+    reqs = reqs_fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    need(len(done) == len(reqs), f"served {len(done)} of {len(reqs)}")
+    ttft = sorted(r.ttft for r in eng.scheduler.finished)
+    out = {
+        "requests": len(done),
+        "decode_tokens": eng.stats["decode_tokens"],
+        "prefill_tokens": eng.stats["prefill_tokens"],
+        "ticks": eng.stats["ticks"], "chunks": eng.stats["chunks"],
+        "wall_s": wall,
+        "tokens_per_s": eng.stats["decode_tokens"] / wall,
+        "ttft_mean_s": float(np.mean(ttft)),
+        "ttft_p50_s": float(np.median(ttft)),
+        "ttft_max_s": float(ttft[-1]),
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if dev.type == "cuda" else None),
+        "launches": counts,
+    }
+    streams = {r.rid: list(r.out_tokens) for r in done}
+    for r in done:
+        need(len(r.out_tokens) >= 1, f"rid {r.rid}: no tokens")
+        need(all(0 <= t < cfg.vocab_size for t in r.out_tokens),
+             f"rid {r.rid}: token out of range")
+    del eng
+    return out, streams
+
+
+def first_decode_logits(torch, np, dev, cfg, params, attn_quant, prompts,
+                        max_seq, bs, chunk):
+    """Prefill every prompt through the kernels into fresh pools, then run
+    the first decode step once through each path on the same pools."""
+    from repro_torch.models import lm
+    from repro_torch.nn.attention import PagedState
+    from repro_torch.serve import kv_cache as kvc
+    act = lm.make_act(cfg, dev)
+    bps = kvc.blocks_for(max_seq, bs)
+    cols = bps + chunk // bs
+    slots = len(prompts)
+    caches = kvc.init_paged_caches(cfg, slots * bps + 1, bs,
+                                   dtype=params["embed"].dtype, device=dev)
+    table = np.zeros((slots, cols), np.int32)
+    for s in range(slots):
+        table[s, :bps] = 1 + s * bps + np.arange(bps)
+    buckets = kvc.decode_block_buckets(cols)
+    i32 = dict(dtype=torch.int32, device=dev)
+    for s, p in enumerate(prompts):
+        ctx = len(p) - 1
+        for p0 in kvc.chunk_starts(0, ctx, chunk):
+            w = kvc.chunk_table_width(p0, chunk, bs, buckets)
+            toks = np.zeros((1, chunk), np.int64)
+            n = min(ctx - p0, chunk)
+            toks[0, :n] = p[p0:p0 + n]
+            st = PagedState(torch.tensor(table[s:s + 1, :w], **i32),
+                            torch.tensor([p0], **i32))
+            lm.prefill_step(params, cfg, torch.from_numpy(toks).to(dev),
+                            caches, paged=st, act=act, paged_impl="kernel",
+                            attn_quant=attn_quant, want_logits=False)
+    lengths = np.array([len(p) - 1 for p in prompts], np.int32)
+    w = kvc.bucket_for(kvc.blocks_for(int(lengths.max()) + 1, bs),
+                       kvc.decode_block_buckets(bps))
+    last = torch.tensor([[int(p[-1])] for p in prompts], device=dev)
+    st = PagedState(torch.tensor(table[:, :w], **i32),
+                    torch.tensor(lengths, **i32))
+    out = {}
+    for impl in ("kernel", "gather"):
+        logits, _ = lm.decode_step(params, cfg, last, caches, paged=st,
+                                   act=act, paged_impl=impl,
+                                   attn_quant=attn_quant)
+        out[impl] = logits[:, -1].float()
+    del caches
+    return out["kernel"], out["gather"]
+
+
+def slice_phase(torch, np, dev, args, rehearse):
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.config import GRAUConfig
+    from repro_torch.nn.attention import AttnQuant
+    from repro_torch.nn.common import build_lm_grau
+    from repro_torch.serve.engine import Request
+
+    cfg = get_config("llama3.2-3b", smoke=rehearse)
+    dtype = torch.float32 if rehearse else torch.bfloat16
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=args.seed, dtype=dtype, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"init_lm {cfg.name} (d_model {cfg.d_model}, {cfg.num_layers} "
+        f"layers, vocab {cfg.vocab_size}) {dtype} on {dev}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    max_seq = 256 if rehearse else 2048
+    lo, hi = (8, 100) if rehearse else (64, 1024)
+    ecfg = dict(slots=8, max_seq=max_seq, page_size=16, seed=args.seed)
+    reqs_fn = lambda: make_requests(np, Request, cfg.vocab_size, 8, lo, hi,  # noqa: E731
+                                    32, args.seed)
+    attn = build_lm_grau("identity")
+    results = {}
+    for label, c, extra in (("float", cfg, {}),
+                            ("grau", cfg.replace(grau=GRAUConfig()),
+                             {"attn_grau": attn})):
+        res, streams = serve(torch, np, dev, c, params, {**ecfg, **extra},
+                             reqs_fn)
+        la = res["launches"]
+        # (a CPU rehearsal runs the plain versions: no launches to count)
+        need(rehearse or (la["paged_attention"] > 0
+                          and la["paged_prefill"] > 0),
+             f"{label}: the main path did not launch both attention kernels: "
+             f"{la}")
+        if label == "grau" and not rehearse:
+            need(la["paged_attention_epilogue"] > 0
+                 and la["paged_prefill_epilogue"] > 0,
+                 f"grau: the fused GRAU epilogue did not run: {la}")
+        gres, gstreams = serve(torch, np, dev, c, params,
+                               {**ecfg, **extra, "paged_impl": "gather"},
+                               reqs_fn)
+        same = total = 0
+        for rid, toks in streams.items():
+            other = gstreams[rid]
+            total += max(len(toks), len(other))
+            same += sum(a == b for a, b in zip(toks, other))
+        res["gather_tokens_per_s"] = gres["tokens_per_s"]
+        res["greedy_identical_share"] = same / total
+        aq = (AttnQuant(attn.spec.to(dev), attn.s_in, attn.s_out)
+              if "attn_grau" in extra else None)
+        lk, lg = first_decode_logits(torch, np, dev, c, params, aq,
+                                     [r.prompt for r in reqs_fn()], max_seq,
+                                     16, 32)
+        rel = float((lk - lg).norm() / lg.norm())
+        res["first_step_logits_rel_l2"] = rel
+        res["first_step_logits_max_abs"] = float((lk - lg).abs().max())
+        need(torch.isfinite(lk).all(), f"{label}: non-finite logits")
+        need(rel <= SLICE_TOL[label],
+             f"{label}: first decode logits kernel vs gather rel L2 {rel:.3g}"
+             f" > {SLICE_TOL[label]}")
+        log(f"slice[{label}]: " + json.dumps(res))
+        results[label] = res
+    if args.profile:
+        for label, c, extra in (("float", cfg, {}),
+                                ("grau", cfg.replace(grau=GRAUConfig()),
+                                 {"attn_grau": attn})):
+            results[f"profile_{label}"] = profile_serve(
+                torch, dev, c, params, {**ecfg, **extra}, reqs_fn,
+                f"{args.profile}.{label}.txt", label)
+    return results
+
+
+def profile_serve(torch, dev, cfg, params, ecfg, reqs_fn, path, label):
+    """Where the time goes: one more served run under torch.profiler;
+    writes the per-kernel device-time table to `path` and returns the
+    device-busy share and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+    eng = ServeEngine(cfg, params, EngineConfig(**ecfg), device=dev)
+    eng.warmup()
+    reqs = reqs_fn()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:    # host ops: skip (their
+            continue                              # kernels are listed)
+        dev_us = (getattr(evt, "self_device_time_total", None)
+                  or getattr(evt, "self_cuda_time_total", 0) or 0)
+        if dev_us > 0:
+            rows.append((dev_us, evt.key, evt.count))
+    rows.sort(reverse=True)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text("\n".join(
+        f"{us / 1e3:12.3f} ms  {n:8d}x  {key}" for us, key, n in rows))
+    out = {"wall_s": wall, "device_busy_s": busy_s,
+           "device_busy_share": busy_s / wall,
+           "top": [{"kernel": key[:80], "ms": us / 1e3, "calls": n}
+                   for us, key, n in rows[:8]]}
+    log(f"profile[{label}]: " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None,
+                    help="also write the full report as JSON here")
+    ap.add_argument("--profile", default=None, metavar="PATH",
+                    help="also profile one served run per configuration; "
+                         "per-kernel device times go to PATH.<config>.txt")
+    ap.add_argument("--rehearse", action="store_true",
+                    help="smoke-size control-flow run on the CPU; exits 1")
+    args = ap.parse_args(argv)
+    try:
+        import numpy as np
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: {e}", file=sys.stderr)
+        return 2
+    if not args.rehearse and not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false: this check "
+              "runs on a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.kernels import build as kbuild
+    except ImportError as e:
+        print(f"chip_smoke: the port is not here ({e}); run from a checkout "
+              "of the repository", file=sys.stderr)
+        return 2
+
+    dev = torch.device("cpu" if args.rehearse else "cuda")
+    timed = not args.rehearse
+    report = {}
+    if timed:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+        card = smi.stdout.strip().splitlines()[0] if smi.stdout else "?"
+        log(card)
+        report["card"] = card
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        took = kbuild.build()
+        report["build_s"] = time.perf_counter() - t0
+        log(f"kernel build: {report['build_s']:.1f} s "
+            f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
+        for name in kbuild.SOURCES:
+            for line in kbuild.ptxas_report(name).splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  ptxas[{name}]: {line.strip()}")
+
+    rng = np.random.default_rng(args.seed)
+    torch.manual_seed(args.seed)
+    shapes = (dict(slots=8, h=24, kvh=8, d=128, bs=16, max_len=2048,
+                   chunk=32, grau=(32 * 24, 128)) if timed else
+              dict(slots=8, h=4, kvh=2, d=32, bs=16, max_len=128, chunk=32,
+                   grau=(32 * 4, 32)))
+    try:
+        grau_row = check_grau(torch, np, dev, shapes, rng, timed)
+        rows = check_paged(torch, np, dev, shapes, rng, timed)
+        slice_res = slice_phase(torch, np, dev, args, args.rehearse)
+    except SmokeError as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    report["slice"] = slice_res
+    # launches on the main path: the GRAU configuration (b). There the GRAU
+    # datapath runs fused in the attention kernels' epilogue, counted in
+    # their rows; the standalone GRAU kernel is not on the served path
+    la = slice_res["grau"]["launches"]
+    grau_row["launches"] = la["grau"]
+    for name in ("paged_attention", "paged_prefill"):
+        rows[name].update(launches=la[name],
+                          epilogue_launches=la[f"{name}_epilogue"])
+    kernel_rows = [grau_row, rows["paged_attention"], rows["paged_prefill"]]
+    report["kernels"] = kernel_rows
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(report, indent=1))
+    if args.rehearse:
+        log(json.dumps({"kernels": kernel_rows}))
+        print("chip_smoke: rehearsal on the CPU passed; no device result",
+              file=sys.stderr)
+        return 1
+    log(json.dumps({"kernels": kernel_rows}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    code = main()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # skip interpreter teardown: after a profiled run, the profiler's CUPTI
+    # shutdown has been seen to hang the exit of an otherwise finished run
+    os._exit(code)

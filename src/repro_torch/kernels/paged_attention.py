@@ -1,0 +1,286 @@
+"""Paged attention through the block table, as hand-written CUDA kernels for
+Hopper (csrc/paged_attention.cu): one-token flash decode and chunked
+(multi-query) prefill, each with the GRAU epilogue optionally fused.
+
+Replaces the JAX package's kernels/paged_attention.py:
+  * `paged_attention`         <- _paged_attention_jit (decode)
+  * `paged_prefill_attention` <- _paged_prefill_jit (chunked prefill)
+
+The engine stores K/V in a shared pool of fixed-size blocks; a slot owns only
+the blocks its sequence occupies, and the table maps its logical blocks to
+pool blocks (block 0 is the null block). Both kernels run an online-softmax
+(flash) recurrence over exactly the live blocks — max(cdiv(len, bs), 1) for
+decode, max(cdiv(start + C, bs), 1) for a prefill chunk, never past the
+table width — so bytes read follow live tokens, not pool capacity.
+
+Bound on the H100: memory bytes (see the source note in the .cu file for the
+numbers and what the design does about them). One CUDA block per (16 query
+rows, KV head, batch row) loops over the live blocks with the (m, l, acc)
+carry in shared memory and registers — the TPU grid's sequential block axis
+made a loop.
+
+Epilogue: with `spec` (+ `s_in`) the normalised f32 output is scaled by
+f32(1/s_in), rounded half to even with saturation, and pushed through the
+shared GRAU datapath (csrc/grau_datapath.cuh), emitting the 8-bit bus.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain torch
+version (`*_plain`: the same online-softmax recurrence over the live blocks)
+for CPU tensors. `.launches` counts kernel launches and
+`.epilogue_launches` those that ran the fused GRAU datapath.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build as kbuild
+from repro_torch.kernels.grau import out_dtype as grau_out_dtype
+from repro_torch.kernels.ref import NEG_INF, attn_output_quant, inv_scale
+from repro_torch.pwlf.spec import GRAUSpec
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_COMMON = (_P, _P, _P, _P, _I, _P, _P)            # q, k, v, table, stride, start/len, out
+SIGNATURES = {
+    "paged_decode_launch": _COMMON + (_I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                      _P, _I, _I, _I, _F, _P),
+    "paged_prefill_launch": _COMMON + (_I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                       _I, _P, _I, _I, _I, _F, _P),
+}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_OUT_F32, _OUT_BF16, _OUT_GRAU = 0, 1, 2
+HEAD_DIMS = (32, 64, 128, 256)
+
+
+def _check_kv_bits(kv_bits: int) -> None:
+    if kv_bits != 16:
+        raise NotImplementedError(
+            f"kv_bits={kv_bits}: quantized KV pools (in-kernel 8/4-bit "
+            "dequant and quant/kv.py) are not ported yet — ROADMAP A6")
+
+
+def _check(q, k_pool, v_pool, block_table, start, *, rows_dim: int,
+           out_dtype) -> None:
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"q dtype {q.dtype}: want float32 or bfloat16")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise ValueError("pools must have q's dtype (16-bit float pools)")
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"pools must be (num_blocks, block_size, kvh, d), "
+                         f"got {tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
+    h, d = q.shape[-2], q.shape[-1]
+    kvh = k_pool.shape[2]
+    if k_pool.shape[3] != d or h % kvh:
+        raise ValueError(f"head layout mismatch: q heads {h} x {d}, pool "
+                         f"kv heads {kvh} x {k_pool.shape[3]}")
+    if (block_table.dim() != 2 or block_table.dtype != torch.int32
+            or block_table.shape[0] != q.shape[0]
+            or block_table.shape[1] < 1):
+        raise ValueError("block_table must be (rows, nblocks>=1) int32")
+    if start.shape != (q.shape[0],) or start.dtype != torch.int32:
+        raise ValueError(f"{'lengths' if rows_dim == 1 else 'start'} must be "
+                         f"({q.shape[0]},) int32")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"out_dtype {out_dtype}: want float32 or bfloat16")
+    devs = {t.device for t in (q, k_pool, v_pool, block_table, start)}
+    if len(devs) != 1:
+        raise ValueError(f"all inputs must share one device, got {devs}")
+    dev = q.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda":
+        if d not in HEAD_DIMS:
+            raise ValueError(f"head_dim {d} not in the kernel's {HEAD_DIMS}")
+        if block_table.stride(1) != 1:
+            raise ValueError("block_table rows must be contiguous")
+        for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                        ("start", start)):
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+            raise ValueError("pools must start on a 16-byte boundary (the "
+                             "kernels read K/V in 16-byte vectors)")
+
+
+def _attend_plain(qr, k_pool, v_pool, block_table, start, chunk, groups,
+                  scale):
+    """The kernels' recurrence in plain torch. qr: (b, kvh, R, d) f32 query
+    rows ordered (chunk row, group); row (c, gi) attends positions
+    <= start + c. Returns the normalised (b, kvh, R, d) f32 output."""
+    b, kvh, rows, d = qr.shape
+    bs = k_pool.shape[1]
+    nblocks = block_table.shape[1]
+    dev = qr.device
+    row_end = (start.long()[:, None]
+               + torch.arange(rows, device=dev)[None] // groups)    # (b, R)
+    live = torch.clamp((start.long() + chunk + bs - 1) // bs, 1, nblocks)
+    m = torch.full((b, kvh, rows, 1), NEG_INF, device=dev)
+    l = torch.zeros((b, kvh, rows, 1), device=dev)
+    acc = torch.zeros((b, kvh, rows, d), device=dev)
+    for j in range(int(live.max())):
+        blk = block_table[:, j].long()
+        k = k_pool[blk].float()                                     # (b, bs, kvh, d)
+        v = v_pool[blk].float()
+        lg = torch.einsum("bkrd,btkd->bkrt", qr, k) * scale
+        pos = j * bs + torch.arange(bs, device=dev)
+        valid = pos[None, None, :] <= row_end[:, :, None]            # (b, R, bs)
+        lg = torch.where(valid[:, None], lg, NEG_INF)
+        m_new = torch.maximum(m, lg.amax(-1, keepdim=True))
+        p = torch.exp(lg - m_new)
+        alpha = torch.exp(m - m_new)
+        upd = (j < live)[:, None, None, None]      # blocks past live: unread
+        l = torch.where(upd, l * alpha + p.sum(-1, keepdim=True), l)
+        acc = torch.where(upd, acc * alpha + torch.einsum(
+            "bkrt,btkd->bkrd", p, v), acc)
+        m = torch.where(upd, m_new, m)
+    return acc / torch.clamp(l, min=1e-30)
+
+
+def _finish_plain(o, spec, s_in, out_dtype):
+    if spec is not None:
+        return attn_output_quant(o, spec, s_in)
+    return o.to(out_dtype)
+
+
+def paged_attention_plain(q, k_pool, v_pool, block_table, lengths, *,
+                          scale=None, spec=None, s_in=None, out_dtype=None):
+    """Plain torch version of the decode kernel (same arguments)."""
+    slots, h, d = q.shape
+    kvh = k_pool.shape[2]
+    g = h // kvh
+    scale = scale if scale is not None else d ** -0.5
+    qr = q.reshape(slots, kvh, g, d).float()
+    o = _attend_plain(qr, k_pool, v_pool, block_table, lengths.long() - 1, 1,
+                      g, scale)
+    return _finish_plain(o.reshape(slots, h, d), spec, s_in,
+                         out_dtype or q.dtype)
+
+
+def paged_prefill_plain(q, k_pool, v_pool, block_table, start, *,
+                        scale=None, spec=None, s_in=None, out_dtype=None):
+    """Plain torch version of the prefill kernel (same arguments)."""
+    b, chunk, h, d = q.shape
+    kvh = k_pool.shape[2]
+    g = h // kvh
+    scale = scale if scale is not None else d ** -0.5
+    qr = (q.reshape(b, chunk, kvh, g, d).permute(0, 2, 1, 3, 4)
+          .reshape(b, kvh, chunk * g, d).float())
+    o = _attend_plain(qr, k_pool, v_pool, block_table, start, chunk, g, scale)
+    o = (o.reshape(b, kvh, chunk, g, d).permute(0, 2, 1, 3, 4)
+         .reshape(b, chunk, h, d))
+    return _finish_plain(o, spec, s_in, out_dtype or q.dtype)
+
+
+def _launch(fn_name, q, k_pool, v_pool, block_table, start, shape_args, *,
+            scale, spec, s_in, out_dtype):
+    d = q.shape[-1]
+    if spec is not None:
+        out = torch.empty(q.shape, dtype=grau_out_dtype(spec.qmin),
+                          device=q.device)
+        regs = spec.packed(q.device)
+        epi = (regs.data_ptr(), spec.num_exponents, spec.qmin, spec.qmax,
+               inv_scale(s_in))
+        out_kind = _OUT_GRAU
+    else:
+        out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+        epi = (None, 0, 0, 0, 0.0)
+        out_kind = _OUT_F32 if out_dtype == torch.float32 else _OUT_BF16
+    lib = kbuild.library("paged_attention", SIGNATURES)
+    err = getattr(lib, fn_name)(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_table.data_ptr(), block_table.stride(0), start.data_ptr(),
+        out.data_ptr(), *shape_args, k_pool.shape[2], d, k_pool.shape[1],
+        block_table.shape[1], scale, _DTYPE_CODE[q.dtype], out_kind, *epi,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kbuild.check(err, fn_name)
+    return out
+
+
+def paged_attention(
+    q: torch.Tensor,             # (slots, h, d)
+    k_pool: torch.Tensor,        # (num_blocks, block_size, kvh, d)
+    v_pool: torch.Tensor,
+    block_table: torch.Tensor,   # (slots, nblocks) int32; 0 = null block
+    lengths: torch.Tensor,       # (slots,) int32 — positions to attend per slot
+    *,
+    scale: Optional[float] = None,
+    spec: Optional[GRAUSpec] = None,
+    s_in: Optional[float] = None,
+    kv_bits: int = 16,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Flash decode over the mapped blocks of each slot.
+
+    `nblocks` (the table width) is the live-block bucket the caller chose;
+    the table may be a column slice of a wider one (its row stride is
+    passed). With `spec` (+ `s_in`, the f32 -> MAC-domain scale) the GRAU
+    epilogue quantizes the output to the spec's 8-bit bus; otherwise the
+    output dtype is `out_dtype` (default: q's).
+    """
+    _check_kv_bits(kv_bits)
+    if spec is not None and s_in is None:
+        raise ValueError("the GRAU epilogue needs s_in")
+    out_dtype = out_dtype or q.dtype
+    if q.dim() != 3:
+        raise ValueError(f"q must be (slots, h, d), got {tuple(q.shape)}")
+    _check(q, k_pool, v_pool, block_table, lengths, rows_dim=1,
+           out_dtype=out_dtype)
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pool, v_pool, block_table, lengths,
+                                     scale=scale, spec=spec, s_in=s_in,
+                                     out_dtype=out_dtype)
+    slots, h, _ = q.shape
+    out = _launch("paged_decode_launch", q, k_pool, v_pool, block_table,
+                  lengths, (slots, h), scale=scale, spec=spec, s_in=s_in,
+                  out_dtype=out_dtype)
+    paged_attention.launches += 1
+    paged_attention.epilogue_launches += spec is not None
+    return out
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,             # (b, C, h, d) — one chunk of query positions
+    k_pool: torch.Tensor,        # (num_blocks, block_size, kvh, d)
+    v_pool: torch.Tensor,
+    block_table: torch.Tensor,   # (b, nblocks) int32; 0 = null block
+    start: torch.Tensor,         # (b,) int32 — absolute position of chunk row 0
+    *,
+    scale: Optional[float] = None,
+    spec: Optional[GRAUSpec] = None,
+    s_in: Optional[float] = None,
+    kv_bits: int = 16,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Flash attention for one prefill chunk over a slot's mapped blocks.
+
+    Row r attends pool positions 0..start+r (the already-resident prefix
+    plus the chunk's own blocks, which must already be written through the
+    table). Same epilogue and output rules as `paged_attention`.
+    """
+    _check_kv_bits(kv_bits)
+    if spec is not None and s_in is None:
+        raise ValueError("the GRAU epilogue needs s_in")
+    out_dtype = out_dtype or q.dtype
+    if q.dim() != 4:
+        raise ValueError(f"q must be (b, C, h, d), got {tuple(q.shape)}")
+    _check(q, k_pool, v_pool, block_table, start, rows_dim=2,
+           out_dtype=out_dtype)
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if q.device.type == "cpu":
+        return paged_prefill_plain(q, k_pool, v_pool, block_table, start,
+                                   scale=scale, spec=spec, s_in=s_in,
+                                   out_dtype=out_dtype)
+    b, chunk, h, _ = q.shape
+    out = _launch("paged_prefill_launch", q, k_pool, v_pool, block_table,
+                  start, (b, chunk, h), scale=scale, spec=spec, s_in=s_in,
+                  out_dtype=out_dtype)
+    paged_prefill_attention.launches += 1
+    paged_prefill_attention.epilogue_launches += spec is not None
+    return out
+
+
+paged_attention.launches = paged_attention.epilogue_launches = 0
+paged_prefill_attention.launches = 0
+paged_prefill_attention.epilogue_launches = 0

@@ -1,0 +1,148 @@
+"""LM assembly for the dense GQA decoders: init, paged prefill chunks and
+paged decode steps.
+
+Parameters: {"embed", "ln_f_w" (+"ln_f_b"), ["head"], "group{i}": [per
+repeat {"l{j}": layer params}]} — the JAX package's tree with each group's
+stacked `stack` axis unrolled into a list (models/convert.py maps one to the
+other). Caches: a tuple per group of per-period-layer PagedKVCache pools,
+each with a leading repeats axis, exactly the JAX package's pool tree.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.nn import blocks
+from repro_torch.nn.attention import PagedKVCache, PagedState
+from repro_torch.nn.common import act_fn, init_param
+from repro_torch.nn.rope import rope_tables
+
+
+def resolve_device(device=None) -> torch.device:
+    """Entry points run on the card unless the caller asks for the CPU: with
+    no device given they use CUDA and raise if there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available: pass device='cpu' explicitly to run "
+                "on the host (the port never falls back to the CPU quietly)")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init_lm(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
+            device=None) -> Dict[str, Any]:
+    """Random parameters from `seed` with the JAX package's initializers
+    (embedding: truncated normal, std 0.02; matrices: fan-in truncated
+    normal; norms: zeros for rmsnorm's 1 + w), drawn by a torch.Generator on
+    `device` (default: CUDA, see resolve_device)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    kw = dict(device=device, dtype=dtype)
+    params: Dict[str, Any] = {
+        "embed": init_param((cfg.vocab_size, cfg.d_model), gen,
+                            init="normal", scale=0.02, **kw)}
+    if not cfg.tie_embeddings:
+        params["head"] = init_param((cfg.d_model, cfg.vocab_size), gen, **kw)
+    blocks.init_norm(params, "ln_f", cfg.d_model, cfg.norm, **kw)
+    for gi, (period, repeats) in enumerate(cfg.groups):
+        params[f"group{gi}"] = [
+            {f"l{li}": blocks.init_layer(spec, cfg, gen, **kw)
+             for li, spec in enumerate(period)}
+            for _ in range(repeats)]
+    return params
+
+
+def make_act(cfg: ModelConfig, device="cpu"):
+    """The MLP activation: exact float, or the GRAU QAT surrogate whose
+    register file is fitted on the host and placed on `device` once."""
+    if cfg.grau is None:
+        return act_fn(cfg.activation)
+    from repro_torch.nn.common import build_lm_grau
+    g = cfg.grau
+    return build_lm_grau(cfg.activation, segments=g.segments,
+                         num_exponents=g.num_exponents, mode=g.mode,
+                         out_bits=g.out_bits,
+                         bias_mode=g.bias_mode).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _hidden(params, cfg: ModelConfig, tokens, *, mode, caches, positions,
+            act, paged: PagedState, paged_impl, attn_quant):
+    """Embed -> layers (pools updated in place) -> final norm. The rope
+    tables are built once and shared by every layer."""
+    x = params["embed"][tokens.long()]
+    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    for gi, (period, repeats) in enumerate(cfg.groups):
+        group = params[f"group{gi}"]
+        for r in range(repeats):
+            for li, spec in enumerate(period):
+                pool = caches[gi][li]
+                x, _ = blocks.apply_layer(
+                    group[r][f"l{li}"], x, spec, cfg, rope=rope,
+                    act=act, cache=PagedKVCache(pool.k[r], pool.v[r]),
+                    mode=mode, paged=paged, paged_impl=paged_impl,
+                    attn_quant=attn_quant)
+    return blocks.apply_norm(params, "ln_f", x, cfg.norm, cfg.norm_eps)
+
+
+def _head(params, cfg: ModelConfig, x):
+    if cfg.tie_embeddings:
+        return x @ params["embed"].t()
+    return x @ params["head"]
+
+
+def apply_lm(params, cfg: ModelConfig, tokens, *, mode: str, caches,
+             positions, paged: PagedState, act=None,
+             paged_impl: str = "kernel", attn_quant=None):
+    """Returns (logits, caches) for a paged "decode" step or "prefill"
+    chunk; the pools in `caches` are updated in place."""
+    act = act or make_act(cfg, tokens.device)
+    x = _hidden(params, cfg, tokens, mode=mode, caches=caches,
+                positions=positions, act=act, paged=paged,
+                paged_impl=paged_impl, attn_quant=attn_quant)
+    return _head(params, cfg, x), caches
+
+
+def decode_step(params, cfg: ModelConfig, tokens, caches, *,
+                paged: PagedState, act=None, paged_impl: str = "kernel",
+                attn_quant=None):
+    """One serving step: tokens (b, 1) + pools -> (logits (b, 1, vocab),
+    pools). Per-slot positions come from `paged.length`;
+    `paged.block_table` may be bucket-sliced to the live-block count."""
+    positions = paged.length[:, None]
+    return apply_lm(params, cfg, tokens, mode="decode", caches=caches,
+                    positions=positions, paged=paged, act=act,
+                    paged_impl=paged_impl, attn_quant=attn_quant)
+
+
+def prefill_step(params, cfg: ModelConfig, tokens, caches, *,
+                 paged: PagedState, act=None, paged_impl: str = "kernel",
+                 attn_quant=None, want_logits: bool = True
+                 ) -> Tuple[Optional[torch.Tensor], Any]:
+    """One chunk of the chunked-prefill state machine: tokens (b, C) at
+    absolute positions paged.length + [0, C), written through the (bucket-
+    sliced) table and attending the already-resident prefix blocks plus the
+    chunk. Returns (logits at the chunk's last position (b, vocab), pools);
+    with want_logits=False the head is skipped and logits is None (the
+    engine discards them)."""
+    b, s = tokens.shape
+    positions = (paged.length[:, None].long()
+                 + torch.arange(s, device=tokens.device)[None])
+    act = act or make_act(cfg, tokens.device)
+    x = _hidden(params, cfg, tokens, mode="prefill", caches=caches,
+                positions=positions, act=act, paged=paged,
+                paged_impl=paged_impl, attn_quant=attn_quant)
+    if not want_logits:
+        return None, caches
+    return _head(params, cfg, x[:, -1]), caches

@@ -51,3 +51,9 @@ def _trace_span_check():
         errors += rec.check_leaks()
     assert not errors, "trace span leaks/schema violations:\n" + \
         "\n".join(errors)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips (inside the test) without "
+        "one. Run on the card: python -m pytest -m gpu tests/")

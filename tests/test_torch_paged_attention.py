@@ -1,0 +1,232 @@
+"""PyTorch port vs the JAX reference: paged decode and chunked-prefill
+attention (the CUDA kernels' plain versions, which a CPU tensor runs, and
+the port's oracles) against the reference's Pallas kernels in interpret mode
+and its ref.py oracles.
+
+Fragmented tables drawn in shuffled order, dead pool blocks poisoned with
+1e4 (any read of them would dominate the softmax), ragged lengths and idle
+slots; tolerance 3e-5, the reference's own kernel/oracle agreement. The
+GRAU epilogue is held bit-exact on the same f32 attention output.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.build import build_grau as jbuild_grau  # noqa: E402
+from repro.core.folding import fold as jfold  # noqa: E402
+from repro.kernels import paged_attention as jpa  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.nn import attention as jattn  # noqa: E402
+from repro_torch.core.build import build_grau as tbuild_grau  # noqa: E402
+from repro_torch.core.folding import fold as tfold  # noqa: E402
+from repro_torch.kernels import paged_attention as tpa  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.nn import attention as tattn  # noqa: E402
+
+BS = 8
+TOL = dict(rtol=3e-5, atol=3e-5)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def make_table(rng, owned_lengths, nblocks, num_blocks):
+    free = list(range(1, num_blocks))
+    rng.shuffle(free)
+    table = np.zeros((len(owned_lengths), nblocks), np.int32)
+    for s, n in enumerate(owned_lengths):
+        for j in range(max(1, -(-int(n) // BS))):
+            table[s, j] = free.pop()
+    return table
+
+
+def poison_dead(rng, k, v, table, value):
+    dead = np.array(sorted(set(range(k.shape[0])) - set(table.ravel())))
+    k[dead] = value
+    v[dead] = value
+
+
+def decode_case(rng, *, slots, h, kvh, d, nblocks, num_blocks, lengths,
+                poison=None):
+    q = rng.normal(size=(slots, h, d)).astype(np.float32)
+    k = rng.normal(size=(num_blocks, BS, kvh, d)).astype(np.float32)
+    v = rng.normal(size=(num_blocks, BS, kvh, d)).astype(np.float32)
+    # idle slots (length 0) keep a NULL row, as in the engine
+    table = make_table(rng, [n if n else 0 for n in lengths], nblocks,
+                       num_blocks)
+    table[np.asarray(lengths) == 0] = 0
+    if poison is not None:
+        poison_dead(rng, k, v, table, poison)
+    return q, k, v, table, np.asarray(lengths, np.int32)
+
+
+def both(*arrays):
+    return ([jnp.asarray(a) for a in arrays],
+            [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays])
+
+
+def silu_spec_pair(out_signed=True, act="silu", s_out=2**-4):
+    kw = dict(mac_range=(-30000, 30000), segments=6, num_exponents=8,
+              mode="apot", bias_mode="lsq")
+    js = jbuild_grau(jfold(act, s_in=2**-10, s_out=s_out, out_bits=8,
+                           out_signed=out_signed), **kw).spec
+    ts = tbuild_grau(tfold(act, s_in=2**-10, s_out=s_out, out_bits=8,
+                           out_signed=out_signed), **kw).spec
+    return js, ts
+
+
+@pytest.mark.parametrize("h,kvh", [(8, 2), (6, 3), (4, 4)])
+@pytest.mark.parametrize("poison", [None, 1e4])
+def test_decode_matches_reference_kernel_and_oracle(h, kvh, poison):
+    rng = np.random.default_rng(h * 10 + kvh)
+    case = decode_case(rng, slots=5, h=h, kvh=kvh, d=32, nblocks=4,
+                       num_blocks=32, lengths=[5, 24, 0, 17, 32],
+                       poison=poison)
+    (jq, jk, jv, jt, jl), (tq, tk, tv, tt, tl) = both(*case)
+    want = np.asarray(jpa.paged_attention(jq, jk, jv, jt, jl, interpret=True))
+    want_ref = np.asarray(jref.paged_attention_ref(jq, jk, jv, jt, jl))
+    got = tpa.paged_attention(tq, tk, tv, tt, tl).numpy()
+    got_ref = tref.paged_attention_ref(tq, tk, tv, tt, tl).numpy()
+    assert np.all(np.isfinite(got))               # idle slot stays finite
+    np.testing.assert_allclose(got, want, **TOL)
+    live = case[4] > 0
+    np.testing.assert_allclose(got_ref[live], want_ref[live], **TOL)
+    np.testing.assert_allclose(got[live], got_ref[live], **TOL)
+
+
+@pytest.mark.parametrize("h,kvh", [(8, 2), (6, 3)])
+def test_prefill_matches_reference_kernel_and_oracle(h, kvh):
+    rng = np.random.default_rng(7 + h)
+    b, chunk, nblocks, num_blocks = 3, 16, 6, 40
+    q = rng.normal(size=(b, chunk, h, 32)).astype(np.float32)
+    k = rng.normal(size=(num_blocks, BS, kvh, 32)).astype(np.float32)
+    v = rng.normal(size=(num_blocks, BS, kvh, 32)).astype(np.float32)
+    starts = np.array([0, 8, 32], np.int32)             # on the block grid
+    table = make_table(rng, [s + chunk for s in starts], nblocks, num_blocks)
+    poison_dead(rng, k, v, table, 1e4)
+    (jq, jk, jv, jt, js), (tq, tk, tv, tt, tst) = both(q, k, v, table, starts)
+    want = np.asarray(jpa.paged_prefill_attention(jq, jk, jv, jt, js,
+                                                  interpret=True))
+    want_ref = np.asarray(jref.paged_prefill_ref(jq, jk, jv, jt, js))
+    got = tpa.paged_prefill_attention(tq, tk, tv, tt, tst).numpy()
+    got_ref = tref.paged_prefill_ref(tq, tk, tv, tt, tst).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got_ref, want_ref, **TOL)
+
+
+@pytest.mark.parametrize("mode", ["decode", "prefill"])
+@pytest.mark.parametrize("signed", [True, False])
+def test_grau_epilogue_bit_exact_on_same_f32_output(mode, signed):
+    """The fused epilogue's math equals the reference's on the same f32
+    attention output; the port's fused path equals its own epilogue applied
+    to its own f32 output."""
+    rng = np.random.default_rng(11 + signed)
+    js, ts = (silu_spec_pair() if signed else
+              silu_spec_pair(False, act="relu", s_out=2**-5))
+    if mode == "decode":
+        case = decode_case(rng, slots=4, h=6, kvh=3, d=32, nblocks=4,
+                           num_blocks=24, lengths=[5, 24, 1, 17])
+        fn_j, fn_t = jpa.paged_attention, tpa.paged_attention
+    else:
+        q = rng.normal(size=(2, 16, 6, 32)).astype(np.float32)
+        k = rng.normal(size=(30, BS, 3, 32)).astype(np.float32)
+        v = rng.normal(size=(30, BS, 3, 32)).astype(np.float32)
+        starts = np.array([0, 16], np.int32)
+        case = (q, k, v, make_table(rng, [16, 32], 5, 30), starts)
+        fn_j, fn_t = jpa.paged_prefill_attention, tpa.paged_prefill_attention
+    (jq, jk, jv, jt, jx), (tq, tk, tv, tt, tx) = both(*case)
+    s_in = 2**-10
+    j_f32 = fn_j(jq, jk, jv, jt, jx, interpret=True)
+    j_q = np.asarray(fn_j(jq, jk, jv, jt, jx, spec=js, s_in=s_in,
+                          interpret=True))
+    # same f32 output -> identical bus, reference epilogue vs port epilogue
+    port_on_ref = tref.attn_output_quant(torch.from_numpy(np.array(j_f32)),
+                                         ts, s_in)
+    np.testing.assert_array_equal(port_on_ref.numpy(), j_q)
+    t_f32 = fn_t(tq, tk, tv, tt, tx)
+    t_q = fn_t(tq, tk, tv, tt, tx, spec=ts, s_in=s_in)
+    assert t_q.dtype == (torch.int8 if signed else torch.uint8)
+    np.testing.assert_array_equal(
+        t_q.numpy(), tref.attn_output_quant(t_f32, ts, s_in).numpy())
+    # across packages the f32 outputs differ by float rounding only
+    diff = np.abs(t_q.numpy().astype(np.int32) - j_q.astype(np.int32))
+    assert diff.max() <= 1 and np.mean(diff) < 0.01
+
+
+def test_nn_paged_decode_kernel_vs_gather_through_sliced_table():
+    """The model-facing dispatch agrees across impls through a bucket-
+    sliced (non-contiguous) table, and matches the reference's dispatch."""
+    rng = np.random.default_rng(5)
+    q, k, v, table, lengths = decode_case(rng, slots=4, h=4, kvh=2, d=16,
+                                          nblocks=6, num_blocks=32,
+                                          lengths=[6, 20, 11, 2])
+    (jq, jk, jv, jt, jl), (tq, tk, tv, tt, tl) = both(q, k, v, table, lengths)
+    jst = jattn.PagedState(jt[:, :3], jl - 1)
+    tst = tattn.PagedState(tt[:, :3], tl - 1)
+    want = np.asarray(jattn.paged_decode_attention(
+        jq[:, None], jattn.PagedKVCache(jk, jv), jst, impl="gather"))
+    for impl in ("kernel", "gather"):
+        got = tattn.paged_decode_attention(
+            tq[:, None], tattn.PagedKVCache(tk, tv), tst, impl=impl).numpy()
+        np.testing.assert_allclose(got, want, **TOL)
+    with pytest.raises(ValueError):
+        tattn.paged_decode_attention(tq[:, None], tattn.PagedKVCache(tk, tv),
+                                     tst, impl="nope")
+
+
+def test_pool_writes_match_reference():
+    """paged_update / paged_prefill_update land the same values in the same
+    pool slots as the reference's functional updates."""
+    rng = np.random.default_rng(9)
+    nb, kvh, d = 12, 2, 8
+    k = rng.normal(size=(nb, BS, kvh, d)).astype(np.float32)
+    table = np.array([[3, 7, 0], [5, 0, 0]], np.int32)
+    lengths = np.array([9, 3], np.int32)
+    new = rng.normal(size=(2, 1, kvh, d)).astype(np.float32)
+    jc = jattn.paged_update(jattn.PagedKVCache(jnp.asarray(k), jnp.asarray(k)),
+                            jnp.asarray(new), jnp.asarray(new),
+                            jattn.PagedState(jnp.asarray(table),
+                                             jnp.asarray(lengths)))
+    tc = tattn.PagedKVCache(torch.from_numpy(k.copy()),
+                            torch.from_numpy(k.copy()))
+    tattn.paged_update(tc, torch.from_numpy(new), torch.from_numpy(new),
+                       tattn.PagedState(torch.from_numpy(table),
+                                        torch.from_numpy(lengths)))
+    np.testing.assert_array_equal(tc.k.numpy(), np.asarray(jc.k))
+    chunk = rng.normal(size=(1, 16, kvh, d)).astype(np.float32)
+    row, start = np.array([[4, 9, 2, 0]], np.int32), np.array([8], np.int32)
+    jc = jattn.paged_prefill_update(
+        jattn.PagedKVCache(jnp.asarray(k), jnp.asarray(k)),
+        jnp.asarray(chunk), jnp.asarray(chunk),
+        jattn.PagedState(jnp.asarray(row), jnp.asarray(start)))
+    tc = tattn.PagedKVCache(torch.from_numpy(k.copy()),
+                            torch.from_numpy(k.copy()))
+    tattn.paged_prefill_update(tc, torch.from_numpy(chunk),
+                               torch.from_numpy(chunk),
+                               tattn.PagedState(torch.from_numpy(row),
+                                                torch.from_numpy(start)))
+    np.testing.assert_array_equal(tc.v.numpy(), np.asarray(jc.v))
+
+
+def test_wrappers_reject_unported_and_malformed_inputs():
+    rng = np.random.default_rng(1)
+    q, k, v, table, lengths = decode_case(rng, slots=2, h=4, kvh=2, d=16,
+                                          nblocks=2, num_blocks=8,
+                                          lengths=[3, 9])
+    _, (tq, tk, tv, tt, tl) = both(q, k, v, table, lengths)
+    with pytest.raises(NotImplementedError, match="A6"):
+        tpa.paged_attention(tq, tk, tv, tt, tl, kv_bits=8)
+    with pytest.raises(ValueError):
+        tpa.paged_attention(tq, tk.double(), tv, tt, tl)
+    with pytest.raises(ValueError):
+        tpa.paged_attention(tq, tk, tv, tt.long(), tl)
+    with pytest.raises(ValueError):
+        tpa.paged_prefill_attention(tq, tk, tv, tt, tl)
