@@ -9,15 +9,20 @@ Phases (any failure exits non-zero):
      parallel) and print the build seconds and the ptxas report;
   2. kernels: each wrapper runs on the card at the main path's shapes and is
      held against its plain torch version on the same inputs — the GRAU unit
-     bit-exact, paged decode / chunked prefill within the stated tolerances
-     with the fused GRAU epilogue bit-exact on the kernel's own f32 output —
-     then timed with CUDA events beside its plain version, a PyTorch library
-     call for the same function where one exists, and the card's bound;
-  3. the slice: full-width llama3.2-3b in bf16 (weights drawn from --seed on
-     the card) serves 8 requests through ServeEngine with the kernels,
-     (a) with float activations and (b) with the GRAU MLP activation plus
-     the fused GRAU attention epilogue, then once through the gather path.
-     Launch counters are zeroed before and read after each served run.
+     bit-exact; paged decode / chunked prefill on 16-, 8- and 4-bit KV
+     pools and matmul_wq (int4 / int8 weights, the llama3.2-3b MLP shapes at
+     8 and 32 rows) within the stated tolerances, each with the fused GRAU
+     epilogue bit-exact on the kernel's own f32 output — then timed with
+     CUDA events beside its plain version, a PyTorch library call for the
+     same function where one exists, and the card's bound;
+  3. the slices: full-width llama3.2-3b in bf16 (weights drawn from --seed
+     on the card) serves 8 requests through ServeEngine with the kernels,
+     (a) with float activations, (b) with the GRAU MLP activation plus the
+     fused GRAU attention epilogue, and (c) as (b) with the weights packed
+     to int4 (the MLP through matmul_wq) and int4 KV pools; each once more
+     through the gather path (in (c) with the MLP weights dequantized to
+     bf16) for the greedy-token share. Launch counters are zeroed before
+     and read after each served run.
 The last two lines are the kernels JSON and the result line.
 
 Without a CUDA card, or outside a checkout of the repository, it prints why
@@ -47,7 +52,8 @@ F32_TOL = 2e-5      # f32: the same sums in another order (FMA contraction)
 # bf16 output: both sides round an f32 result (held at F32_TOL) to bf16, so
 # they may land one bf16 ulp (<= 2**-7 * |want|) apart, and no further
 BF16_RTOL, BF16_ATOL = 2 ** -7, 1e-6
-SLICE_TOL = {"float": 2e-2, "grau": 5e-2}   # relative L2, first decode logits
+# relative L2, first decode logits, kernel path vs gather path
+SLICE_TOL = {"float": 2e-2, "grau": 5e-2, "wq4_kv4_grau": 5e-2}
 
 
 class SmokeError(RuntimeError):
@@ -80,6 +86,19 @@ def device_ms(torch, fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cycling(fns):
+    """One zero-argument call that runs `fns` in turn: timing a kernel over
+    several copies of its operands whose bytes exceed the 50 MB L2 makes
+    every call read device memory, as the served model's many weights do."""
+    state = {"i": 0}
+
+    def call():
+        fn = fns[state["i"] % len(fns)]
+        state["i"] += 1
+        return fn()
+    return call
 
 
 def bound(nbytes, ops, kind):
@@ -160,14 +179,28 @@ def check_grau(torch, np, dev, shapes, rng, timed):
     return row
 
 
-def paged_case(torch, np, dev, dtype, shapes, rng):
+def random_pools(torch, dev, dtype, shape, kv_bits):
+    """(k, v, {k_exp, v_exp, kv_bits}) for a (nb, bs, kvh, d) pool: float
+    pools of `dtype`, or packed int8 pools with exponents in [-9, -4]."""
+    if kv_bits == 16:
+        return (torch.randn(shape, device=dev).to(dtype),
+                torch.randn(shape, device=dev).to(dtype), {})
+    nb, bs, kvh, d = shape
+    pshape = (nb, bs, kvh, d // 2 if kv_bits == 4 else d)
+    k, v = (torch.randint(-128, 128, pshape, dtype=torch.int8, device=dev)
+            for _ in range(2))
+    ke, ve = (torch.randint(-9, -3, (nb, kvh), dtype=torch.int8, device=dev)
+              for _ in range(2))
+    return k, v, {"k_exp": ke, "v_exp": ve, "kv_bits": kv_bits}
+
+
+def paged_case(torch, np, dev, dtype, shapes, rng, kv_bits=16):
     s = shapes
     slots, h, kvh, d, bs, max_len = (s["slots"], s["h"], s["kvh"], s["d"],
                                      s["bs"], s["max_len"])
     bps = max_len // bs
     nb = slots * bps + 1
-    k = torch.randn((nb, bs, kvh, d), device=dev).to(dtype)
-    v = torch.randn((nb, bs, kvh, d), device=dev).to(dtype)
+    k, v, kv = random_pools(torch, dev, dtype, (nb, bs, kvh, d), kv_bits)
     # fragmented: every slot's blocks drawn from a shuffled pool
     perm = rng.permutation(np.arange(1, nb))[:slots * bps].reshape(slots, bps)
     lengths = rng.integers(1, max_len + 1, size=slots)
@@ -176,12 +209,28 @@ def paged_case(torch, np, dev, dtype, shapes, rng):
     table[lengths == 0] = 0
     q = torch.randn((slots, h, d), device=dev).to(dtype)
     return (q, k, v, torch.from_numpy(table).to(dev),
-            torch.from_numpy(lengths.astype(np.int32)).to(dev))
+            torch.from_numpy(lengths.astype(np.int32)).to(dev)), kv
 
 
-def live_bytes(lengths_or_ends, bs, kvh, d, esize):
+def live_bytes(lengths_or_ends, bs, kvh, d, kv_bits):
+    """K and V bytes of the live blocks at kv_bits per element (bf16 when
+    16), their exponents (one byte per block and head each) and table
+    entries."""
     blocks = sum(max(-(-int(n) // bs), 1) for n in lengths_or_ends)
-    return 2 * blocks * bs * kvh * d * esize + 4 * blocks
+    payload = 2 * blocks * bs * kvh * d * kv_bits // 8
+    exps = 2 * blocks * kvh if kv_bits < 16 else 0
+    return payload + exps + 4 * blocks
+
+
+def dequant_pools(torch, k, v, kv, dtype):
+    """Dense pools of `dtype` holding the same values (for the library
+    yardstick; built outside any timed call)."""
+    if not kv:
+        return k, v
+    from repro_torch.quant import kv as kvq
+    bits = kv["kv_bits"]
+    return (kvq.load_block(k, kv["k_exp"], bits).to(dtype),
+            kvq.load_block(v, kv["v_exp"], bits).to(dtype))
 
 
 def sdpa_yardstick(torch, q, k, v, table, ends, g, causal_rows=None):
@@ -212,6 +261,10 @@ def close(got, want, rtol, atol):
 
 
 def check_paged(torch, np, dev, shapes, rng, timed):
+    """Decode and prefill on 16-, 8- and 4-bit pools, f32 and bf16, against
+    their plain versions; rows keyed by kernel name and kv_bits."""
+    from functools import partial
+
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import attn_output_quant
     from repro_torch.nn.common import build_lm_grau
@@ -221,79 +274,93 @@ def check_paged(torch, np, dev, shapes, rng, timed):
     group = s["h"] // s["kvh"]
     rows = {}
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    for name in ("paged_attention", "paged_prefill"):
-        worst = 0.0
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, table, lengths = paged_case(torch, np, dev, dtype, s,
-                                                 rng)
-            if name == "paged_attention":
-                kern, plain = pa.paged_attention, pa.paged_attention_plain
-                args = (q, k, v, table, lengths)
-            else:
-                kern, plain = pa.paged_prefill_attention, pa.paged_prefill_plain
-                C = s["chunk"]
-                starts = torch.tensor(
-                    [0, C, s["max_len"] // 2, s["max_len"] - C][:q.shape[0]],
-                    dtype=torch.int32, device=dev)
-                qp = torch.randn((starts.shape[0], C, s["h"], s["d"]),
-                                 device=dev).to(dtype)
-                args = (qp, k, v,
-                        table[1:1 + starts.shape[0]].contiguous(), starts)
-            # the f32 result before the output cast, at F32_TOL
-            f32 = kern(*args, out_dtype=torch.float32)
-            sync()
-            ok, err32 = close(f32, plain(*args, out_dtype=torch.float32),
-                              F32_TOL, F32_TOL)
-            need(ok, f"{name} {dtype}: f32 output off by {err32:.3g} "
-                 f"> {F32_TOL} (1 + |want|)")
-            got = kern(*args)
-            sync()
-            need(torch.isfinite(got.float()).all(), f"{name}: non-finite")
-            rtol, atol = ((F32_TOL, F32_TOL) if dtype == torch.float32 else
-                          (BF16_RTOL, BF16_ATOL))
-            ok, err = close(got, plain(*args), rtol, atol)
-            need(ok, f"{name} {dtype}: output off by {err:.3g} > {atol} + "
-                 f"{rtol:.3g} |want|")
-            if dtype == torch.bfloat16:
-                worst = max(worst, err)
-            quant = kern(*args, spec=g.spec, s_in=g.s_in)
-            sync()
-            need(torch.equal(quant, attn_output_quant(f32, g.spec, g.s_in)),
-                 f"{name} {dtype}: GRAU epilogue not bit-exact")
-            qref = plain(*args, spec=g.spec, s_in=g.s_in)
-            flips = int((quant.to(torch.int32) - qref.to(torch.int32))
-                        .abs().gt(1).sum())
-            need(flips == 0, f"{name} {dtype}: epilogue vs plain off by > 1")
-            log(f"{name} {dtype}: max |kernel - plain| = {err:.3g} (each "
-                f"element within {atol:.3g} + {rtol:.3g} |want|), f32 output "
-                f"{err32:.3g} (within {F32_TOL} (1 + |want|)); epilogue "
-                "bit-exact on the kernel's f32 output")
-        row = {"name": name, "route": "cuda",
-               "source": "src/repro_torch/csrc/paged_attention.cu",
-               "replaces": ("src/repro/kernels/paged_attention.py:189"
-                            if name == "paged_attention" else
-                            "src/repro/kernels/paged_attention.py:401"),
-               "max_abs_err": worst}
-        if timed:
-            row.update(time_paged(torch, np, dev, name, s, group, rng))
-        rows[name] = row
+    for kv_bits in (16, 8, 4):
+        for name in ("paged_attention", "paged_prefill"):
+            worst = 0.0
+            for dtype in (torch.float32, torch.bfloat16):
+                (q, k, v, table, lengths), kv = paged_case(
+                    torch, np, dev, dtype, s, rng, kv_bits)
+                if name == "paged_attention":
+                    kern, plain = pa.paged_attention, pa.paged_attention_plain
+                    args = (q, k, v, table, lengths)
+                else:
+                    kern = pa.paged_prefill_attention
+                    plain = pa.paged_prefill_plain
+                    C = s["chunk"]
+                    starts = torch.tensor(
+                        [0, C, s["max_len"] // 2, s["max_len"] - C][:q.shape[0]],
+                        dtype=torch.int32, device=dev)
+                    qp = torch.randn((starts.shape[0], C, s["h"], s["d"]),
+                                     device=dev).to(dtype)
+                    args = (qp, k, v,
+                            table[1:1 + starts.shape[0]].contiguous(), starts)
+                kern, plain = partial(kern, **kv), partial(plain, **kv)
+                label = f"{name} kv{kv_bits} {dtype}"
+                # the f32 result before the output cast, at F32_TOL
+                f32 = kern(*args, out_dtype=torch.float32)
+                sync()
+                ok, err32 = close(f32, plain(*args, out_dtype=torch.float32),
+                                  F32_TOL, F32_TOL)
+                need(ok, f"{label}: f32 output off by {err32:.3g} "
+                     f"> {F32_TOL} (1 + |want|)")
+                got = kern(*args)
+                sync()
+                need(torch.isfinite(got.float()).all(), f"{label}: non-finite")
+                rtol, atol = ((F32_TOL, F32_TOL) if dtype == torch.float32
+                              else (BF16_RTOL, BF16_ATOL))
+                ok, err = close(got, plain(*args), rtol, atol)
+                need(ok, f"{label}: output off by {err:.3g} > {atol} + "
+                     f"{rtol:.3g} |want|")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+                quant = kern(*args, spec=g.spec, s_in=g.s_in)
+                sync()
+                need(torch.equal(quant, attn_output_quant(f32, g.spec,
+                                                          g.s_in)),
+                     f"{label}: GRAU epilogue not bit-exact")
+                qref = plain(*args, spec=g.spec, s_in=g.s_in)
+                flips = int((quant.to(torch.int32) - qref.to(torch.int32))
+                            .abs().gt(1).sum())
+                need(flips == 0, f"{label}: epilogue vs plain off by > 1")
+                log(f"{label}: max |kernel - plain| = {err:.3g} (each "
+                    f"element within {atol:.3g} + {rtol:.3g} |want|), f32 "
+                    f"output {err32:.3g} (within {F32_TOL} (1 + |want|)); "
+                    "epilogue bit-exact on the kernel's f32 output")
+            suffix = "" if kv_bits == 16 else f"_kv{kv_bits}"
+            row = {"name": name + suffix, "route": "cuda",
+                   "source": "src/repro_torch/csrc/paged_attention.cu",
+                   "replaces": ("src/repro/kernels/paged_attention.py:189"
+                                if name == "paged_attention" else
+                                "src/repro/kernels/paged_attention.py:401"),
+                   "kv_bits": kv_bits, "max_abs_err": worst}
+            if timed:
+                row.update(time_paged(torch, np, dev, name, s, group, rng,
+                                      kv_bits))
+                log(f"timed: {json.dumps(row)}")
+            rows[name + suffix] = row
     return rows
 
 
-def time_paged(torch, np, dev, name, s, group, rng):
+def time_paged(torch, np, dev, name, s, group, rng, kv_bits=16):
     """Times at the main path's shape in bf16: a decode tick at the widest
     bucket (8 slots, ragged up to max_len), or one prefill chunk (b = 1)
-    starting mid-prompt."""
+    starting mid-prompt, over 16-, 8- or 4-bit pools. The bound counts the
+    pools' bytes at kv_bits."""
+    from functools import partial
+
     from repro_torch.kernels import paged_attention as pa
-    q, k, v, table, lengths = paged_case(torch, np, dev, torch.bfloat16, s,
-                                         rng)
+    (q, k, v, table, lengths), kv = paged_case(torch, np, dev,
+                                               torch.bfloat16, s, rng,
+                                               kv_bits)
+    kd, vd = dequant_pools(torch, k, v, kv, torch.bfloat16)
     h, d, kvh, bs = s["h"], s["d"], s["kvh"], s["bs"]
     if name == "paged_attention":
         args = (q, k, v, table, lengths)
         ends = [int(n) for n in lengths.cpu()]
-        nbytes = live_bytes(ends, bs, kvh, d, 2) + 2 * 2 * q.numel() + 4 * len(ends)
+        nbytes = (live_bytes(ends, bs, kvh, d, kv_bits) + 2 * 2 * q.numel()
+                  + 4 * len(ends))
         flops = sum(4 * h * d * n for n in ends)
-        lib = sdpa_yardstick(torch, q, k, v, table, lengths, group)
+        lib = sdpa_yardstick(torch, q, kd, vd, table, lengths, group)
         kern, plain = pa.paged_attention, pa.paged_attention_plain
     else:
         C = s["chunk"]
@@ -304,18 +371,120 @@ def time_paged(torch, np, dev, name, s, group, rng):
         qp = torch.randn((1, C, h, d), device=dev).to(torch.bfloat16)
         args = (qp, k, v, tab, start)
         end = int(start) + C
-        nbytes = live_bytes([end], bs, kvh, d, 2) + 2 * 2 * qp.numel()
+        nbytes = live_bytes([end], bs, kvh, d, kv_bits) + 2 * 2 * qp.numel()
         flops = sum(4 * h * d * (int(start) + r + 1) for r in range(C))
         rows_end = start[:, None] + torch.arange(C, device=dev)[None]
-        lib = sdpa_yardstick(torch, qp, k, v, tab, None, group, rows_end)
+        lib = sdpa_yardstick(torch, qp, kd, vd, tab, None, group, rows_end)
         kern, plain = pa.paged_prefill_attention, pa.paged_prefill_plain
+    kern, plain = partial(kern, **kv), partial(plain, **kv)
     t_bound, by = bound(nbytes, flops, "bf16")
     return {"ms": device_ms(torch, lambda: kern(*args)),
             "plain_ms": device_ms(torch, lambda: plain(*args), 5, 1),
             "bound_ms": t_bound, "bound_by": by,
             "library_ms": device_ms(torch, lib),
             "library_call": "torch.nn.functional.scaled_dot_product_attention "
-                            "on the gathered view"}
+                            "on the gathered (dequantized) bf16 view"}
+
+
+def check_matmul_wq(torch, np, dev, shapes, rng, timed):
+    """matmul_wq at the MLP's shapes (w_gate and w_down, 8 and 32 rows),
+    int4 and int8, f32 and bf16 activations, against matmul_wq_plain:
+    f32 output within F32_TOL * sum_k |x||w| element by element (the same
+    exact products summed in another order); output in x's dtype within
+    that plus one bf16 ulp of the plain version's (each rounds its own f32
+    sum). The fused epilogue bit-exact on one shape."""
+    from repro_torch.kernels import matmul_wq as mm
+    from repro_torch.kernels.ref import attn_output_quant
+    from repro_torch.nn.common import build_lm_grau
+    from repro_torch.quant import weights as wq
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    worst = 0.0
+    weights = {}
+    for wname, (K, N) in shapes["mlp"].items():
+        w_f = torch.randn((K, N), device=dev) * K ** -0.5
+        for bits in (4, 8):
+            w = wq.pack_tensor(w_f, bits, -2)
+            weights[(wname, bits)] = w
+            wabs = wq.dense(w).abs()
+            for M in shapes["rows"]:
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = torch.randn((M, K), device=dev).to(dtype)
+                    label = f"matmul_wq {wname} M={M} int{bits} {dtype}"
+                    got = mm.matmul_wq(x, w)
+                    sync()
+                    want = mm.matmul_wq_plain(x, w.q, w.e, bits=bits, kdim=K)
+                    tol = F32_TOL * (x.float().abs() @ wabs)
+                    if dtype == torch.bfloat16:
+                        tol = tol + BF16_ATOL + BF16_RTOL * want.float().abs()
+                    diff = (got.float() - want.float()).abs()
+                    need(got.dtype == dtype and bool((diff <= tol).all()),
+                         f"{label}: off by {float(diff.max()):.3g}, beyond "
+                         "the stated tolerance")
+                    if dtype == torch.bfloat16:
+                        worst = max(worst, float(diff.max()))
+                    log(f"{label}: max |kernel - plain| = "
+                        f"{float(diff.max()):.3g} (each element within "
+                        f"{F32_TOL} sum|x||w|"
+                        + (" + one bf16 ulp)" if dtype == torch.bfloat16
+                           else ")"))
+    g = build_lm_grau("silu")
+    wname, (K, N) = next(iter(shapes["mlp"].items()))
+    w = weights[(wname, 4)]
+    x = torch.randn((shapes["rows"][0], K), device=dev)
+    f32 = mm.matmul_wq(x, w)
+    fused = mm.matmul_wq(x, w, g.spec, s_in=g.s_in)
+    sync()
+    need(torch.equal(fused, attn_output_quant(f32, g.spec, g.s_in)),
+         "matmul_wq: GRAU epilogue not bit-exact on the kernel's f32 output")
+    log("matmul_wq: GRAU epilogue bit-exact on the kernel's f32 output")
+    row = {"name": "matmul_wq", "route": "cuda",
+           "source": "src/repro_torch/csrc/matmul_wq.cu",
+           "replaces": "src/repro/kernels/matmul_wq.py:95",
+           "max_abs_err": worst}
+    if timed:
+        row["shapes"] = [time_matmul_wq(torch, dev, shapes, wname, M, bits)
+                         for wname in shapes["mlp"] for bits in (4, 8)
+                         for M in shapes["rows"]]
+        main = row["shapes"][0]                  # w_gate, int4, decode rows
+        row.update({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")})
+        row["library_call"] = ("torch.matmul(x, W) on the weight dequantized "
+                               "to bf16 before timing (4x / 2x the weight "
+                               "bytes of int4 / int8)")
+        for r in row["shapes"]:
+            log(f"timed matmul_wq: {json.dumps(r)}")
+    return row
+
+
+def time_matmul_wq(torch, dev, shapes, wname, M, bits):
+    """One MLP product in bf16, timed over enough weight copies to exceed
+    L2 (as the served model streams 84 different weights a forward): the
+    kernel, its plain version, and torch.matmul on the bf16 dequantized
+    weight; the bound counts x, the payload, the exponents and the output
+    once."""
+    from repro_torch.kernels import matmul_wq as mm
+    from repro_torch.quant import weights as wq
+    K, N = shapes["mlp"][wname]
+    x = torch.randn((M, K), device=dev).to(torch.bfloat16)
+    base = wq.pack_tensor(torch.randn((K, N), device=dev) * K ** -0.5, bits,
+                          -2)
+    copies = max(2, -(-60_000_000 // (K * N * 2)))        # > 50 MB of bf16
+    ws = [wq.QuantWeight(q=base.q.clone(), e=base.e.clone(), bits=bits,
+                         caxis=-2, kdim=K, tile=base.tile)
+          for _ in range(copies)]
+    dense = [wq.dense(w, torch.bfloat16) for w in ws]
+    nbytes = (x.numel() * 2 + base.q.numel() + base.e.numel() + M * N * 2)
+    t_bound, by = bound(nbytes, 2 * M * K * N, "bf16")
+    return {"weight": wname, "M": M, "K": K, "N": N, "bits": bits,
+            "ms": device_ms(torch, cycling([
+                (lambda w=w: mm.matmul_wq(x, w)) for w in ws]), 50, 5),
+            "plain_ms": device_ms(torch, cycling([
+                (lambda w=w: mm.matmul_wq_plain(x, w.q, w.e, bits=bits,
+                                                kdim=K)) for w in ws]), 5, 1),
+            "bound_ms": t_bound, "bound_by": by,
+            "library_ms": device_ms(torch, cycling([
+                (lambda d=d: torch.matmul(x, d)) for d in dense]), 50, 5)}
 
 
 # ---------------------------------------------------------------------------
@@ -345,6 +514,7 @@ def serve(torch, np, dev, cfg, params, ecfg_kw, reqs_fn):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    m = eng.metrics()
     need(len(done) == len(reqs), f"served {len(done)} of {len(reqs)}")
     ttft = sorted(r.ttft for r in eng.scheduler.finished)
     out = {
@@ -359,6 +529,8 @@ def serve(torch, np, dev, cfg, params, ecfg_kw, reqs_fn):
         "ttft_max_s": float(ttft[-1]),
         "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                         if dev.type == "cuda" else None),
+        "weight_bits": m["weight_bits"], "kv_bits": m["kv_bits"],
+        "weight_bytes": m["weight_bytes"],
         "launches": counts,
     }
     streams = {r.rid: list(r.out_tokens) for r in done}
@@ -371,9 +543,11 @@ def serve(torch, np, dev, cfg, params, ecfg_kw, reqs_fn):
 
 
 def first_decode_logits(torch, np, dev, cfg, params, attn_quant, prompts,
-                        max_seq, bs, chunk):
-    """Prefill every prompt through the kernels into fresh pools, then run
-    the first decode step once through each path on the same pools."""
+                        max_seq, bs, chunk, policy=None, gather_params=None):
+    """Prefill every prompt through the kernels into fresh pools (quantized
+    per `policy`), then run the first decode step once through each path on
+    its own copy of the pools: the kernels with `params`, and the gather
+    path with `gather_params` (default: the same tree)."""
     from repro_torch.models import lm
     from repro_torch.nn.attention import PagedState
     from repro_torch.serve import kv_cache as kvc
@@ -382,7 +556,8 @@ def first_decode_logits(torch, np, dev, cfg, params, attn_quant, prompts,
     cols = bps + chunk // bs
     slots = len(prompts)
     caches = kvc.init_paged_caches(cfg, slots * bps + 1, bs,
-                                   dtype=params["embed"].dtype, device=dev)
+                                   dtype=lm.compute_dtype(params), device=dev,
+                                   policy=policy)
     table = np.zeros((slots, cols), np.int32)
     for s in range(slots):
         table[s, :bps] = 1 + s * bps + np.arange(bps)
@@ -396,7 +571,8 @@ def first_decode_logits(torch, np, dev, cfg, params, attn_quant, prompts,
             n = min(ctx - p0, chunk)
             toks[0, :n] = p[p0:p0 + n]
             st = PagedState(torch.tensor(table[s:s + 1, :w], **i32),
-                            torch.tensor([p0], **i32))
+                            torch.tensor([p0], **i32),
+                            torch.tensor([ctx], **i32))
             lm.prefill_step(params, cfg, torch.from_numpy(toks).to(dev),
                             caches, paged=st, act=act, paged_impl="kernel",
                             attn_quant=attn_quant, want_logits=False)
@@ -407,13 +583,44 @@ def first_decode_logits(torch, np, dev, cfg, params, attn_quant, prompts,
     st = PagedState(torch.tensor(table[:, :w], **i32),
                     torch.tensor(lengths, **i32))
     out = {}
-    for impl in ("kernel", "gather"):
-        logits, _ = lm.decode_step(params, cfg, last, caches, paged=st,
-                                   act=act, paged_impl=impl,
-                                   attn_quant=attn_quant)
+    for impl, tree in (("kernel", params),
+                       ("gather", gather_params or params)):
+        # the decode write is in place (and, on quantized pools, may raise a
+        # block's exponent): each path writes its own copy
+        own = tuple(tuple(type(c)(*[t.clone() if torch.is_tensor(t) else t
+                                    for t in c]) for c in grp)
+                    for grp in caches)
+        logits, _ = lm.decode_step(tree, cfg, last, own, paged=st, act=act,
+                                   paged_impl=impl, attn_quant=attn_quant)
         out[impl] = logits[:, -1].float()
+        del own
     del caches
     return out["kernel"], out["gather"]
+
+
+def mlp_dequantized(torch, params):
+    """The packed tree with every MLP weight dequantized to the activations'
+    dtype (the same values): the MLP then runs as a plain matrix product,
+    the comparison path of slice (c)."""
+    from repro_torch.models import lm
+    from repro_torch.quant import weights as wq
+    dt = lm.compute_dtype(params)
+    out = dict(params)
+    for name, reps in params.items():
+        if name.startswith("group"):
+            out[name] = [{ln: dict(layer, mlp={k: wq.dense(v, dt) for k, v
+                                              in layer["mlp"].items()})
+                          for ln, layer in rep.items()} for rep in reps]
+    return out
+
+
+def compare_streams(streams, other):
+    same = total = 0
+    for rid, toks in streams.items():
+        o = other[rid]
+        total += max(len(toks), len(o))
+        same += sum(a == b for a, b in zip(toks, o))
+    return same / total
 
 
 def slice_phase(torch, np, dev, args, rehearse):
@@ -422,6 +629,8 @@ def slice_phase(torch, np, dev, args, rehearse):
     from repro_torch.models.config import GRAUConfig
     from repro_torch.nn.attention import AttnQuant
     from repro_torch.nn.common import build_lm_grau
+    from repro_torch.quant import weights as wq
+    from repro_torch.quant.policy import PrecisionPolicy
     from repro_torch.serve.engine import Request
 
     cfg = get_config("llama3.2-3b", smoke=rehearse)
@@ -438,11 +647,13 @@ def slice_phase(torch, np, dev, args, rehearse):
     ecfg = dict(slots=8, max_seq=max_seq, page_size=16, seed=args.seed)
     reqs_fn = lambda: make_requests(np, Request, cfg.vocab_size, 8, lo, hi,  # noqa: E731
                                     32, args.seed)
+    prompts = [r.prompt for r in reqs_fn()]
     attn = build_lm_grau("identity")
+    aq = AttnQuant(attn.spec.to(dev), attn.s_in, attn.s_out)
+    gcfg = cfg.replace(grau=GRAUConfig())
     results = {}
     for label, c, extra in (("float", cfg, {}),
-                            ("grau", cfg.replace(grau=GRAUConfig()),
-                             {"attn_grau": attn})):
+                            ("grau", gcfg, {"attn_grau": attn})):
         res, streams = serve(torch, np, dev, c, params, {**ecfg, **extra},
                              reqs_fn)
         la = res["launches"]
@@ -458,55 +669,115 @@ def slice_phase(torch, np, dev, args, rehearse):
         gres, gstreams = serve(torch, np, dev, c, params,
                                {**ecfg, **extra, "paged_impl": "gather"},
                                reqs_fn)
-        same = total = 0
-        for rid, toks in streams.items():
-            other = gstreams[rid]
-            total += max(len(toks), len(other))
-            same += sum(a == b for a, b in zip(toks, other))
         res["gather_tokens_per_s"] = gres["tokens_per_s"]
-        res["greedy_identical_share"] = same / total
-        aq = (AttnQuant(attn.spec.to(dev), attn.s_in, attn.s_out)
-              if "attn_grau" in extra else None)
-        lk, lg = first_decode_logits(torch, np, dev, c, params, aq,
-                                     [r.prompt for r in reqs_fn()], max_seq,
-                                     16, 32)
-        rel = float((lk - lg).norm() / lg.norm())
-        res["first_step_logits_rel_l2"] = rel
-        res["first_step_logits_max_abs"] = float((lk - lg).abs().max())
-        need(torch.isfinite(lk).all(), f"{label}: non-finite logits")
-        need(rel <= SLICE_TOL[label],
-             f"{label}: first decode logits kernel vs gather rel L2 {rel:.3g}"
-             f" > {SLICE_TOL[label]}")
-        log(f"slice[{label}]: " + json.dumps(res))
-        results[label] = res
+        res["greedy_identical_share"] = compare_streams(streams, gstreams)
+        lk, lg = first_decode_logits(torch, np, dev, c, params,
+                                     aq if "attn_grau" in extra else None,
+                                     prompts, max_seq, 16, 32)
+        results[label] = check_logits(torch, label, res, lk, lg)
     if args.profile:
         for label, c, extra in (("float", cfg, {}),
-                                ("grau", cfg.replace(grau=GRAUConfig()),
-                                 {"attn_grau": attn})):
+                                ("grau", gcfg, {"attn_grau": attn})):
             results[f"profile_{label}"] = profile_serve(
                 torch, dev, c, params, {**ecfg, **extra}, reqs_fn,
                 f"{args.profile}.{label}.txt", label)
+    # (c): the same weights packed to int4 and int4 KV pools, with GRAU. The
+    # float tree is dropped before serving: the served model is the packed one
+    policy = PrecisionPolicy(kv_default_bits=4, weight_default_bits=4)
+    packed = wq.pack_params(params, gcfg, policy)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    label = "wq4_kv4_grau"
+    qcfg = {**ecfg, "attn_grau": attn, "weight_bits": 4, "kv_bits": 4}
+    res, streams = serve(torch, np, dev, gcfg, packed, qcfg, reqs_fn)
+    la = res["launches"]
+    mlp_per_forward = 3 * gcfg.num_layers
+    res["matmul_wq_launches_per_forward"] = mlp_per_forward
+    if not rehearse:
+        need(la["matmul_wq"] == mlp_per_forward * (res["ticks"]
+                                                   + res["chunks"]),
+             f"{label}: matmul_wq launched {la['matmul_wq']} times, want "
+             f"{mlp_per_forward} x ({res['ticks']} ticks + {res['chunks']} "
+             "chunks)")
+        need(la["paged_attention"] > 0 and la["paged_prefill"] > 0
+             and la["paged_attention_kv4"] == la["paged_attention"]
+             and la["paged_prefill_kv4"] == la["paged_prefill"]
+             and la["paged_attention_epilogue"] == la["paged_attention"],
+             f"{label}: the attention kernels did not all run on 4-bit pools "
+             f"with the GRAU epilogue: {la}")
+    plain = mlp_dequantized(torch, packed)
+    gres, gstreams = serve(torch, np, dev, gcfg, plain,
+                           {**ecfg, "attn_grau": attn, "kv_bits": 4,
+                            "paged_impl": "gather"}, reqs_fn)
+    res["gather_tokens_per_s"] = gres["tokens_per_s"]
+    res["greedy_identical_share"] = compare_streams(streams, gstreams)
+    lk, lg = first_decode_logits(torch, np, dev, gcfg, packed, aq, prompts,
+                                 max_seq, 16, 32, policy=policy,
+                                 gather_params=plain)
+    del plain
+    results[label] = check_logits(torch, label, res, lk, lg)
+    if args.profile:
+        results[f"profile_{label}"] = profile_serve(
+            torch, dev, gcfg, packed, qcfg, reqs_fn,
+            f"{args.profile}.{label}.txt", label)
     return results
 
 
-def profile_serve(torch, dev, cfg, params, ecfg, reqs_fn, path, label):
-    """Where the time goes: one more served run under torch.profiler;
-    writes the per-kernel device-time table to `path` and returns the
-    device-busy share and the top kernels."""
+def check_logits(torch, label, res, lk, lg):
+    rel = float((lk - lg).norm() / lg.norm())
+    res["first_step_logits_rel_l2"] = rel
+    res["first_step_logits_max_abs"] = float((lk - lg).abs().max())
+    need(torch.isfinite(lk).all(), f"{label}: non-finite logits")
+    need(rel <= SLICE_TOL[label],
+         f"{label}: first decode logits kernel vs gather rel L2 {rel:.3g}"
+         f" > {SLICE_TOL[label]}")
+    log(f"slice[{label}]: " + json.dumps(res))
+    return res
+
+
+def profile_serve(torch, dev, cfg, params, ecfg, reqs_fn, path, label,
+                  skip=8, window=24):
+    """Where the time goes: one more served run, with `window` engine steps
+    after the first `skip` (prefill chunks and decode ticks interleaved)
+    under torch.profiler; writes the per-kernel device-time table of the
+    window to `path` and returns its device-busy share and top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import EngineConfig, ServeEngine
     eng = ServeEngine(cfg, params, EngineConfig(**ecfg), device=dev)
     eng.warmup()
-    reqs = reqs_fn()
+    for r in reqs_fn():
+        eng.submit(r)
+
+    def busy():
+        return eng.scheduler.waiting or any(r is not None
+                                            for r in eng.slot_req)
+
+    def steps(n):
+        for _ in range(n):
+            if not busy():
+                return
+            eng.step()
+            eng.poll()
+
+    steps(skip)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if dev.type == "cuda" else [])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    ticks0, chunks0 = eng.stats["ticks"], eng.stats["chunks"]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        eng.run(reqs)
+        steps(window)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    ticks, chunks = (eng.stats["ticks"] - ticks0,
+                     eng.stats["chunks"] - chunks0)
+    while busy():
+        steps(1)
     from torch.autograd import DeviceType
     rows = []
     for evt in prof.key_averages():
@@ -521,10 +792,11 @@ def profile_serve(torch, dev, cfg, params, ecfg, reqs_fn, path, label):
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     Path(path).write_text("\n".join(
         f"{us / 1e3:12.3f} ms  {n:8d}x  {key}" for us, key, n in rows))
-    out = {"wall_s": wall, "device_busy_s": busy_s,
-           "device_busy_share": busy_s / wall,
+    out = {"window_steps": window, "decode_ticks": ticks,
+           "prefill_chunks": chunks, "wall_s": wall,
+           "device_busy_s": busy_s, "device_busy_share": busy_s / wall,
            "top": [{"kernel": key[:80], "ms": us / 1e3, "calls": n}
-                   for us, key, n in rows[:8]]}
+                   for us, key, n in rows[:10]]}
     log(f"profile[{label}]: " + json.dumps(out))
     return out
 
@@ -584,28 +856,49 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(args.seed)
     torch.manual_seed(args.seed)
+    # the main path's shapes: llama3.2-3b (d_model 3072, d_ff 8192, 24/8
+    # heads of 128) at 8 slots, 32-token prefill chunks; its MLP products
+    # at 8 (decode) and 32 (prefill) rows
     shapes = (dict(slots=8, h=24, kvh=8, d=128, bs=16, max_len=2048,
-                   chunk=32, grau=(32 * 24, 128)) if timed else
+                   chunk=32, grau=(32 * 24, 128),
+                   mlp={"w_gate": (3072, 8192), "w_down": (8192, 3072)},
+                   rows=(8, 32)) if timed else
               dict(slots=8, h=4, kvh=2, d=32, bs=16, max_len=128, chunk=32,
-                   grau=(32 * 4, 32)))
+                   grau=(32 * 4, 32),
+                   mlp={"w_gate": (128, 256), "w_down": (256, 128)},
+                   rows=(8, 32)))
     try:
         grau_row = check_grau(torch, np, dev, shapes, rng, timed)
         rows = check_paged(torch, np, dev, shapes, rng, timed)
+        rows["matmul_wq"] = check_matmul_wq(torch, np, dev, shapes, rng,
+                                            timed)
         slice_res = slice_phase(torch, np, dev, args, args.rehearse)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     report["slice"] = slice_res
-    # launches on the main path: the GRAU configuration (b). There the GRAU
-    # datapath runs fused in the attention kernels' epilogue, counted in
-    # their rows; the standalone GRAU kernel is not on the served path
-    la = slice_res["grau"]["launches"]
-    grau_row["launches"] = la["grau"]
+    # launches on the main paths: the 16-bit attention rows from (b), where
+    # the GRAU datapath runs fused in the attention kernels' epilogue (the
+    # standalone GRAU kernel is on no served path); the 4-bit attention rows
+    # and matmul_wq from (c)
+    lb = slice_res["grau"]["launches"]
+    lc = slice_res["wq4_kv4_grau"]["launches"]
+    grau_row["launches"] = lb["grau"]
     for name in ("paged_attention", "paged_prefill"):
-        rows[name].update(launches=la[name],
-                          epilogue_launches=la[f"{name}_epilogue"])
-    kernel_rows = [grau_row, rows["paged_attention"], rows["paged_prefill"]]
+        rows[name].update(launches=lb[name],
+                          epilogue_launches=lb[f"{name}_epilogue"])
+        rows[f"{name}_kv4"].update(launches=lc[f"{name}_kv4"],
+                                   epilogue_launches=lc[f"{name}_epilogue"])
+    rows["matmul_wq"].update(launches=lc["matmul_wq"],
+                             epilogue_launches=lc["matmul_wq_epilogue"])
+    kernel_rows = [grau_row] + [rows[n] for n in (
+        "paged_attention", "paged_prefill", "paged_attention_kv4",
+        "paged_prefill_kv4", "matmul_wq")]
     report["kernels"] = kernel_rows
+    # the 8-bit pools are on no served path here: checked and timed, kept
+    # in the report only
+    report["kernels_kv8"] = [rows["paged_attention_kv8"],
+                             rows["paged_prefill_kv8"]]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

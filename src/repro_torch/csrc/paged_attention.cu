@@ -33,6 +33,20 @@
 // softmax update runs one warp per row; the accumulator lives in registers,
 // 16 * d / 128 values a thread. No tensor cores, TMA or split over the
 // sequence yet: decode at 8 slots fills only 64 of the 132 SMs.
+//
+// Quantized pools (kv_bits 8 / 4; replaces the kv_bits < 16 branch of the
+// reference's _dequant_tile, used by both kernels through _attend_block /
+// _attend_block_mq): the pools hold int8 words, (nb, bs, kvh, d) at 8 bits
+// or (nb, bs, kvh, d/2) at 4 bits — byte i of a position row holds head-dim
+// element i in its low nibble and i + d/2 in its high nibble — and each
+// (block, kv head) carries one int8 exponent per tensor. The loaders
+// dequantize at load, into the same f32 staging: the block's 2^e is built
+// by bits (__int_as_float((e + 127) << 23)) once per block and loop step,
+// and one 16-byte load of a 4-bit row yields 32 elements, written to two
+// places in shared memory. Dequantized values are exact in f32, so the
+// recurrence after the load is the 16-bit one, and the bytes the kernel
+// moves follow kv_bits. A never-written block has exponent -126, a normal
+// 2^e, so the idle slot's null-block read stays finite.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,6 +61,15 @@ constexpr int kMinTile = 64;
 constexpr float kNegInf = -1e30f;
 
 enum OutKind { kOutF32 = 0, kOutBF16 = 1, kOutGrau = 2 };
+// pool storage: 16-bit pools hold q's type; quantized pools int8 words
+enum PoolKind { kPoolF32 = 0, kPoolBF16 = 1, kPoolQ8 = 2, kPoolQ4 = 3 };
+
+// bytes of one (position, kv head) row of a pool of kind KIND
+template <int KIND, int D>
+__host__ __device__ constexpr int row_bytes() {
+  return KIND == kPoolF32 ? 4 * D : KIND == kPoolBF16 ? 2 * D
+         : KIND == kPoolQ8 ? D : D / 2;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -66,38 +89,76 @@ inline int tile_blocks(int bs) { return bs >= kMinTile ? 1 : kMinTile / bs; }
 inline size_t smem_bytes(int d, int bs) {
   const size_t P = (size_t)tile_blocks(bs) * bs;
   return sizeof(float) * ((size_t)kRowTile * d + P * (d + 1) + P * d +
-                          (size_t)kRowTile * P + 3 * kRowTile) +
+                          (size_t)kRowTile * P + 3 * kRowTile +
+                          2 * tile_blocks(bs)) +
          sizeof(int32_t) * (GRAU_REG_WORDS + tile_blocks(bs));
 }
 
-// 16 bytes of K or V -> f32: 4 floats, or 8 bf16 values.
-__device__ __forceinline__ void load16(const float* src, float* dst) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+__device__ __forceinline__ float exp2i(int e) {
+  return __int_as_float((e + 127) << 23);
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
-  const uint4 v = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+
+// word w (0..3) of a 16-byte vector held in registers
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int w) {
+  return w == 0 ? v.x : w == 1 ? v.y : w == 2 ? v.z : v.w;
+}
+
+// Load 16-byte vector li of a pool row and write its values, as f32, into
+// the staged row `dst` (scale: the block's 2^e; 1 for 16-bit pools):
+// 4 floats, 8 bf16 values, 16 int8 values, or 32 int4 values of which the
+// low nibbles are elements li*16 + i and the high ones d/2 + li*16 + i.
+template <int KIND, int D>
+__device__ __forceinline__ void stage16(const uint8_t* row, int li,
+                                        float scale, float* dst) {
+  const uint4 v = *reinterpret_cast<const uint4*>(row + 16 * li);
+  if (KIND == kPoolF32) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
+    for (int w = 0; w < 4; ++w) dst[4 * li + w] = __uint_as_float(word_of(v, w));
+  } else if (KIND == kPoolBF16) {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const uint32_t u = word_of(v, w);
+      dst[8 * li + 2 * w] = __uint_as_float(u << 16);
+      dst[8 * li + 2 * w + 1] = __uint_as_float(u & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      const int8_t b = (int8_t)(word_of(v, c >> 2) >> (8 * (c & 3)));
+      if (KIND == kPoolQ8) {
+        dst[16 * li + c] = (float)b * scale;
+      } else {
+        const int8_t lo = (int8_t)((uint8_t)b << 4) >> 4;
+        const int8_t hi = b >> 4;
+        dst[16 * li + c] = (float)lo * scale;
+        dst[D / 2 + 16 * li + c] = (float)hi * scale;
+      }
+    }
   }
 }
+
+// The K/V pools of one launch: payloads as bytes, and for quantized pools
+// the (num_blocks, kvh) int8 exponent planes (null for 16-bit pools).
+struct Pools {
+  const uint8_t* k;
+  const uint8_t* v;
+  const int8_t* k_exp;
+  const int8_t* v_exp;
+};
 
 // One CUDA block: query rows [r0, r0 + kRowTile) of the C * g rows that
 // share KV head kh in batch row b. Each loop step stages NB = tile_blocks
 // consecutive table blocks (P = NB * bs positions) of K and V.
-template <typename T, int D>
-__device__ void attend_rows(const T* __restrict__ q, const T* __restrict__ k_pool,
-                            const T* __restrict__ v_pool,
+template <typename T, int KIND, int D>
+__device__ void attend_rows(const T* __restrict__ q, Pools pools,
                             const int32_t* __restrict__ table, int table_stride,
                             int start, void* __restrict__ out, int b, int C,
                             int h, int kvh, int bs, int nblocks, float scale,
                             int out_kind, Epilogue epi) {
   constexpr int kPer = kRowTile * D / kThreads;   // accumulator words/thread
-  constexpr int kVec = 16 / sizeof(T);            // elements per 16-byte load
+  constexpr int kRow = row_bytes<KIND, D>();
+  constexpr int kLoads = kRow / 16;               // 16-byte loads per row
+  constexpr bool kQuant = KIND == kPoolQ8 || KIND == kPoolQ4;
   constexpr int kWarps = kThreads / 32;
   const int NB = bs >= kMinTile ? 1 : kMinTile / bs;
   const int P = NB * bs;
@@ -109,7 +170,9 @@ __device__ void attend_rows(const T* __restrict__ q, const T* __restrict__ k_poo
   float* m_s = ps + kRowTile * P;                 // kRowTile
   float* l_s = m_s + kRowTile;
   float* a_s = l_s + kRowTile;
-  int32_t* regs = reinterpret_cast<int32_t*>(a_s + kRowTile);
+  float* kscale_s = a_s + kRowTile;              // NB: 2^e of K per block
+  float* vscale_s = kscale_s + NB;                // NB: 2^e of V per block
+  int32_t* regs = reinterpret_cast<int32_t*>(vscale_s + NB);
   int32_t* blk_s = regs + GRAU_REG_WORDS;         // NB pool block ids
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -146,30 +209,37 @@ __device__ void attend_rows(const T* __restrict__ q, const T* __restrict__ k_poo
 #pragma unroll
   for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
 
-  const size_t pos_stride = (size_t)kvh * D;
   for (int j0 = 0; j0 < live; j0 += NB) {
     __syncthreads();   // previous tile fully consumed
-    if (tid < NB)
-      blk_s[tid] = j0 + tid < live ? table[(size_t)b * table_stride + j0 + tid]
-                                   : -1;
-    __syncthreads();
-    for (int idx = tid; idx < P * (D / kVec); idx += kThreads) {
-      const int t = idx / (D / kVec), dd = (idx % (D / kVec)) * kVec;
-      const int blk = blk_s[t / bs];
-      float kf[kVec], vf[kVec];
-      if (blk >= 0) {
-        const size_t src = ((size_t)blk * bs + t % bs) * pos_stride +
-                           (size_t)kh * D + dd;
-        load16(k_pool + src, kf);
-        load16(v_pool + src, vf);
-      } else {   // past the live blocks: never read, never weighted
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) kf[e] = vf[e] = 0.f;
+    if (tid < NB) {
+      const int blk = j0 + tid < live
+                          ? table[(size_t)b * table_stride + j0 + tid] : -1;
+      blk_s[tid] = blk;
+      kscale_s[tid] = vscale_s[tid] = 1.f;
+      if (kQuant && blk >= 0) {   // the block's exponent, read once
+        kscale_s[tid] = exp2i(pools.k_exp[(size_t)blk * kvh + kh]);
+        vscale_s[tid] = exp2i(pools.v_exp[(size_t)blk * kvh + kh]);
       }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < P * kLoads; idx += kThreads) {
+      const int t = idx / kLoads, li = idx % kLoads;
+      const int blk = blk_s[t / bs];
+      float* krow = ks + t * (D + 1);
+      float* vrow = vs + t * D;
+      if (blk >= 0) {
+        const size_t src = (((size_t)blk * bs + t % bs) * kvh + kh) * kRow;
+        stage16<KIND, D>(pools.k + src, li, kscale_s[t / bs], krow);
+        stage16<KIND, D>(pools.v + src, li, vscale_s[t / bs], vrow);
+      } else {   // past the live blocks: never read, never weighted
+        constexpr int kElems = D / kLoads;     // elements one load covers
+        constexpr int kSpan = KIND == kPoolQ4 ? kElems / 2 : kElems;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        ks[t * (D + 1) + dd + e] = kf[e];
-        vs[t * D + dd + e] = vf[e];
+        for (int e = 0; e < kSpan; ++e) {
+          krow[li * kSpan + e] = vrow[li * kSpan + e] = 0.f;
+          if (KIND == kPoolQ4)
+            krow[D / 2 + li * kSpan + e] = vrow[D / 2 + li * kSpan + e] = 0.f;
+        }
       }
     }
     __syncthreads();
@@ -251,131 +321,145 @@ __device__ void attend_rows(const T* __restrict__ q, const T* __restrict__ k_poo
   }
 }
 
-template <typename T, int D>
+template <typename T, int KIND, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* q, const T* k_pool, const T* v_pool,
-                    const int32_t* table, int table_stride,
-                    const int32_t* lengths, void* out, int h, int kvh, int bs,
-                    int nblocks, float scale, int out_kind, Epilogue epi) {
+paged_decode_kernel(const T* q, Pools pools, const int32_t* table,
+                    int table_stride, const int32_t* lengths, void* out, int h,
+                    int kvh, int bs, int nblocks, float scale, int out_kind,
+                    Epilogue epi) {
   const int b = blockIdx.z;
-  attend_rows<T, D>(q, k_pool, v_pool, table, table_stride, lengths[b] - 1,
-                    out, b, 1, h, kvh, bs, nblocks, scale, out_kind, epi);
+  attend_rows<T, KIND, D>(q, pools, table, table_stride, lengths[b] - 1, out,
+                          b, 1, h, kvh, bs, nblocks, scale, out_kind, epi);
 }
 
-template <typename T, int D>
+template <typename T, int KIND, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_prefill_kernel(const T* q, const T* k_pool, const T* v_pool,
-                     const int32_t* table, int table_stride,
-                     const int32_t* starts, void* out, int C, int h, int kvh,
-                     int bs, int nblocks, float scale, int out_kind,
-                     Epilogue epi) {
+paged_prefill_kernel(const T* q, Pools pools, const int32_t* table,
+                     int table_stride, const int32_t* starts, void* out, int C,
+                     int h, int kvh, int bs, int nblocks, float scale,
+                     int out_kind, Epilogue epi) {
   const int b = blockIdx.z;
-  attend_rows<T, D>(q, k_pool, v_pool, table, table_stride, starts[b], out, b,
-                    C, h, kvh, bs, nblocks, scale, out_kind, epi);
+  attend_rows<T, KIND, D>(q, pools, table, table_stride, starts[b], out, b, C,
+                          h, kvh, bs, nblocks, scale, out_kind, epi);
 }
 
-template <typename T, int D>
-int launch(bool decode, const void* q, const void* k_pool, const void* v_pool,
-           const void* table, int table_stride, const void* start, void* out,
-           int batch, int C, int h, int kvh, int bs, int nblocks, float scale,
-           int out_kind, Epilogue epi, cudaStream_t stream) {
-  const int rows = C * (h / kvh);
-  const dim3 grid((rows + kRowTile - 1) / kRowTile, kvh, batch);
-  const size_t smem = smem_bytes(D, bs);
-  if (decode) {
-    auto kern = paged_decode_kernel<T, D>;
-    if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    kern<<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k_pool, (const T*)v_pool,
-        (const int32_t*)table, table_stride, (const int32_t*)start, out, h,
-        kvh, bs, nblocks, scale, out_kind, epi);
+// Everything one launch needs besides the compile-time choices.
+struct Args {
+  bool decode;
+  const void* q;
+  Pools pools;
+  const int32_t* table;
+  int table_stride;
+  const int32_t* start;   // lengths (decode) or chunk starts (prefill)
+  void* out;
+  int batch, C, h, kvh, bs, nblocks;
+  float scale;
+  int out_kind;
+  Epilogue epi;
+  cudaStream_t stream;
+};
+
+template <typename Kern>
+cudaError_t allow_smem(Kern kern, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <typename T, int KIND, int D>
+int launch(const Args& a) {
+  const int rows = a.C * (a.h / a.kvh);
+  const dim3 grid((rows + kRowTile - 1) / kRowTile, a.kvh, a.batch);
+  const size_t smem = smem_bytes(D, a.bs);
+  const T* q = (const T*)a.q;
+  if (a.decode) {
+    auto kern = paged_decode_kernel<T, KIND, D>;
+    const cudaError_t err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kThreads, smem, a.stream>>>(
+        q, a.pools, a.table, a.table_stride, a.start, a.out, a.h, a.kvh, a.bs,
+        a.nblocks, a.scale, a.out_kind, a.epi);
   } else {
-    auto kern = paged_prefill_kernel<T, D>;
-    if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    kern<<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k_pool, (const T*)v_pool,
-        (const int32_t*)table, table_stride, (const int32_t*)start, out, C, h,
-        kvh, bs, nblocks, scale, out_kind, epi);
+    auto kern = paged_prefill_kernel<T, KIND, D>;
+    const cudaError_t err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kThreads, smem, a.stream>>>(
+        q, a.pools, a.table, a.table_stride, a.start, a.out, a.C, a.h, a.kvh,
+        a.bs, a.nblocks, a.scale, a.out_kind, a.epi);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(bool decode, int d, const void* q, const void* k_pool,
-               const void* v_pool, const void* table, int table_stride,
-               const void* start, void* out, int batch, int C, int h, int kvh,
-               int bs, int nblocks, float scale, int out_kind, Epilogue epi,
-               cudaStream_t stream) {
-#define PA_CASE(DV)                                                          \
-  case DV:                                                                   \
-    return launch<T, DV>(decode, q, k_pool, v_pool, table, table_stride,     \
-                         start, out, batch, C, h, kvh, bs, nblocks, scale,   \
-                         out_kind, epi, stream);
+template <typename T, int KIND>
+int dispatch_d(int d, const Args& a) {
   switch (d) {
-    PA_CASE(32)
-    PA_CASE(64)
-    PA_CASE(128)
-    PA_CASE(256)
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 32: return launch<T, KIND, 32>(a);
+    case 64: return launch<T, KIND, 64>(a);
+    case 128: return launch<T, KIND, 128>(a);
+    case 256: return launch<T, KIND, 256>(a);
+    default: return (int)cudaErrorInvalidValue;
   }
-#undef PA_CASE
 }
 
-int dispatch(bool decode, int dtype, int d, const void* q, const void* k_pool,
-             const void* v_pool, const void* table, int table_stride,
-             const void* start, void* out, int batch, int C, int h, int kvh,
-             int bs, int nblocks, float scale, int out_kind, const void* regs,
-             int num_exponents, int qmin, int qmax, float inv_s,
-             void* stream) {
-  if (batch <= 0) return 0;
-  if (nblocks < 1 || kvh < 1 || h % kvh != 0 || bs < 1 || C < 1)
+template <typename T>
+int dispatch_pool(int kv_bits, int d, const Args& a) {
+  if (kv_bits == 16)
+    return dispatch_d<T, sizeof(T) == 4 ? kPoolF32 : kPoolBF16>(d, a);
+  if (kv_bits == 8) return dispatch_d<T, kPoolQ8>(d, a);
+  if (kv_bits == 4) return dispatch_d<T, kPoolQ4>(d, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+int dispatch(Args a, int dtype, int d, int kv_bits, const void* regs,
+             int num_exponents, int qmin, int qmax, float inv_s) {
+  if (a.batch <= 0) return 0;
+  if (a.nblocks < 1 || a.kvh < 1 || a.h % a.kvh != 0 || a.bs < 1 || a.C < 1)
     return (int)cudaErrorInvalidValue;
-  if (out_kind == kOutGrau && regs == nullptr) return (int)cudaErrorInvalidValue;
-  const Epilogue epi{(const int32_t*)regs, num_exponents, qmin, qmax, inv_s};
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch_d<float>(decode, d, q, k_pool, v_pool, table, table_stride,
-                             start, out, batch, C, h, kvh, bs, nblocks, scale,
-                             out_kind, epi, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(decode, d, q, k_pool, v_pool, table,
-                                     table_stride, start, out, batch, C, h,
-                                     kvh, bs, nblocks, scale, out_kind, epi,
-                                     st);
+  if (a.out_kind == kOutGrau && regs == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (kv_bits != 16 && (a.pools.k_exp == nullptr || a.pools.v_exp == nullptr))
+    return (int)cudaErrorInvalidValue;
+  a.epi = Epilogue{(const int32_t*)regs, num_exponents, qmin, qmax, inv_s};
+  if (dtype == 0) return dispatch_pool<float>(kv_bits, d, a);
+  if (dtype == 1) return dispatch_pool<__nv_bfloat16>(kv_bits, d, a);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (q and pools). out_kind: 0 = f32, 1 = bf16,
-// 2 = GRAU byte (int8 or uint8). regs: GRAU register file (out_kind 2).
+// dtype: 0 = f32, 1 = bf16 (q, and the pools at kv_bits 16). kv_bits 8 / 4:
+// int8 pools of width d / d/2 with (num_blocks, kvh) int8 exponent planes
+// k_exp / v_exp (null at 16). out_kind: 0 = f32, 1 = bf16, 2 = GRAU byte
+// (int8 or uint8). regs: GRAU register file (out_kind 2).
 extern "C" int paged_decode_launch(
-    const void* q, const void* k_pool, const void* v_pool, const void* table,
-    int table_stride, const void* lengths, void* out, int slots, int h,
-    int kvh, int d, int bs, int nblocks, float scale, int dtype, int out_kind,
-    const void* regs, int num_exponents, int qmin, int qmax, float inv_s,
-    void* stream) {
-  return dispatch(true, dtype, d, q, k_pool, v_pool, table, table_stride,
-                  lengths, out, slots, 1, h, kvh, bs, nblocks, scale, out_kind,
-                  regs, num_exponents, qmin, qmax, inv_s, stream);
+    const void* q, const void* k_pool, const void* v_pool, const void* k_exp,
+    const void* v_exp, int kv_bits, const void* table, int table_stride,
+    const void* lengths, void* out, int slots, int h, int kvh, int d, int bs,
+    int nblocks, float scale, int dtype, int out_kind, const void* regs,
+    int num_exponents, int qmin, int qmax, float inv_s, void* stream) {
+  const Args a{true, q,
+               Pools{(const uint8_t*)k_pool, (const uint8_t*)v_pool,
+                     (const int8_t*)k_exp, (const int8_t*)v_exp},
+               (const int32_t*)table, table_stride, (const int32_t*)lengths,
+               out, slots, 1, h, kvh, bs, nblocks, scale, out_kind,
+               Epilogue{}, (cudaStream_t)stream};
+  return dispatch(a, dtype, d, kv_bits, regs, num_exponents, qmin, qmax,
+                  inv_s);
 }
 
 extern "C" int paged_prefill_launch(
-    const void* q, const void* k_pool, const void* v_pool, const void* table,
-    int table_stride, const void* starts, void* out, int batch, int chunk,
-    int h, int kvh, int d, int bs, int nblocks, float scale, int dtype,
-    int out_kind, const void* regs, int num_exponents, int qmin, int qmax,
-    float inv_s, void* stream) {
-  return dispatch(false, dtype, d, q, k_pool, v_pool, table, table_stride,
-                  starts, out, batch, chunk, h, kvh, bs, nblocks, scale,
-                  out_kind, regs, num_exponents, qmin, qmax, inv_s, stream);
+    const void* q, const void* k_pool, const void* v_pool, const void* k_exp,
+    const void* v_exp, int kv_bits, const void* table, int table_stride,
+    const void* starts, void* out, int batch, int chunk, int h, int kvh, int d,
+    int bs, int nblocks, float scale, int dtype, int out_kind,
+    const void* regs, int num_exponents, int qmin, int qmax, float inv_s,
+    void* stream) {
+  const Args a{false, q,
+               Pools{(const uint8_t*)k_pool, (const uint8_t*)v_pool,
+                     (const int8_t*)k_exp, (const int8_t*)v_exp},
+               (const int32_t*)table, table_stride, (const int32_t*)starts,
+               out, batch, chunk, h, kvh, bs, nblocks, scale, out_kind,
+               Epilogue{}, (cudaStream_t)stream};
+  return dispatch(a, dtype, d, kv_bits, regs, num_exponents, qmin, qmax,
+                  inv_s);
 }

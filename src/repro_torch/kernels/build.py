@@ -25,7 +25,7 @@ from typing import Dict, Iterable, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("grau", "paged_attention")
+SOURCES = ("grau", "paged_attention", "matmul_wq")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

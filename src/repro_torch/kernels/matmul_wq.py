@@ -1,0 +1,143 @@
+"""Weight-quantized matrix product as a hand-written CUDA kernel for Hopper
+(csrc/matmul_wq.cu), with the GRAU epilogue optionally fused.
+
+Replaces the JAX package's kernels/matmul_wq.py::matmul_wq_pallas: float
+activations x (M, K) against a packed 2-D quant/weights.QuantWeight with
+contraction axis -2 — payload q (K or K/2, N) int8, exponents e (K/tile, N)
+int8 — summing x[:, tile] @ (q_tile * 2^e_tile) over the k-tiles in f32.
+The output is x's dtype (the reference kernel's `out_dtype = x.dtype`), or
+with `spec` the 8-bit GRAU bus of the full sum scaled by f32(1/s_in).
+
+Bound on the H100: memory bytes (the weight stream at M = 8 / 32); the
+source note in the .cu file has the numbers and what the design does about
+them. M above 32 runs as a grid over row tiles of 32.
+
+`matmul_wq` launches the kernel for CUDA tensors and runs `matmul_wq_plain`
+(the same per-tile f32 accumulation in torch) for CPU tensors; it counts
+`.launches` and `.epilogue_launches` (those with the fused GRAU datapath).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build as kbuild
+from repro_torch.kernels.grau import out_dtype as grau_out_dtype
+from repro_torch.kernels.ref import attn_output_quant, inv_scale
+from repro_torch.pwlf.spec import GRAUSpec
+from repro_torch.quant.pot import dequantize_pot, unpack_int4
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {"matmul_wq_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _P, _I, _I, _I, _F, _P)}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_OUT_F32, _OUT_BF16, _OUT_GRAU = 0, 1, 2
+
+
+def _check(x, q, e, bits: int, kdim: int) -> int:
+    """Validate the 2-D operands; returns the tile width."""
+    if x.dim() != 2 or q.dim() != 2 or e.dim() != 2:
+        raise ValueError(f"matmul_wq wants 2-D x, q, e; got {tuple(x.shape)}"
+                         f", {tuple(q.shape)}, {tuple(e.shape)}")
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    if q.dtype != torch.int8 or e.dtype != torch.int8:
+        raise ValueError("payload and exponents must be int8")
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"x dtype {x.dtype}: want float32 or bfloat16")
+    m, k = x.shape
+    kt, n = e.shape
+    if k != kdim or kt < 1 or kdim % kt:
+        raise ValueError(f"x has K={k}; weight kdim={kdim} with {kt} tiles")
+    tile = kdim // kt
+    if bits == 4 and tile % 2:
+        raise ValueError(f"tile {tile} is odd: 4-bit tiles pack in pairs")
+    want = (kdim if bits == 8 else kdim // 2, n)
+    if tuple(q.shape) != want:
+        raise ValueError(f"payload shape {tuple(q.shape)}, want {want}")
+    devs = {x.device, q.device, e.device}
+    if len(devs) != 1:
+        raise ValueError(f"all inputs must share one device, got {devs}")
+    dev = x.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda":
+        for name, t in (("q", q), ("e", e)):
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        if n % 16:
+            raise ValueError(f"N={n} must be a multiple of 16 (the kernel "
+                             "reads weight rows in 16-byte vectors)")
+        if q.data_ptr() % 16 or e.data_ptr() % 16:
+            raise ValueError("payload and exponents must start on a 16-byte "
+                             "boundary")
+    return tile
+
+
+def matmul_wq_plain(x: torch.Tensor, q: torch.Tensor, e: torch.Tensor, *,
+                    bits: int, kdim: int, spec: Optional[GRAUSpec] = None,
+                    s_in: float = 1.0) -> torch.Tensor:
+    """Plain torch version of the kernel (2-D operands): per k-tile, unpack
+    and dequantize the tile exactly, accumulate x_tile @ w_tile in f32."""
+    kt, n = e.shape
+    tile = kdim // kt
+    tp = q.shape[0] // kt
+    xf = x.float()
+    acc = torch.zeros((x.shape[0], n), dtype=torch.float32, device=x.device)
+    for i in range(kt):
+        qt = q[i * tp:(i + 1) * tp]
+        if bits == 4:
+            qt = unpack_int4(qt.t()).t()          # rows [0, t/2) low nibbles
+        acc += xf[:, i * tile:(i + 1) * tile] @ dequantize_pot(qt, e[i])
+    if spec is not None:
+        return attn_output_quant(acc, spec, s_in)
+    return acc.to(x.dtype)
+
+
+def _launch(x, q, e, *, bits, kdim, tile, spec, s_in):
+    m, n = x.shape[0], e.shape[1]
+    if spec is not None:
+        out = torch.empty((m, n), dtype=grau_out_dtype(spec.qmin),
+                          device=x.device)
+        regs = spec.packed(x.device)
+        epi = (regs.data_ptr(), spec.num_exponents, spec.qmin, spec.qmax,
+               inv_scale(s_in))
+        out_kind = _OUT_GRAU
+    else:
+        out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+        epi = (None, 0, 0, 0, 0.0)
+        out_kind = _OUT_F32 if x.dtype == torch.float32 else _OUT_BF16
+    lib = kbuild.library("matmul_wq", SIGNATURES)
+    err = lib.matmul_wq_launch(
+        x.data_ptr(), q.data_ptr(), e.data_ptr(), out.data_ptr(), m, n, kdim,
+        tile, bits, _DTYPE_CODE[x.dtype], out_kind, *epi,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kbuild.check(err, "matmul_wq_launch")
+    return out
+
+
+def matmul_wq(x: torch.Tensor, w, spec: Optional[GRAUSpec] = None, *,
+              s_in: float = 1.0) -> torch.Tensor:
+    """x (..., K) @ a packed 2-D QuantWeight (contraction axis -2) ->
+    (..., N): the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors. With `spec` the fused GRAU epilogue emits the 8-bit bus."""
+    if w.q.dim() != 2 or w.caxis != -2:
+        raise ValueError(f"matmul_wq wants a 2-D weight packed along axis "
+                         f"-2, got q {tuple(w.q.shape)} caxis {w.caxis}")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    tile = _check(x2, w.q, w.e, w.bits, w.kdim)
+    if x2.device.type == "cpu":
+        out = matmul_wq_plain(x2, w.q, w.e, bits=w.bits, kdim=w.kdim,
+                              spec=spec, s_in=s_in)
+    else:
+        out = _launch(x2.contiguous(), w.q, w.e, bits=w.bits, kdim=w.kdim,
+                      tile=tile, spec=spec, s_in=s_in)
+        matmul_wq.launches += 1
+        matmul_wq.epilogue_launches += spec is not None
+    return out.reshape(*lead, out.shape[-1])
+
+
+matmul_wq.launches = matmul_wq.epilogue_launches = 0

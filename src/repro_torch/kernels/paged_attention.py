@@ -19,14 +19,21 @@ rows, KV head, batch row) loops over the live blocks with the (m, l, acc)
 carry in shared memory and registers — the TPU grid's sequential block axis
 made a loop.
 
+Quantized pools (`kv_bits` 8 or 4, quant/kv.py): the pools are int8 words
+of width packed_head_dim(d, kv_bits) and `k_exp` / `v_exp` the
+(num_blocks, kvh) int8 power-of-two exponent planes; both kernels dequantize
+each block exactly at load (the reference's in-VMEM `_dequant_tile`), so the
+bytes they move follow kv_bits.
+
 Epilogue: with `spec` (+ `s_in`) the normalised f32 output is scaled by
 f32(1/s_in), rounded half to even with saturation, and pushed through the
 shared GRAU datapath (csrc/grau_datapath.cuh), emitting the 8-bit bus.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain torch
 version (`*_plain`: the same online-softmax recurrence over the live blocks)
-for CPU tensors. `.launches` counts kernel launches and
-`.epilogue_launches` those that ran the fused GRAU datapath.
+for CPU tensors. `.launches` counts kernel launches, `.epilogue_launches`
+those that ran the fused GRAU datapath, and `.kv8_launches` /
+`.kv4_launches` those on 8- and 4-bit pools.
 """
 from __future__ import annotations
 
@@ -39,9 +46,11 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.grau import out_dtype as grau_out_dtype
 from repro_torch.kernels.ref import NEG_INF, attn_output_quant, inv_scale
 from repro_torch.pwlf.spec import GRAUSpec
+from repro_torch.quant import kv as kvq
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_COMMON = (_P, _P, _P, _P, _I, _P, _P)            # q, k, v, table, stride, start/len, out
+# q, k, v, k_exp, v_exp, kv_bits, table, stride, start/len, out
+_COMMON = (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P)
 SIGNATURES = {
     "paged_decode_launch": _COMMON + (_I, _I, _I, _I, _I, _I, _F, _I, _I,
                                       _P, _I, _I, _I, _F, _P),
@@ -53,27 +62,42 @@ _OUT_F32, _OUT_BF16, _OUT_GRAU = 0, 1, 2
 HEAD_DIMS = (32, 64, 128, 256)
 
 
-def _check_kv_bits(kv_bits: int) -> None:
-    if kv_bits != 16:
-        raise NotImplementedError(
-            f"kv_bits={kv_bits}: quantized KV pools (in-kernel 8/4-bit "
-            "dequant and quant/kv.py) are not ported yet — ROADMAP A6")
-
-
-def _check(q, k_pool, v_pool, block_table, start, *, rows_dim: int,
-           out_dtype) -> None:
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"q dtype {q.dtype}: want float32 or bfloat16")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise ValueError("pools must have q's dtype (16-bit float pools)")
+def _check_pools(q, k_pool, v_pool, k_exp, v_exp, kv_bits: int) -> None:
+    """16-bit pools have q's dtype; 8/4-bit pools are int8 of width
+    packed_head_dim(d, kv_bits) with (num_blocks, kvh) int8 exponents."""
+    kvq.validate_kv_bits(kv_bits)
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"pools must be (num_blocks, block_size, kvh, d), "
                          f"got {tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
     h, d = q.shape[-2], q.shape[-1]
-    kvh = k_pool.shape[2]
-    if k_pool.shape[3] != d or h % kvh:
+    nb, kvh = k_pool.shape[0], k_pool.shape[2]
+    if kv_bits == 16:
+        if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+            raise ValueError("16-bit pools must have q's dtype")
+        if k_exp is not None or v_exp is not None:
+            raise ValueError("exponent planes belong to 8/4-bit pools")
+        width = d
+    else:
+        if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+            raise ValueError(f"kv_bits={kv_bits} pools must be int8")
+        for name, e in (("k_exp", k_exp), ("v_exp", v_exp)):
+            if (e is None or e.dtype != torch.int8
+                    or tuple(e.shape) != (nb, kvh)):
+                raise ValueError(f"kv_bits={kv_bits} needs {name} as a "
+                                 f"({nb}, {kvh}) int8 exponent plane")
+        width = kvq.packed_head_dim(d, kv_bits)
+    if k_pool.shape[3] != width or h % kvh:
         raise ValueError(f"head layout mismatch: q heads {h} x {d}, pool "
-                         f"kv heads {kvh} x {k_pool.shape[3]}")
+                         f"kv heads {kvh} x {k_pool.shape[3]} at "
+                         f"kv_bits={kv_bits}")
+
+
+def _check(q, k_pool, v_pool, block_table, start, *, rows_dim: int,
+           out_dtype, k_exp=None, v_exp=None, kv_bits: int = 16) -> None:
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"q dtype {q.dtype}: want float32 or bfloat16")
+    _check_pools(q, k_pool, v_pool, k_exp, v_exp, kv_bits)
+    d = q.shape[-1]
     if (block_table.dim() != 2 or block_table.dtype != torch.int32
             or block_table.shape[0] != q.shape[0]
             or block_table.shape[1] < 1):
@@ -83,7 +107,8 @@ def _check(q, k_pool, v_pool, block_table, start, *, rows_dim: int,
                          f"({q.shape[0]},) int32")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype {out_dtype}: want float32 or bfloat16")
-    devs = {t.device for t in (q, k_pool, v_pool, block_table, start)}
+    exps = [e for e in (k_exp, v_exp) if e is not None]
+    devs = {t.device for t in (q, k_pool, v_pool, block_table, start, *exps)}
     if len(devs) != 1:
         raise ValueError(f"all inputs must share one device, got {devs}")
     dev = q.device
@@ -95,19 +120,29 @@ def _check(q, k_pool, v_pool, block_table, start, *, rows_dim: int,
         if block_table.stride(1) != 1:
             raise ValueError("block_table rows must be contiguous")
         for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                        ("start", start)):
-            if not t.is_contiguous():
+                        ("start", start), ("k_exp", k_exp), ("v_exp", v_exp)):
+            if t is not None and not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
         if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
             raise ValueError("pools must start on a 16-byte boundary (the "
                              "kernels read K/V in 16-byte vectors)")
 
 
+def _block_loader(k_pool, v_pool, k_exp, v_exp, kv_bits):
+    """blk (b,) -> the f32 K and V blocks (b, bs, kvh, d): an upcast of
+    16-bit pools, or quant/kv.load_block's exact dequant."""
+    if kv_bits == 16:
+        return lambda blk: (k_pool[blk].float(), v_pool[blk].float())
+    return lambda blk: (kvq.load_block(k_pool[blk], k_exp[blk], kv_bits),
+                        kvq.load_block(v_pool[blk], v_exp[blk], kv_bits))
+
+
 def _attend_plain(qr, k_pool, v_pool, block_table, start, chunk, groups,
-                  scale):
+                  scale, k_exp=None, v_exp=None, kv_bits=16):
     """The kernels' recurrence in plain torch. qr: (b, kvh, R, d) f32 query
     rows ordered (chunk row, group); row (c, gi) attends positions
     <= start + c. Returns the normalised (b, kvh, R, d) f32 output."""
+    load = _block_loader(k_pool, v_pool, k_exp, v_exp, kv_bits)
     b, kvh, rows, d = qr.shape
     bs = k_pool.shape[1]
     nblocks = block_table.shape[1]
@@ -119,9 +154,7 @@ def _attend_plain(qr, k_pool, v_pool, block_table, start, chunk, groups,
     l = torch.zeros((b, kvh, rows, 1), device=dev)
     acc = torch.zeros((b, kvh, rows, d), device=dev)
     for j in range(int(live.max())):
-        blk = block_table[:, j].long()
-        k = k_pool[blk].float()                                     # (b, bs, kvh, d)
-        v = v_pool[blk].float()
+        k, v = load(block_table[:, j].long())                       # (b, bs, kvh, d)
         lg = torch.einsum("bkrd,btkd->bkrt", qr, k) * scale
         pos = j * bs + torch.arange(bs, device=dev)
         valid = pos[None, None, :] <= row_end[:, :, None]            # (b, R, bs)
@@ -144,7 +177,8 @@ def _finish_plain(o, spec, s_in, out_dtype):
 
 
 def paged_attention_plain(q, k_pool, v_pool, block_table, lengths, *,
-                          scale=None, spec=None, s_in=None, out_dtype=None):
+                          scale=None, spec=None, s_in=None, out_dtype=None,
+                          k_exp=None, v_exp=None, kv_bits=16):
     """Plain torch version of the decode kernel (same arguments)."""
     slots, h, d = q.shape
     kvh = k_pool.shape[2]
@@ -152,13 +186,14 @@ def paged_attention_plain(q, k_pool, v_pool, block_table, lengths, *,
     scale = scale if scale is not None else d ** -0.5
     qr = q.reshape(slots, kvh, g, d).float()
     o = _attend_plain(qr, k_pool, v_pool, block_table, lengths.long() - 1, 1,
-                      g, scale)
+                      g, scale, k_exp, v_exp, kv_bits)
     return _finish_plain(o.reshape(slots, h, d), spec, s_in,
                          out_dtype or q.dtype)
 
 
 def paged_prefill_plain(q, k_pool, v_pool, block_table, start, *,
-                        scale=None, spec=None, s_in=None, out_dtype=None):
+                        scale=None, spec=None, s_in=None, out_dtype=None,
+                        k_exp=None, v_exp=None, kv_bits=16):
     """Plain torch version of the prefill kernel (same arguments)."""
     b, chunk, h, d = q.shape
     kvh = k_pool.shape[2]
@@ -166,14 +201,15 @@ def paged_prefill_plain(q, k_pool, v_pool, block_table, start, *,
     scale = scale if scale is not None else d ** -0.5
     qr = (q.reshape(b, chunk, kvh, g, d).permute(0, 2, 1, 3, 4)
           .reshape(b, kvh, chunk * g, d).float())
-    o = _attend_plain(qr, k_pool, v_pool, block_table, start, chunk, g, scale)
+    o = _attend_plain(qr, k_pool, v_pool, block_table, start, chunk, g, scale,
+                      k_exp, v_exp, kv_bits)
     o = (o.reshape(b, kvh, chunk, g, d).permute(0, 2, 1, 3, 4)
          .reshape(b, chunk, h, d))
     return _finish_plain(o, spec, s_in, out_dtype or q.dtype)
 
 
 def _launch(fn_name, q, k_pool, v_pool, block_table, start, shape_args, *,
-            scale, spec, s_in, out_dtype):
+            scale, spec, s_in, out_dtype, k_exp, v_exp, kv_bits):
     d = q.shape[-1]
     if spec is not None:
         out = torch.empty(q.shape, dtype=grau_out_dtype(spec.qmin),
@@ -189,6 +225,8 @@ def _launch(fn_name, q, k_pool, v_pool, block_table, start, shape_args, *,
     lib = kbuild.library("paged_attention", SIGNATURES)
     err = getattr(lib, fn_name)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_exp.data_ptr() if k_exp is not None else None,
+        v_exp.data_ptr() if v_exp is not None else None, kv_bits,
         block_table.data_ptr(), block_table.stride(0), start.data_ptr(),
         out.data_ptr(), *shape_args, k_pool.shape[2], d, k_pool.shape[1],
         block_table.shape[1], scale, _DTYPE_CODE[q.dtype], out_kind, *epi,
@@ -207,6 +245,8 @@ def paged_attention(
     scale: Optional[float] = None,
     spec: Optional[GRAUSpec] = None,
     s_in: Optional[float] = None,
+    k_exp: Optional[torch.Tensor] = None,   # (num_blocks, kvh) int8
+    v_exp: Optional[torch.Tensor] = None,
     kv_bits: int = 16,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
@@ -216,27 +256,27 @@ def paged_attention(
     the table may be a column slice of a wider one (its row stride is
     passed). With `spec` (+ `s_in`, the f32 -> MAC-domain scale) the GRAU
     epilogue quantizes the output to the spec's 8-bit bus; otherwise the
-    output dtype is `out_dtype` (default: q's).
+    output dtype is `out_dtype` (default: q's). With `kv_bits` 8 or 4 the
+    pools are packed int8 with exponent planes `k_exp` / `v_exp`.
     """
-    _check_kv_bits(kv_bits)
     if spec is not None and s_in is None:
         raise ValueError("the GRAU epilogue needs s_in")
     out_dtype = out_dtype or q.dtype
     if q.dim() != 3:
         raise ValueError(f"q must be (slots, h, d), got {tuple(q.shape)}")
+    kw = dict(k_exp=k_exp, v_exp=v_exp, kv_bits=kv_bits)
     _check(q, k_pool, v_pool, block_table, lengths, rows_dim=1,
-           out_dtype=out_dtype)
+           out_dtype=out_dtype, **kw)
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, block_table, lengths,
                                      scale=scale, spec=spec, s_in=s_in,
-                                     out_dtype=out_dtype)
+                                     out_dtype=out_dtype, **kw)
     slots, h, _ = q.shape
     out = _launch("paged_decode_launch", q, k_pool, v_pool, block_table,
                   lengths, (slots, h), scale=scale, spec=spec, s_in=s_in,
-                  out_dtype=out_dtype)
-    paged_attention.launches += 1
-    paged_attention.epilogue_launches += spec is not None
+                  out_dtype=out_dtype, **kw)
+    _count(paged_attention, spec, kv_bits)
     return out
 
 
@@ -250,6 +290,8 @@ def paged_prefill_attention(
     scale: Optional[float] = None,
     spec: Optional[GRAUSpec] = None,
     s_in: Optional[float] = None,
+    k_exp: Optional[torch.Tensor] = None,   # (num_blocks, kvh) int8
+    v_exp: Optional[torch.Tensor] = None,
     kv_bits: int = 16,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
@@ -257,30 +299,36 @@ def paged_prefill_attention(
 
     Row r attends pool positions 0..start+r (the already-resident prefix
     plus the chunk's own blocks, which must already be written through the
-    table). Same epilogue and output rules as `paged_attention`.
+    table). Same epilogue, pool and output rules as `paged_attention`.
     """
-    _check_kv_bits(kv_bits)
     if spec is not None and s_in is None:
         raise ValueError("the GRAU epilogue needs s_in")
     out_dtype = out_dtype or q.dtype
     if q.dim() != 4:
         raise ValueError(f"q must be (b, C, h, d), got {tuple(q.shape)}")
+    kw = dict(k_exp=k_exp, v_exp=v_exp, kv_bits=kv_bits)
     _check(q, k_pool, v_pool, block_table, start, rows_dim=2,
-           out_dtype=out_dtype)
+           out_dtype=out_dtype, **kw)
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
     if q.device.type == "cpu":
         return paged_prefill_plain(q, k_pool, v_pool, block_table, start,
                                    scale=scale, spec=spec, s_in=s_in,
-                                   out_dtype=out_dtype)
+                                   out_dtype=out_dtype, **kw)
     b, chunk, h, _ = q.shape
     out = _launch("paged_prefill_launch", q, k_pool, v_pool, block_table,
                   start, (b, chunk, h), scale=scale, spec=spec, s_in=s_in,
-                  out_dtype=out_dtype)
-    paged_prefill_attention.launches += 1
-    paged_prefill_attention.epilogue_launches += spec is not None
+                  out_dtype=out_dtype, **kw)
+    _count(paged_prefill_attention, spec, kv_bits)
     return out
 
 
-paged_attention.launches = paged_attention.epilogue_launches = 0
-paged_prefill_attention.launches = 0
-paged_prefill_attention.epilogue_launches = 0
+def _count(fn, spec, kv_bits: int) -> None:
+    fn.launches += 1
+    fn.epilogue_launches += spec is not None
+    fn.kv8_launches += kv_bits == 8
+    fn.kv4_launches += kv_bits == 4
+
+
+for _fn in (paged_attention, paged_prefill_attention):
+    _fn.launches = _fn.epilogue_launches = 0
+    _fn.kv8_launches = _fn.kv4_launches = 0

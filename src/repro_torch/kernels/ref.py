@@ -1,8 +1,4 @@
-"""Plain torch oracles for the kernels (the correctness ground truth).
-
-Float pools only: the kv_bits 8/4 variants of the paged oracles arrive with
-the port of quant/kv.py.
-"""
+"""Plain torch oracles for the kernels (the correctness ground truth)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -13,6 +9,7 @@ import torch
 from repro_torch.core.grau import grau_apply_int
 from repro_torch.kernels.grau import out_dtype
 from repro_torch.pwlf.spec import GRAUSpec
+from repro_torch.quant import kv as kvq
 
 NEG_INF = -1e30
 _I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
@@ -45,14 +42,33 @@ def attn_output_quant(o: torch.Tensor, spec: GRAUSpec,
     return grau_apply_int(xq, spec).to(out_dtype(spec.qmin))
 
 
-def _dense_kv_views(k_pool, v_pool, block_table):
-    """Gather the per-slot dense K/V views through the block table."""
+def matmul_wq_ref(x: torch.Tensor, w, spec: Optional[GRAUSpec] = None,
+                  s_in: float = 1.0) -> torch.Tensor:
+    """Oracle for kernels/matmul_wq.py: f32 x @ quant/weights.dense(w) (a
+    raw tensor makes it plain dense), then optionally the GRAU epilogue."""
+    from repro_torch.quant import weights as wq
+    out = x.float() @ wq.dense(w)
+    if spec is None:
+        return out
+    return attn_output_quant(out, spec, s_in)
+
+
+def dense_kv_views(k_pool, v_pool, block_table, *, k_exp=None, v_exp=None,
+                    kv_bits: int = 16):
+    """Gather (and, for 8/4-bit pools, dequantize through quant/kv.
+    load_block) the per-slot dense K/V views through the block table."""
     rows, nblocks = block_table.shape
-    block_size, kvh, hd = k_pool.shape[1], k_pool.shape[2], k_pool.shape[3]
+    block_size, kvh = k_pool.shape[1], k_pool.shape[2]
     seq = nblocks * block_size
     idx = block_table.long()
-    return (k_pool[idx].reshape(rows, seq, kvh, hd),
-            v_pool[idx].reshape(rows, seq, kvh, hd))
+    if kv_bits < 16:
+        hd = k_pool.shape[3] * (2 if kv_bits == 4 else 1)
+        kd = kvq.load_block(k_pool[idx], k_exp[idx], kv_bits)
+        vd = kvq.load_block(v_pool[idx], v_exp[idx], kv_bits)
+    else:
+        hd = k_pool.shape[3]
+        kd, vd = k_pool[idx], v_pool[idx]
+    return kd.reshape(rows, seq, kvh, hd), vd.reshape(rows, seq, kvh, hd)
 
 
 def paged_attention_ref(
@@ -65,6 +81,9 @@ def paged_attention_ref(
     scale: Optional[float] = None,
     spec: Optional[GRAUSpec] = None,
     s_in: Optional[float] = None,
+    k_exp: Optional[torch.Tensor] = None,
+    v_exp: Optional[torch.Tensor] = None,
+    kv_bits: int = 16,
 ) -> torch.Tensor:
     """Oracle for the decode kernel: gather the dense per-slot view through
     the block table, run masked softmax attention, optionally apply the GRAU
@@ -73,7 +92,8 @@ def paged_attention_ref(
     kvh = k_pool.shape[2]
     g = h // kvh
     scale = scale if scale is not None else d ** -0.5
-    kd, vd = _dense_kv_views(k_pool, v_pool, block_table)
+    kd, vd = dense_kv_views(k_pool, v_pool, block_table, k_exp=k_exp,
+                             v_exp=v_exp, kv_bits=kv_bits)
     qg = q.reshape(slots, kvh, g, d)
     logits = torch.einsum("bkgd,bskd->bkgs", qg.float(), kd.float()) * scale
     pos = torch.arange(kd.shape[1], device=q.device)
@@ -97,6 +117,9 @@ def paged_prefill_ref(
     scale: Optional[float] = None,
     spec: Optional[GRAUSpec] = None,
     s_in: Optional[float] = None,
+    k_exp: Optional[torch.Tensor] = None,
+    v_exp: Optional[torch.Tensor] = None,
+    kv_bits: int = 16,
 ) -> torch.Tensor:
     """Oracle for the chunked-prefill kernel: chunk row r attends positions
     0..start+r of the gathered dense view."""
@@ -104,7 +127,8 @@ def paged_prefill_ref(
     kvh = k_pool.shape[2]
     g = h // kvh
     scale = scale if scale is not None else d ** -0.5
-    kd, vd = _dense_kv_views(k_pool, v_pool, block_table)
+    kd, vd = dense_kv_views(k_pool, v_pool, block_table, k_exp=k_exp,
+                             v_exp=v_exp, kv_bits=kv_bits)
     qg = q.reshape(b, chunk, kvh, g, d)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), kd.float()) * scale
     pos = torch.arange(kd.shape[1], device=q.device)

@@ -6,6 +6,8 @@ Examples:
       --requests 8 --slots 8 --max-seq 2048
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --grau --attn-grau identity
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --dtype float32 --weight-bits 4 --kv-bits 4 --grau --attn-grau identity
 
 Weights are random, drawn from --seed on the device (the published weight
 files are not in the repository). The device defaults to CUDA; without a
@@ -48,6 +50,14 @@ def main(argv=None) -> None:
     ap.add_argument("--attn-grau", default=None, metavar="ACT",
                     help="fuse a GRAU epilogue fitted to ACT (e.g. identity) "
                          "on the attention output")
+    ap.add_argument("--kv-bits", type=int, choices=[16, 8, 4], default=None,
+                    help="KV-pool precision: 16 = float pools, 8/4 = packed "
+                         "int pools with power-of-two block exponents")
+    ap.add_argument("--weight-bits", type=int, choices=[16, 8, 4],
+                    default=None,
+                    help="serving-weight precision: 16 = float, 8/4 = packed "
+                         "power-of-two planes (the MLP runs the matmul_wq "
+                         "kernel)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -72,7 +82,7 @@ def main(argv=None) -> None:
                    else None),
         prefill_chunk=args.prefill_chunk,
         prefill_token_budget=args.prefill_budget, policy=args.policy,
-        seed=args.seed)
+        kv_bits=args.kv_bits, weight_bits=args.weight_bits, seed=args.seed)
     engine = ServeEngine(cfg, params, ecfg, device=device)
     engine.warmup()
     rng = np.random.default_rng(args.seed)

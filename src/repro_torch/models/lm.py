@@ -4,8 +4,9 @@ paged decode steps.
 Parameters: {"embed", "ln_f_w" (+"ln_f_b"), ["head"], "group{i}": [per
 repeat {"l{j}": layer params}]} — the JAX package's tree with each group's
 stacked `stack` axis unrolled into a list (models/convert.py maps one to the
-other). Caches: a tuple per group of per-period-layer PagedKVCache pools,
-each with a leading repeats axis, exactly the JAX package's pool tree.
+other); a leaf may be a packed quant/weights.QuantWeight. Caches: a tuple
+per group of per-period-layer PagedKVCache or QuantPagedKVCache pools, each
+with a leading repeats axis, exactly the JAX package's pool tree.
 """
 from __future__ import annotations
 
@@ -15,9 +16,10 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import blocks
-from repro_torch.nn.attention import PagedKVCache, PagedState
+from repro_torch.nn.attention import PagedState, cache_slice
 from repro_torch.nn.common import act_fn, init_param
 from repro_torch.nn.rope import rope_tables
+from repro_torch.quant import weights as wq_lib
 
 
 def resolve_device(device=None) -> torch.device:
@@ -60,9 +62,10 @@ def init_lm(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     return params
 
 
-def make_act(cfg: ModelConfig, device="cpu"):
+def make_act(cfg: ModelConfig, device):
     """The MLP activation: exact float, or the GRAU QAT surrogate whose
-    register file is fitted on the host and placed on `device` once."""
+    register file is fitted on the host and placed on `device` once (the
+    caller's device: there is no host default)."""
     if cfg.grau is None:
         return act_fn(cfg.activation)
     from repro_torch.nn.common import build_lm_grau
@@ -77,29 +80,40 @@ def make_act(cfg: ModelConfig, device="cpu"):
 # Forward
 # ---------------------------------------------------------------------------
 
+def compute_dtype(params) -> torch.dtype:
+    """The activations' dtype: the float embedding's, or, when the embedding
+    is packed, the final norm's."""
+    embed = params["embed"]
+    if isinstance(embed, wq_lib.QuantWeight):
+        return params["ln_f_w"].dtype
+    return embed.dtype
+
+
 def _hidden(params, cfg: ModelConfig, tokens, *, mode, caches, positions,
             act, paged: PagedState, paged_impl, attn_quant):
-    """Embed -> layers (pools updated in place) -> final norm. The rope
-    tables are built once and shared by every layer."""
-    x = params["embed"][tokens.long()]
+    """Embed (a packed table dequantizes only the gathered rows) -> layers
+    (pools updated in place) -> final norm. The rope tables are built once
+    and shared by every layer."""
+    x = wq_lib.take_rows(params["embed"], tokens).to(compute_dtype(params))
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     for gi, (period, repeats) in enumerate(cfg.groups):
         group = params[f"group{gi}"]
         for r in range(repeats):
             for li, spec in enumerate(period):
-                pool = caches[gi][li]
                 x, _ = blocks.apply_layer(
                     group[r][f"l{li}"], x, spec, cfg, rope=rope,
-                    act=act, cache=PagedKVCache(pool.k[r], pool.v[r]),
+                    act=act, cache=cache_slice(caches[gi][li], r),
                     mode=mode, paged=paged, paged_impl=paged_impl,
                     attn_quant=attn_quant)
     return blocks.apply_norm(params, "ln_f", x, cfg.norm, cfg.norm_eps)
 
 
 def _head(params, cfg: ModelConfig, x):
+    """Logits: tied through the embedding, or an untied head; packed tables
+    dequantize through wq_lib.dense (in x's dtype), as in the reference."""
     if cfg.tie_embeddings:
-        return x @ params["embed"].t()
-    return x @ params["head"]
+        return x @ wq_lib.dense(params["embed"], x.dtype).t()
+    return x @ wq_lib.dense(params["head"], x.dtype)
 
 
 def apply_lm(params, cfg: ModelConfig, tokens, *, mode: str, caches,

@@ -1,6 +1,8 @@
-"""Attention over the paged KV pool (float pools): write paths, the gathered
-dense view, and decode / chunked-prefill attention through either the CUDA
-kernels ("kernel") or the gathered view ("gather").
+"""Attention over the paged KV pool: write paths, the gathered dense view,
+and decode / chunked-prefill attention through either the CUDA kernels
+("kernel") or the gathered view ("gather"), over float pools
+(PagedKVCache) or packed 8/4-bit pools with power-of-two block exponents
+(QuantPagedKVCache, quant/kv.py).
 
 Unlike the JAX package, whose arrays are immutable, the pool writes here
 update the pool tensors in place (the pools are the largest tensors the
@@ -9,9 +11,11 @@ token); the functions still return the cache so call sites read the same.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import torch
+
+from repro_torch.quant import kv as kvq
 
 NEG_INF = -1e30
 
@@ -56,10 +60,44 @@ class PagedKVCache(NamedTuple):
     v: torch.Tensor
 
 
+class QuantPagedKVCache(NamedTuple):
+    """Quantized block-pool KV storage: int8 words — one value per byte at
+    bits=8, two split-halves nibbles at bits=4 — plus one int8 power-of-two
+    exponent per (block, kv_head) per tensor. Exponents are set by
+    whole-block prefill writes and only ever raised (with a rounding
+    requantization of the resident payload) by decode writes."""
+    k: torch.Tensor          # (num_blocks, block_size, kvh, packed_hd) int8
+    v: torch.Tensor
+    k_exp: torch.Tensor      # (num_blocks, kvh) int8
+    v_exp: torch.Tensor
+    bits: int = 8            # 8 or 4
+
+
+AnyPagedKVCache = Union[PagedKVCache, QuantPagedKVCache]
+
+
+def cache_slice(pool: AnyPagedKVCache, r: int) -> AnyPagedKVCache:
+    """One repeat's pools (views) out of a leaf stacked over repeats."""
+    if isinstance(pool, QuantPagedKVCache):
+        return QuantPagedKVCache(pool.k[r], pool.v[r], pool.k_exp[r],
+                                 pool.v_exp[r], bits=pool.bits)
+    return PagedKVCache(pool.k[r], pool.v[r])
+
+
+def _kernel_pools(cache: AnyPagedKVCache) -> dict:
+    """The pool arguments of the attention kernels for either cache kind."""
+    if isinstance(cache, QuantPagedKVCache):
+        return dict(k_exp=cache.k_exp, v_exp=cache.v_exp, kv_bits=cache.bits)
+    return {}
+
+
 class PagedState(NamedTuple):
     """Per-step slot metadata shared by every layer (not part of the pools)."""
     block_table: torch.Tensor   # (slots, blocks) int32; 0 = unmapped
     length: torch.Tensor        # (slots,) int32 — valid prefix length per slot
+    ctx: Optional[torch.Tensor] = None   # (slots,) int32, chunked prefill
+    # only: each row's real context length. Quantized pools keep positions
+    # >= ctx (chunk padding) out of a block's exponent amax
 
 
 class AttnQuant(NamedTuple):
@@ -72,42 +110,74 @@ class AttnQuant(NamedTuple):
     s_out: float
 
 
-def paged_update(cache: PagedKVCache, k_new: torch.Tensor,
-                 v_new: torch.Tensor, st: PagedState) -> PagedKVCache:
-    """Write one position per slot at logical index `length` via the table
-    (in place). The column index is clamped to the table: a slot the host
-    has retired while the device still counts it (a ghost) has a NULL row,
-    so its write lands in the trash block whatever its length."""
+def _write_slots(cache: AnyPagedKVCache, st: PagedState):
+    """(pool block, offset) of each slot's decode write. The column index is
+    clamped to the table: a slot the host has retired while the device
+    still counts it (a ghost) has a NULL row, so its write lands in the
+    trash block whatever its length."""
     block_size = cache.k.shape[1]
     col = torch.clamp(st.length.long() // block_size,
                       max=st.block_table.shape[1] - 1)
     blk = torch.gather(st.block_table, 1, col[:, None])[:, 0].long()
-    off = (st.length % block_size).long()
+    return blk, (st.length % block_size).long()
+
+
+def _quant_paged_update(cache: QuantPagedKVCache, k_new, v_new,
+                        st: PagedState) -> QuantPagedKVCache:
+    """Decode write into a quantized pool, one position per slot (in
+    place). The block's exponent only rises: e_new = max(resident, token);
+    when it rises the resident payload is requantized by a rounding right
+    shift before the new position lands, so a block stays on one grid."""
+    bits = cache.bits
+    blk, off = _write_slots(cache, st)
+    rows = torch.arange(blk.shape[0], device=blk.device)
+
+    def upd(buf, exp, new):                       # new: (slots, kvh, hd)
+        e_tok = kvq.pot_exponent(new.float().abs().amax(-1), bits)
+        e_old = exp[blk]
+        e_new = torch.maximum(e_old, e_tok)
+        delta = e_new.to(torch.int32) - e_old.to(torch.int32)
+        resident = buf[blk]                       # (slots, bs, kvh, hdp)
+        q = kvq.unpack_int4(resident) if bits == 4 else resident
+        q = kvq.requant_shift(q, delta[:, None, :, None], bits)
+        q[rows, off] = kvq.quantize_pot(new, e_new[..., None], bits)
+        buf[blk] = kvq.pack_int4(q) if bits == 4 else q
+        exp[blk] = e_new
+
+    upd(cache.k, cache.k_exp, k_new[:, 0])
+    upd(cache.v, cache.v_exp, v_new[:, 0])
+    return cache
+
+
+def paged_update(cache: AnyPagedKVCache, k_new: torch.Tensor,
+                 v_new: torch.Tensor, st: PagedState) -> AnyPagedKVCache:
+    """Write one position per slot at logical index `length` via the table
+    (in place; see _write_slots for ghost slots)."""
+    if isinstance(cache, QuantPagedKVCache):
+        return _quant_paged_update(cache, k_new, v_new, st)
+    blk, off = _write_slots(cache, st)
     cache.k[blk, off] = k_new[:, 0].to(cache.k.dtype)
     cache.v[blk, off] = v_new[:, 0].to(cache.v.dtype)
     return cache
 
 
-def paged_view(cache: PagedKVCache, st: PagedState,
+def paged_view(cache: AnyPagedKVCache, st: PagedState,
                max_blocks: Optional[int] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather each slot's blocks into a dense (slots, logical_seq, ...) view
     (transient; garbage read through null-block entries is masked by
     `length` downstream). With `max_blocks`, only the first `max_blocks`
-    table columns are gathered."""
+    table columns are gathered. Quantized pools gather the packed payload
+    and the exponents, then dequantize (an f32 view)."""
     table = (st.block_table if max_blocks is None
              else st.block_table[:, :max_blocks])
-    slots, blocks_per_slot = table.shape
-    block_size, kvh, hd = cache.k.shape[1], cache.k.shape[2], cache.k.shape[3]
-    seq = blocks_per_slot * block_size
-    idx = table.long()
-    return (cache.k[idx].reshape(slots, seq, kvh, hd),
-            cache.v[idx].reshape(slots, seq, kvh, hd))
+    from repro_torch.kernels.ref import dense_kv_views
+    return dense_kv_views(cache.k, cache.v, table, **_kernel_pools(cache))
 
 
 def paged_decode_attention(
     q: torch.Tensor,                  # (b, 1, h, d)
-    cache: PagedKVCache,
+    cache: AnyPagedKVCache,
     st: PagedState,                   # table possibly bucket-sliced; length =
                                       # positions already written - 1
     *,
@@ -129,7 +199,8 @@ def paged_decode_attention(
         o = paged_kernel.paged_attention(
             q[:, 0], cache.k, cache.v, st.block_table, lengths, scale=scale,
             spec=quant.spec if quant is not None else None,
-            s_in=quant.s_in if quant is not None else None)
+            s_in=quant.s_in if quant is not None else None,
+            **_kernel_pools(cache))
         if quant is not None:
             o = o.float() * quant.s_out
         return o[:, None].to(q.dtype)
@@ -144,17 +215,38 @@ def paged_decode_attention(
     return o
 
 
-def paged_prefill_update(cache: PagedKVCache, k_new: torch.Tensor,
-                         v_new: torch.Tensor, st: PagedState) -> PagedKVCache:
+def paged_prefill_update(cache: AnyPagedKVCache, k_new: torch.Tensor,
+                         v_new: torch.Tensor, st: PagedState
+                         ) -> AnyPagedKVCache:
     """Scatter one prefill chunk's K/V into the pool through the table (in
     place). k_new/v_new: (b, C, kvh, hd) with C a block multiple; st.length
     holds each row's block-aligned chunk start. Columns past a slot's
-    reservation are NULL_BLOCK and land in trash."""
+    reservation are NULL_BLOCK and land in trash.
+
+    Quantized pools *set* each written block's exponent (quant/kv.
+    store_block over the whole block): a chunk on the absolute grid always
+    covers whole blocks. With st.ctx, positions >= ctx (chunk padding) stay
+    out of the exponent's amax."""
     block_size = cache.k.shape[1]
     b, chunk = k_new.shape[0], k_new.shape[1]
     assert chunk % block_size == 0, (chunk, block_size)
     pos = (st.length.long()[:, None]
            + torch.arange(chunk, device=k_new.device)[None])        # (b, C)
+    if isinstance(cache, QuantPagedKVCache):
+        nbc = chunk // block_size
+        blk = torch.gather(st.block_table, 1,
+                           pos[:, ::block_size] // block_size).long()
+        valid = None
+        if st.ctx is not None:
+            valid = (pos < st.ctx.long()[:, None]).reshape(b, nbc, block_size)
+        for new, buf, exp in ((k_new, cache.k, cache.k_exp),
+                              (v_new, cache.v, cache.v_exp)):
+            payload, e = kvq.store_block(
+                new.reshape(b, nbc, block_size, *new.shape[2:]), cache.bits,
+                valid=valid)
+            buf[blk] = payload
+            exp[blk] = e
+        return cache
     blk = torch.gather(st.block_table, 1, pos // block_size).long()
     off = pos % block_size
     cache.k[blk, off] = k_new.to(cache.k.dtype)
@@ -164,7 +256,7 @@ def paged_prefill_update(cache: PagedKVCache, k_new: torch.Tensor,
 
 def paged_prefill_attention(
     q: torch.Tensor,                  # (b, C, h, d) — one prefill chunk
-    cache: PagedKVCache,
+    cache: AnyPagedKVCache,
     st: PagedState,                   # table sliced to the chunk-position
                                       # bucket; length = chunk start position
     *,
@@ -181,7 +273,8 @@ def paged_prefill_attention(
         o = paged_kernel.paged_prefill_attention(
             q, cache.k, cache.v, st.block_table, st.length, scale=scale,
             spec=quant.spec if quant is not None else None,
-            s_in=quant.s_in if quant is not None else None)
+            s_in=quant.s_in if quant is not None else None,
+            **_kernel_pools(cache))
         if quant is not None:
             o = o.float() * quant.s_out
         return o.to(q.dtype)
@@ -192,7 +285,8 @@ def paged_prefill_attention(
     o = paged_prefill_ref(q, cache.k, cache.v, st.block_table, st.length,
                           scale=scale,
                           spec=quant.spec if quant is not None else None,
-                          s_in=quant.s_in if quant is not None else None)
+                          s_in=quant.s_in if quant is not None else None,
+                          **_kernel_pools(cache))
     if quant is not None:
         o = o.float() * quant.s_out
     return o.to(q.dtype)

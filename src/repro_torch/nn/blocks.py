@@ -12,9 +12,10 @@ from typing import Callable, Tuple
 import torch
 
 from repro_torch.nn import attention as attn_lib
-from repro_torch.nn.attention import PagedKVCache, PagedState
+from repro_torch.nn.attention import AnyPagedKVCache, PagedState
 from repro_torch.nn.common import init_param, layernorm, rmsnorm
 from repro_torch.nn.rope import rotate
+from repro_torch.quant import weights as wq_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,14 +66,19 @@ def init_attention(cfg, gen: torch.Generator, *, device, dtype) -> dict:
 
 
 def _proj(x, w):
-    """einsum("bsd,dhk->bshk") as one (b*s, d) x (d, h*k) matrix product."""
+    """einsum("bsd,dhk->bshk") as one (b*s, d) x (d, h*k) matrix product.
+    A packed projection is dequantized first (wq_lib.dense, as the
+    reference's _qkv does), in x's dtype: the values are exact in bf16."""
+    w = wq_lib.dense(w, x.dtype)
     b, s, d = x.shape
     return (x.reshape(b * s, d) @ w.reshape(d, -1)).reshape(
         b, s, w.shape[1], w.shape[2])
 
 
 def _out(o, wo):
-    """einsum("bshk,hkd->bsd") as one matrix product."""
+    """einsum("bshk,hkd->bsd") as one matrix product (packed wo through
+    wq_lib.dense)."""
+    wo = wq_lib.dense(wo, o.dtype)
     b, s, h, k = o.shape
     return (o.reshape(b * s, h * k) @ wo.reshape(h * k, -1)).reshape(b, s, -1)
 
@@ -93,9 +99,9 @@ def _rope_qk(q, k, rope):
 
 
 def decode_attention_block(
-    params, x, cfg, *, rope, cache: PagedKVCache, paged: PagedState,
+    params, x, cfg, *, rope, cache: AnyPagedKVCache, paged: PagedState,
     paged_impl: str = "kernel", attn_quant=None,
-) -> Tuple[torch.Tensor, PagedKVCache]:
+) -> Tuple[torch.Tensor, AnyPagedKVCache]:
     """One-token decode through the paged pool. x: (b, 1, d); `rope` holds
     the (cos, sin) tables at positions paged.length (nn/rope.rope_tables).
 
@@ -112,9 +118,9 @@ def decode_attention_block(
 
 
 def paged_prefill_attention_block(
-    params, x, cfg, *, rope, cache: PagedKVCache, paged: PagedState,
+    params, x, cfg, *, rope, cache: AnyPagedKVCache, paged: PagedState,
     paged_impl: str = "kernel", attn_quant=None,
-) -> Tuple[torch.Tensor, PagedKVCache]:
+) -> Tuple[torch.Tensor, AnyPagedKVCache]:
     """One prefill chunk through the paged pool. x: (b, C, d); `rope`
     holds the (cos, sin) tables at the chunk's absolute positions
     paged.length + [0, C).
@@ -146,11 +152,15 @@ def init_mlp(d_model: int, d_ff: int, gated: bool, gen: torch.Generator, *,
 
 
 def apply_mlp(params, x, act: Callable, gated: bool = True):
+    """The MLP through wq_lib.matmul: plain `@` on float weights; packed
+    2-D weights go to the matmul_wq kernel (its plain version on the
+    CPU)."""
     if gated:
-        h = act(x @ params["w_gate"]) * (x @ params["w_up"])
+        h = (act(wq_lib.matmul(x, params["w_gate"]))
+             * wq_lib.matmul(x, params["w_up"]))
     else:
-        h = act(x @ params["w_up"])
-    return h @ params["w_down"]
+        h = act(wq_lib.matmul(x, params["w_up"]))
+    return wq_lib.matmul(h, params["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -177,9 +187,9 @@ def _check_spec(spec: LayerSpec) -> None:
 
 def apply_layer(
     params, x, spec: LayerSpec, cfg, *, rope, act: Callable,
-    cache: PagedKVCache, mode: str, paged: PagedState,
+    cache: AnyPagedKVCache, mode: str, paged: PagedState,
     paged_impl: str = "kernel", attn_quant=None,
-) -> Tuple[torch.Tensor, PagedKVCache]:
+) -> Tuple[torch.Tensor, AnyPagedKVCache]:
     """One dense decoder layer in "decode" or paged "prefill" mode, with
     the (cos, sin) rope tables of its positions. Returns (x, cache); the
     pool is updated in place."""

@@ -16,10 +16,16 @@ covers the longest live context, and attention runs through the CUDA
 kernels (`paged_impl=None` or "kernel"; a CPU engine runs their plain
 versions) or the gathered dense view ("gather", the comparison path).
 
+Precision: one quant/policy.PrecisionPolicy (`precision`, or the uniform
+`kv_bits` / `weight_bits` shorthands) assigns per-layer KV-pool bits (8/4:
+packed pools with power-of-two block exponents, read by the same kernels)
+and serving-weight bits (8/4: the parameter tree is packed once at
+construction; the MLP runs through the matmul_wq kernel).
+
 Left out of this slice (ROADMAP A5/A7/A8): the prefix cache, preemption,
 cancel, deadlines, fault injection and containment, the journal,
-snapshots, telemetry, the mesh, the dense backend, sampled decoding and
-quantized KV/weights. A failing chunk or tick raises to the caller.
+snapshots, telemetry, the mesh, the dense backend and sampled decoding. A
+failing chunk or tick raises to the caller.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ import torch
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn.attention import AttnQuant, PagedState
+from repro_torch.quant import weights as wq_lib
+from repro_torch.quant.policy import PrecisionPolicy
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve import sampling as samp_lib
 from repro_torch.serve.sampling import SamplingParams
@@ -67,6 +75,14 @@ class EngineConfig:
     # page_size multiple); None = 32 rounded up to one page
     prefill_token_budget: Optional[int] = None  # max prefill tokens per
     # tick across all prefilling slots; None = one chunk per tick
+    precision: Optional[Any] = None   # quant/policy.PrecisionPolicy: per-
+    # layer KV-pool bits (16 float; 8/4 packed int pools with power-of-two
+    # block exponents) and serving-weight bits (16 float; 8/4 packed planes)
+    kv_bits: Optional[int] = None     # shorthand: uniform KV precision;
+    # mutually exclusive with `precision`
+    weight_bits: Optional[int] = None  # shorthand: uniform weight precision
+    # (<16 packs the parameter tree once at construction); composes with
+    # kv_bits into one policy; mutually exclusive with `precision`
     policy: str = "fcfs"          # "fcfs" | "prefill" (serve/scheduler.py)
     max_pending_ticks: int = 32   # force a host drain after this many
     # undelivered decode ticks (bounds ghost decode past an unseen EOS)
@@ -93,8 +109,8 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig, *,
                  dtype: Optional[torch.dtype] = None, device=None):
         """`params` must live on `device` (default: CUDA; see
-        lm.resolve_device). `dtype` is the KV pool dtype (default: the
-        parameters')."""
+        lm.resolve_device). `dtype` is the float KV pool dtype (default: the
+        activations', lm.compute_dtype)."""
         self.device = lm.resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -103,8 +119,30 @@ class ServeEngine:
             raise ValueError(f"{cfg.name}: paged KV cache unsupported")
         if ecfg.paged_impl not in (None, "kernel", "gather"):
             raise ValueError(f"unknown paged_impl {ecfg.paged_impl!r}")
+        if ecfg.precision is not None and ecfg.kv_bits is not None:
+            raise ValueError("pass either precision (a PrecisionPolicy) or "
+                             "kv_bits (uniform shorthand), not both")
+        if ecfg.precision is not None and ecfg.weight_bits is not None:
+            raise ValueError("pass either precision (a PrecisionPolicy) or "
+                             "weight_bits (uniform shorthand), not both")
+        if ecfg.kv_bits is not None or ecfg.weight_bits is not None:
+            self.precision = PrecisionPolicy(
+                kv_default_bits=(16 if ecfg.kv_bits is None
+                                 else ecfg.kv_bits),
+                weight_default_bits=(16 if ecfg.weight_bits is None
+                                     else ecfg.weight_bits))
+        else:
+            self.precision = ecfg.precision
+        self._kv_quant = (self.precision is not None
+                          and self.precision.kv_quantized)
+        self._wq = (self.precision is not None
+                    and self.precision.weights_quantized)
+        self.dtype = dtype or lm.compute_dtype(params)
+        if self._wq:
+            # packed once here (int4 evenness validated eagerly); leaves that
+            # are already packed are kept as they are
+            params = wq_lib.pack_params(params, cfg, self.precision)
         self.cfg, self.params, self.ecfg = cfg, params, ecfg
-        self.dtype = dtype or params["embed"].dtype
         self.paged_impl = ecfg.paged_impl or "kernel"
         self._act = lm.make_act(cfg, self.device)
         self._attn_quant = None
@@ -121,7 +159,8 @@ class ServeEngine:
         self.allocator = kvc.BlockAllocator(num_blocks)
         self.caches = kvc.init_paged_caches(cfg, num_blocks, bs,
                                             dtype=self.dtype,
-                                            device=self.device)
+                                            device=self.device,
+                                            policy=self.precision)
         if ecfg.prefill_chunk is None:
             self.prefill_chunk = max(32, bs)
             self.prefill_chunk -= self.prefill_chunk % bs
@@ -185,6 +224,17 @@ class ServeEngine:
                                       "prefill_tokens": 0, "chunks": 0}
         self._requests: Dict[int, Request] = {}
         self._finished_unpolled: List[RequestState] = []
+        wbits = sorted(set(wq_lib.weight_bits_by_layer(
+            cfg, self.precision).values()))
+        kbits = sorted({b for grp in kvc.kv_bits_by_layer(cfg, self.precision)
+                        for b in grp})
+        self._static_metrics: Dict[str, Any] = {
+            "weight_bits": wbits[0] if len(wbits) == 1 else wbits,
+            "weights_quantized": self._wq,
+            "weight_bytes": wq_lib.packed_param_bytes(self.params),
+            "kv_bits": kbits[0] if len(kbits) == 1 else kbits,
+            "kv_quantized": self._kv_quant,
+        }
 
     # --- host -> device ---------------------------------------------------
 
@@ -226,11 +276,15 @@ class ServeEngine:
         )
         return nxt, done
 
-    def _chunk(self, toks: np.ndarray, row: np.ndarray, p0: int) -> None:
+    def _chunk(self, toks: np.ndarray, row: np.ndarray, p0: int,
+               ctx: int) -> None:
         """One chunk of the chunked-prefill state machine: tokens (1, C) at
         absolute positions p0..p0+C-1, written through the slot's (bucket-
-        sliced) table row and attending the already-resident prefix."""
-        st = PagedState(self._h2d(row), self._h2d(np.array([p0], np.int32)))
+        sliced) table row and attending the already-resident prefix. `ctx`
+        (the prompt's real context) keeps chunk padding out of a quantized
+        block's exponent."""
+        st = PagedState(self._h2d(row), self._h2d(np.array([p0], np.int32)),
+                        self._h2d(np.array([ctx], np.int32)))
         lm.prefill_step(self.params, self.cfg, self._h2d(toks), self.caches,
                         paged=st, act=self._act, paged_impl=self.paged_impl,
                         attn_quant=self._attn_quant, want_logits=False)
@@ -328,7 +382,7 @@ class ServeEngine:
         toks = np.zeros((1, C), np.int32)
         n = min(rs.prefill_ctx - p0, C)
         toks[0, :n] = rs.prompt[p0:p0 + n]
-        self._chunk(toks, rs.table_row[None, :W], p0)
+        self._chunk(toks, rs.table_row[None, :W], p0, rs.prefill_ctx)
         rs.prefill_pos = p0 + C
         rs.computed_prefill_tokens += n
         self.stats["prefill_tokens"] += n
@@ -466,7 +520,7 @@ class ServeEngine:
             calls += 1
         toks = np.zeros((1, self.prefill_chunk), np.int32)
         for w in self.chunk_widths:
-            self._chunk(toks, np.full((1, w), kvc.NULL_BLOCK, np.int32), 0)
+            self._chunk(toks, np.full((1, w), kvc.NULL_BLOCK, np.int32), 0, 0)
             calls += 1
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -493,6 +547,7 @@ class ServeEngine:
 
     def metrics(self) -> Dict[str, Any]:
         return {**self.scheduler.metrics(), **self.stats,
+                **self._static_metrics,
                 "paged_impl": self.paged_impl,
                 "device": str(self.device),
                 "decode_buckets": list(self.decode_buckets),

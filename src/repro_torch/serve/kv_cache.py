@@ -22,7 +22,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.nn.attention import PagedKVCache
+from repro_torch.nn.attention import PagedKVCache, QuantPagedKVCache
+from repro_torch.quant import kv as kvq
 
 NULL_BLOCK = 0
 
@@ -167,20 +168,67 @@ def pool_blocks(slots: int, max_seq: int, block_size: int) -> int:
     return slots * blocks_for(max_seq, block_size) + 1
 
 
+def validate_pool_packing(cfg: ModelConfig, block_size: int,
+                          bits: int, layer: str = "") -> None:
+    """Every assumption the packed layout makes, checked when the pools are
+    built, with the reference's messages."""
+    where = f" ({layer})" if layer else ""
+    kvq.validate_kv_bits(bits)
+    if block_size < 1:
+        raise ValueError(f"block_size must be >= 1, got {block_size}")
+    try:
+        kvq.packed_head_dim(cfg.head_dim, bits)   # odd head_dim at 4-bit
+    except ValueError as e:
+        raise ValueError(f"{cfg.name}{where}: {e}") from None
+
+
+def kv_bits_by_layer(cfg: ModelConfig, policy
+                     ) -> Tuple[Tuple[int, ...], ...]:
+    """Per-layer KV bits from the policy (16 everywhere when None); layer
+    names follow the pool tree: group{gi}.l{li}."""
+    return tuple(
+        tuple(policy.kv_bits_for(f"group{gi}.l{li}") if policy else 16
+              for li in range(len(period)))
+        for gi, (period, _) in enumerate(cfg.groups))
+
+
 def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int, *,
-                      dtype=torch.bfloat16, device="cpu"):
-    """Float pool tree with the model's structure: a tuple per group of
-    per-period-layer PagedKVCache leaves, each stacked over the group's
-    repeats: k/v (repeats, num_blocks, block_size, kv_heads, head_dim).
-    (Quantized 8/4-bit pools are still to port, ROADMAP A6.)"""
+                      dtype=torch.bfloat16, device="cpu", policy=None):
+    """Pool tree with the model's structure: a tuple per group of
+    per-period-layer leaves, each stacked over the group's repeats.
+    16-bit layers (policy.kv_bits_for) get float PagedKVCache pools in
+    `dtype`, k/v (repeats, num_blocks, block_size, kv_heads, head_dim);
+    8/4-bit layers get QuantPagedKVCache: int8 payloads of width
+    packed_head_dim plus (repeats, num_blocks, kv_heads) exponent planes
+    filled with EXP_EMPTY, so the first write into a block sets its
+    scale."""
     if not paged_supported(cfg):
         raise ValueError(f"{cfg.name}: arch not pageable")
     kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    bits_tree = kv_bits_by_layer(cfg, policy)
     caches = []
-    for period, repeats in cfg.groups:
-        shape = (repeats, num_blocks, block_size, kvh, hd)
-        caches.append(tuple(
-            PagedKVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                         v=torch.zeros(shape, dtype=dtype, device=device))
-            for _ in period))
+    for gi, (period, repeats) in enumerate(cfg.groups):
+        per_layer = []
+        for li in range(len(period)):
+            bits = bits_tree[gi][li]
+            validate_pool_packing(cfg, block_size, bits,
+                                  layer=f"group{gi}.l{li}")
+            if bits == 16:
+                shape = (repeats, num_blocks, block_size, kvh, hd)
+                per_layer.append(PagedKVCache(
+                    k=torch.zeros(shape, dtype=dtype, device=device),
+                    v=torch.zeros(shape, dtype=dtype, device=device)))
+                continue
+            shape = (repeats, num_blocks, block_size, kvh,
+                     kvq.packed_head_dim(hd, bits))
+            eshape = (repeats, num_blocks, kvh)
+            per_layer.append(QuantPagedKVCache(
+                k=torch.zeros(shape, dtype=torch.int8, device=device),
+                v=torch.zeros(shape, dtype=torch.int8, device=device),
+                k_exp=torch.full(eshape, kvq.EXP_EMPTY, dtype=torch.int8,
+                                 device=device),
+                v_exp=torch.full(eshape, kvq.EXP_EMPTY, dtype=torch.int8,
+                                 device=device),
+                bits=bits))
+        caches.append(tuple(per_layer))
     return tuple(caches)

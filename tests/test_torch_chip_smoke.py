@@ -40,14 +40,19 @@ def test_cpu_rehearsal_runs_every_phase(capsys, tmp_path):
     assert rc == 1, out.err
     lines = out.out.strip().splitlines()
     kernels = json.loads(lines[-1])["kernels"]
-    assert [k["name"] for k in kernels] == ["grau", "paged_attention",
-                                            "paged_prefill"]
+    assert [k["name"] for k in kernels] == [
+        "grau", "paged_attention", "paged_prefill", "paged_attention_kv4",
+        "paged_prefill_kv4", "matmul_wq"]
     assert all(k["route"] == "cuda" and (ROOT / k["source"]).exists()
                for k in kernels)
     report = json.loads((tmp_path / "r.json").read_text())
-    for label in ("float", "grau"):
+    for label in ("float", "grau", "wq4_kv4_grau"):
         res = report["slice"][label]
         assert res["requests"] == 8 and res["decode_tokens"] > 0
         assert res["greedy_identical_share"] == 1.0
         assert res["first_step_logits_rel_l2"] < 1e-5
+    res = report["slice"]["wq4_kv4_grau"]
+    assert res["weight_bits"] == 4 and res["kv_bits"] == 4
+    assert res["weight_bytes"] < report["slice"]["grau"]["weight_bytes"] / 3.6
+    assert [r["kv_bits"] for r in report["kernels_kv8"]] == [8, 8]
     assert '"ok"' not in out.out

@@ -31,7 +31,10 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
              for p in PORT_FILES}
     for want in ("kernels/grau.py", "kernels/paged_attention.py",
-                 "serve/engine.py", "models/lm.py", "nn/attention.py"):
+                 "kernels/matmul_wq.py", "serve/engine.py", "models/lm.py",
+                 "nn/attention.py", "quant/pot.py", "quant/kv.py",
+                 "quant/quantizers.py", "quant/policy.py",
+                 "quant/weights.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
 
@@ -66,6 +69,7 @@ def test_entry_points_need_an_explicit_cpu(monkeypatch):
 def test_kernels_build_for_hopper_from_repo_sources():
     from repro_torch.kernels import build as kbuild
     assert "arch=compute_90a,code=sm_90a" in kbuild.NVCC_FLAGS
+    assert set(kbuild.SOURCES) == {"grau", "paged_attention", "matmul_wq"}
     for name in kbuild.SOURCES:
         assert (kbuild.CSRC / f"{name}.cu").exists()
     assert (kbuild.CSRC / "grau_datapath.cuh").exists()

@@ -7,6 +7,11 @@ Fragmented tables drawn in shuffled order, dead pool blocks poisoned with
 1e4 (any read of them would dominate the softmax), ragged lengths and idle
 slots; tolerance 3e-5, the reference's own kernel/oracle agreement. The
 GRAU epilogue is held bit-exact on the same f32 attention output.
+
+Quantized pools (kv_bits 8 and 4: int8 payloads with per-(block, head)
+power-of-two exponents) dequantize exactly, so they are held at the f32
+tolerance the card check uses for the kernels (2e-5, element by element),
+their dead blocks poisoned with the largest payload at exponent 20.
 """
 import numpy as np
 import pytest
@@ -28,6 +33,7 @@ from repro_torch.nn import attention as tattn  # noqa: E402
 
 BS = 8
 TOL = dict(rtol=3e-5, atol=3e-5)
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
 
 
 @pytest.fixture(autouse=True)
@@ -222,11 +228,160 @@ def test_wrappers_reject_unported_and_malformed_inputs():
                                           nblocks=2, num_blocks=8,
                                           lengths=[3, 9])
     _, (tq, tk, tv, tt, tl) = both(q, k, v, table, lengths)
-    with pytest.raises(NotImplementedError, match="A6"):
+    # widths other than 16/8/4 are refused; 8/4 need int8 pools + exponents
+    with pytest.raises(ValueError, match="kv_bits"):
+        tpa.paged_attention(tq, tk, tv, tt, tl, kv_bits=6)
+    with pytest.raises(ValueError, match="int8"):
         tpa.paged_attention(tq, tk, tv, tt, tl, kv_bits=8)
+    qk = torch.zeros((8, BS, 2, 16), dtype=torch.int8)
+    with pytest.raises(ValueError, match="k_exp"):
+        tpa.paged_attention(tq, qk, qk, tt, tl, kv_bits=8)
+    e = torch.zeros((8, 2), dtype=torch.int8)
+    with pytest.raises(ValueError, match="head layout"):
+        tpa.paged_attention(tq, qk, qk, tt, tl, k_exp=e, v_exp=e, kv_bits=4)
+    with pytest.raises(ValueError, match="exponent planes"):
+        tpa.paged_attention(tq, tk, tv, tt, tl, k_exp=e, v_exp=e)
     with pytest.raises(ValueError):
         tpa.paged_attention(tq, tk.double(), tv, tt, tl)
     with pytest.raises(ValueError):
         tpa.paged_attention(tq, tk, tv, tt.long(), tl)
     with pytest.raises(ValueError):
         tpa.paged_prefill_attention(tq, tk, tv, tt, tl)
+
+
+# ---------------------------------------------------------------------------
+# Quantized pools (kv_bits 8 / 4)
+# ---------------------------------------------------------------------------
+
+def quant_pools(rng, num_blocks, kvh, d, bits, table=None):
+    """Random packed pools and exponents; blocks outside `table` are
+    poisoned with the largest payload at a large exponent."""
+    hdp = d // 2 if bits == 4 else d
+    k = rng.integers(-128, 128, size=(num_blocks, BS, kvh, hdp)).astype(
+        np.int8)
+    v = rng.integers(-128, 128, size=(num_blocks, BS, kvh, hdp)).astype(
+        np.int8)
+    ke = rng.integers(-9, -4, size=(num_blocks, kvh)).astype(np.int8)
+    ve = rng.integers(-9, -4, size=(num_blocks, kvh)).astype(np.int8)
+    if table is not None:
+        dead = np.array(sorted(set(range(num_blocks)) - set(table.ravel())))
+        k[dead] = v[dead] = 0x77                 # +7 in both nibbles / 119
+        ke[dead] = ve[dead] = 20
+    return k, v, ke, ve
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("h,kvh", [(8, 2), (6, 3)])
+def test_quant_decode_matches_reference_kernel_and_oracle(bits, h, kvh):
+    rng = np.random.default_rng(bits * 7 + h)
+    lengths = np.array([5, 24, 0, 17, 32], np.int32)
+    table = make_table(rng, list(lengths), 4, 32)
+    table[lengths == 0] = 0
+    k, v, ke, ve = quant_pools(rng, 32, kvh, 32, bits, table)
+    q = rng.normal(size=(5, h, 32)).astype(np.float32)
+    (jq, jk, jv, jke, jve, jt, jl), (tq, tk, tv, tke, tve, tt, tl) = both(
+        q, k, v, ke, ve, table, lengths)
+    want = np.asarray(jpa.paged_attention(jq, jk, jv, jt, jl, k_exp=jke,
+                                          v_exp=jve, kv_bits=bits,
+                                          interpret=True))
+    want_ref = np.asarray(jref.paged_attention_ref(
+        jq, jk, jv, jt, jl, k_exp=jke, v_exp=jve, kv_bits=bits))
+    got = tpa.paged_attention(tq, tk, tv, tt, tl, k_exp=tke, v_exp=tve,
+                              kv_bits=bits).numpy()
+    got_ref = tref.paged_attention_ref(tq, tk, tv, tt, tl, k_exp=tke,
+                                       v_exp=tve, kv_bits=bits).numpy()
+    assert np.all(np.isfinite(got))               # idle slot stays finite
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    live = lengths > 0
+    np.testing.assert_allclose(got_ref[live], want_ref[live], **F32_TOL)
+    np.testing.assert_allclose(got[live], got_ref[live], **F32_TOL)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_prefill_matches_reference_kernel_and_oracle(bits):
+    rng = np.random.default_rng(30 + bits)
+    b, chunk, h, kvh, nblocks, num_blocks = 3, 16, 6, 3, 6, 40
+    starts = np.array([0, 8, 32], np.int32)
+    table = make_table(rng, [s + chunk for s in starts], nblocks, num_blocks)
+    k, v, ke, ve = quant_pools(rng, num_blocks, kvh, 32, bits, table)
+    q = rng.normal(size=(b, chunk, h, 32)).astype(np.float32)
+    (jq, jk, jv, jke, jve, jt, js), (tq, tk, tv, tke, tve, tt, tst) = both(
+        q, k, v, ke, ve, table, starts)
+    kw_j = dict(k_exp=jke, v_exp=jve, kv_bits=bits)
+    kw_t = dict(k_exp=tke, v_exp=tve, kv_bits=bits)
+    want = np.asarray(jpa.paged_prefill_attention(jq, jk, jv, jt, js,
+                                                  interpret=True, **kw_j))
+    want_ref = np.asarray(jref.paged_prefill_ref(jq, jk, jv, jt, js, **kw_j))
+    got = tpa.paged_prefill_attention(tq, tk, tv, tt, tst, **kw_t).numpy()
+    got_ref = tref.paged_prefill_ref(tq, tk, tv, tt, tst, **kw_t).numpy()
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    np.testing.assert_allclose(got_ref, want_ref, **F32_TOL)
+
+
+@pytest.mark.parametrize("mode", ["decode", "prefill"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_grau_epilogue_bit_exact_on_same_f32_output(mode, bits):
+    rng = np.random.default_rng(40 + bits)
+    js, ts = silu_spec_pair()
+    if mode == "decode":
+        lengths = np.array([5, 24, 1, 17], np.int32)
+        table = make_table(rng, list(lengths), 4, 24)
+        q = rng.normal(size=(4, 6, 32)).astype(np.float32)
+        x = lengths
+        fn_j, fn_t = jpa.paged_attention, tpa.paged_attention
+    else:
+        x = np.array([0, 16], np.int32)
+        table = make_table(rng, [16, 32], 5, 24)
+        q = rng.normal(size=(2, 16, 6, 32)).astype(np.float32)
+        fn_j, fn_t = jpa.paged_prefill_attention, tpa.paged_prefill_attention
+    k, v, ke, ve = quant_pools(rng, 24, 3, 32, bits)
+    (jq, jk, jv, jke, jve, jt, jx), (tq, tk, tv, tke, tve, tt, tx) = both(
+        q, k, v, ke, ve, table, x)
+    kw_j = dict(k_exp=jke, v_exp=jve, kv_bits=bits)
+    kw_t = dict(k_exp=tke, v_exp=tve, kv_bits=bits)
+    s_in = 2**-10
+    j_f32 = fn_j(jq, jk, jv, jt, jx, interpret=True, **kw_j)
+    j_q = np.asarray(fn_j(jq, jk, jv, jt, jx, spec=js, s_in=s_in,
+                          interpret=True, **kw_j))
+    port_on_ref = tref.attn_output_quant(torch.from_numpy(np.array(j_f32)),
+                                         ts, s_in)
+    np.testing.assert_array_equal(port_on_ref.numpy(), j_q)
+    t_f32 = fn_t(tq, tk, tv, tt, tx, **kw_t)
+    t_q = fn_t(tq, tk, tv, tt, tx, spec=ts, s_in=s_in, **kw_t)
+    np.testing.assert_array_equal(
+        t_q.numpy(), tref.attn_output_quant(t_f32, ts, s_in).numpy())
+    diff = np.abs(t_q.numpy().astype(np.int32) - j_q.astype(np.int32))
+    assert diff.max() <= 1 and np.mean(diff) < 0.01
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_nn_quant_paths_match_reference(bits):
+    """The model-facing dispatch on quantized pools: kernel and gather
+    paths through a bucket-sliced table, decode and prefill, against the
+    reference's gather path."""
+    rng = np.random.default_rng(50 + bits)
+    lengths = np.array([6, 20, 11, 2], np.int32)
+    table = make_table(rng, list(lengths), 6, 32)
+    k, v, ke, ve = quant_pools(rng, 32, 2, 16, bits, table)
+    q = rng.normal(size=(4, 1, 4, 16)).astype(np.float32)
+    (jq, jk, jv, jke, jve, jt, jl), (tq, tk, tv, tke, tve, tt, tl) = both(
+        q, k, v, ke, ve, table, lengths)
+    jc = jattn.QuantPagedKVCache(jk, jv, jke, jve, bits=bits)
+    tc = tattn.QuantPagedKVCache(tk, tv, tke, tve, bits=bits)
+    jst = jattn.PagedState(jt[:, :3], jl - 1)
+    tst = tattn.PagedState(tt[:, :3], tl - 1)
+    want = np.asarray(jattn.paged_decode_attention(jq, jc, jst,
+                                                   impl="gather"))
+    for impl in ("kernel", "gather"):
+        got = tattn.paged_decode_attention(tq, tc, tst, impl=impl).numpy()
+        np.testing.assert_allclose(got, want, **F32_TOL)
+    qp = rng.normal(size=(2, 8, 4, 16)).astype(np.float32)
+    start = np.array([8, 0], np.int32)
+    jst = jattn.PagedState(jt[:2, :3], jnp.asarray(start))
+    tst = tattn.PagedState(tt[:2, :3], torch.from_numpy(start))
+    want = np.asarray(jattn.paged_prefill_attention(
+        jnp.asarray(qp), jc, jst, impl="gather"))
+    for impl in ("kernel", "gather"):
+        got = tattn.paged_prefill_attention(torch.from_numpy(qp), tc, tst,
+                                            impl=impl).numpy()
+        np.testing.assert_allclose(got, want, **F32_TOL)
