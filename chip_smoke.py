@@ -15,15 +15,25 @@ Phases (any failure exits non-zero):
      epilogue bit-exact on the kernel's own f32 output — then timed with
      CUDA events beside its plain version, a PyTorch library call for the
      same function where one exists, and the card's bound;
+     matmul_grau (the int8 matmul with the GRAU epilogue) bit for bit at the
+     quickstart's, the kernel bench's, ragged and the llama3.2-3b MLP
+     shapes, on signed, unsigned and random register files;
   3. the slices: full-width llama3.2-3b in bf16 (weights drawn from --seed
      on the card) serves 8 requests through ServeEngine with the kernels,
      (a) with float activations, (b) with the GRAU MLP activation plus the
      fused GRAU attention epilogue, and (c) as (b) with the weights packed
      to int4 (the MLP through matmul_wq) and int4 KV pools; each once more
      through the gather path (in (c) with the MLP weights dequantized to
-     bf16) for the greedy-token share. Launch counters are zeroed before
-     and read after each served run.
-The last two lines are the kernels JSON and the result line.
+     bf16) for the greedy-token share. Then (d), the paper's integer flow:
+     the quickstart's steps (launch/quickstart.py: the GRAU unit and the
+     fused matmul_grau, each bit for bit against its plain version), and
+     Table III for SFC and CNV with SiLU at the paper-table settings (QAT
+     training, GRAU replacement, every pot/apot activation through the GRAU
+     unit kernel; the kernel path's predictions and GRAU outputs held bit
+     for bit against the plain unit's on the same trained parameters).
+     Launch counters are zeroed before and read after each run.
+Each phase prints its seconds. The last two lines are the kernels JSON and
+the result line.
 
 Without a CUDA card, or outside a checkout of the repository, it prints why
 on stderr and exits 2. `--rehearse` runs the same phases at smoke size on
@@ -46,6 +56,7 @@ PEAK_OPS = {                      # dense peaks, H100 SXM
     # the data sheet has no int32 entry: 64 INT32 lanes per SM are half the
     # 128 FP32 lanes behind its 67e12 float32 rate
     "int32": 33.5e12,
+    "int8": 1979e12,              # tensor cores, dense (data sheet)
 }
 # Kernel vs plain, element by element: |got - want| <= atol + rtol * |want|.
 F32_TOL = 2e-5      # f32: the same sums in another order (FMA contraction)
@@ -487,6 +498,109 @@ def time_matmul_wq(torch, dev, shapes, wname, M, bits):
                 (lambda d=d: torch.matmul(x, d)) for d in dense]), 50, 5)}
 
 
+def matmul_grau_specs(np, rng):
+    """The quickstart's SiLU unit (signed bus), a ReLU unit on the unsigned
+    (uint8) bus, and random register files (negative pre-shifts, shift
+    counts 31-40)."""
+    from repro_torch.core.build import build_grau
+    from repro_torch.core.folding import fold
+    from repro_torch.pwlf.spec import make_spec
+    kw = dict(mac_range=(-30000, 30000), segments=6, num_exponents=8,
+              mode="apot")
+    silu = build_grau(fold("silu", s_in=2 ** -10, s_out=2 ** -4, out_bits=8),
+                      bias_mode="lsq", **kw).spec
+    relu = build_grau(fold("relu", s_in=2 ** -10, s_out=2 ** -4, out_bits=8,
+                           out_signed=False), **kw).spec
+    return [silu, relu] + random_specs(np, make_spec, rng, 8)
+
+
+def check_matmul_grau(torch, np, dev, shapes, rng, timed):
+    """matmul_grau against matmul_grau_plain (the product in float64, exact,
+    wrapped to int32, then the plain datapath), bit for bit, at every shape
+    and register file; then timed at the quickstart's shape and the MLP
+    shapes."""
+    from repro_torch.kernels import matmul_grau as mg
+    from repro_torch.kernels import ops
+
+    specs = matmul_grau_specs(np, rng)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    modes = set()
+    for xshape, (K, N) in shapes["mm_grau"]:
+        x = torch.from_numpy(rng.integers(-128, 128, size=xshape)
+                             .astype(np.int8)).to(dev)
+        w = torch.from_numpy(rng.integers(-128, 128, size=(K, N))
+                             .astype(np.int8)).to(dev)
+        x.view(-1)[0], w.view(-1)[:2] = -128, -128      # the int8 extremes
+        for spec in specs:
+            got = ops.matmul_grau(x, w, spec)
+            sync()
+            want = mg.matmul_grau_plain(
+                x.reshape(-1, K), w, spec.packed(dev),
+                num_exponents=spec.num_exponents, qmin=spec.qmin,
+                qmax=spec.qmax).reshape(got.shape)
+            need(got.dtype == want.dtype and torch.equal(got, want),
+                 f"matmul_grau {xshape} x {(K, N)} differs from plain "
+                 f"(pre={int(spec.pre_shift)}, qmin={spec.qmin})")
+            modes.add(got.dtype)
+    need(modes == {torch.int8, torch.uint8}, f"bus modes covered: {modes}")
+    log(f"matmul_grau: bit-exact on {len(shapes['mm_grau'])} shapes x "
+        f"{len(specs)} specs, modes {sorted(str(m) for m in modes)}")
+    row = {"name": "matmul_grau", "route": "cuda",
+           "source": "src/repro_torch/csrc/matmul_grau.cu",
+           "replaces": "src/repro/kernels/matmul_grau.py:66",
+           "max_abs_err": 0}
+    if timed:
+        row["shapes"] = [time_matmul_grau(torch, dev, specs[0], *mkn)
+                         for mkn in shapes["mm_grau_timed"]]
+        main = row["shapes"][0]                 # the quickstart's product
+        row.update({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")})
+        row["library_call"] = main["library_call"]
+        for r in row["shapes"]:
+            log(f"timed matmul_grau: {json.dumps(r)}")
+    return row
+
+
+def time_matmul_grau(torch, dev, spec, M, K, N):
+    """One int8 product with the GRAU epilogue, timed over enough weight
+    copies to exceed L2: the kernel, its plain version, and as the library
+    yardstick torch._int_mm (cuBLASLt int8 -> int32, without the epilogue:
+    it writes 4 bytes an output where the kernel writes 1). The bound counts
+    x, w and the 8-bit output once, and 2 M K N int8 operations."""
+    from repro_torch.kernels import matmul_grau as mg
+    from repro_torch.kernels.ref import wrap_int32
+    x = torch.randint(-128, 128, (M, K), dtype=torch.int8, device=dev)
+    base = torch.randint(-128, 128, (K, N), dtype=torch.int8, device=dev)
+    ws = [base.clone() for _ in range(max(2, -(-60_000_000 // (K * N))))]
+    # the yardstick computes the kernel's int32 sums (float64 is exact here)
+    need(torch.equal(torch._int_mm(x, base),
+                     wrap_int32((x.double() @ base.double()).long())),
+         f"torch._int_mm differs from the exact int32 sums at {(M, K, N)}")
+    regs = spec.packed(dev)
+    kw = dict(num_exponents=spec.num_exponents, qmin=spec.qmin,
+              qmax=spec.qmax)
+    t_bound, by = bound(M * K + K * N + M * N, 2 * M * K * N, "int8")
+    # cuBLASLt's int8 kernels take both operands K-major: beside w as the
+    # kernel takes it (row-major), time a column-major copy of it too
+    kmajor = [w.t().contiguous().t() for w in ws]
+    return {"M": M, "K": K, "N": N,
+            "ms": device_ms(torch, cycling([
+                (lambda w=w: mg.matmul_grau(x, w, regs, **kw)) for w in ws]),
+                50, 5),
+            "plain_ms": device_ms(torch, cycling([
+                (lambda w=w: mg.matmul_grau_plain(x, w, regs, **kw))
+                for w in ws]), 5, 1),
+            "bound_ms": t_bound, "bound_by": by,
+            "library_ms": device_ms(torch, cycling([
+                (lambda w=w: torch._int_mm(x, w)) for w in ws]), 50, 5),
+            "library_kmajor_ms": device_ms(torch, cycling([
+                (lambda w=w: torch._int_mm(x, w)) for w in kmajor]), 50, 5),
+            "library_call": "torch._int_mm(x, w) on w row-major (K, N), as "
+                            "the kernel takes it (library_kmajor_ms: on a "
+                            "column-major copy): int8 -> int32 without the "
+                            "GRAU epilogue (the port never calls it)"}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the slice
 # ---------------------------------------------------------------------------
@@ -725,6 +839,94 @@ def slice_phase(torch, np, dev, args, rehearse):
     return results
 
 
+def paper_flow(torch, np, dev, args, rehearse):
+    """Slice (d): the quickstart's steps, then Table III for SFC and CNV
+    with SiLU through the GRAU unit kernel, then the kernel path against the
+    plain unit on the same trained parameters. Returns the report."""
+    from repro_torch import kernels
+    from repro_torch.kernels import grau as gk
+    from repro_torch.kernels import ops
+    from repro_torch.launch import quickstart
+    from repro_torch.models.vision import apply_vision, make_grau_acts
+    from repro_torch.tables import table3_small_models as t3
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    qs = quickstart.run(dev, seed=args.seed, verbose=False)
+    sync()
+    qs["launches"] = kernels.launch_counts()
+    qs["seconds"] = time.perf_counter() - t0
+    need(rehearse or qs["launches"]["matmul_grau"] >= 1,
+         f"quickstart: matmul_grau did not launch: {qs['launches']}")
+    out["quickstart"] = qs
+    log(f"paper[quickstart]: {json.dumps(qs)}")
+
+    # Table III at the paper-table settings (a short rehearsal on the CPU)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rows = t3.run(device=dev, settings=[("sfc", "silu"), ("cnv", "silu")],
+                  steps=20 if rehearse else None)
+    sync()
+    launches = kernels.launch_counts()
+    # every pot/apot evaluation sends each activation layer's batch through
+    # the unit once
+    int_calls = sum(2 * t3.EVAL_STEPS * r["layers"] for r in rows)
+    need(rehearse or launches["grau"] == int_calls,
+         f"table3: grau launched {launches['grau']} times, want the "
+         f"{int_calls} integer activation calls of the pot/apot rows")
+    out["table3"] = {"seconds": time.perf_counter() - t0,
+                     "launches": launches, "int_act_calls": int_calls,
+                     "rows": [{k: v for k, v in r.items() if k != "state"}
+                              for r in rows]}
+    log(f"paper[table3]: {json.dumps(out['table3'])}")
+
+    # the kernel path against the plain unit, on the same card tensors
+    def recording(unit, seen):
+        def call(a, spec):
+            y = unit(a, spec)
+            seen.append(y)
+            return y
+        return call
+
+    def plain_unit(a, spec):
+        return gk.grau_plain(a, spec.packed(a.device),
+                             num_exponents=spec.num_exponents,
+                             qmin=spec.qmin,
+                             qmax=spec.qmax).to(gk.out_dtype(spec.qmin))
+
+    compared = 0
+    same_logits = True
+    for r in rows:
+        cfg, params, pipe, ranges = r["state"]
+        for mode in ("pot", "apot"):
+            seen_k, seen_p = [], []
+            ik = make_grau_acts(cfg, ranges, mode=mode, unit=recording(
+                ops.grau, seen_k), **t3.GRAU_KW)
+            ip = make_grau_acts(cfg, ranges, mode=mode, unit=recording(
+                plain_unit, seen_p), **t3.GRAU_KW)
+            with torch.no_grad():
+                for step in range(t3.EVAL_STEPS):
+                    img = pipe.batch(10_000 + step)["image"]
+                    lk = apply_vision(params, cfg, img, act_impls=ik)
+                    lp = apply_vision(params, cfg, img, act_impls=ip)
+                    need(torch.equal(lk.argmax(-1), lp.argmax(-1)),
+                         f"table3 {r['model']}-{r['act']} {mode}: kernel "
+                         "and plain predictions differ")
+                    same_logits &= bool(torch.equal(lk, lp))
+            need(len(seen_k) == len(seen_p) == t3.EVAL_STEPS * r["layers"]
+                 and all(a.dtype == b.dtype and torch.equal(a, b)
+                         for a, b in zip(seen_k, seen_p)),
+                 f"table3 {r['model']}-{r['act']} {mode}: GRAU kernel "
+                 "outputs differ from the plain unit's")
+            compared += len(seen_k)
+    out["kernel_vs_plain"] = {"grau_outputs_compared": compared,
+                              "bit_exact": True, "same_logits": same_logits}
+    log(f"paper[kernel vs plain]: {json.dumps(out['kernel_vs_plain'])}")
+    return out
+
+
 def check_logits(torch, label, res, lk, lg):
     rel = float((lk - lg).norm() / lg.norm())
     res["first_step_logits_rel_l2"] = rel
@@ -847,6 +1049,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         took = kbuild.build()
         report["build_s"] = time.perf_counter() - t0
+        report["phase_s"] = {"build": report["build_s"]}
         log(f"kernel build: {report['build_s']:.1f} s "
             f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
         for name in kbuild.SOURCES:
@@ -867,23 +1070,60 @@ def main(argv=None) -> int:
                    grau=(32 * 4, 32),
                    mlp={"w_gate": (128, 256), "w_down": (256, 128)},
                    rows=(8, 32)))
+    # matmul_grau: the quickstart's product, the kernel bench's, ragged M,
+    # N and K (K = 200, 260: not multiples of 32), the batched case, and the
+    # llama3.2-3b MLP products at 32 and 2048 rows
+    mm_small = [((128, 256), (256, 128)), ((1, 200), (200, 128)),
+                ((33, 260), (260, 96)), ((2, 17, 128), (128, 96))]
+    mlp_mkn = ([(m, k, n) for m in (32, 2048)
+                for k, n in ((3072, 8192), (8192, 3072))] if timed else
+               [(m, k, n) for m in (32, 64) for k, n in ((128, 256),
+                                                         (256, 128))])
+    shapes["mm_grau"] = (mm_small + ([((256, 512), (512, 256)),
+                                      ((512, 1024), (1024, 512))]
+                                     if timed else [])
+                         + [((m, k), (k, n)) for m, k, n in mlp_mkn])
+    shapes["mm_grau_timed"] = [(128, 256, 128)] + mlp_mkn
+    phase_s = report.setdefault("phase_s", {})
+
+    def phase(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        phase_s[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return res
+
     try:
-        grau_row = check_grau(torch, np, dev, shapes, rng, timed)
-        rows = check_paged(torch, np, dev, shapes, rng, timed)
-        rows["matmul_wq"] = check_matmul_wq(torch, np, dev, shapes, rng,
-                                            timed)
-        slice_res = slice_phase(torch, np, dev, args, args.rehearse)
+        grau_row = phase("grau", lambda: check_grau(torch, np, dev, shapes,
+                                                    rng, timed))
+        rows = phase("paged_attention", lambda: check_paged(
+            torch, np, dev, shapes, rng, timed))
+        rows["matmul_wq"] = phase("matmul_wq", lambda: check_matmul_wq(
+            torch, np, dev, shapes, rng, timed))
+        rows["matmul_grau"] = phase("matmul_grau", lambda: check_matmul_grau(
+            torch, np, dev, shapes, rng, timed))
+        slice_res = phase("slices_abc", lambda: slice_phase(
+            torch, np, dev, args, args.rehearse))
+        paper = phase("slice_d", lambda: paper_flow(torch, np, dev, args,
+                                                     args.rehearse))
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     report["slice"] = slice_res
+    report["paper_flow"] = paper
     # launches on the main paths: the 16-bit attention rows from (b), where
-    # the GRAU datapath runs fused in the attention kernels' epilogue (the
-    # standalone GRAU kernel is on no served path); the 4-bit attention rows
-    # and matmul_wq from (c)
+    # the GRAU datapath runs fused in the attention kernels' epilogue; the
+    # 4-bit attention rows and matmul_wq from (c); the GRAU unit and
+    # matmul_grau from (d) (the quickstart, and Table III's integer
+    # activations)
     lb = slice_res["grau"]["launches"]
     lc = slice_res["wq4_kv4_grau"]["launches"]
-    grau_row["launches"] = lb["grau"]
+    lq = paper["quickstart"]["launches"]
+    lt = paper["table3"]["launches"]
+    grau_row.update(launches=lq["grau"] + lt["grau"],
+                    launches_quickstart=lq["grau"],
+                    launches_table3=lt["grau"])
+    rows["matmul_grau"]["launches"] = lq["matmul_grau"] + lt["matmul_grau"]
     for name in ("paged_attention", "paged_prefill"):
         rows[name].update(launches=lb[name],
                           epilogue_launches=lb[f"{name}_epilogue"])
@@ -893,7 +1133,7 @@ def main(argv=None) -> int:
                              epilogue_launches=lc["matmul_wq_epilogue"])
     kernel_rows = [grau_row] + [rows[n] for n in (
         "paged_attention", "paged_prefill", "paged_attention_kv4",
-        "paged_prefill_kv4", "matmul_wq")]
+        "paged_prefill_kv4", "matmul_wq", "matmul_grau")]
     report["kernels"] = kernel_rows
     # the 8-bit pools are on no served path here: checked and timed, kept
     # in the report only

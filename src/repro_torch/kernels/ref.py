@@ -34,6 +34,21 @@ def grau_ref(x: torch.Tensor, spec: GRAUSpec) -> torch.Tensor:
     return grau_apply_int(x, spec).to(out_dtype(spec.qmin))
 
 
+def wrap_int32(v: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 modulo 2^32 (two's complement), as an int32 sum
+    wraps."""
+    return (torch.remainder(v + 2 ** 31, 2 ** 32) - 2 ** 31).to(torch.int32)
+
+
+def matmul_grau_ref(x: torch.Tensor, w: torch.Tensor,
+                    spec: GRAUSpec) -> torch.Tensor:
+    """Oracle for kernels/matmul_grau.py: int8 GEMM -> GRAU epilogue -> the
+    8-bit bus. x: (M, K) int8, w: (K, N) int8; the product is summed in
+    int64 on the host and wrapped to int32 (the reference's int32 dot)."""
+    acc = wrap_int32(x.cpu().long() @ w.cpu().long())
+    return grau_apply_int(acc, spec).to(out_dtype(spec.qmin)).to(x.device)
+
+
 def attn_output_quant(o: torch.Tensor, spec: GRAUSpec,
                       s_in: float) -> torch.Tensor:
     """The GRAU attention-output epilogue's math, on an f32 attention output:

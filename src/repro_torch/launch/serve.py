@@ -10,8 +10,10 @@ Examples:
       --dtype float32 --weight-bits 4 --kv-bits 4 --grau --attn-grau identity
 
 Weights are random, drawn from --seed on the device (the published weight
-files are not in the repository). The device defaults to CUDA; without a
-card pass --device cpu, which runs the kernels' plain torch versions.
+files are not in the repository). At startup it prints the analytic KV and
+weight memory tables (core/hwcost.py) at 16/8/4 bits. The device defaults
+to CUDA; without a card pass --device cpu, which runs the kernels' plain
+torch versions.
 """
 from __future__ import annotations
 
@@ -20,6 +22,45 @@ import json
 import time
 
 import numpy as np
+
+
+def print_cost_tables(cfg, args) -> None:
+    """The startup memory tables from the analytic cost model
+    (core/hwcost.py), printed as the JAX package's launcher prints them: KV
+    bytes per slot, whole-pool bytes and decode gather bytes per step at
+    16/8/4 bits, then the packable matmul weight bytes at 16/8/4 bits (decode
+    streams every weight once per token, so total bytes is the
+    model-bytes/step term). The serving precision is marked."""
+    from repro_torch.core.hwcost import kv_cache_cost, weight_cost
+    kv_bits, weight_bits = args.kv_bits or 16, args.weight_bits or 16
+    print(f"kv cache @ page_size={args.page_size}, "
+          f"max_seq={args.max_seq}, slots={args.slots}:")
+    for bits in (16, 8, 4):
+        r = kv_cache_cost(num_layers=cfg.num_layers,
+                          kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                          block_size=args.page_size, kv_bits=bits,
+                          slots=args.slots, max_seq=args.max_seq)
+        mark = " <- serving" if bits == kv_bits else ""
+        print(f"  kv_bits={bits:2d}: {r.bytes_per_slot / 1e6:8.3f} MB/slot, "
+              f"pool {r.pool_bytes / 1e6:8.3f} MB, "
+              f"gather {r.gather_bytes_per_step / 1e3:8.1f} KB/step"
+              f"{mark}")
+    wq_layers = sum(sum(1 for spec in period
+                        if spec.kind == "attn" and spec.mlp == "dense")
+                    * repeats for period, repeats in cfg.groups)
+    print(f"serving weights (attn+dense-mlp layers={wq_layers}):")
+    for bits in (16, 8, 4):
+        w = weight_cost(num_layers=wq_layers, d_model=cfg.d_model,
+                        num_heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+                        head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+                        gated=cfg.gated_mlp, vocab_size=cfg.vocab_size,
+                        tied=cfg.tie_embeddings, weight_bits=bits)
+        mark = " <- serving" if bits == weight_bits else ""
+        print(f"  weight_bits={bits:2d}: {w.total_bytes / 1e6:8.3f} MB total "
+              f"(layers {w.layer_bytes / 1e6:8.3f} MB, "
+              f"embed {w.embed_bytes / 1e6:8.3f} MB, "
+              f"scales {w.scale_bytes / 1e3:7.1f} KB)"
+              f"{mark}")
 
 
 def main(argv=None) -> None:
@@ -84,6 +125,7 @@ def main(argv=None) -> None:
         prefill_token_budget=args.prefill_budget, policy=args.policy,
         kv_bits=args.kv_bits, weight_bits=args.weight_bits, seed=args.seed)
     engine = ServeEngine(cfg, params, ecfg, device=device)
+    print_cost_tables(cfg, args)
     engine.warmup()
     rng = np.random.default_rng(args.seed)
     lo, hi = args.prompt_len

@@ -1,4 +1,4 @@
-"""Map the JAX package's LM parameters onto the port's.
+"""Map the JAX package's LM and vision parameters onto the port's.
 
 The reference's `repro.models.lm.init_lm` returns nested dicts whose group
 leaves carry a leading `stack` axis (one entry per repeat, for lax.scan).
@@ -11,7 +11,8 @@ Packed trees carry over too: a reference QuantWeight leaf (anything with
 `q`, `e`, `bits`, `caxis`, `kdim`, `tile`) becomes the port's, payload and
 exponents converted and the static fields kept, and `pools_from_reference`
 converts a reference pool tree, float or quantized (`k_exp`, `v_exp`,
-`bits`), leaf by leaf.
+`bits`), leaf by leaf. `vision_from_reference` carries the SFC/CNV
+parameters of models/vision.py across.
 """
 from __future__ import annotations
 
@@ -74,3 +75,21 @@ def pools_from_reference(ref_caches, *, device="cpu"):
                 bits=int(c.bits))
         return PagedKVCache(_tensor(c.k, device), _tensor(c.v, device))
     return tuple(tuple(pool(c) for c in group) for group in ref_caches)
+
+
+def vision_from_reference(params: Dict[str, Any], cfg, *,
+                          device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Port the reference's SFC/CNV parameters ({layer: {"w", "b"}}, numpy
+    leaves or anything np.asarray accepts) for the VisionConfig `cfg` to
+    tensors on `device` (default: CUDA, see models/lm.resolve_device).
+    Layouts are kept: dense weights (in, out), conv weights HWIO."""
+    from repro_torch.models.lm import resolve_device
+    device = resolve_device(device)
+    want = ([f"fc{i}" for i in range(len(cfg.widths) + 1)]
+            if cfg.kind == "sfc" else
+            [f"conv{i}" for i in range(len(cfg.conv_channels))] + ["fc_out"])
+    if sorted(params) != sorted(want):
+        raise ValueError(f"layers {sorted(params)} do not match {cfg.kind}: "
+                         f"want {sorted(want)}")
+    return {name: {k: _tensor(v, device) for k, v in layer.items()}
+            for name, layer in params.items()}

@@ -22,6 +22,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import resolve_device
 from repro_torch.nn.attention import PagedKVCache, QuantPagedKVCache
 from repro_torch.quant import kv as kvq
 
@@ -193,7 +194,7 @@ def kv_bits_by_layer(cfg: ModelConfig, policy
 
 
 def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int, *,
-                      dtype=torch.bfloat16, device="cpu", policy=None):
+                      dtype=torch.bfloat16, device=None, policy=None):
     """Pool tree with the model's structure: a tuple per group of
     per-period-layer leaves, each stacked over the group's repeats.
     16-bit layers (policy.kv_bits_for) get float PagedKVCache pools in
@@ -201,7 +202,9 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int, *,
     8/4-bit layers get QuantPagedKVCache: int8 payloads of width
     packed_head_dim plus (repeats, num_blocks, kv_heads) exponent planes
     filled with EXP_EMPTY, so the first write into a block sets its
-    scale."""
+    scale. The pools live on `device` (default: CUDA, see
+    models/lm.resolve_device)."""
+    device = resolve_device(device)
     if not paged_supported(cfg):
         raise ValueError(f"{cfg.name}: arch not pageable")
     kvh, hd = cfg.num_kv_heads, cfg.head_dim

@@ -42,7 +42,7 @@ def test_cpu_rehearsal_runs_every_phase(capsys, tmp_path):
     kernels = json.loads(lines[-1])["kernels"]
     assert [k["name"] for k in kernels] == [
         "grau", "paged_attention", "paged_prefill", "paged_attention_kv4",
-        "paged_prefill_kv4", "matmul_wq"]
+        "paged_prefill_kv4", "matmul_wq", "matmul_grau"]
     assert all(k["route"] == "cuda" and (ROOT / k["source"]).exists()
                for k in kernels)
     report = json.loads((tmp_path / "r.json").read_text())
@@ -55,4 +55,20 @@ def test_cpu_rehearsal_runs_every_phase(capsys, tmp_path):
     assert res["weight_bits"] == 4 and res["kv_bits"] == 4
     assert res["weight_bytes"] < report["slice"]["grau"]["weight_bytes"] / 3.6
     assert [r["kv_bits"] for r in report["kernels_kv8"]] == [8, 8]
+    # slice (d): the quickstart, Table III for SFC / CNV with SiLU, and the
+    # kernel path against the plain unit (both plain on the CPU)
+    paper = report["paper_flow"]
+    assert paper["quickstart"]["matmul_grau"]["shape"] == [128, 128]
+    rows = paper["table3"]["rows"]
+    assert [(r["model"], r["act"], r["layers"]) for r in rows] == [
+        ("sfc", "silu", 3), ("cnv", "silu", 2)]
+    assert paper["table3"]["int_act_calls"] == 2 * 6 * (3 + 2)
+    assert paper["kernel_vs_plain"] == {"grau_outputs_compared": 60,
+                                        "bit_exact": True,
+                                        "same_logits": True}
+    grau_row = kernels[0]
+    assert grau_row["launches"] == (grau_row["launches_quickstart"]
+                                    + grau_row["launches_table3"])
+    assert set(report["phase_s"]) >= {"grau", "paged_attention", "matmul_wq",
+                                      "matmul_grau", "slices_abc", "slice_d"}
     assert '"ok"' not in out.out

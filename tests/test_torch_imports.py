@@ -34,7 +34,12 @@ def test_port_files_exist():
                  "kernels/matmul_wq.py", "serve/engine.py", "models/lm.py",
                  "nn/attention.py", "quant/pot.py", "quant/kv.py",
                  "quant/quantizers.py", "quant/policy.py",
-                 "quant/weights.py"):
+                 "quant/weights.py", "kernels/matmul_grau.py",
+                 "kernels/ops.py", "kernels/ref.py", "core/hwcost.py",
+                 "core/multithreshold.py", "data/pipeline.py",
+                 "models/vision.py", "models/convert.py",
+                 "launch/quickstart.py", "tables/table3_small_models.py",
+                 "tables/table45_sweep.py", "tables/table6_hwcost.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
 
@@ -66,10 +71,50 @@ def test_entry_points_need_an_explicit_cpu(monkeypatch):
     assert eng.device.type == "cpu"
 
 
+def test_paper_flow_entry_points_need_an_explicit_cpu(monkeypatch):
+    """The quickstart, the device-running table drivers and the vision
+    model's constructors run on CUDA unless given the CPU; with no card they
+    raise before any work."""
+    from repro_torch.data.pipeline import ImagePipeline
+    from repro_torch.launch import quickstart
+    from repro_torch.models import vision
+    from repro_torch.models.convert import vision_from_reference
+    from repro_torch.tables import table3_small_models, table45_sweep
+
+    cfg = vision.VisionConfig(hw=4, widths=(8,))
+    params = vision.init_vision(cfg, 0, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: quickstart.main([]),
+                 lambda: table3_small_models.main(["--quick", "--steps", "1"]),
+                 lambda: table45_sweep.main(["--quick"]),
+                 lambda: vision.init_vision(cfg),
+                 lambda: vision.train_vision(cfg, steps=1),
+                 lambda: ImagePipeline(hw=4).batch(0),
+                 lambda: vision_from_reference(
+                     {k: {kk: v.numpy() for kk, v in d.items()}
+                      for k, d in params.items()}, cfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_paged_caches_need_an_explicit_cpu(monkeypatch):
+    from repro_torch.configs.archs import get_config
+    from repro_torch.serve import kv_cache as kvc
+
+    cfg = get_config("llama3.2-3b", smoke=True)
+    pools = kvc.init_paged_caches(cfg, 3, 8, dtype=torch.float32,
+                                  device="cpu")
+    assert pools[0][0].k.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        kvc.init_paged_caches(cfg, 3, 8)
+
+
 def test_kernels_build_for_hopper_from_repo_sources():
     from repro_torch.kernels import build as kbuild
     assert "arch=compute_90a,code=sm_90a" in kbuild.NVCC_FLAGS
-    assert set(kbuild.SOURCES) == {"grau", "paged_attention", "matmul_wq"}
+    assert set(kbuild.SOURCES) == {"grau", "paged_attention", "matmul_wq",
+                                   "matmul_grau"}
     for name in kbuild.SOURCES:
         assert (kbuild.CSRC / f"{name}.cu").exists()
     assert (kbuild.CSRC / "grau_datapath.cuh").exists()

@@ -322,3 +322,75 @@ def _mlp_dense(params):
          for name, layer in rep.items()}
         for rep in params["group0"]]
     return out
+
+
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("m,k,n", [(1, 64, 8), (1, 200, 128), (3, 7, 5),
+                                   (17, 260, 96), (128, 256, 128),
+                                   (130, 260, 300), (129, 1024, 257),
+                                   (256, 512, 256), (300, 2048, 136)])
+def test_matmul_grau_kernel_bit_exact(cuda, signed, m, k, n):
+    """Bit for bit against the plain version and the int64 oracle, for
+    ragged M, N and K (K not a multiple of 16 takes the byte-wise loader)
+    and both bus types; the int8 extremes included."""
+    from repro_torch.kernels import matmul_grau as mg
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(m * 7 + k + n)
+    x = rng.integers(-128, 128, size=(m, k)).astype(np.int8)
+    w = rng.integers(-128, 128, size=(k, n)).astype(np.int8)
+    x.reshape(-1)[:2], w.reshape(-1)[:2] = (-128, 127), (-128, -128)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    for _ in range(3):
+        spec = _spec(rng, signed, pre_lo=-3, pre_hi=40)
+        before = mg.matmul_grau.launches
+        got = ops.matmul_grau(xt.to(cuda), wt.to(cuda), spec)
+        torch.cuda.synchronize()
+        assert mg.matmul_grau.launches == before + 1
+        assert got.dtype == (torch.int8 if signed else torch.uint8)
+        regs = spec.packed(cuda)
+        plain = mg.matmul_grau_plain(xt.to(cuda), wt.to(cuda), regs,
+                                     num_exponents=spec.num_exponents,
+                                     qmin=spec.qmin, qmax=spec.qmax)
+        assert torch.equal(got, plain)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      ref.matmul_grau_ref(xt, wt, spec).numpy())
+
+
+def test_matmul_grau_batched_and_views(cuda):
+    """The (2, 17, 128) x (128, 96) batched case, a 1-D x, and operands that
+    do not start on an aligned address (a column-sliced view is copied)."""
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(5)
+    spec = _spec(rng, True)
+    x = torch.from_numpy(rng.integers(-128, 128, size=(2, 17, 128))
+                         .astype(np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, size=(128, 96))
+                         .astype(np.int8))
+    got = ops.matmul_grau(x.to(cuda), w.to(cuda), spec)
+    want = ref.matmul_grau_ref(x.reshape(-1, 128), w, spec).reshape(2, 17, 96)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    got1 = ops.matmul_grau(x[0, 0].to(cuda), w.to(cuda), spec)
+    assert got1.shape == (96,)
+    np.testing.assert_array_equal(got1.cpu().numpy(), want[0, 0].numpy())
+    big = torch.from_numpy(rng.integers(-128, 128, size=(33, 129))
+                           .astype(np.int8))
+    wbig = torch.from_numpy(rng.integers(-128, 128, size=(129, 65))
+                            .astype(np.int8))
+    xv, wv = big[:, 1:], wbig[1:, 1:]
+    got = ops.matmul_grau(xv.to(cuda), wv.to(cuda), spec)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        ref.matmul_grau_ref(xv.contiguous(), wv.contiguous(), spec).numpy())
+
+
+def test_matmul_grau_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import ops
+    spec = _spec(np.random.default_rng(1), True)
+    x = torch.zeros((4, 32), dtype=torch.int8, device=cuda)
+    w = torch.zeros((32, 8), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="int8"):
+        ops.matmul_grau(x.float(), w, spec)
+    with pytest.raises(ValueError, match="K mismatch"):
+        ops.matmul_grau(x, w[:16], spec)
+    with pytest.raises(ValueError, match="one device"):
+        ops.matmul_grau(x, w.cpu(), spec)

@@ -175,3 +175,22 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         tmm._check(x, qw.q[:16], qw.e, 4, 64)
     with pytest.raises(ValueError, match="bits"):
         tmm._check(x, qw.q, qw.e, 16, 64)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_ops_user_wrapper(bits):
+    """kernels.ops.matmul_wq, the user-facing wrapper (as the reference's
+    ops.matmul_wq): x of any rank, with and without the GRAU epilogue, is
+    the kernel wrapper's result; without the epilogue it is the reference
+    wrapper's within the stated bound."""
+    from repro_torch.kernels import ops as tops
+    _, tspec = _spec_pair()
+    x, jw, tw = _case(50 + bits, 6, 1024, 48, bits)
+    got = tops.matmul_wq(_t(x).reshape(2, 3, 1024), tw)
+    assert got.shape == (2, 3, 48)
+    want = np.asarray(jops.matmul_wq(jnp.asarray(x), jw, tiles=TILES,
+                                     interpret=True))
+    assert (np.abs(got.reshape(6, 48).numpy() - want) <= _bound(x, tw)).all()
+    fused = tops.matmul_wq(_t(x), tw, tspec, s_in=0.01)
+    assert torch.equal(fused, tmm.matmul_wq(_t(x), tw, tspec, s_in=0.01))
+    assert fused.dtype == torch.int8

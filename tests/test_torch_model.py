@@ -85,7 +85,8 @@ def test_paged_prefill_and_decode_logits_match_reference(arch, grau):
     jact, tact = jlm.make_act(jcfg), tlm.make_act(tcfg, "cpu")
     nblocks = 2 * BLOCKS_PER_SLOT + 1
     jcaches = jkvc.init_paged_caches(jcfg, nblocks, BS, dtype=jnp.float32)
-    tcaches = tkvc.init_paged_caches(tcfg, nblocks, BS, dtype=torch.float32)
+    tcaches = tkvc.init_paged_caches(tcfg, nblocks, BS, dtype=torch.float32,
+                                     device="cpu")
     cols = BLOCKS_PER_SLOT + CHUNK // BS
     table = np.zeros((2, cols), np.int32)
     table[0, :BLOCKS_PER_SLOT] = np.arange(1, 1 + BLOCKS_PER_SLOT)[::-1]

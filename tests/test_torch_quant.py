@@ -342,7 +342,8 @@ def test_validate_pool_packing_errors_match_reference():
         with pytest.raises(ValueError, match="block_size"):
             mod.validate_pool_packing(cfg, 0, 8)
     with pytest.raises(ValueError, match="head_dim=31 is odd"):
-        tkvc.init_paged_caches(tcfg, 9, BS, policy=tpol.kv_policy(4))
+        tkvc.init_paged_caches(tcfg, 9, BS, device="cpu",
+                               policy=tpol.kv_policy(4))
 
 
 @pytest.mark.parametrize("bits", [16, 8, 4])
@@ -352,7 +353,7 @@ def test_pool_construction_matches_reference(bits):
     jp = jkvc.init_paged_caches(jcfg, 9, BS, dtype=jnp.float32,
                                 policy=jpol.kv_policy(bits))
     tp = tkvc.init_paged_caches(tcfg, 9, BS, dtype=torch.float32,
-                                policy=tpol.kv_policy(bits))
+                                device="cpu", policy=tpol.kv_policy(bits))
     for jg, tg in zip(jp, tp):
         for jl, tl in zip(jg, tg):
             if bits == 16:
