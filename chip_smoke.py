@@ -17,7 +17,10 @@ Phases (any failure exits non-zero):
      same function where one exists, and the card's bound;
      matmul_grau (the int8 matmul with the GRAU epilogue) bit for bit at the
      quickstart's, the kernel bench's, ragged and the llama3.2-3b MLP
-     shapes, on signed, unsigned and random register files;
+     shapes, on signed, unsigned and random register files; flash_attention
+     (dense GQA attention forward) against its plain version (o and lse) at
+     slice (e)'s shape causal and not, in f32, at head_dim 64 and 256, on a
+     ragged length and after a prefix, and its backward against autograd;
   3. the slices: full-width llama3.2-3b in bf16 (weights drawn from --seed
      on the card) serves 8 requests through ServeEngine with the kernels,
      (a) with float activations, (b) with the GRAU MLP activation plus the
@@ -31,6 +34,12 @@ Phases (any failure exits non-zero):
      training, GRAU replacement, every pot/apot activation through the GRAU
      unit kernel; the kernel path's predictions and GRAU outputs held bit
      for bit against the plain unit's on the same trained parameters).
+     Then (e), GRAU-QAT training of full-width llama3.2-3b (bf16 weights,
+     f32 AdamW moments, GRAU apot, sequence 4096, remat "full") through
+     launch/steps.make_train_step and train/loop.run: loss and gradients
+     through the flash kernel held against the plain attention scan on
+     batch 0, 8 steps with the kernel's launches counted, and a checkpoint
+     / resume check at llama3-smoke size whose loss must fall.
      Launch counters are zeroed before and read after each run.
 Each phase prints its seconds. The last two lines are the kernels JSON and
 the result line.
@@ -65,6 +74,25 @@ F32_TOL = 2e-5      # f32: the same sums in another order (FMA contraction)
 BF16_RTOL, BF16_ATOL = 2 ** -7, 1e-6
 # relative L2, first decode logits, kernel path vs gather path
 SLICE_TOL = {"float": 2e-2, "grau": 5e-2, "wq4_kv4_grau": 5e-2}
+# flash kernel vs its plain version, element by element (o, lse): the
+# reference tests' tolerances for o (f32 3e-5, bf16 2e-2); lse is the same
+# f32 scores and sums in another order (bf16: a fast exp as well)
+FLASH_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (2e-2, 1e-4)}
+# bf16 o, inside that outer gate: the kernel rounds each weight of P to bf16
+# (relative error <= 2^-9) before P V and both sides round o to bf16 (<=
+# 2^-8 |o| each), so |got - want| <= 2^-9 (P|V|)/l + 2^-7 |want|, where
+# (P|V|)/l is the plain version on |v|; held at twice that
+FLASH_BF16_PV, FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2 ** -8, 2 ** -6, 1e-5
+# and the late rows as a whole (there |o| ~ 0.03 against (P|V|)/l ~ 0.8, so
+# the element bound alone is loose): rows >= min(1024, s_q / 2)
+FLASH_LATE_ROW, FLASH_LATE_REL_L2 = 1024, 1e-2
+FLASH_BWD_TOL = 1e-5    # f32 backward vs autograd of the plain version
+# slice (e): loss and gradients through the kernel vs the plain scan (bf16,
+# GRAU: a rounding flip of one activation moves its output by s_out)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-3, 5e-2
+RESUME_TOL = 1e-5       # resumed vs uninterrupted losses, relative
+RESUME_FALL = 0.5       # smoke-size loss falls by this over its 6 steps, as
+                        # the reference's tests/test_models.py asks in 10
 
 
 class SmokeError(RuntimeError):
@@ -601,6 +629,155 @@ def time_matmul_grau(torch, dev, spec, M, K, N):
                             "GRAU epilogue (the port never calls it)"}
 
 
+def flash_cases(torch, timed):
+    """(label, b, s_q, s_kv, h, kvh, d, dtype, causal, q_offset): slice
+    (e)'s shape causal and not, f32, head_dim 64 and 256, a ragged length
+    and queries after a prefix (q_offset, s_q < s_kv); the rehearsal's
+    shapes are cut to smoke size."""
+    bf, f32 = torch.bfloat16, torch.float32
+    if timed:
+        return [("train bf16 causal", 1, 4096, 4096, 24, 8, 128, bf, True, 0),
+                ("train bf16 full", 1, 4096, 4096, 24, 8, 128, bf, False, 0),
+                ("f32 causal", 2, 1024, 1024, 24, 8, 128, f32, True, 0),
+                ("d64 bf16", 1, 2048, 2048, 8, 2, 64, bf, True, 0),
+                ("d256 bf16", 1, 1024, 1024, 16, 16, 256, bf, True, 0),
+                ("ragged 1000", 1, 1000, 1000, 24, 8, 128, bf, True, 0),
+                ("q_offset 700", 1, 300, 1000, 24, 8, 128, bf, True, 700)]
+    return [("train bf16 causal", 1, 128, 128, 4, 2, 32, bf, True, 0),
+            ("f32 causal", 2, 64, 64, 4, 2, 32, f32, True, 0),
+            ("d256 f32", 1, 64, 64, 2, 2, 256, f32, False, 0),
+            ("ragged 100", 1, 100, 100, 4, 2, 32, f32, True, 0),
+            ("q_offset 70", 1, 30, 100, 4, 2, 32, f32, True, 70)]
+
+
+def check_flash(torch, np, dev, shapes, rng, timed):
+    """The flash kernel against flash_attention_plain on the same inputs, o
+    element by element and lse, at every case of flash_cases; then
+    flash_attention_backward (through FlashAttention) against autograd
+    through the plain version, f32; then timed at slice (e)'s shape."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_plain
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    worst = 0.0
+    bf16_worst = {"bound_ratio": 0.0, "late_rel_l2": 0.0}
+    for label, b, sq, skv, h, kvh, d, dt, causal, off in flash_cases(
+            torch, timed):
+        q = torch.randn((b, sq, h, d), device=dev).to(dt)
+        k, v = (torch.randn((b, skv, kvh, d), device=dev).to(dt)
+                for _ in range(2))
+        o, lse = fa.flash_attention(q, k, v, causal=causal, q_offset=off)
+        sync()
+        want, want_lse = flash_attention_plain(q, k, v, causal=causal,
+                                               q_offset=off)
+        tol, ltol = FLASH_TOL[str(dt).split(".")[-1]]
+        need(o.dtype == dt and torch.isfinite(o.float()).all()
+             and torch.isfinite(lse).all(), f"flash {label}: bad output")
+        ok, err = close(o, want, tol, tol)
+        need(ok, f"flash {label}: o off by {err:.3g} > {tol} (1 + |want|)")
+        ok, lerr = close(lse, want_lse, ltol, ltol)
+        need(ok, f"flash {label}: lse off by {lerr:.3g} > {ltol} (1 + "
+             "|want|)")
+        extra = ""
+        if dt == torch.bfloat16:
+            worst = max(worst, err)
+            ratio, late = flash_bf16_bound(torch, q, k, v, o, want, causal,
+                                           off)
+            bf16_worst["bound_ratio"] = max(bf16_worst["bound_ratio"], ratio)
+            bf16_worst["late_rel_l2"] = max(bf16_worst["late_rel_l2"], late)
+            need(ratio <= 1.0, f"flash {label}: o off by {ratio:.3g} x "
+                 f"{FLASH_BF16_ATOL} + {FLASH_BF16_PV} (P|V|)/l + "
+                 f"{FLASH_BF16_RTOL} |want|")
+            need(late <= FLASH_LATE_REL_L2, f"flash {label}: late rows of o "
+                 f"off by rel L2 {late:.3g} > {FLASH_LATE_REL_L2}")
+            extra = (f", worst |o - plain| / bf16 bound {ratio:.3g}, late "
+                     f"rows rel L2 {late:.3g} (within {FLASH_LATE_REL_L2})")
+        log(f"flash {label} {(b, sq, skv, h, kvh, d)} causal={causal} "
+            f"q_offset={off}: max |o - plain| {err:.3g} (within {tol} (1 + "
+            f"|want|)), max |lse - plain| {lerr:.3g} (within {ltol})"
+            f"{extra}")
+        del q, k, v, o, lse, want, want_lse
+    # the backward: FlashAttention's tiles from the saved lse against
+    # autograd through the plain version, f32, q_offset and ragged tiles
+    b, sq, skv, h, kvh, d, off = ((1, 384, 512, 8, 2, 128, 128) if timed
+                                  else (1, 48, 64, 4, 2, 32, 16))
+    q = torch.randn((b, sq, h, d), device=dev, requires_grad=True)
+    k, v = (torch.randn((b, skv, kvh, d), device=dev, requires_grad=True)
+            for _ in range(2))
+    do = torch.randn((b, sq, h, d), device=dev)
+    got = torch.autograd.grad(fa.FlashAttention.apply(
+        q, k, v, True, None, off, sq // 3, skv // 3), (q, k, v), do)
+    want = torch.autograd.grad(flash_attention_plain(
+        q, k, v, causal=True, q_offset=off)[0], (q, k, v), do)
+    bwd = max(float((a - w).norm() / w.norm()) for a, w in zip(got, want))
+    need(bwd <= FLASH_BWD_TOL, f"flash backward: rel L2 {bwd:.3g} > "
+         f"{FLASH_BWD_TOL}")
+    log(f"flash backward {(b, sq, skv, h, kvh, d)} q_offset={off}: dq, dk, "
+        f"dv within rel L2 {bwd:.3g} of autograd through the plain version "
+        f"(gate {FLASH_BWD_TOL})")
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:79",
+           "max_abs_err": worst, "bf16_bound_ratio": bf16_worst[
+               "bound_ratio"], "bf16_late_rel_l2": bf16_worst["late_rel_l2"],
+           "backward_rel_l2": bwd}
+    if timed:
+        row.update(time_flash(torch, dev, shapes["flash"]))
+        log(f"timed: {json.dumps(row)}")
+    return row
+
+
+def flash_bf16_bound(torch, q, k, v, o, want, causal, q_offset):
+    """(the largest |o - want| over FLASH_BF16_ATOL + FLASH_BF16_PV (P|V|)/l
+    + FLASH_BF16_RTOL |want|, the relative L2 of o - want over the late
+    rows) for a bf16 case; (P|V|)/l is the plain version in f32 on |v|."""
+    from repro_torch.kernels.ref import flash_attention_plain
+    pv = flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                               causal=causal, q_offset=q_offset)[0]
+    got, want = o.float(), want.float()
+    bound = (FLASH_BF16_ATOL + FLASH_BF16_PV * pv
+             + FLASH_BF16_RTOL * want.abs())
+    ratio = float(((got - want).abs() / bound).max())
+    first = min(FLASH_LATE_ROW, q.shape[1] // 2)
+    return ratio, rel_l2(got[:, first:], want[:, first:])
+
+
+def time_flash(torch, dev, shape):
+    """Slice (e)'s attention in bf16, causal: the kernel, its plain version
+    and F.scaled_dot_product_attention(is_causal, enable_gqa) on (b, h, s,
+    d) copies made before timing. The bound: q, k, v read and o, lse
+    written once over the memory rate, against 4 b h s^2 d / 2 operations
+    (causal) over the bf16 tensor-core peak."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_plain
+    b, s, h, kvh, d = shape
+    q = torch.randn((b, s, h, d), device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, s, kvh, d), device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    ok, err = close(lib().transpose(1, 2), fa.flash_attention(q, k, v)[0],
+                    2e-2, 2e-2)
+    need(ok, f"the SDPA yardstick computes another function (off by "
+         f"{err:.3g})")
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * b * h * s
+    t_bound, by = bound(nbytes, 4 * b * h * s * s * d / 2, "bf16")
+    return {"shape": [b, s, h, kvh, d],
+            "ms": device_ms(torch, lambda: fa.flash_attention(q, k, v)),
+            "plain_ms": device_ms(torch, lambda: flash_attention_plain(
+                q, k, v), 5, 1),
+            "bound_ms": t_bound, "bound_by": by,
+            "library_ms": device_ms(torch, lib),
+            "library_call": "torch.nn.functional.scaled_dot_product_attention"
+                            "(is_causal=True, enable_gqa=True) on (b, h, s, "
+                            "d) copies"}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the slice
 # ---------------------------------------------------------------------------
@@ -927,6 +1104,238 @@ def paper_flow(torch, np, dev, args, rehearse):
     return out
 
 
+def rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def grau_flips(torch, cfg, params, batch, dev, chunk):
+    """GRAU activation outputs that differ between a forward through the
+    flash kernel and one through the plain scan (no grad, no remat): the
+    first pass records each layer's activation, the second compares."""
+    from repro_torch.models import lm
+    act = lm.make_act(cfg, dev)
+    seen, counts = [], {"flips": 0, "elements": 0}
+
+    def record(z):
+        y = act(z)
+        seen.append(y)
+        return y
+
+    def compare(z):
+        y = act(z)
+        ref = seen.pop(0)
+        counts["flips"] += int((y != ref).sum())
+        counts["elements"] += y.numel()
+        return y
+    with torch.no_grad():
+        for impl, a in (("kernel", record), ("plain", compare)):
+            lm.apply_lm(params, cfg, batch["tokens"], act=a, q_chunk=chunk,
+                        kv_chunk=chunk, attn_impl=impl)
+    return counts
+
+
+def train_slice(torch, np, dev, args, rehearse):
+    """Slice (e): GRAU-QAT training of full-width llama3.2-3b (bf16 weights
+    from --seed, f32 AdamW moments, GRAU apot 6 x 8, sequence 4096 x batch 1,
+    remat "full"), through launch/steps.make_train_step and train/loop.run.
+    1. before the optimizer state exists: loss and gradients on batch 0
+       through the flash kernel and through the plain scan, held together,
+       and the GRAU activation flips between the two forwards;
+    2. 8 steps, launches of the flash kernel counted;
+    3. checkpoint and resume on the card at llama3-smoke size."""
+    from repro_torch import kernels
+    from repro_torch.configs.archs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.config import GRAUConfig
+    from repro_torch.nn.common import tree_flatten
+    from repro_torch.train import optim
+    from repro_torch.train.loop import LoopConfig, run
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    grau = GRAUConfig(mode="apot", segments=6, num_exponents=8)
+    cfg = get_config("llama3.2-3b", smoke=rehearse).replace(grau=grau)
+    dtype = torch.float32 if rehearse else torch.bfloat16
+    seq, batch_size = (64, 2) if rehearse else (4096, 1)
+    chunk = min(1024, seq)
+    out = {"config": cfg.name, "layers": cfg.num_layers, "seq": seq,
+           "batch": batch_size, "dtype": str(dtype)}
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=args.seed, dtype=dtype, device=dev)
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch_size, seed=args.seed,
+                         device=str(dev))
+    sync()
+    out["init_s"] = time.perf_counter() - t0
+
+    # 1. kernel vs plain scan on batch 0, before the moments exist
+    t0 = time.perf_counter()
+    batch0 = pipe.batch(0)
+    res = {}
+    for impl in ("kernel", "plain"):
+        fn = steps.make_loss_and_grads(cfg, remat="full", q_chunk=chunk,
+                                       kv_chunk=chunk, attn_impl=impl)
+        res[impl] = fn(params, batch0)
+        sync()
+    (lk, gk), (lp, gp) = res["kernel"], res["plain"]
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    grad_rel = {path: rel_l2(a, b) for (path, a), (_, b)
+                in zip(tree_flatten(gk), tree_flatten(gp))}
+    del res, gk, gp
+    worst_path = max(grad_rel, key=grad_rel.get)
+    flips = grau_flips(torch, cfg, params, batch0, dev, chunk)
+    out["kernel_vs_plain"] = {
+        "loss_kernel": float(lk), "loss_plain": float(lp),
+        "loss_rel": loss_rel, "grad_rel_l2_max": grad_rel[worst_path],
+        "grad_rel_l2_max_leaf": worst_path,
+        "grad_rel_l2_median": float(np.median(list(grad_rel.values()))),
+        "grau_flips": flips["flips"], "grau_elements": flips["elements"],
+        "seconds": time.perf_counter() - t0}
+    log(f"train[kernel vs plain]: {json.dumps(out['kernel_vs_plain'])}")
+    need(np.isfinite(float(lk)) and loss_rel <= TRAIN_LOSS_TOL,
+         f"train: loss through the kernel {float(lk)} vs plain {float(lp)}: "
+         f"rel {loss_rel:.3g} > {TRAIN_LOSS_TOL}")
+    need(grad_rel[worst_path] <= TRAIN_GRAD_TOL,
+         f"train: gradient {worst_path} rel L2 {grad_rel[worst_path]:.3g} > "
+         f"{TRAIN_GRAD_TOL}")
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 2. eight steps through the loop
+    steps_n = 8
+    opt_cfg = optim.AdamWConfig(peak_lr=3e-3, warmup_steps=5,
+                                total_steps=steps_n)
+    train_step = steps.make_train_step(cfg, opt_cfg, remat="full",
+                                       q_chunk=chunk, kv_chunk=chunk)
+    opt_state = optim.init_opt_state(params)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    try:
+        params, opt_state, hist = run(
+            train_step=train_step, params=params, opt_state=opt_state,
+            batch_fn=pipe.batch, loop=LoopConfig(total_steps=steps_n,
+                                                 log_every=1),
+            log=lambda m: log(f"train: {m}"))
+    except FloatingPointError as e:
+        raise SmokeError(f"train: {e}") from e
+    sync()
+    launches = kernels.launch_counts()
+    want = 2 * cfg.num_layers * steps_n
+    need(rehearse or launches["flash_attention"] == want,
+         f"train: flash_attention launched {launches['flash_attention']} "
+         f"times, want {want} (forward + remat recompute, {cfg.num_layers} "
+         f"layers x {steps_n} steps)")
+    step_s = float(np.median(hist["times"]))
+    tokens = seq * batch_size
+    out["train"] = {
+        "losses": hist["losses"], "step_s": hist["times"],
+        "median_step_s": step_s, "tokens_per_s": tokens / step_s,
+        "model_flops_per_step": train_flops(cfg, batch_size, seq),
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if cuda else None),
+        "flash_launches": launches["flash_attention"],
+        "flash_launches_want": want}
+    out["train"]["flops_share_of_989e12"] = (
+        out["train"]["model_flops_per_step"] / step_s / PEAK_OPS["bf16"])
+    out["train"]["card"] = args.card
+    log(f"train[8 steps]: {json.dumps(out['train'])}")
+    if args.profile:
+        out["profile"] = profile_train(torch, dev, train_step, params,
+                                       opt_state, pipe.batch,
+                                       f"{args.profile}.train.txt")
+    del params, opt_state, train_step
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 3. checkpoint and resume at llama3-smoke size
+    out["resume"] = resume_check(torch, dev, args, grau, sync)
+    log(f"train[resume]: {json.dumps(out['resume'])}")
+    return out
+
+
+def train_flops(cfg, batch, seq):
+    """Model FLOPs of one training step (no remat recompute): 6 per
+    parameter and token for the projections, MLP and tied head, and the
+    causal attention's 4 b h s^2 d / 2 forward times 3 (forward and the
+    two-product backward)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    per_layer = (d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+                 + 3 * d * cfg.d_ff)
+    matmul = 6 * batch * seq * (cfg.num_layers * per_layer
+                                + d * cfg.vocab_size)
+    attn = 3 * cfg.num_layers * 4 * batch * cfg.num_heads * seq * seq * hd / 2
+    return matmul + attn
+
+
+def resume_check(torch, dev, args, grau, sync):
+    """llama3-smoke with GRAU in f32 on the card: 6 steps uninterrupted;
+    then 3 steps committing a checkpoint at step 3, and a fresh run from the
+    same directory that must resume at 3. Every tensor restored from the
+    checkpoint equals the saved one byte for byte; the resumed losses agree
+    with the uninterrupted run's within RESUME_TOL (relative: the embedding
+    backward sums with atomics on the card), and the uninterrupted loss
+    falls by RESUME_FALL: the update on the card trains."""
+    import tempfile
+
+    from repro_torch.ckpt import checkpoint as ckpt_lib
+    from repro_torch.configs.archs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.nn.common import tree_flatten
+    from repro_torch.train import optim
+    from repro_torch.train.loop import LoopConfig, run
+
+    cfg = get_config("llama3.2-3b", smoke=True).replace(grau=grau)
+    pipe = TokenPipeline(cfg.vocab_size, 64, 4, seed=args.seed,
+                         device=str(dev))
+    opt_cfg = optim.AdamWConfig(peak_lr=3e-3, warmup_steps=2, total_steps=6)
+
+    def fresh(total, ckpt_dir=None):
+        params = lm.init_lm(cfg, seed=args.seed, dtype=torch.float32,
+                            device=dev)
+        step = steps.make_train_step(cfg, opt_cfg, remat="full", q_chunk=32,
+                                     kv_chunk=32)
+        return run(train_step=step, params=params,
+                   opt_state=optim.init_opt_state(params),
+                   batch_fn=pipe.batch,
+                   loop=LoopConfig(total_steps=total, ckpt_every=3,
+                                   ckpt_dir=ckpt_dir, log_every=100),
+                   log=lambda m: log(f"train[resume]: {m}"))
+
+    t0 = time.perf_counter()
+    _, _, full = fresh(6)
+    with tempfile.TemporaryDirectory() as d:
+        p3, o3, first = fresh(3, d)
+        sync()
+        restored = ckpt_lib.restore(d, 3, {"params": p3, "opt": o3})
+        saved = tree_flatten({"params": p3, "opt": o3})
+        same = all(a.device == b.device and a.dtype == b.dtype
+                   and torch.equal(a, b) for (_, a), (_, b)
+                   in zip(saved, tree_flatten(restored)))
+        _, _, resumed = fresh(6, d)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"],
+                                                   full["losses"][3:]))
+    out = {"uninterrupted_losses": full["losses"],
+           "first_losses": first["losses"], "resumed_start": resumed["start"],
+           "resumed_losses": resumed["losses"], "restored_identical": same,
+           "tensors": len(saved), "max_rel_diff": rel,
+           "seconds": time.perf_counter() - t0}
+    need(resumed["start"] == 3 and len(resumed["losses"]) == 3,
+         f"resume: started at {resumed['start']}, want 3")
+    need(same, "resume: a restored tensor differs from the saved one")
+    need(rel <= RESUME_TOL, f"resume: losses off by {rel:.3g} relative > "
+         f"{RESUME_TOL}")
+    need(full["losses"][-1] < full["losses"][0] - RESUME_FALL,
+         f"resume: the loss did not fall by {RESUME_FALL} in 6 steps: "
+         f"{full['losses']}")
+    return out
+
+
 def check_logits(torch, label, res, lk, lg):
     rel = float((lk - lg).norm() / lg.norm())
     res["first_step_logits_rel_l2"] = rel
@@ -980,26 +1389,59 @@ def profile_serve(torch, dev, cfg, params, ecfg, reqs_fn, path, label,
                      eng.stats["chunks"] - chunks0)
     while busy():
         steps(1)
+    busy_s, top = kernel_table(prof, path)
+    out = {"window_steps": window, "decode_ticks": ticks,
+           "prefill_chunks": chunks, "wall_s": wall,
+           "device_busy_s": busy_s, "device_busy_share": busy_s / wall,
+           "top": top}
+    log(f"profile[{label}]: " + json.dumps(out))
+    return out
+
+
+def kernel_table(prof, path, top=10):
+    """Device time by kernel over a profiled window, written to `path`
+    (host ops are skipped: their kernels are listed); returns the busy
+    seconds and the `top` kernels."""
     from torch.autograd import DeviceType
     rows = []
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:    # host ops: skip (their
-            continue                              # kernels are listed)
+        if evt.device_type != DeviceType.CUDA:
+            continue
         dev_us = (getattr(evt, "self_device_time_total", None)
                   or getattr(evt, "self_cuda_time_total", 0) or 0)
         if dev_us > 0:
             rows.append((dev_us, evt.key, evt.count))
     rows.sort(reverse=True)
-    busy_s = sum(r[0] for r in rows) / 1e6
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     Path(path).write_text("\n".join(
         f"{us / 1e3:12.3f} ms  {n:8d}x  {key}" for us, key, n in rows))
-    out = {"window_steps": window, "decode_ticks": ticks,
-           "prefill_chunks": chunks, "wall_s": wall,
-           "device_busy_s": busy_s, "device_busy_share": busy_s / wall,
-           "top": [{"kernel": key[:80], "ms": us / 1e3, "calls": n}
-                   for us, key, n in rows[:10]]}
-    log(f"profile[{label}]: " + json.dumps(out))
+    return (sum(r[0] for r in rows) / 1e6,
+            [{"kernel": key[:80], "ms": us / 1e3, "calls": n}
+             for us, key, n in rows[:top]])
+
+
+def profile_train(torch, dev, train_step, params, opt_state, batch_fn,
+                  path, steps_n=2):
+    """Where a training step's time goes: `steps_n` more steps under
+    torch.profiler (device time by kernel to `path`)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if dev.type == "cuda" else [])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps_n):
+            params, opt_state, m = train_step(params, opt_state,
+                                              batch_fn(100 + i))
+        float(m["loss"])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_s, top = kernel_table(prof, path, top=15)
+    out = {"steps": steps_n, "wall_s": wall, "device_busy_s": busy_s,
+           "device_busy_share": busy_s / wall, "top": top}
+    log("profile[train]: " + json.dumps(out))
     return out
 
 
@@ -1011,8 +1453,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write the full report as JSON here")
     ap.add_argument("--profile", default=None, metavar="PATH",
-                    help="also profile one served run per configuration; "
-                         "per-kernel device times go to PATH.<config>.txt")
+                    help="also profile one served run per configuration "
+                         "and two training steps; per-kernel device times "
+                         "go to PATH.<config>.txt")
     ap.add_argument("--rehearse", action="store_true",
                     help="smoke-size control-flow run on the CPU; exits 1")
     args = ap.parse_args(argv)
@@ -1037,13 +1480,14 @@ def main(argv=None) -> int:
     dev = torch.device("cpu" if args.rehearse else "cuda")
     timed = not args.rehearse
     report = {}
+    args.card = "cpu rehearsal"
     if timed:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True, timeout=60)
         card = smi.stdout.strip().splitlines()[0] if smi.stdout else "?"
         log(card)
-        report["card"] = card
+        report["card"] = args.card = card
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         t0 = time.perf_counter()
@@ -1084,6 +1528,8 @@ def main(argv=None) -> int:
                                      if timed else [])
                          + [((m, k), (k, n)) for m, k, n in mlp_mkn])
     shapes["mm_grau_timed"] = [(128, 256, 128)] + mlp_mkn
+    # flash attention: slice (e)'s (b, s, h, kvh, d)
+    shapes["flash"] = (1, 4096, 24, 8, 128) if timed else (1, 128, 4, 2, 32)
     phase_s = report.setdefault("phase_s", {})
 
     def phase(name, fn):
@@ -1102,20 +1548,25 @@ def main(argv=None) -> int:
             torch, np, dev, shapes, rng, timed))
         rows["matmul_grau"] = phase("matmul_grau", lambda: check_matmul_grau(
             torch, np, dev, shapes, rng, timed))
+        rows["flash_attention"] = phase("flash_attention", lambda: check_flash(
+            torch, np, dev, shapes, rng, timed))
         slice_res = phase("slices_abc", lambda: slice_phase(
             torch, np, dev, args, args.rehearse))
         paper = phase("slice_d", lambda: paper_flow(torch, np, dev, args,
                                                      args.rehearse))
+        train = phase("slice_e", lambda: train_slice(torch, np, dev, args,
+                                                      args.rehearse))
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     report["slice"] = slice_res
     report["paper_flow"] = paper
+    report["train"] = train
     # launches on the main paths: the 16-bit attention rows from (b), where
     # the GRAU datapath runs fused in the attention kernels' epilogue; the
     # 4-bit attention rows and matmul_wq from (c); the GRAU unit and
     # matmul_grau from (d) (the quickstart, and Table III's integer
-    # activations)
+    # activations); flash_attention from (e)'s eight training steps
     lb = slice_res["grau"]["launches"]
     lc = slice_res["wq4_kv4_grau"]["launches"]
     lq = paper["quickstart"]["launches"]
@@ -1131,9 +1582,10 @@ def main(argv=None) -> int:
                                    epilogue_launches=lc[f"{name}_epilogue"])
     rows["matmul_wq"].update(launches=lc["matmul_wq"],
                              epilogue_launches=lc["matmul_wq_epilogue"])
+    rows["flash_attention"]["launches"] = train["train"]["flash_launches"]
     kernel_rows = [grau_row] + [rows[n] for n in (
         "paged_attention", "paged_prefill", "paged_attention_kv4",
-        "paged_prefill_kv4", "matmul_wq", "matmul_grau")]
+        "paged_prefill_kv4", "matmul_wq", "matmul_grau", "flash_attention")]
     report["kernels"] = kernel_rows
     # the 8-bit pools are on no served path here: checked and timed, kept
     # in the report only

@@ -7,13 +7,14 @@ from typing import Dict
 
 
 def _wrappers():
-    from repro_torch.kernels import (grau, matmul_grau, matmul_wq,
-                                     paged_attention)
+    from repro_torch.kernels import (flash_attention, grau, matmul_grau,
+                                     matmul_wq, paged_attention)
     return {"grau": grau.grau_unit,
             "paged_attention": paged_attention.paged_attention,
             "paged_prefill": paged_attention.paged_prefill_attention,
             "matmul_wq": matmul_wq.matmul_wq,
-            "matmul_grau": matmul_grau.matmul_grau}
+            "matmul_grau": matmul_grau.matmul_grau,
+            "flash_attention": flash_attention.flash_attention}
 
 
 # sub-counts some wrappers keep beside `launches`, and their report suffixes:

@@ -25,7 +25,8 @@ from typing import Dict, Iterable, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("grau", "paged_attention", "matmul_wq", "matmul_grau")
+SOURCES = ("grau", "paged_attention", "matmul_wq", "matmul_grau",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -158,3 +158,32 @@ def paged_prefill_ref(
         assert s_in is not None
         return attn_output_quant(o, spec, s_in)
     return o.to(q.dtype)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          scale: Optional[float] = None, q_offset: int = 0):
+    """Plain torch version of kernels/flash_attention.py's kernel, in the
+    reference's layout: q (b, s_q, h, d), k and v (b, s_kv, kvh, d); query
+    head hi reads KV head hi // (h // kvh); row r sits at position
+    q_offset + r. Computed in f32 (float64 for float64 inputs) with masked
+    scores -1e30. Returns (o in q's dtype, lse (b, h, s_q) in the compute
+    dtype)."""
+    b, s_q, h, d = q.shape
+    s_kv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = scale if scale is not None else d ** -0.5
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qg = q.to(acc).reshape(b, s_q, kvh, g, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(acc)) * scale
+    if causal:
+        qpos = q_offset + torch.arange(s_q, device=q.device)
+        kpos = torch.arange(s_kv, device=q.device)
+        s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bkgqs,bskd->bkgqd", p, v.to(acc))
+    o = o / torch.clamp(l, min=1e-30)
+    lse = (m + torch.log(l))[..., 0].reshape(b, h, s_q)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, s_q, h, d).to(q.dtype), lse

@@ -11,8 +11,10 @@ Packed trees carry over too: a reference QuantWeight leaf (anything with
 `q`, `e`, `bits`, `caxis`, `kdim`, `tile`) becomes the port's, payload and
 exponents converted and the static fields kept, and `pools_from_reference`
 converts a reference pool tree, float or quantized (`k_exp`, `v_exp`,
-`bits`), leaf by leaf. `vision_from_reference` carries the SFC/CNV
-parameters of models/vision.py across.
+`bits`), leaf by leaf. `opt_state_from_reference` carries an AdamW state
+(train/optim.py) across, and `vision_from_reference` the SFC/CNV
+parameters of models/vision.py. Every converter places its tensors on the
+device given, or on CUDA (models/lm.resolve_device).
 """
 from __future__ import annotations
 
@@ -47,26 +49,59 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def from_reference(ref_params: Dict[str, Any], cfg: ModelConfig, *,
-                   device="cpu") -> Dict[str, Any]:
-    """Port parameters from the reference tree; each leaf keeps its dtype."""
+                   device=None) -> Dict[str, Any]:
+    """Port parameters from the reference tree onto `device` (default:
+    CUDA, see models/lm.resolve_device); each leaf keeps its dtype."""
+    from repro_torch.models.lm import resolve_device
+    device = resolve_device(device)
+
+    repeats = {f"group{gi}": n for gi, (_, n) in enumerate(cfg.groups)}
+    return _unstack(ref_params, repeats, device)
+
+
+def _unstack(ref_tree: Dict[str, Any], repeats: Dict[str, int], device):
+    """The reference's tree with each group's stacked leading axis unrolled
+    into a list of `repeats[group]` per-repeat trees."""
     def leaf(a):
         return _tensor(a, device)
 
     out: Dict[str, Any] = {}
-    for name, val in ref_params.items():
+    for name, val in ref_tree.items():
         if not name.startswith("group"):
             out[name] = _tree(val, leaf)
-    for gi, (_, repeats) in enumerate(cfg.groups):
-        stacked = ref_params[f"group{gi}"]
-        out[f"group{gi}"] = [_tree(stacked, lambda a, r=r: leaf(np.asarray(a)[r]))
-                             for r in range(repeats)]
+    for name, n in repeats.items():
+        out[name] = [_tree(ref_tree[name],
+                           lambda a, r=r: leaf(np.asarray(a)[r]))
+                     for r in range(n)]
     return out
 
 
-def pools_from_reference(ref_caches, *, device="cpu"):
+def opt_state_from_reference(ref_opt_state, params_like: Dict[str, Any], *,
+                             device=None):
+    """Port a reference train/optim.OptState (step, f32 moments m and v
+    shaped like the stacked parameters) onto `device` (default: CUDA, see
+    models/lm.resolve_device), grouped like the port's `params_like`, so a
+    run can continue the reference's optimizer state."""
+    from repro_torch.models.lm import resolve_device
+    from repro_torch.train.optim import OptState
+    device = resolve_device(device)
+    repeats = {k: len(v) for k, v in params_like.items()
+               if k.startswith("group")}
+    return OptState(
+        step=torch.tensor(int(np.asarray(ref_opt_state.step)),
+                          dtype=torch.int32, device=device),
+        m=_unstack(ref_opt_state.m, repeats, device),
+        v=_unstack(ref_opt_state.v, repeats, device))
+
+
+def pools_from_reference(ref_caches, *, device=None):
     """Port a reference paged pool tree (a tuple per group of per-layer
     leaves stacked over repeats): float PagedKVCache leaves and quantized
-    ones (payload, exponent planes and `bits`)."""
+    ones (payload, exponent planes and `bits`), onto `device` (default:
+    CUDA, see models/lm.resolve_device)."""
+    from repro_torch.models.lm import resolve_device
+    device = resolve_device(device)
+
     def pool(c):
         if hasattr(c, "k_exp"):
             return QuantPagedKVCache(

@@ -1,5 +1,5 @@
-"""LM assembly for the dense GQA decoders: init, paged prefill chunks and
-paged decode steps.
+"""LM assembly for the dense GQA decoders: init, the training forward and
+loss, paged prefill chunks and paged decode steps.
 
 Parameters: {"embed", "ln_f_w" (+"ln_f_b"), ["head"], "group{i}": [per
 repeat {"l{j}": layer params}]} — the JAX package's tree with each group's
@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import blocks
@@ -89,22 +90,47 @@ def compute_dtype(params) -> torch.dtype:
     return embed.dtype
 
 
+def _check_remat(remat: Optional[str]) -> None:
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' is XLA's dots_with_no_batch_dims_saveable policy; "
+            "the port has only None and 'full' (ROADMAP)")
+    if remat not in (None, "full"):
+        raise ValueError(f"unknown remat {remat!r}: None or 'full'")
+
+
 def _hidden(params, cfg: ModelConfig, tokens, *, mode, caches, positions,
-            act, paged: PagedState, paged_impl, attn_quant):
+            act, paged: Optional[PagedState], paged_impl, attn_quant,
+            remat: Optional[str] = None, q_chunk: int = 1024,
+            kv_chunk: int = 1024, attn_impl: str = "kernel"):
     """Embed (a packed table dequantizes only the gathered rows) -> layers
     (pools updated in place) -> final norm. The rope tables are built once
-    and shared by every layer."""
+    and shared by every layer. In "train" mode (no caches), with
+    remat="full" each repeat's body runs under activation checkpointing
+    (torch.utils.checkpoint, non-reentrant): only its input is kept and the
+    body runs again in the backward pass, as the reference's _run_group
+    wraps it in jax.checkpoint."""
     x = wq_lib.take_rows(params["embed"], tokens).to(compute_dtype(params))
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    kw = dict(rope=rope, act=act, mode=mode, paged=paged,
+              paged_impl=paged_impl, attn_quant=attn_quant, q_chunk=q_chunk,
+              kv_chunk=kv_chunk, attn_impl=attn_impl)
     for gi, (period, repeats) in enumerate(cfg.groups):
         group = params[f"group{gi}"]
         for r in range(repeats):
+            if mode == "train":
+                def body(h, layer=group[r], period=period):
+                    for li, spec in enumerate(period):
+                        h, _ = blocks.apply_layer(layer[f"l{li}"], h, spec,
+                                                  cfg, **kw)
+                    return h
+                x = (checkpoint(body, x, use_reentrant=False)
+                     if remat == "full" else body(x))
+                continue
             for li, spec in enumerate(period):
                 x, _ = blocks.apply_layer(
-                    group[r][f"l{li}"], x, spec, cfg, rope=rope,
-                    act=act, cache=cache_slice(caches[gi][li], r),
-                    mode=mode, paged=paged, paged_impl=paged_impl,
-                    attn_quant=attn_quant)
+                    group[r][f"l{li}"], x, spec, cfg,
+                    cache=cache_slice(caches[gi][li], r), **kw)
     return blocks.apply_norm(params, "ln_f", x, cfg.norm, cfg.norm_eps)
 
 
@@ -116,16 +142,48 @@ def _head(params, cfg: ModelConfig, x):
     return x @ wq_lib.dense(params["head"], x.dtype)
 
 
-def apply_lm(params, cfg: ModelConfig, tokens, *, mode: str, caches,
-             positions, paged: PagedState, act=None,
-             paged_impl: str = "kernel", attn_quant=None):
-    """Returns (logits, caches) for a paged "decode" step or "prefill"
-    chunk; the pools in `caches` are updated in place."""
+def apply_lm(params, cfg: ModelConfig, tokens, *, mode: str = "train",
+             caches=None, positions=None, paged: Optional[PagedState] = None,
+             act=None, paged_impl: str = "kernel", attn_quant=None,
+             remat: Optional[str] = None, q_chunk: int = 1024,
+             kv_chunk: int = 1024, attn_impl: str = "kernel"):
+    """Returns (logits, caches): the training forward over the whole
+    sequence (mode="train", no caches, positions [0, s)), or a paged
+    "decode" step or "prefill" chunk (the pools in `caches` updated in
+    place). `remat` (None | "full") and `attn_impl` ("kernel" | "plain":
+    the flash kernel on the card, or the plain scan) apply to "train"."""
+    _check_remat(remat)
     act = act or make_act(cfg, tokens.device)
+    if mode == "train":
+        if caches is not None or paged is not None:
+            raise ValueError("mode='train' runs without caches")
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _hidden(params, cfg, tokens, mode=mode, caches=caches,
                 positions=positions, act=act, paged=paged,
-                paged_impl=paged_impl, attn_quant=attn_quant)
+                paged_impl=paged_impl, attn_quant=attn_quant, remat=remat,
+                q_chunk=q_chunk, kv_chunk=kv_chunk, attn_impl=attn_impl)
     return _head(params, cfg, x), caches
+
+
+def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            act=None, q_chunk: int = 1024, kv_chunk: int = 1024,
+            remat: Optional[str] = None,
+            attn_impl: str = "kernel") -> torch.Tensor:
+    """Next-token cross-entropy over batch["tokens"] / batch["labels"]
+    (b, s): log-softmax in f32, labels < 0 masked out, the mean over the
+    rest. (The reference adds the MoE load-balancing loss; a dense model
+    has none.) Only the f32 log-probabilities are kept for the backward,
+    not a second f32 copy of the logits."""
+    logits, _ = apply_lm(params, cfg, batch["tokens"], mode="train", act=act,
+                         q_chunk=q_chunk, kv_chunk=kv_chunk, remat=remat,
+                         attn_impl=attn_impl)
+    labels = batch["labels"]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    del logits
+    mask = (labels >= 0).to(torch.float32)
+    ll = torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def decode_step(params, cfg: ModelConfig, tokens, caches, *,

@@ -1,6 +1,7 @@
-"""Attention over the paged KV pool: write paths, the gathered dense view,
-and decode / chunked-prefill attention through either the CUDA kernels
-("kernel") or the gathered view ("gather"), over float pools
+"""Attention: chunked (flash-style) training attention over the full
+sequence, and attention over the paged KV pool — write paths, the gathered
+dense view, and decode / chunked-prefill attention through either the CUDA
+kernels ("kernel") or the gathered view ("gather"), over float pools
 (PagedKVCache) or packed 8/4-bit pools with power-of-two block exponents
 (QuantPagedKVCache, quant/kv.py).
 
@@ -18,6 +19,94 @@ import torch
 from repro_torch.quant import kv as kvq
 
 NEG_INF = -1e30
+
+
+def _largest_divisor(n: int, cap: int) -> int:
+    """Largest divisor of n that is <= cap (chunk sizes must tile the seq)."""
+    cap = min(cap, n)
+    for c in range(cap, 0, -1):
+        if n % c == 0:
+            return c
+    return 1
+
+
+def _chunk_attend(q, k, v, *, q_offset, kv_offset, causal, scale):
+    """One (q_chunk, kv_chunk) tile: returns (scores_max, exp_sums,
+    out_part), each (b, kvh, g, qc[, d]) in f32.
+
+    q: (b, qc, h, d); k/v: (b, kc, kvh, d) with h = kvh * groups. The
+    causal mask is a (qc, kc) additive bias of 0 / -1e30, as in the
+    reference."""
+    b, qc, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, qc, kvh, g, d)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    if causal:
+        qpos = q_offset + torch.arange(qc, device=q.device)
+        kpos = kv_offset + torch.arange(k.shape[1], device=q.device)
+        bias = torch.where(qpos[:, None] >= kpos[None, :], 0.0, NEG_INF)
+        logits = logits + bias
+    m = logits.amax(-1)                                            # (b,k,g,q)
+    p = torch.exp(logits - m[..., None])
+    l = p.sum(-1)
+    o = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())            # (b,k,g,q,d)
+    return m, l, o
+
+
+def chunked_attention(
+    q: torch.Tensor,                  # (b, s_q, h, d)
+    k: torch.Tensor,                  # (b, s_kv, kvh, d)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+    impl: str = "kernel",             # "kernel" | "plain"
+) -> torch.Tensor:
+    """Training attention over the full sequence, the logits never
+    materialised at (seq, seq).
+
+    impl="kernel": on a CUDA tensor the forward is the flash kernel
+    (kernels/flash_attention.FlashAttention, differentiated from its saved
+    lse over (q_chunk x kv_chunk) tiles); on a CPU tensor it is the plain
+    scan below. impl="plain": the plain scan on any device — the
+    reference's online-softmax recurrence over query chunks with an inner
+    loop over KV chunks, differentiated by autograd."""
+    b, s_q, h, d = q.shape
+    s_kv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = scale if scale is not None else d ** -0.5
+    q_chunk = _largest_divisor(s_q, q_chunk)
+    kv_chunk = _largest_divisor(s_kv, kv_chunk)
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if impl == "kernel" and q.device.type == "cuda":
+        from repro_torch.kernels.flash_attention import FlashAttention
+        return FlashAttention.apply(q, k, v, causal, scale, q_offset,
+                                    q_chunk, kv_chunk)
+    outs = []
+    for i0 in range(0, s_q, q_chunk):
+        qc = q[:, i0:i0 + q_chunk]
+        m = torch.full((b, kvh, g, q_chunk), NEG_INF, device=q.device)
+        l = torch.zeros((b, kvh, g, q_chunk), device=q.device)
+        o = torch.zeros((b, kvh, g, q_chunk, d), device=q.device)
+        for j0 in range(0, s_kv, kv_chunk):
+            mj, lj, oj = _chunk_attend(
+                qc, k[:, j0:j0 + kv_chunk], v[:, j0:j0 + kv_chunk],
+                q_offset=q_offset + i0, kv_offset=j0, causal=causal,
+                scale=scale)
+            m_new = torch.maximum(m, mj)
+            a = torch.exp(m - m_new)
+            bfac = torch.exp(mj - m_new)
+            l = l * a + lj * bfac
+            o = o * a[..., None] + oj * bfac[..., None]
+            m = m_new
+        out = o / torch.clamp(l[..., None], min=1e-30)             # (b,kvh,g,qc,d)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, q_chunk, h, d))
+    return torch.cat(outs, dim=1).to(q.dtype)
 
 
 class KVCache(NamedTuple):

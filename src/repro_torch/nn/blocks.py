@@ -1,4 +1,5 @@
-"""Decoder-layer assembly for dense GQA layers: paged attention + gated MLP.
+"""Decoder-layer assembly for dense GQA layers: full-sequence (training) or
+paged attention + gated MLP.
 
 A layer is described by a LayerSpec(kind, mlp). This slice of the port
 serves kind="attn" with mlp="dense" (the dense GQA decoders); MoE, Mamba-2
@@ -7,7 +8,7 @@ and MLA layers are still to be ported (ROADMAP A9).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -96,6 +97,20 @@ def _rope_qk(q, k, rope):
     qk = rotate(torch.cat([q, k], dim=2), *rope)
     q, k = qk.split([q.shape[2], k.shape[2]], dim=2)
     return q.contiguous(), k
+
+
+def apply_attention(params, x, cfg, *, rope, causal: bool = True,
+                    q_chunk: int = 1024, kv_chunk: int = 1024,
+                    attn_impl: str = "kernel") -> torch.Tensor:
+    """Training path (full sequence, no cache): x (b, s, d) -> (b, s, d).
+    `rope` holds the (cos, sin) tables at positions [0, s); attention is
+    nn/attention.chunked_attention (the flash kernel on the card with
+    attn_impl="kernel", the plain scan with "plain")."""
+    q, k, v = _qkv(params, x, cfg)
+    q, k = _rope_qk(q, k, rope)
+    o = attn_lib.chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                                   kv_chunk=kv_chunk, impl=attn_impl)
+    return _out(o, params["wo"])
 
 
 def decode_attention_block(
@@ -187,15 +202,22 @@ def _check_spec(spec: LayerSpec) -> None:
 
 def apply_layer(
     params, x, spec: LayerSpec, cfg, *, rope, act: Callable,
-    cache: AnyPagedKVCache, mode: str, paged: PagedState,
-    paged_impl: str = "kernel", attn_quant=None,
-) -> Tuple[torch.Tensor, AnyPagedKVCache]:
-    """One dense decoder layer in "decode" or paged "prefill" mode, with
-    the (cos, sin) rope tables of its positions. Returns (x, cache); the
-    pool is updated in place."""
+    cache: Optional[AnyPagedKVCache] = None, mode: str = "train",
+    paged: Optional[PagedState] = None, paged_impl: str = "kernel",
+    attn_quant=None, q_chunk: int = 1024, kv_chunk: int = 1024,
+    attn_impl: str = "kernel",
+) -> Tuple[torch.Tensor, Optional[AnyPagedKVCache]]:
+    """One dense decoder layer in "train" mode (the full sequence, no
+    cache), "decode" or paged "prefill" mode, with the (cos, sin) rope
+    tables of its positions. Returns (x, cache); the pool is updated in
+    place."""
     _check_spec(spec)
     h = apply_norm(params, "ln1", x, cfg.norm, cfg.norm_eps)
-    if mode == "decode":
+    if mode == "train":
+        a = apply_attention(params["attn"], h, cfg, rope=rope,
+                            q_chunk=q_chunk, kv_chunk=kv_chunk,
+                            attn_impl=attn_impl)
+    elif mode == "decode":
         a, cache = decode_attention_block(params["attn"], h, cfg, rope=rope,
                                           cache=cache, paged=paged,
                                           paged_impl=paged_impl,
@@ -205,8 +227,8 @@ def apply_layer(
             params["attn"], h, cfg, rope=rope, cache=cache,
             paged=paged, paged_impl=paged_impl, attn_quant=attn_quant)
     else:
-        raise NotImplementedError(f"mode {mode!r}: only the paged serving "
-                                  "modes are ported")
+        raise NotImplementedError(f"mode {mode!r}: the dense-cache prefill "
+                                  "is not ported (ROADMAP)")
     x = x + a
     h = apply_norm(params, "ln2", x, cfg.norm, cfg.norm_eps)
     return x + apply_mlp(params["mlp"], h, act, cfg.gated_mlp), cache

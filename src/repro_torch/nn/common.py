@@ -143,3 +143,41 @@ def build_lm_grau(
 def make_activation(name: str, grau: Optional[GRAUActivation] = None):
     """Activation factory: exact float, or the GRAU QAT surrogate."""
     return grau if grau is not None else act_fn(name)
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees (nested dicts / lists / NamedTuples of tensors)
+# ---------------------------------------------------------------------------
+
+def tree_map(fn: Callable, tree, *rest):
+    """fn over the leaves of `tree` (and the same-structured `rest`), keeping
+    the structure: dicts, lists, tuples and NamedTuples are nodes, anything
+    else a leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v, *(r[i] for r in rest))
+                            for i, v in enumerate(tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_flatten(tree, prefix: str = ""):
+    """[(path, leaf)] in a fixed order; a path joins dict keys, list
+    indices and NamedTuple field names with "/" (the reference checkpoint's
+    key scheme)."""
+    if isinstance(tree, dict):
+        items = list(tree.items())
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = list(zip(tree._fields, tree))
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        return [(prefix, tree)]
+    out = []
+    for k, v in items:
+        out += tree_flatten(v, f"{prefix}/{k}" if prefix else str(k))
+    return out

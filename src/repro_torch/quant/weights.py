@@ -126,10 +126,12 @@ def dense(w: Any, dtype: torch.dtype = torch.float32) -> torch.Tensor:
 
 def take_rows(w: Any, idx: torch.Tensor) -> torch.Tensor:
     """Embedding lookup: gather packed rows + their exponent rows, then
-    dequantize only the gathered slice (f32); a plain index on raw
-    tensors."""
+    dequantize only the gathered slice (f32); a plain row gather on raw
+    tensors, through F.embedding, whose backward sums each row's gradient
+    in a fixed order (indexing's accumulates in thread order on the CPU,
+    which makes training runs differ in the last bits)."""
     if not isinstance(w, QuantWeight):
-        return w[idx.long()]
+        return torch.nn.functional.embedding(idx.long(), w)
     if w.caxis == -w.q.dim():
         raise ValueError("take_rows needs axis 0 distinct from the packed "
                          f"contraction axis (caxis={w.caxis})")

@@ -52,7 +52,7 @@ def test_engine_greedy_streams_match_reference(grau):
             grau=TGRAUConfig())
         jattn, tattn = jbuild_lm_grau("identity"), build_lm_grau("identity")
     jparams, _ = jlm.init_lm(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
-    tparams = from_reference(jparams, tcfg)
+    tparams = from_reference(jparams, tcfg, device="cpu")
     kw = dict(slots=2, max_seq=64, page_size=8)
     je = jeng.ServeEngine(jcfg, jparams, jeng.EngineConfig(
         paged_impl="gather", attn_grau=jattn, telemetry=False, **kw))

@@ -84,7 +84,7 @@ def _ref_streams(jcfg, jparams, jattn, quant, impl):
 def test_engine_greedy_streams_match_reference(smoke_params, name):
     quant = COMPOSITIONS[name]
     jcfg, tcfg, jattn, tattn = _setup(name)
-    te = teng.ServeEngine(tcfg, from_reference(smoke_params, tcfg),
+    te = teng.ServeEngine(tcfg, from_reference(smoke_params, tcfg, device="cpu"),
                           teng.EngineConfig(slots=2, max_seq=64,
                                             page_size=PAGE, attn_grau=tattn,
                                             **quant), device="cpu")
@@ -114,7 +114,7 @@ def test_pool_bytes_match_reference_through_prefill(smoke_params, name):
     with jwq.use_impl("dense"):
         je = jeng.ServeEngine(jcfg, smoke_params, jeng.EngineConfig(
             paged_impl="gather", attn_grau=jattn, telemetry=False, **kw))
-        te = teng.ServeEngine(tcfg, from_reference(smoke_params, tcfg),
+        te = teng.ServeEngine(tcfg, from_reference(smoke_params, tcfg, device="cpu"),
                               teng.EngineConfig(attn_grau=tattn, **kw),
                               device="cpu")
         je.submit(jeng.Request(rid=0, prompt=prompt, max_new_tokens=4))
@@ -122,7 +122,7 @@ def test_pool_bytes_match_reference_through_prefill(smoke_params, name):
         for step in range(4):          # chunks at 0, 8, 16, then decode
             je.step()
             te.step()
-            want = pools_from_reference(je.caches)
+            want = pools_from_reference(je.caches, device="cpu")
             for jg, tg in zip(want, te.caches):
                 for jl, tl in zip(jg, tg):
                     assert tl.bits == jl.bits

@@ -86,7 +86,7 @@ def _ref_streams(jcfg, jparams, jattn, quant, impl):
 def test_engine_greedy_streams_match_reference(smoke_params, name):
     quant = COMPOSITIONS[name]
     jcfg, tcfg, jattn, tattn = _setup(name)
-    te = teng.ServeEngine(tcfg, from_reference(smoke_params, tcfg),
+    te = teng.ServeEngine(tcfg, from_reference(smoke_params, tcfg, device="cpu"),
                           teng.EngineConfig(slots=2, max_seq=64,
                                             page_size=PAGE, attn_grau=tattn,
                                             **quant), device="cpu")
@@ -106,7 +106,7 @@ def test_engine_greedy_streams_match_reference(smoke_params, name):
 def test_precision_shorthands_match_reference(smoke_params):
     jcfg = jget_config("llama3.2-3b", smoke=True)
     tcfg = tget_config("llama3.2-3b", smoke=True)
-    tparams = from_reference(smoke_params, tcfg)
+    tparams = from_reference(smoke_params, tcfg, device="cpu")
     for kw, pol_j, pol_t in ((dict(kv_bits=8), jpol.kv_policy(8),
                               tpol.kv_policy(8)),
                              (dict(weight_bits=8), jpol.weight_policy(8),

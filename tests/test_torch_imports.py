@@ -39,7 +39,11 @@ def test_port_files_exist():
                  "core/multithreshold.py", "data/pipeline.py",
                  "models/vision.py", "models/convert.py",
                  "launch/quickstart.py", "tables/table3_small_models.py",
-                 "tables/table45_sweep.py", "tables/table6_hwcost.py"):
+                 "tables/table45_sweep.py", "tables/table6_hwcost.py",
+                 "kernels/flash_attention.py", "configs/shapes.py",
+                 "train/optim.py", "train/loop.py", "ckpt/checkpoint.py",
+                 "launch/steps.py", "launch/train.py",
+                 "launch/train_lm_grau.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
 
@@ -110,11 +114,47 @@ def test_paged_caches_need_an_explicit_cpu(monkeypatch):
         kvc.init_paged_caches(cfg, 3, 8)
 
 
+def test_converters_need_an_explicit_cpu(monkeypatch):
+    """from_reference and pools_from_reference carry weights and pools
+    across: with no card and no device given they raise, like every entry
+    point; so do the training entry points."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train, train_lm_grau
+    from repro_torch.models import lm
+    from repro_torch.models.convert import (from_reference,
+                                            pools_from_reference)
+    from repro_torch.serve import kv_cache as kvc
+
+    cfg = get_config("llama3.2-3b", smoke=True)
+    params = lm.init_lm(cfg, seed=0, dtype=torch.float32, device="cpu")
+    ref = {k: (v.numpy() if torch.is_tensor(v) else v)
+           for k, v in params.items() if not k.startswith("group")}
+    ref["group0"] = {"l0": {"ln1_w": params["group0"][0]["l0"]["ln1_w"]
+                            .numpy()[None].repeat(2, 0)}}
+    pools = kvc.init_paged_caches(cfg, 3, 8, dtype=torch.float32,
+                                  device="cpu")
+    ref_pools = tuple(tuple(type(c)(*(t.numpy() for t in c)) for c in grp)
+                      for grp in pools)
+    assert from_reference(ref, cfg, device="cpu")["embed"].device.type == \
+        "cpu"
+    assert pools_from_reference(ref_pools, device="cpu")[0][0].k.device \
+        .type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: from_reference(ref, cfg),
+                 lambda: pools_from_reference(ref_pools),
+                 lambda: TokenPipeline(16, 8, 1).batch(0),
+                 lambda: train.main(["--arch", "llama3.2-3b", "--smoke"]),
+                 lambda: train_lm_grau.main(["--steps", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
 def test_kernels_build_for_hopper_from_repo_sources():
     from repro_torch.kernels import build as kbuild
     assert "arch=compute_90a,code=sm_90a" in kbuild.NVCC_FLAGS
     assert set(kbuild.SOURCES) == {"grau", "paged_attention", "matmul_wq",
-                                   "matmul_grau"}
+                                   "matmul_grau", "flash_attention"}
     for name in kbuild.SOURCES:
         assert (kbuild.CSRC / f"{name}.cu").exists()
     assert (kbuild.CSRC / "grau_datapath.cuh").exists()

@@ -6,7 +6,8 @@ cover what the main path does not: every head_dim the kernel is built for,
 group sizes 1-3, block sizes 8 and 16, ragged GRAU inputs, uint8 buses,
 column-sliced block tables, 8- and 4-bit KV pools, and for matmul_wq row
 counts 1-70 (a grid over row tiles above 32), ragged N, narrow tiles and
-multi-tile K.
+multi-tile K; for flash attention every head_dim, group sizes 1-3, ragged
+lengths, q_offset, strided views, the backward, and a training step.
 """
 import numpy as np
 import pytest
@@ -394,3 +395,136 @@ def test_matmul_grau_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         ops.matmul_grau(x, w[:16], spec)
     with pytest.raises(ValueError, match="one device"):
         ops.matmul_grau(x, w.cpu(), spec)
+
+
+# (b, s_q, s_kv, h, kvh, d, causal, q_offset): every head_dim, group sizes
+# 1-3, ragged lengths (not multiples of the kernel's 64-row tiles), and
+# queries placed after a prefix (q_offset, s_q < s_kv)
+FLASH_CASES = [(2, 256, 256, 4, 4, 32, True, 0),
+               (2, 256, 256, 8, 2, 64, False, 0),
+               (1, 1000, 1000, 6, 3, 128, True, 0),
+               (1, 77, 77, 4, 1, 128, False, 0),
+               (1, 100, 300, 4, 2, 256, True, 200),
+               (2, 130, 130, 2, 1, 256, True, 0),
+               (1, 5, 40, 3, 3, 64, True, 35)]
+
+
+def _flash_inputs(rng, b, s_q, s_kv, h, kvh, d, dev, dtype):
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dev, dtype)
+    return t(b, s_q, h, d), t(b, s_kv, kvh, d), t(b, s_kv, kvh, d)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    """o within the reference tests' tolerances (f32 3e-5, bf16 2e-2) of
+    flash_attention_plain on the same inputs; lse within 3e-5 (f32) / 1e-4
+    (bf16: the same f32 scores, a fast exp). bf16 o also within twice what
+    rounding explains: P rounded to bf16 before P V (2^-9 (P|V|)/l, the
+    plain version on |v|) and o rounded on both sides (2^-7 |want|)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_plain
+    b, s_q, s_kv, h, kvh, d, causal, off = case
+    dt = getattr(torch, dtype)
+    q, k, v = _flash_inputs(np.random.default_rng(s_q + d), b, s_q, s_kv, h,
+                            kvh, d, cuda, dt)
+    n0 = fa.flash_attention.launches
+    o, lse = fa.flash_attention(q, k, v, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    want, want_lse = flash_attention_plain(q, k, v, causal=causal,
+                                           q_offset=off)
+    assert o.dtype == dt and lse.dtype == torch.float32
+    tol, ltol = (3e-5, 3e-5) if dt == torch.float32 else (2e-2, 1e-4)
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=ltol, atol=ltol)
+    if dt == torch.bfloat16:
+        pv, _ = flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                      causal=causal, q_offset=off)
+        bound = 1e-5 + 2 ** -8 * pv + 2 ** -6 * want.float().abs()
+        assert bool(((o.float() - want.float()).abs() <= bound).all())
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """q and k as head slices of one (b, s, h + kvh, d) tensor (what the
+    rope step hands over), v transposed from (b, kvh, s, d): read through
+    their strides, no copy, same result as on contiguous copies."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(5)
+    qk = torch.from_numpy(rng.normal(size=(2, 192, 6, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    q, k = qk.split([4, 2], dim=2)
+    v = torch.from_numpy(rng.normal(size=(2, 2, 192, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16).transpose(1, 2)
+    assert fa._rows_aligned(k) is k and fa._rows_aligned(v) is v
+    o, lse = fa.flash_attention(q, k, v)
+    o2, lse2 = fa.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous())
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES[:5], ids=str)
+def test_flash_backward_matches_autograd_of_plain(cuda, case):
+    """FlashAttention (the kernel forward, flash_attention_backward) against
+    autograd through flash_attention_plain, f32, on the card: dq, dk, dv
+    within a relative L2 of 1e-5."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_plain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s_q, s_kv, h, kvh, d, causal, off = case
+    rng = np.random.default_rng(7)
+    q, k, v = (x.requires_grad_() for x in _flash_inputs(
+        rng, b, s_q, s_kv, h, kvh, d, cuda, torch.float32))
+    do = torch.from_numpy(rng.normal(size=(b, s_q, h, d)).astype(
+        np.float32)).to(cuda)
+    o = fa.FlashAttention.apply(q, k, v, causal, None, off, 64, 96)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    want_o, _ = flash_attention_plain(q, k, v, causal=causal, q_offset=off)
+    want = torch.autograd.grad(want_o, (q, k, v), do)
+    for a, w in zip(got, want):
+        assert float((a - w).norm() / w.norm()) <= 1e-5
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="one device"):
+        fa.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q[..., :48], q[..., :48], q[..., :48])
+
+
+def test_train_step_through_the_flash_kernel(cuda):
+    """llama3-smoke with GRAU, f32, remat "full", on the card: loss and
+    gradients through the flash kernel agree with the plain scan's (loss
+    1e-5, every leaf within a relative L2 of 1e-3, as on the CPU against
+    the reference), and one training step launches the kernel twice a
+    layer (the forward and the remat recompute; the backward none)."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.config import GRAUConfig
+    from repro_torch.nn.common import tree_flatten
+    from repro_torch.train import optim
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama3.2-3b", smoke=True).replace(grau=GRAUConfig())
+    params = lm.init_lm(cfg, seed=0, dtype=torch.float32, device=cuda)
+    batch = TokenPipeline(cfg.vocab_size, 64, 2, device="cuda").batch(0)
+    (lk, gk), (lp, gp) = (steps.make_loss_and_grads(
+        cfg, remat="full", q_chunk=32, kv_chunk=32, attn_impl=impl)(
+            params, batch) for impl in ("kernel", "plain"))
+    assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
+    for (path, a), (_, b) in zip(tree_flatten(gk), tree_flatten(gp)):
+        assert float((a - b).norm() / b.norm()) <= 1e-3, path
+    step = steps.make_train_step(cfg, optim.AdamWConfig(warmup_steps=1),
+                                 remat="full", q_chunk=32, kv_chunk=32)
+    n0 = fa.flash_attention.launches
+    _, _, m = step(params, optim.init_opt_state(params), batch)
+    assert torch.isfinite(m["loss"])
+    assert fa.flash_attention.launches - n0 == 2 * cfg.num_layers

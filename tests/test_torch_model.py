@@ -59,7 +59,7 @@ def test_configs_match_reference(arch):
 def test_init_lm_layout_matches_reference():
     jcfg, tcfg = _configs("llama3.2-3b", False)
     jparams, _ = jlm.init_lm(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
-    conv = from_reference(jparams, tcfg)
+    conv = from_reference(jparams, tcfg, device="cpu")
     mine = tlm.init_lm(tcfg, seed=0, dtype=torch.float32, device="cpu")
 
     def shapes(t):
@@ -81,7 +81,7 @@ def test_init_lm_layout_matches_reference():
 def test_paged_prefill_and_decode_logits_match_reference(arch, grau):
     jcfg, tcfg = _configs(arch, grau)
     jparams, _ = jlm.init_lm(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
-    tparams = from_reference(jparams, tcfg)
+    tparams = from_reference(jparams, tcfg, device="cpu")
     jact, tact = jlm.make_act(jcfg), tlm.make_act(tcfg, "cpu")
     nblocks = 2 * BLOCKS_PER_SLOT + 1
     jcaches = jkvc.init_paged_caches(jcfg, nblocks, BS, dtype=jnp.float32)

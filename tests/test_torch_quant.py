@@ -226,8 +226,8 @@ def test_pack_params_per_repeat_matches_reference_bytes(bits):
     jparams, _ = jlm.init_lm(jcfg, jax.random.PRNGKey(1), dtype=jnp.float32)
     pol_j, pol_t = jpol.weight_policy(bits), tpol.weight_policy(bits)
     jpacked = jwq.pack_params(jparams, jcfg, pol_j)
-    mine = twq.pack_params(from_reference(jparams, tcfg), tcfg, pol_t)
-    theirs = from_reference(jpacked, tcfg)          # the reference's bytes
+    mine = twq.pack_params(from_reference(jparams, tcfg, device="cpu"), tcfg, pol_t)
+    theirs = from_reference(jpacked, tcfg, device="cpu")          # the reference's bytes
     want_leaves = dict(_flat_leaves({k: v for k, v in theirs.items()
                                      if not k.startswith("group")}))
     got_leaves = dict(_flat_leaves({k: v for k, v in mine.items()
