@@ -47,6 +47,10 @@ the result line.
 Without a CUDA card, or outside a checkout of the repository, it prints why
 on stderr and exits 2. `--rehearse` runs the same phases at smoke size on
 the CPU (plain versions, no timings) to check the control flow, and exits 1.
+`--kernels-from DIR` times only the rows of matmul_wq (its 8 MLP shapes)
+and of the prefill (16-, 8- and 4-bit pools) of the port under DIR/src —
+an unpacked earlier commit, or this checkout — and prints them as one JSON
+line, so two versions compare on one card.
 """
 from __future__ import annotations
 
@@ -90,6 +94,9 @@ FLASH_BWD_TOL = 1e-5    # f32 backward vs autograd of the plain version
 # slice (e): loss and gradients through the kernel vs the plain scan (bf16,
 # GRAU: a rounding flip of one activation moves its output by s_out)
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-3, 5e-2
+# a timed operand set spans at least this many bytes: twice the H100's 50
+# MB L2, so a call cycling through it reads device memory
+L2_SPAN_BYTES = 100_000_000
 RESUME_TOL = 1e-5       # resumed vs uninterrupted losses, relative
 RESUME_FALL = 0.5       # smoke-size loss falls by this over its 6 steps, as
                         # the reference's tests/test_models.py asks in 10
@@ -125,6 +132,37 @@ def device_ms(torch, fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, calls=20, replays=10):
+    """Mean device time per call from CUDA-graph replay: `calls` calls
+    captured once (after warm-up), the graph replayed `replays` times
+    between CUDA events. device_ms's eager loop measures the host's enqueue
+    whenever that is slower than the device — Python, ctypes and launches
+    take some tens of microseconds a call — while a replay issues the
+    captured kernels back to back."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
 
 
 def cycling(fns):
@@ -301,7 +339,9 @@ def close(got, want, rtol, atol):
 
 def check_paged(torch, np, dev, shapes, rng, timed):
     """Decode and prefill on 16-, 8- and 4-bit pools, f32 and bf16, against
-    their plain versions; rows keyed by kernel name and kv_bits."""
+    their plain versions, plus a bf16 prefill chunk that the tensor-core
+    kernel splits into several sequence parts; rows keyed by kernel name
+    and kv_bits."""
     from functools import partial
 
     from repro_torch.kernels import paged_attention as pa
@@ -365,13 +405,21 @@ def check_paged(torch, np, dev, shapes, rng, timed):
                     f"element within {atol:.3g} + {rtol:.3g} |want|), f32 "
                     f"output {err32:.3g} (within {F32_TOL} (1 + |want|)); "
                     "epilogue bit-exact on the kernel's f32 output")
+            if name == "paged_prefill":
+                parts, vs64 = prefill_parts_case(torch, np, dev, s, rng,
+                                                 kv_bits, g, sync)
             suffix = "" if kv_bits == 16 else f"_kv{kv_bits}"
             row = {"name": name + suffix, "route": "cuda",
-                   "source": "src/repro_torch/csrc/paged_attention.cu",
+                   "source": ("src/repro_torch/csrc/paged_attention.cu"
+                              if name == "paged_attention" else
+                              "src/repro_torch/csrc/paged_prefill.cu"),
                    "replaces": ("src/repro/kernels/paged_attention.py:189"
                                 if name == "paged_attention" else
                                 "src/repro/kernels/paged_attention.py:401"),
                    "kv_bits": kv_bits, "max_abs_err": worst}
+            if name == "paged_prefill":
+                row["multi_part_case_parts"] = parts
+                row["multi_part_f32_vs_f64"] = vs64
             if timed:
                 row.update(time_paged(torch, np, dev, name, s, group, rng,
                                       kv_bits))
@@ -380,11 +428,98 @@ def check_paged(torch, np, dev, shapes, rng, timed):
     return rows
 
 
-def time_paged(torch, np, dev, name, s, group, rng, kv_bits=16):
-    """Times at the main path's shape in bf16: a decode tick at the widest
-    bucket (8 slots, ragged up to max_len), or one prefill chunk (b = 1)
-    starting mid-prompt, over 16-, 8- or 4-bit pools. The bound counts the
-    pools' bytes at kv_bits."""
+def prefill_f64(torch, q, k, v, table, start, kv):
+    """The prefill in float64 on the gathered dense view (masked softmax
+    attention, not the kernels' recurrence): what the f32 outputs of the
+    kernel and of its plain version are both measured from."""
+    from repro_torch.kernels.ref import dense_kv_views
+    kd, vd = dense_kv_views(k, v, table, **kv)
+    b, C, h, d = q.shape
+    kvh = kd.shape[2]
+    qg = q.double().reshape(b, C, kvh, h // kvh, d)
+    lg = torch.einsum("bqkgd,bskd->bkgqs", qg, kd.double()) * d ** -0.5
+    pos = torch.arange(kd.shape[1], device=q.device)
+    row_end = start.long()[:, None] + torch.arange(C, device=q.device)[None]
+    live = (pos[None, None] <= row_end[..., None])[:, None, None]
+    lg = lg.masked_fill(~live, float("-inf"))
+    o = torch.einsum("bkgqs,bskd->bkgqd", torch.softmax(lg, -1), vd.double())
+    return o.permute(0, 3, 1, 2, 4).reshape(b, C, h, d)
+
+
+def prefill_parts_case(torch, np, dev, s, rng, kv_bits, g, sync, draws=4):
+    """Bf16 prefill chunks (batch 1) at the end of a full-width table, which
+    the tensor-core kernel splits into several sequence parts, on `draws`
+    fresh pools and queries: f32 output within F32_TOL of the plain
+    version's; the bf16 output equal, bit for bit, to the kernel's own f32
+    output rounded to bf16; the fused epilogue bit-exact on the kernel's f32
+    output and within one code of the plain version's. (The one-ulp-of-
+    plain rule of the other cases compares two roundings of f32 results;
+    on 8-bit pools |o| reaches ~8 and the two f32 results sit ~1e-5 apart,
+    more than a bf16 ulp of the case's small outputs.) Returns the part
+    count and, over the draws, the largest |f32 - f64| / (1 + |f64|) of the
+    kernel and of the plain version against prefill_f64: the measure
+    F32_TOL bounds, read from an exact-enough reference."""
+    from functools import partial
+
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import attn_output_quant
+    C, rows = s["chunk"], s["chunk"] * s["h"] // s["kvh"]
+    start = torch.tensor([s["max_len"] - C], dtype=torch.int32, device=dev)
+    vs64 = {"kernel": 0.0, "plain": 0.0}
+    for _ in range(draws):
+        (_, k, v, table, _), kv = paged_case(torch, np, dev, torch.bfloat16,
+                                             s, rng, kv_bits)
+        q = torch.randn((1, C, s["h"], s["d"]), device=dev).to(torch.bfloat16)
+        args = (q, k, v, table[1:2].contiguous(), start)
+        parts, _ = pa.prefill_plan(1, s["kvh"], rows, table.shape[1], s["bs"],
+                                   sm_count(torch, dev))
+        need(parts > 1, f"the multi-part prefill case plans {parts} part")
+        kern, plain = (partial(pa.paged_prefill_attention, **kv),
+                       partial(pa.paged_prefill_plain, **kv))
+        label = f"paged_prefill kv{kv_bits} {parts} parts"
+        f32 = kern(*args, out_dtype=torch.float32)
+        sync()
+        p32 = plain(*args, out_dtype=torch.float32)
+        ok, err32 = close(f32, p32, F32_TOL, F32_TOL)
+        need(ok, f"{label}: f32 output off by {err32:.3g} > {F32_TOL} (1 + "
+             "|want|)")
+        o64 = prefill_f64(torch, *args, kv)
+        for who, o in (("kernel", f32), ("plain", p32)):
+            vs64[who] = max(vs64[who], float(((o.double() - o64).abs()
+                                              / (1 + o64.abs())).max()))
+        got = kern(*args)
+        sync()
+        need(got.dtype == torch.bfloat16
+             and torch.equal(got, f32.to(torch.bfloat16)),
+             f"{label}: bf16 output is not the kernel's f32 output rounded")
+        err = float((got.float() - plain(*args).float()).abs().max())
+        quant = kern(*args, spec=g.spec, s_in=g.s_in)
+        sync()
+        need(torch.equal(quant, attn_output_quant(f32, g.spec, g.s_in)),
+             f"{label}: GRAU epilogue not bit-exact")
+        qref = plain(*args, spec=g.spec, s_in=g.s_in)
+        need(int((quant.to(torch.int32) - qref.to(torch.int32)).abs().max())
+             <= 1, f"{label}: epilogue vs plain off by > 1")
+        log(f"{label} (start {int(start)}, table width {table.shape[1]}): "
+            f"f32 output {err32:.3g} from plain (within {F32_TOL} (1 + "
+            "|want|)), bf16 output its rounding bit for bit (max |bf16 - "
+            f"plain bf16| = {err:.3g}); epilogue bit-exact on the kernel's "
+            "f32 output")
+    log(f"paged_prefill kv{kv_bits}: over {draws} draws, max |f32 - f64| / "
+        f"(1 + |f64|): kernel {vs64['kernel']:.3g}, plain {vs64['plain']:.3g}")
+    return parts, vs64
+
+
+def sm_count(torch, dev):
+    from repro_torch.kernels import build as kbuild
+    return kbuild.sm_count(dev) if dev.type == "cuda" else kbuild.H100_SMS
+
+
+def paged_timing_case(torch, np, dev, name, s, group, rng, kv_bits):
+    """The main path's shape in bf16: a decode tick at the widest bucket (8
+    slots, ragged up to max_len), or one prefill chunk (b = 1) starting
+    mid-prompt, over 16-, 8- or 4-bit pools. Returns (kernel, plain, args,
+    bytes, flops, library call); the bytes count the pools at kv_bits."""
     from functools import partial
 
     from repro_torch.kernels import paged_attention as pa
@@ -415,12 +550,28 @@ def time_paged(torch, np, dev, name, s, group, rng, kv_bits=16):
         rows_end = start[:, None] + torch.arange(C, device=dev)[None]
         lib = sdpa_yardstick(torch, qp, kd, vd, tab, None, group, rows_end)
         kern, plain = pa.paged_prefill_attention, pa.paged_prefill_plain
-    kern, plain = partial(kern, **kv), partial(plain, **kv)
+    return partial(kern, **kv), partial(plain, **kv), args, nbytes, flops, lib
+
+
+def time_paged(torch, np, dev, name, s, group, rng, kv_bits=16):
+    """The kernel (CUDA-graph replay, and eager), its plain version and the
+    library call at paged_timing_case's shape, with the bound; `parts`: the
+    prefill kernel's sequence parts (None for decode)."""
+    from repro_torch.kernels import paged_attention as pa
+    kern, plain, args, nbytes, flops, lib = paged_timing_case(
+        torch, np, dev, name, s, group, rng, kv_bits)
+    parts = None
+    if name == "paged_prefill":
+        parts = pa.prefill_plan(1, s["kvh"], s["chunk"] * group,
+                                args[3].shape[1], s["bs"],
+                                sm_count(torch, dev))[0]
     t_bound, by = bound(nbytes, flops, "bf16")
-    return {"ms": device_ms(torch, lambda: kern(*args)),
+    return {"ms": graph_ms(torch, lambda: kern(*args)),
+            "eager_ms": device_ms(torch, lambda: kern(*args)),
+            "parts": parts,
             "plain_ms": device_ms(torch, lambda: plain(*args), 5, 1),
             "bound_ms": t_bound, "bound_by": by,
-            "library_ms": device_ms(torch, lib),
+            "library_ms": graph_ms(torch, lib),
             "library_call": "torch.nn.functional.scaled_dot_product_attention "
                             "on the gathered (dequantized) bf16 view"}
 
@@ -477,6 +628,26 @@ def check_matmul_wq(torch, np, dev, shapes, rng, timed):
     need(torch.equal(fused, attn_output_quant(f32, g.spec, g.s_in)),
          "matmul_wq: GRAU epilogue not bit-exact on the kernel's f32 output")
     log("matmul_wq: GRAU epilogue bit-exact on the kernel's f32 output")
+    # bf16 activations (the served dtype), at both MLP shapes: the fused
+    # epilogue on the kernel's own f32 sum (out_dtype), and against plain
+    for wname, (K, N) in shapes["mlp"].items():
+        w = weights[(wname, 4)]
+        M = shapes["rows"][-1]
+        xb = torch.randn((M, K), device=dev).to(torch.bfloat16)
+        f32 = mm.matmul_wq(xb, w, out_dtype=torch.float32)
+        fused = mm.matmul_wq(xb, w, g.spec, s_in=g.s_in)
+        sync()
+        label = f"matmul_wq {wname} M={M} int4 bf16 + GRAU"
+        need(torch.equal(fused, attn_output_quant(f32, g.spec, g.s_in)),
+             f"{label}: epilogue not bit-exact on the kernel's f32 sum")
+        qref = mm.matmul_wq_plain(xb, w.q, w.e, bits=4, kdim=K, spec=g.spec,
+                                  s_in=g.s_in)
+        flips = int((fused.to(torch.int32) - qref.to(torch.int32)).abs()
+                    .max())
+        need(flips <= 1, f"{label}: epilogue vs plain off by {flips} > 1")
+        parts = mm.plan_parts(M, N, K, w.tile, sm_count(torch, dev))[0]
+        log(f"{label} ({parts} K parts): epilogue bit-exact on the kernel's "
+            "f32 sum, within one code of plain")
     row = {"name": "matmul_wq", "route": "cuda",
            "source": "src/repro_torch/csrc/matmul_wq.cu",
            "replaces": "src/repro/kernels/matmul_wq.py:95",
@@ -496,34 +667,49 @@ def check_matmul_wq(torch, np, dev, shapes, rng, timed):
     return row
 
 
-def time_matmul_wq(torch, dev, shapes, wname, M, bits):
-    """One MLP product in bf16, timed over enough weight copies to exceed
-    L2 (as the served model streams 84 different weights a forward): the
-    kernel, its plain version, and torch.matmul on the bf16 dequantized
-    weight; the bound counts x, the payload, the exponents and the output
-    once."""
-    from repro_torch.kernels import matmul_wq as mm
+def matmul_wq_case(torch, dev, shapes, wname, M, bits):
+    """bf16 x (M, K) and copies of one packed MLP weight whose payload and
+    exponents together exceed twice the 50 MB L2, so every call of the
+    kernel reads its weight from device memory, as the served model's 84
+    weights a forward do."""
     from repro_torch.quant import weights as wq
     K, N = shapes["mlp"][wname]
     x = torch.randn((M, K), device=dev).to(torch.bfloat16)
     base = wq.pack_tensor(torch.randn((K, N), device=dev) * K ** -0.5, bits,
                           -2)
-    copies = max(2, -(-60_000_000 // (K * N * 2)))        # > 50 MB of bf16
+    packed = base.q.numel() + base.e.numel()
     ws = [wq.QuantWeight(q=base.q.clone(), e=base.e.clone(), bits=bits,
                          caxis=-2, kdim=K, tile=base.tile)
-          for _ in range(copies)]
+          for _ in range(max(2, -(-L2_SPAN_BYTES // packed)))]
+    return x, ws
+
+
+def time_matmul_wq(torch, dev, shapes, wname, M, bits):
+    """One MLP product in bf16 over matmul_wq_case's weight copies: the
+    kernel (CUDA-graph replay, and eager), its plain version, and
+    torch.matmul on the same copies dequantized to bf16 (4x / 2x the bytes);
+    the bound counts x, the payload, the exponents and the output once.
+    `parts`: the kernel's K parts."""
+    from repro_torch.kernels import matmul_wq as mm
+    from repro_torch.quant import weights as wq
+    K, N = shapes["mlp"][wname]
+    x, ws = matmul_wq_case(torch, dev, shapes, wname, M, bits)
+    kern = [(lambda w=w: mm.matmul_wq(x, w)) for w in ws]
     dense = [wq.dense(w, torch.bfloat16) for w in ws]
-    nbytes = (x.numel() * 2 + base.q.numel() + base.e.numel() + M * N * 2)
+    nbytes = x.numel() * 2 + ws[0].q.numel() + ws[0].e.numel() + M * N * 2
     t_bound, by = bound(nbytes, 2 * M * K * N, "bf16")
     return {"weight": wname, "M": M, "K": K, "N": N, "bits": bits,
-            "ms": device_ms(torch, cycling([
-                (lambda w=w: mm.matmul_wq(x, w)) for w in ws]), 50, 5),
+            "parts": mm.plan_parts(M, N, K, ws[0].tile,
+                                   sm_count(torch, dev))[0],
+            "weight_copies": len(ws),
+            "ms": graph_ms(torch, cycling(kern)),
+            "eager_ms": device_ms(torch, cycling(kern), 50, 5),
             "plain_ms": device_ms(torch, cycling([
                 (lambda w=w: mm.matmul_wq_plain(x, w.q, w.e, bits=bits,
                                                 kdim=K)) for w in ws]), 5, 1),
             "bound_ms": t_bound, "bound_by": by,
-            "library_ms": device_ms(torch, cycling([
-                (lambda d=d: torch.matmul(x, d)) for d in dense]), 50, 5)}
+            "library_ms": graph_ms(torch, cycling([
+                (lambda d=d: torch.matmul(x, d)) for d in dense]))}
 
 
 def matmul_grau_specs(np, rng):
@@ -1445,6 +1631,42 @@ def profile_train(torch, dev, train_step, params, opt_state, batch_fn,
     return out
 
 
+def time_kernels_from(torch, np, dev, args):
+    """--kernels-from: the graph-replay times of the matmul_wq and prefill
+    rows at the main path's shapes, for the port on sys.path; one JSON
+    line."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout else "?"
+    s = dict(slots=8, h=24, kvh=8, d=128, bs=16, max_len=2048, chunk=32,
+             mlp={"w_gate": (3072, 8192), "w_down": (8192, 3072)})
+    rng = np.random.default_rng(args.seed)
+    torch.manual_seed(args.seed)
+    from repro_torch.kernels import matmul_wq as mm
+    rows = []
+    for wname in s["mlp"]:
+        for bits in (4, 8):
+            for M in (8, 32):
+                x, ws = matmul_wq_case(torch, dev, s, wname, M, bits)
+                rows.append({"name": "matmul_wq", "weight": wname,
+                             "bits": bits, "M": M, "ms": graph_ms(
+                                 torch, cycling([(lambda w=w: mm.matmul_wq(
+                                     x, w)) for w in ws]))})
+    for kv_bits in (16, 8, 4):
+        kern, _, pargs, _, _, _ = paged_timing_case(
+            torch, np, dev, "paged_prefill", s, 3, rng, kv_bits)
+        rows.append({"name": "paged_prefill", "kv_bits": kv_bits,
+                     "ms": graph_ms(torch, lambda: kern(*pargs))})
+    report = {"kernels_from": str(args.kernels_from), "card": card,
+              "rows": rows}
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(report, indent=1))
+    log(json.dumps(report))
+    return 0
+
+
 # ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -1458,6 +1680,9 @@ def main(argv=None) -> int:
                          "go to PATH.<config>.txt")
     ap.add_argument("--rehearse", action="store_true",
                     help="smoke-size control-flow run on the CPU; exits 1")
+    ap.add_argument("--kernels-from", default=None, metavar="DIR",
+                    help="time only the matmul_wq and prefill rows of the "
+                         "port in DIR/src and print them as JSON")
     args = ap.parse_args(argv)
     try:
         import numpy as np
@@ -1469,7 +1694,8 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false: this check "
               "runs on a CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    src = Path(args.kernels_from or ROOT) / "src"
+    sys.path.insert(0, str(src))
     try:
         from repro_torch.kernels import build as kbuild
     except ImportError as e:
@@ -1479,6 +1705,8 @@ def main(argv=None) -> int:
 
     dev = torch.device("cpu" if args.rehearse else "cuda")
     timed = not args.rehearse
+    if args.kernels_from:
+        return time_kernels_from(torch, np, dev, args)
     report = {}
     args.card = "cpu rehearsal"
     if timed:

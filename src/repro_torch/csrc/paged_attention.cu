@@ -5,6 +5,8 @@
 // Replaces: the JAX package's kernels/paged_attention.py
 //   * _paged_attention_jit (via paged_attention)        -> paged_decode_kernel
 //   * _paged_prefill_jit (via paged_prefill_attention)  -> paged_prefill_kernel
+//     for f32 queries (f32 pools); bf16 queries, the served dtype, go to
+//     paged_prefill.cu's tensor-core kernel (the wrapper dispatches by dtype)
 // both with the fused grau_datapath epilogue (grau_datapath.cuh).
 //
 // What it computes: for batch row b and KV head kh, the query rows that
@@ -379,13 +381,15 @@ int launch(const Args& a) {
     kern<<<grid, kThreads, smem, a.stream>>>(
         q, a.pools, a.table, a.table_stride, a.start, a.out, a.h, a.kvh, a.bs,
         a.nblocks, a.scale, a.out_kind, a.epi);
-  } else {
+  } else if constexpr (sizeof(T) == 4) {   // bf16 q: paged_prefill.cu
     auto kern = paged_prefill_kernel<T, KIND, D>;
     const cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<grid, kThreads, smem, a.stream>>>(
         q, a.pools, a.table, a.table_stride, a.start, a.out, a.C, a.h, a.kvh,
         a.bs, a.nblocks, a.scale, a.out_kind, a.epi);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
@@ -427,7 +431,8 @@ int dispatch(Args a, int dtype, int d, int kv_bits, const void* regs,
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (q, and the pools at kv_bits 16). kv_bits 8 / 4:
+// dtype: 0 = f32, 1 = bf16 (q, and the pools at kv_bits 16; prefill takes
+// f32 only, bf16 prefill is paged_prefill.cu's). kv_bits 8 / 4:
 // int8 pools of width d / d/2 with (num_blocks, kvh) int8 exponent planes
 // k_exp / v_exp (null at 16). out_kind: 0 = f32, 1 = bf16, 2 = GRAU byte
 // (int8 or uint8). regs: GRAU register file (out_kind 2).

@@ -15,6 +15,7 @@ runs at import time: the CPU tests import every module without a toolkit.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -25,13 +26,23 @@ from typing import Dict, Iterable, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("grau", "paged_attention", "matmul_wq", "matmul_grau",
-           "flash_attention")
+SOURCES = ("grau", "paged_attention", "paged_prefill", "matmul_wq",
+           "matmul_grau", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+H100_SMS = 132          # streaming multiprocessors of an H100 SXM
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (the kernels' part plans
+    size their grids to fill them)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _nvcc() -> str:

@@ -13,11 +13,16 @@ pool blocks (block 0 is the null block). Both kernels run an online-softmax
 decode, max(cdiv(start + C, bs), 1) for a prefill chunk, never past the
 table width — so bytes read follow live tokens, not pool capacity.
 
-Bound on the H100: memory bytes (see the source note in the .cu file for the
-numbers and what the design does about them). One CUDA block per (16 query
-rows, KV head, batch row) loops over the live blocks with the (m, l, acc)
-carry in shared memory and registers — the TPU grid's sequential block axis
-made a loop.
+Bound on the H100: memory bytes (see the source notes in the .cu files for
+the numbers and what the designs do about them). Decode, and prefill on f32
+queries (csrc/paged_attention.cu): one CUDA block per (16 query rows, KV
+head, batch row) loops over the live blocks with the (m, l, acc) carry in
+shared memory and registers — the TPU grid's sequential block axis made a
+loop. Prefill on bf16 queries (csrc/paged_prefill.cu, the served dtype):
+one block per (batch row, KV head, sequence part) over all C * g query rows
+on the bf16 tensor cores; the parts are runs of whole table blocks planned
+on the host from the table width (`prefill_plan`), and a second launch
+combines their (o, m, l) in part order from an f32 workspace.
 
 Quantized pools (`kv_bits` 8 or 4, quant/kv.py): the pools are int8 words
 of width packed_head_dim(d, kv_bits) and `k_exp` / `v_exp` the
@@ -38,7 +43,8 @@ those that ran the fused GRAU datapath, and `.kv8_launches` /
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -57,9 +63,33 @@ SIGNATURES = {
     "paged_prefill_launch": _COMMON + (_I, _I, _I, _I, _I, _I, _I, _F, _I,
                                        _I, _P, _I, _I, _I, _F, _P),
 }
+# the tensor-core prefill (bf16 q): q, k, v, k_exp, v_exp, kv_bits, table,
+# stride, start, out, ws_o, ws_ml, batch, chunk, h, kvh, d, bs, nblocks,
+# parts, bpp, scale, out_kind, regs, num_exponents, qmin, qmax, inv_s, stream
+BF16_SIGNATURES = {
+    "paged_prefill_bf16_launch": _COMMON + (_P, _P) + (_I,) * 9 + (
+        _F, _I, _P, _I, _I, _I, _F, _P),
+}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _OUT_F32, _OUT_BF16, _OUT_GRAU = 0, 1, 2
 HEAD_DIMS = (32, 64, 128, 256)
+GROUP_ROWS = 128       # query rows a prefill block holds (paged_prefill.cu)
+MIN_PART_POSITIONS = 64
+
+
+@functools.lru_cache(maxsize=1024)
+def prefill_plan(batch: int, kvh: int, rows: int, width: int, bs: int,
+                 sms: int = kbuild.H100_SMS) -> Tuple[int, int]:
+    """(parts, table blocks per part) of the bf16 prefill kernel's split
+    over the sequence, from what the host knows — the table width, never
+    `start`: as many parts as make batch x KV heads x row groups x parts
+    fill the SMs, each a run of whole table blocks covering at least
+    MIN_PART_POSITIONS positions (the last part may be shorter)."""
+    groups = -(-rows // GROUP_ROWS)
+    most = max(1, width * bs // MIN_PART_POSITIONS)
+    want = -(-sms // (batch * kvh * groups))
+    bpp = -(-width // max(1, min(want, most)))
+    return -(-width // bpp), bpp
 
 
 def _check_pools(q, k_pool, v_pool, k_exp, v_exp, kv_bits: int) -> None:
@@ -208,9 +238,8 @@ def paged_prefill_plain(q, k_pool, v_pool, block_table, start, *,
     return _finish_plain(o, spec, s_in, out_dtype or q.dtype)
 
 
-def _launch(fn_name, q, k_pool, v_pool, block_table, start, shape_args, *,
-            scale, spec, s_in, out_dtype, k_exp, v_exp, kv_bits):
-    d = q.shape[-1]
+def _output(q, spec, s_in, out_dtype):
+    """(out, out_kind, epilogue args) of one launch."""
     if spec is not None:
         out = torch.empty(q.shape, dtype=grau_out_dtype(spec.qmin),
                           device=q.device)
@@ -222,16 +251,56 @@ def _launch(fn_name, q, k_pool, v_pool, block_table, start, shape_args, *,
         out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
         epi = (None, 0, 0, 0, 0.0)
         out_kind = _OUT_F32 if out_dtype == torch.float32 else _OUT_BF16
+    return out, out_kind, epi
+
+
+def _pool_ptrs(k_pool, v_pool, k_exp, v_exp, kv_bits):
+    return (k_pool.data_ptr(), v_pool.data_ptr(),
+            k_exp.data_ptr() if k_exp is not None else None,
+            v_exp.data_ptr() if v_exp is not None else None, kv_bits)
+
+
+def _launch(fn_name, q, k_pool, v_pool, block_table, start, shape_args, *,
+            scale, spec, s_in, out_dtype, k_exp, v_exp, kv_bits):
+    """Decode, or prefill on f32 q: csrc/paged_attention.cu."""
+    d = q.shape[-1]
+    out, out_kind, epi = _output(q, spec, s_in, out_dtype)
     lib = kbuild.library("paged_attention", SIGNATURES)
     err = getattr(lib, fn_name)(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_exp.data_ptr() if k_exp is not None else None,
-        v_exp.data_ptr() if v_exp is not None else None, kv_bits,
+        q.data_ptr(), *_pool_ptrs(k_pool, v_pool, k_exp, v_exp, kv_bits),
         block_table.data_ptr(), block_table.stride(0), start.data_ptr(),
         out.data_ptr(), *shape_args, k_pool.shape[2], d, k_pool.shape[1],
         block_table.shape[1], scale, _DTYPE_CODE[q.dtype], out_kind, *epi,
         torch.cuda.current_stream(q.device).cuda_stream)
     kbuild.check(err, fn_name)
+    return out
+
+
+def _launch_prefill_bf16(q, k_pool, v_pool, block_table, start, *, scale,
+                         spec, s_in, out_dtype, k_exp, v_exp, kv_bits):
+    """Prefill on bf16 q: csrc/paged_prefill.cu, with its part plan and
+    the f32 workspace for the parts' (o, m, l)."""
+    if q.data_ptr() % 16:
+        q = q.clone()                  # the kernel reads q in 16-byte vectors
+    b, chunk, h, d = q.shape
+    bs, kvh = k_pool.shape[1], k_pool.shape[2]
+    width = block_table.shape[1]
+    rows = chunk * (h // kvh)
+    parts, bpp = prefill_plan(b, kvh, rows, width, bs,
+                              kbuild.sm_count(q.device))
+    ws_o = torch.empty((b, kvh, parts, rows, d), dtype=torch.float32,
+                       device=q.device)
+    ws_ml = torch.empty((b, kvh, parts, rows, 2), dtype=torch.float32,
+                        device=q.device)
+    out, out_kind, epi = _output(q, spec, s_in, out_dtype)
+    lib = kbuild.library("paged_prefill", BF16_SIGNATURES)
+    err = lib.paged_prefill_bf16_launch(
+        q.data_ptr(), *_pool_ptrs(k_pool, v_pool, k_exp, v_exp, kv_bits),
+        block_table.data_ptr(), block_table.stride(0), start.data_ptr(),
+        out.data_ptr(), ws_o.data_ptr(), ws_ml.data_ptr(), b, chunk, h, kvh,
+        d, bs, width, parts, bpp, scale, out_kind, *epi,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kbuild.check(err, "paged_prefill_bf16_launch")
     return out
 
 
@@ -315,9 +384,14 @@ def paged_prefill_attention(
                                    scale=scale, spec=spec, s_in=s_in,
                                    out_dtype=out_dtype, **kw)
     b, chunk, h, _ = q.shape
-    out = _launch("paged_prefill_launch", q, k_pool, v_pool, block_table,
-                  start, (b, chunk, h), scale=scale, spec=spec, s_in=s_in,
-                  out_dtype=out_dtype, **kw)
+    if q.dtype == torch.bfloat16:          # the served dtype: tensor cores
+        out = _launch_prefill_bf16(q, k_pool, v_pool, block_table, start,
+                                   scale=scale, spec=spec, s_in=s_in,
+                                   out_dtype=out_dtype, **kw)
+    else:
+        out = _launch("paged_prefill_launch", q, k_pool, v_pool,
+                      block_table, start, (b, chunk, h), scale=scale,
+                      spec=spec, s_in=s_in, out_dtype=out_dtype, **kw)
     _count(paged_prefill_attention, spec, kv_bits)
     return out
 

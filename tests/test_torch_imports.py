@@ -153,8 +153,9 @@ def test_converters_need_an_explicit_cpu(monkeypatch):
 def test_kernels_build_for_hopper_from_repo_sources():
     from repro_torch.kernels import build as kbuild
     assert "arch=compute_90a,code=sm_90a" in kbuild.NVCC_FLAGS
-    assert set(kbuild.SOURCES) == {"grau", "paged_attention", "matmul_wq",
-                                   "matmul_grau", "flash_attention"}
+    assert set(kbuild.SOURCES) == {"grau", "paged_attention", "paged_prefill",
+                                   "matmul_wq", "matmul_grau",
+                                   "flash_attention"}
     for name in kbuild.SOURCES:
         assert (kbuild.CSRC / f"{name}.cu").exists()
     assert (kbuild.CSRC / "grau_datapath.cuh").exists()

@@ -257,6 +257,43 @@ def test_matmul_wq_kernel_matches_plain(cuda, bits, dtype, m, k, n):
     assert mm.matmul_wq.launches == before + 3
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n", [(8, 3072, 256), (32, 512, 80),
+                                   (70, 1536, 64), (32, 8192, 128)])
+def test_matmul_wq_bf16_epilogue_on_the_f32_sum(cuda, bits, m, k, n):
+    """bf16 activations, at one K part (K = 512) and several: the f32 sum
+    (out_dtype=float32) within 2e-5 * sum_k |x| |w| of the plain version's;
+    the bf16 output is that sum rounded; the fused GRAU epilogue bit-exact
+    on it and within one code of the plain version's."""
+    from repro_torch.kernels import matmul_wq as mm
+    from repro_torch.kernels.ref import attn_output_quant
+    from repro_torch.nn.common import build_lm_grau
+    from repro_torch.quant import weights as wq
+    rng = np.random.default_rng(3 * m + k + n + bits)
+    w = _packed(rng, k, n, bits, cuda)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    parts, _ = mm.plan_parts(m, n, k, w.tile, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert (parts == 1) == (k == 512)
+    f32 = mm.matmul_wq(x, w, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    want = mm.matmul_wq_plain(x, w.q, w.e, bits=bits, kdim=k,
+                              out_dtype=torch.float32)
+    bound = 2e-5 * (x.float().abs() @ wq.dense(w).abs())
+    assert f32.dtype == torch.float32 and ((f32 - want).abs() <= bound).all()
+    assert torch.equal(mm.matmul_wq(x, w), f32.to(torch.bfloat16))
+    g = build_lm_grau("silu")
+    fused = mm.matmul_wq(x, w, g.spec, s_in=g.s_in)
+    torch.cuda.synchronize()
+    assert torch.equal(fused.cpu(), attn_output_quant(f32.cpu(), g.spec,
+                                                      g.s_in))
+    plain = mm.matmul_wq_plain(x, w.q, w.e, bits=bits, kdim=k, spec=g.spec,
+                               s_in=g.s_in)
+    assert int((fused.to(torch.int32) - plain.to(torch.int32)).abs().max()) \
+        <= 1
+
+
 def test_matmul_wq_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     from repro_torch.kernels import matmul_wq as mm
     from repro_torch.quant.weights import QuantWeight
@@ -273,6 +310,57 @@ def test_matmul_wq_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         mm.matmul_wq(x, off)
     with pytest.raises(ValueError, match="device"):
         mm.matmul_wq(x.cpu(), w)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("case", ["long prefix", "batch 2", "two row groups"])
+def test_prefill_bf16_parts_match_plain(cuda, d, bits, case):
+    """The tensor-core prefill (bf16 q) split over the sequence: batch 1
+    after a 1000-position prefix (17 parts), batch 2 at start 0 and
+    mid-prompt (9 parts), and 192 query rows (two row groups of 128), on
+    bf16, 8- and 4-bit pools, through tables wider than the live range.
+    f32 output at 2e-5 element by element, bf16 output within one bf16
+    ulp, the fused epilogue bit-exact on the kernel's f32 output."""
+    from functools import partial
+
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import attn_output_quant
+    from repro_torch.nn.common import build_lm_grau
+    bs, h, kvh = 16, 6, 2
+    chunk, starts, width = {"long prefix": (32, [1000], 68),
+                            "batch 2": (32, [0, 500], 36),
+                            "two row groups": (64, [100], 12)}[case]
+    rng = np.random.default_rng(d + bits + len(case))
+    b = len(starts)
+    nb = b * width + 1
+    table = torch.from_numpy(rng.permutation(np.arange(1, nb))
+                             .reshape(b, width).astype(np.int32)).to(cuda)
+    if bits == 16:
+        k, v = _pools(rng, nb, bs, kvh, d, torch.bfloat16, cuda)
+        kw = {}
+    else:
+        k, v, ke, ve = _quant_pools(rng, nb, bs, kvh, d, bits, cuda)
+        kw = dict(k_exp=ke, v_exp=ve, kv_bits=bits)
+    q = torch.from_numpy(rng.normal(size=(b, chunk, h, d)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    start = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    parts, _ = pa.prefill_plan(b, kvh, chunk * h // kvh, width, bs,
+                               torch.cuda.get_device_properties(
+                                   cuda).multi_processor_count)
+    assert parts >= (8 if case == "long prefix" else 2)
+    kern = partial(pa.paged_prefill_attention, **kw)
+    args = (q, k, v, table, start)
+    f32 = _assert_matches_plain(kern, partial(pa.paged_prefill_plain, **kw),
+                                args, torch.bfloat16)
+    g = build_lm_grau("identity")
+    quant = kern(*args, spec=g.spec, s_in=g.s_in)
+    torch.cuda.synchronize()
+    assert torch.equal(quant.cpu(), attn_output_quant(f32.cpu(), g.spec,
+                                                      g.s_in))
+    plain = pa.paged_prefill_plain(*args, spec=g.spec, s_in=g.s_in, **kw)
+    assert int((quant.to(torch.int32) - plain.to(torch.int32)).abs().max()) \
+        <= 1
 
 
 @pytest.mark.parametrize("quant", [dict(kv_bits=4), dict(weight_bits=4),

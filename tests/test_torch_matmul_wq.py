@@ -22,9 +22,12 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.quant import weights as jwq  # noqa: E402
 from repro_torch.core.build import build_grau as tbuild_grau  # noqa: E402
 from repro_torch.core.folding import fold as tfold  # noqa: E402
+from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import matmul_wq as tmm  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.quant import weights as twq  # noqa: E402
+# pytest puts tests/ on sys.path
+from test_torch_epilogue import kernel_epilogue  # noqa: E402
 
 TILES = (8, 16)          # the reference kernel's blocks in interpret mode
 REL = 1e-5
@@ -194,3 +197,91 @@ def test_ops_user_wrapper(bits):
     fused = tops.matmul_wq(_t(x), tw, tspec, s_in=0.01)
     assert torch.equal(fused, tmm.matmul_wq(_t(x), tw, tspec, s_in=0.01))
     assert fused.dtype == torch.int8
+
+
+# ---------------------------------------------------------------------------
+# The kernel's split over K: part plan, per-part sums, fixed-order reduction
+# ---------------------------------------------------------------------------
+
+MLP = {"w_gate": (3072, 8192), "w_down": (8192, 3072)}   # llama3.2-3b
+
+
+def _emulate_parts(x, tw, parts, tpp):
+    """csrc/matmul_wq.cu's decomposition in plain torch (tests only): part
+    p sums x_tile @ (q_tile * 2^e_tile) in f32 over its run of pack tiles
+    [p * tpp, (p + 1) * tpp); the partial sums are then added in part
+    order."""
+    from repro_torch.quant.pot import dequantize_pot, unpack_int4
+    kt = tw.e.shape[0]
+    tile, tp = tw.kdim // kt, tw.q.shape[0] // kt
+    partials = []
+    for p in range(parts):
+        acc = torch.zeros((x.shape[0], tw.e.shape[1]), dtype=torch.float32)
+        for i in range(p * tpp, min((p + 1) * tpp, kt)):
+            qt = tw.q[i * tp:(i + 1) * tp]
+            if tw.bits == 4:
+                qt = unpack_int4(qt.t()).t()
+            acc += x[:, i * tile:(i + 1) * tile] @ dequantize_pot(qt, tw.e[i])
+        partials.append(acc)
+    out = partials[0]
+    for acc in partials[1:]:
+        out = out + acc
+    return out
+
+
+@pytest.mark.parametrize("m", [1, 8, 32, 70])
+def test_plan_parts_cover_whole_pack_tiles(m):
+    """Parts are runs of whole pack tiles that cover K exactly once (the
+    last may be shorter, never empty); at the MLP shapes the split gives
+    more than one part and a grid of at least two blocks per SM."""
+    for k, n in (*MLP.values(), (1536, 64), (96, 16), (1024, 48), (512, 80)):
+        tile = twq.effective_tile(k)
+        kt = k // tile
+        parts, tpp = tmm.plan_parts(m, n, k, tile)
+        assert tpp >= 1 and 1 <= parts <= kt
+        assert (parts - 1) * tpp < kt <= parts * tpp
+    for k, n in MLP.values():
+        parts, _ = tmm.plan_parts(m, n, k, 512)
+        blocks = -(-n // tmm.BLOCK_N) * -(-m // tmm.row_tile(m)) * parts
+        assert parts > 1 and blocks >= 2 * kbuild.H100_SMS
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", [8, 32])
+def test_part_sums_match_plain_and_reference_kernel(bits, m):
+    """Per-part sums added in part order equal the plain version and the
+    reference's Pallas kernel (interpret mode) within 1e-5 sum|x||w|, for
+    one part, one tile a part, and uneven runs (4 tiles as 2 + 2 and 3 +
+    1); the fused epilogue's arithmetic on that sum is attn_output_quant's,
+    bit for bit."""
+    k, n = 2048, 48                                 # four 512-wide k-tiles
+    x, jw, tw = _case(300 + 10 * bits + m, m, k, n, bits, xscale=2.0)
+    want = np.asarray(jops.matmul_wq(jnp.asarray(x), jw, tiles=TILES,
+                                     interpret=True))
+    plain = tmm.matmul_wq_plain(_t(x), tw.q, tw.e, bits=bits, kdim=k).numpy()
+    bound = _bound(x, tw)
+    for tpp in (4, 1, 2, 3):
+        got = _emulate_parts(_t(x), tw, -(-4 // tpp), tpp).numpy()
+        assert (np.abs(got - plain) <= bound).all(), tpp
+        assert (np.abs(got - want) <= bound).all(), tpp
+    _, ts = _spec_pair()
+    acc = _emulate_parts(_t(x), tw, 4, 1)
+    for s_in in (2**-8, 0.01):
+        np.testing.assert_array_equal(
+            kernel_epilogue(acc, ts, s_in).numpy(),
+            tref.attn_output_quant(acc, ts, s_in).numpy())
+
+
+def test_out_dtype_reads_the_f32_sum_behind_a_bf16_product():
+    """out_dtype=float32 on bf16 activations gives the f32 sum that the
+    bf16 output rounds (and that the fused epilogue quantizes)."""
+    x, _, tw = _case(21, 8, 1024, 32, 4)
+    xb = _t(x).to(torch.bfloat16)
+    f32 = tmm.matmul_wq(xb, tw, out_dtype=torch.float32)
+    assert f32.dtype == torch.float32
+    assert torch.equal(tmm.matmul_wq(xb, tw), f32.to(torch.bfloat16))
+    _, ts = _spec_pair()
+    assert torch.equal(tmm.matmul_wq(xb, tw, ts, s_in=0.01),
+                       tref.attn_output_quant(f32, ts, 0.01))
+    with pytest.raises(ValueError, match="out_dtype"):
+        tmm.matmul_wq(xb, tw, out_dtype=torch.float16)

@@ -27,9 +27,12 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.nn import attention as jattn  # noqa: E402
 from repro_torch.core.build import build_grau as tbuild_grau  # noqa: E402
 from repro_torch.core.folding import fold as tfold  # noqa: E402
+from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.nn import attention as tattn  # noqa: E402
+# pytest puts tests/ on sys.path
+from test_torch_epilogue import kernel_epilogue  # noqa: E402
 
 BS = 8
 TOL = dict(rtol=3e-5, atol=3e-5)
@@ -385,3 +388,129 @@ def test_nn_quant_paths_match_reference(bits):
         got = tattn.paged_prefill_attention(torch.from_numpy(qp), tc, tst,
                                             impl=impl).numpy()
         np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 prefill kernel's split over the sequence: plan, parts, combine
+# ---------------------------------------------------------------------------
+
+def emulate_prefill_parts(q, k_pool, v_pool, table, start, parts, bpp, *,
+                          k_exp=None, v_exp=None, kv_bits=16, tile=64):
+    """csrc/paged_prefill.cu's decomposition in plain torch (tests only).
+    Part p covers table blocks [p * bpp, (p + 1) * bpp) cut to the live
+    blocks max(cdiv(start + C, bs), 1); inside it an online softmax over
+    `tile`-position tiles from m = NEG_INF, l = 0, o = 0, with NEG_INF on
+    positions past a row's horizon, gives the part's (o, m, l). The live
+    parts are then combined in part order: m = max m_p, l = sum l_p
+    e^(m_p - m), o = sum o_p e^(m_p - m), out = o / max(l, 1e-30)."""
+    b, chunk, h, d = q.shape
+    bs, kvh = k_pool.shape[1], k_pool.shape[2]
+    g, width, rows = h // kvh, table.shape[1], chunk * (h // kvh)
+    scale = d ** -0.5
+    qr = (q.reshape(b, chunk, kvh, g, d).permute(0, 2, 1, 3, 4)
+          .reshape(b, kvh, rows, d).float())
+    load = tpa._block_loader(k_pool, v_pool, k_exp, v_exp, kv_bits)
+    out = torch.empty((b, kvh, rows, d))
+    for bi in range(b):
+        s0 = int(start[bi])
+        live = min(max(-(-(s0 + chunk) // bs), 1), width)
+        horizon = s0 + torch.arange(rows) // g
+        got = []
+        for p in range(parts):
+            lo, hi = p * bpp, min((p + 1) * bpp, live)
+            if lo >= hi:
+                break
+            kk, vv = load(table[bi, lo:hi].long())
+            kk, vv = kk.reshape(-1, kvh, d), vv.reshape(-1, kvh, d)
+            pos = torch.arange(lo * bs, hi * bs)
+            m = torch.full((kvh, rows, 1), tref.NEG_INF)
+            l = torch.zeros((kvh, rows, 1))
+            o = torch.zeros((kvh, rows, d))
+            for t0 in range(0, len(pos), tile):
+                lg = torch.einsum("krd,tkd->krt", qr[bi],
+                                  kk[t0:t0 + tile]) * scale
+                seen = pos[None, None, t0:t0 + tile] <= horizon[None, :, None]
+                lg = torch.where(seen, lg, tref.NEG_INF)
+                m_new = torch.maximum(m, lg.amax(-1, keepdim=True))
+                e = torch.exp(lg - m_new)
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + e.sum(-1, keepdim=True)
+                o = o * alpha + torch.einsum("krt,tkd->krd", e,
+                                             vv[t0:t0 + tile])
+                m = m_new
+            got.append((o, m, l))
+        m_all = got[0][1]
+        for _, m, _ in got[1:]:
+            m_all = torch.maximum(m_all, m)
+        l_all, o_all = 0.0, 0.0
+        for o, m, l in got:
+            f = torch.exp(m - m_all)
+            l_all = l_all + l * f
+            o_all = o_all + o * f
+        out[bi] = o_all / torch.clamp(l_all, min=1e-30)
+    return (out.reshape(b, kvh, chunk, g, d).permute(0, 2, 1, 3, 4)
+            .reshape(b, chunk, h, d))
+
+
+@pytest.mark.parametrize("batch,kvh,rows,width,bs", [
+    (1, 8, 96, 64, 16),       # llama3.2-3b: one 32-token chunk at 992
+    (8, 8, 96, 128, 16), (1, 2, 96, 70, 16), (1, 8, 96, 2, 16),
+    (3, 3, 32, 6, 8), (1, 8, 300, 64, 16), (2, 2, 96, 33, 16)])
+def test_prefill_plan_covers_whole_table_blocks(batch, kvh, rows, width, bs):
+    """Parts are runs of whole table blocks covering the table width once
+    (the last may be shorter, never empty), each of at least 64 positions
+    where the table has them; the main shape gives more than one part."""
+    parts, bpp = tpa.prefill_plan(batch, kvh, rows, width, bs)
+    assert bpp >= 1 and (parts - 1) * bpp < width <= parts * bpp
+    assert bpp * bs >= min(tpa.MIN_PART_POSITIONS, width * bs)
+    groups = -(-rows // tpa.GROUP_ROWS)
+    most = max(1, width * bs // tpa.MIN_PART_POSITIONS)
+    assert (batch * kvh * groups * parts >= kbuild.H100_SMS
+            or bpp == -(-width // most))         # as short as parts may be
+    if (batch, kvh, rows, width, bs) == (1, 8, 96, 64, 16):
+        assert parts > 1
+
+
+@pytest.mark.parametrize("bits", [16, 8, 4])
+def test_prefill_parts_match_plain_and_reference_kernel(bits):
+    """Per-part (o, m, l) combined in part order equal the plain version
+    (within 2e-5) and the reference's Pallas kernel in interpret mode, for
+    one part and for parts of 1, 2 and 3 table blocks: start 0 (rows whose
+    horizon ends in an earlier part than the live range's last), a start
+    mid-prompt, and a table wider than the live range (dead blocks
+    poisoned); the fused epilogue's arithmetic on the combined output is
+    attn_output_quant's, bit for bit."""
+    rng = np.random.default_rng(70 + bits)
+    b, chunk, h, kvh, d, width, num_blocks = 3, 16, 6, 3, 32, 8, 40
+    starts = np.array([0, 8, 40], np.int32)      # live blocks 2, 3, 7 of 8
+    table = make_table(rng, [s + chunk for s in starts], width, num_blocks)
+    if bits == 16:
+        k = rng.normal(size=(num_blocks, BS, kvh, d)).astype(np.float32)
+        v = rng.normal(size=(num_blocks, BS, kvh, d)).astype(np.float32)
+        poison_dead(rng, k, v, table, 1e4)
+        arrays, tol = (k, v), TOL
+    else:
+        arrays, tol = quant_pools(rng, num_blocks, kvh, d, bits, table), \
+            F32_TOL
+    q = rng.normal(size=(b, chunk, h, d)).astype(np.float32)
+    jarr, tarr = both(q, *arrays, table, starts)
+    jq, jk, jv, jt, js = jarr[0], jarr[1], jarr[2], jarr[-2], jarr[-1]
+    tq, tk, tv, tt, tst = tarr[0], tarr[1], tarr[2], tarr[-2], tarr[-1]
+    kw_j, kw_t = {}, {}
+    if bits < 16:
+        kw_j = dict(k_exp=jarr[3], v_exp=jarr[4], kv_bits=bits)
+        kw_t = dict(k_exp=tarr[3], v_exp=tarr[4], kv_bits=bits)
+    want = np.asarray(jpa.paged_prefill_attention(jq, jk, jv, jt, js,
+                                                  interpret=True, **kw_j))
+    plain = tpa.paged_prefill_plain(tq, tk, tv, tt, tst,
+                                    out_dtype=torch.float32, **kw_t).numpy()
+    for bpp in (width, 1, 2, 3):
+        got = emulate_prefill_parts(tq, tk, tv, tt, tst, -(-width // bpp),
+                                    bpp, **kw_t)
+        np.testing.assert_allclose(got.numpy(), plain, **F32_TOL)
+        np.testing.assert_allclose(got.numpy(), want, **tol)
+    _, ts = silu_spec_pair()
+    for s_in in (2**-10, 0.003):
+        np.testing.assert_array_equal(
+            kernel_epilogue(got, ts, s_in).numpy(),
+            tref.attn_output_quant(got, ts, s_in).numpy())
