@@ -10,17 +10,22 @@ Phases (any failure exits non-zero):
   2. kernels: each wrapper runs on the card at the main path's shapes and is
      held against its plain torch version on the same inputs — the GRAU unit
      bit-exact; paged decode / chunked prefill on 16-, 8- and 4-bit KV
-     pools and matmul_wq (int4 / int8 weights, the llama3.2-3b MLP shapes at
-     8 and 32 rows) within the stated tolerances, each with the fused GRAU
-     epilogue bit-exact on the kernel's own f32 output — then timed with
-     CUDA events beside its plain version, a PyTorch library call for the
-     same function where one exists, and the card's bound;
+     pools (and the bf16 decode and prefill split over several sequence
+     parts, each also against a float64 attention) and matmul_wq (int4 /
+     int8 weights, the llama3.2-3b MLP shapes at 8 and 32 rows) within the
+     stated tolerances, each with the fused GRAU epilogue bit-exact on the
+     kernel's own f32 output — then timed (CUDA-graph replay, and eager
+     CUDA events) beside its plain version, a PyTorch library call for the
+     same function where one exists, and the card's bound; decode and
+     matmul_wq over operand copies larger than the 50 MB L2;
      matmul_grau (the int8 matmul with the GRAU epilogue) bit for bit at the
      quickstart's, the kernel bench's, ragged and the llama3.2-3b MLP
      shapes, on signed, unsigned and random register files; flash_attention
      (dense GQA attention forward) against its plain version (o and lse) at
-     slice (e)'s shape causal and not, in f32, at head_dim 64 and 256, on a
-     ragged length and after a prefix, and its backward against autograd;
+     slice (e)'s shape causal and not, in f32, at every head_dim of the
+     reference's archs (16, 48, 64, 192, 256 beside 128) on both bf16
+     kernels, on a ragged length and after a prefix, and its backward
+     against autograd;
   3. the slices: full-width llama3.2-3b in bf16 (weights drawn from --seed
      on the card) serves 8 requests through ServeEngine with the kernels,
      (a) with float activations, (b) with the GRAU MLP activation plus the
@@ -47,10 +52,11 @@ the result line.
 Without a CUDA card, or outside a checkout of the repository, it prints why
 on stderr and exits 2. `--rehearse` runs the same phases at smoke size on
 the CPU (plain versions, no timings) to check the control flow, and exits 1.
-`--kernels-from DIR` times only the rows of matmul_wq (its 8 MLP shapes)
-and of the prefill (16-, 8- and 4-bit pools) of the port under DIR/src —
-an unpacked earlier commit, or this checkout — and prints them as one JSON
-line, so two versions compare on one card.
+`--kernels-from DIR` times only the rows of matmul_wq (its 8 MLP shapes),
+of the decode and the prefill (16-, 8- and 4-bit pools) and of
+flash_attention (slice (e)'s shape) of the port under DIR/src — an
+unpacked earlier commit, or this checkout — in CUDA-graph replay, and
+prints them as one JSON line, so two versions compare on one card.
 """
 from __future__ import annotations
 
@@ -97,6 +103,11 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-3, 5e-2
 # a timed operand set spans at least this many bytes: twice the H100's 50
 # MB L2, so a call cycling through it reads device memory
 L2_SPAN_BYTES = 100_000_000
+# multi-part decode and prefill, f32 output against a float64 attention
+# (|f32 - f64| / (1 + |f64|)): the kernel within F64_REL x the plain
+# version's distance + F64_FLOOR (the multi-part prefill read 0.7x at most
+# on an H100)
+F64_REL, F64_FLOOR = 2.0, 1e-7
 RESUME_TOL = 1e-5       # resumed vs uninterrupted losses, relative
 RESUME_FALL = 0.5       # smoke-size loss falls by this over its 6 steps, as
                         # the reference's tests/test_models.py asks in 10
@@ -339,9 +350,9 @@ def close(got, want, rtol, atol):
 
 def check_paged(torch, np, dev, shapes, rng, timed):
     """Decode and prefill on 16-, 8- and 4-bit pools, f32 and bf16, against
-    their plain versions, plus a bf16 prefill chunk that the tensor-core
-    kernel splits into several sequence parts; rows keyed by kernel name
-    and kv_bits."""
+    their plain versions, plus a bf16 decode tick and a bf16 prefill chunk
+    that the tensor-core kernels split into several sequence parts; rows
+    keyed by kernel name and kv_bits."""
     from functools import partial
 
     from repro_torch.kernels import paged_attention as pa
@@ -405,21 +416,20 @@ def check_paged(torch, np, dev, shapes, rng, timed):
                     f"element within {atol:.3g} + {rtol:.3g} |want|), f32 "
                     f"output {err32:.3g} (within {F32_TOL} (1 + |want|)); "
                     "epilogue bit-exact on the kernel's f32 output")
-            if name == "paged_prefill":
-                parts, vs64 = prefill_parts_case(torch, np, dev, s, rng,
-                                                 kv_bits, g, sync)
+            parts, vs64 = (prefill_parts_case if name == "paged_prefill"
+                           else decode_parts_case)(torch, np, dev, s, rng,
+                                                   kv_bits, g, sync)
             suffix = "" if kv_bits == 16 else f"_kv{kv_bits}"
             row = {"name": name + suffix, "route": "cuda",
-                   "source": ("src/repro_torch/csrc/paged_attention.cu"
-                              if name == "paged_attention" else
-                              "src/repro_torch/csrc/paged_prefill.cu"),
+                   # bf16 q, the served and timed dtype; f32 q runs
+                   # csrc/paged_attention.cu
+                   "source": "src/repro_torch/csrc/paged_prefill.cu",
                    "replaces": ("src/repro/kernels/paged_attention.py:189"
                                 if name == "paged_attention" else
                                 "src/repro/kernels/paged_attention.py:401"),
                    "kv_bits": kv_bits, "max_abs_err": worst}
-            if name == "paged_prefill":
-                row["multi_part_case_parts"] = parts
-                row["multi_part_f32_vs_f64"] = vs64
+            row["multi_part_case_parts"] = parts
+            row["multi_part_f32_vs_f64"] = vs64
             if timed:
                 row.update(time_paged(torch, np, dev, name, s, group, rng,
                                       kv_bits))
@@ -507,6 +517,77 @@ def prefill_parts_case(torch, np, dev, s, rng, kv_bits, g, sync, draws=4):
             "f32 output")
     log(f"paged_prefill kv{kv_bits}: over {draws} draws, max |f32 - f64| / "
         f"(1 + |f64|): kernel {vs64['kernel']:.3g}, plain {vs64['plain']:.3g}")
+    f64_gate(f"paged_prefill kv{kv_bits}", vs64)
+    return parts, vs64
+
+
+def f64_gate(label, vs64):
+    """The kernel's f32 output against the float64 attention, as |f32 -
+    f64| / (1 + |f64|): within F32_TOL, and within F64_REL times the plain
+    version's own distance plus F64_FLOOR (both round the same softmax in
+    f32; the kernel's parts and tensor-core steps may not add more)."""
+    bound = F64_REL * vs64["plain"] + F64_FLOOR
+    need(vs64["kernel"] <= min(F32_TOL, bound),
+         f"{label}: f32 output {vs64['kernel']:.3g} from float64, beyond "
+         f"min({F32_TOL}, {F64_REL} x plain's {vs64['plain']:.3g} + "
+         f"{F64_FLOOR})")
+
+
+def decode_parts_case(torch, np, dev, s, rng, kv_bits, g, sync, draws=4):
+    """Bf16 decode ticks at the main shape (slots ragged up to max_len,
+    one idle), which the tensor-core kernel splits into decode_plan's
+    sequence parts, on `draws` fresh pools and queries: f32 output within
+    F32_TOL of the plain version's; the bf16 output the kernel's own f32
+    output rounded, bit for bit; the fused epilogue bit-exact on the
+    kernel's f32 output and within one code of the plain version's; and
+    f64_gate against prefill_f64 at C = 1 over the live slots. Returns the
+    part count and the f32-vs-f64 distances."""
+    from functools import partial
+
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import attn_output_quant
+    vs64 = {"kernel": 0.0, "plain": 0.0}
+    for _ in range(draws):
+        (q, k, v, table, lengths), kv = paged_case(
+            torch, np, dev, torch.bfloat16, s, rng, kv_bits)
+        args = (q, k, v, table, lengths)
+        parts, _ = pa.decode_plan(q.shape[0], s["kvh"], table.shape[1],
+                                  s["bs"], sm_count(torch, dev))
+        need(parts > 1, f"the multi-part decode case plans {parts} part")
+        kern, plain = (partial(pa.paged_attention, **kv),
+                       partial(pa.paged_attention_plain, **kv))
+        label = f"paged_attention kv{kv_bits} {parts} parts"
+        f32 = kern(*args, out_dtype=torch.float32)
+        sync()
+        p32 = plain(*args, out_dtype=torch.float32)
+        ok, err32 = close(f32, p32, F32_TOL, F32_TOL)
+        need(ok, f"{label}: f32 output off by {err32:.3g} > {F32_TOL} (1 + "
+             "|want|)")
+        live = lengths > 0
+        o64 = prefill_f64(torch, q[:, None], k, v, table, lengths - 1,
+                          kv)[:, 0][live]
+        for who, o in (("kernel", f32), ("plain", p32)):
+            vs64[who] = max(vs64[who], float(((o.double()[live] - o64).abs()
+                                              / (1 + o64.abs())).max()))
+        got = kern(*args)
+        sync()
+        need(got.dtype == torch.bfloat16
+             and torch.equal(got, f32.to(torch.bfloat16)),
+             f"{label}: bf16 output is not the kernel's f32 output rounded")
+        quant = kern(*args, spec=g.spec, s_in=g.s_in)
+        sync()
+        need(torch.equal(quant, attn_output_quant(f32, g.spec, g.s_in)),
+             f"{label}: GRAU epilogue not bit-exact")
+        qref = plain(*args, spec=g.spec, s_in=g.s_in)
+        need(int((quant.to(torch.int32) - qref.to(torch.int32)).abs().max())
+             <= 1, f"{label}: epilogue vs plain off by > 1")
+        log(f"{label} (lengths {lengths.tolist()}, table width "
+            f"{table.shape[1]}): f32 output {err32:.3g} from plain (within "
+            f"{F32_TOL} (1 + |want|)), bf16 output its rounding bit for bit; "
+            "epilogue bit-exact on the kernel's f32 output")
+    log(f"paged_attention kv{kv_bits}: over {draws} draws, max |f32 - f64| / "
+        f"(1 + |f64|): kernel {vs64['kernel']:.3g}, plain {vs64['plain']:.3g}")
+    f64_gate(f"paged_attention kv{kv_bits}", vs64)
     return parts, vs64
 
 
@@ -518,8 +599,12 @@ def sm_count(torch, dev):
 def paged_timing_case(torch, np, dev, name, s, group, rng, kv_bits):
     """The main path's shape in bf16: a decode tick at the widest bucket (8
     slots, ragged up to max_len), or one prefill chunk (b = 1) starting
-    mid-prompt, over 16-, 8- or 4-bit pools. Returns (kernel, plain, args,
-    bytes, flops, library call); the bytes count the pools at kv_bits."""
+    mid-prompt, over 16-, 8- or 4-bit pools. Returns (kernel, plain, a list
+    of argument tuples, bytes, flops, library call); the bytes count the
+    live pools at kv_bits. Decode gets copies of its pools (and exponent
+    planes) whose live bytes together exceed L2_SPAN_BYTES, so that a call
+    cycling through them reads device memory, as a served tick's 28
+    layers of pools do; the prefill's one case."""
     from functools import partial
 
     from repro_torch.kernels import paged_attention as pa
@@ -529,13 +614,19 @@ def paged_timing_case(torch, np, dev, name, s, group, rng, kv_bits):
     kd, vd = dequant_pools(torch, k, v, kv, torch.bfloat16)
     h, d, kvh, bs = s["h"], s["d"], s["kvh"], s["bs"]
     if name == "paged_attention":
-        args = (q, k, v, table, lengths)
         ends = [int(n) for n in lengths.cpu()]
         nbytes = (live_bytes(ends, bs, kvh, d, kv_bits) + 2 * 2 * q.numel()
                   + 4 * len(ends))
         flops = sum(4 * h * d * n for n in ends)
         lib = sdpa_yardstick(torch, q, kd, vd, table, lengths, group)
         kern, plain = pa.paged_attention, pa.paged_attention_plain
+        copies = max(2, -(-L2_SPAN_BYTES // live_bytes(ends, bs, kvh, d,
+                                                       kv_bits)))
+        calls = [((q, k, v, table, lengths), kv)]
+        for _ in range(copies - 1):
+            calls.append(((q, k.clone(), v.clone(), table, lengths),
+                          {key: (x.clone() if torch.is_tensor(x) else x)
+                           for key, x in kv.items()}))
     else:
         C = s["chunk"]
         start = torch.tensor([s["max_len"] // 2 - C], dtype=torch.int32,
@@ -543,33 +634,42 @@ def paged_timing_case(torch, np, dev, name, s, group, rng, kv_bits):
         width = -(-(int(start) + C) // bs)
         tab = table[1:2, :width].contiguous()
         qp = torch.randn((1, C, h, d), device=dev).to(torch.bfloat16)
-        args = (qp, k, v, tab, start)
         end = int(start) + C
         nbytes = live_bytes([end], bs, kvh, d, kv_bits) + 2 * 2 * qp.numel()
         flops = sum(4 * h * d * (int(start) + r + 1) for r in range(C))
         rows_end = start[:, None] + torch.arange(C, device=dev)[None]
         lib = sdpa_yardstick(torch, qp, kd, vd, tab, None, group, rows_end)
         kern, plain = pa.paged_prefill_attention, pa.paged_prefill_plain
-    return partial(kern, **kv), partial(plain, **kv), args, nbytes, flops, lib
+        calls = [((qp, k, v, tab, start), kv)]
+    return ([partial(kern, *a, **kw) for a, kw in calls],
+            partial(plain, *calls[0][0], **calls[0][1]), nbytes, flops, lib)
+
+
+def paged_parts(torch, dev, name, s, group, width):
+    """The tensor-core kernels' sequence parts at the timed shape."""
+    from repro_torch.kernels import paged_attention as pa
+    if name == "paged_prefill":
+        return pa.prefill_plan(1, s["kvh"], s["chunk"] * group, width,
+                               s["bs"], sm_count(torch, dev))[0]
+    return pa.decode_plan(s["slots"], s["kvh"], width, s["bs"],
+                          sm_count(torch, dev))[0]
 
 
 def time_paged(torch, np, dev, name, s, group, rng, kv_bits=16):
-    """The kernel (CUDA-graph replay, and eager), its plain version and the
-    library call at paged_timing_case's shape, with the bound; `parts`: the
-    prefill kernel's sequence parts (None for decode)."""
-    from repro_torch.kernels import paged_attention as pa
-    kern, plain, args, nbytes, flops, lib = paged_timing_case(
+    """The kernel (CUDA-graph replay, and eager) over paged_timing_case's
+    calls, its plain version and the library call, with the bound;
+    `parts`: the kernel's sequence parts; `pool_copies`: the decode's pool
+    sets cycled through."""
+    kerns, plain, nbytes, flops, lib = paged_timing_case(
         torch, np, dev, name, s, group, rng, kv_bits)
-    parts = None
-    if name == "paged_prefill":
-        parts = pa.prefill_plan(1, s["kvh"], s["chunk"] * group,
-                                args[3].shape[1], s["bs"],
-                                sm_count(torch, dev))[0]
+    width = (-(-(s["max_len"] // 2) // s["bs"]) if name == "paged_prefill"
+             else s["max_len"] // s["bs"])
     t_bound, by = bound(nbytes, flops, "bf16")
-    return {"ms": graph_ms(torch, lambda: kern(*args)),
-            "eager_ms": device_ms(torch, lambda: kern(*args)),
-            "parts": parts,
-            "plain_ms": device_ms(torch, lambda: plain(*args), 5, 1),
+    return {"ms": graph_ms(torch, cycling(kerns)),
+            "eager_ms": device_ms(torch, cycling(kerns)),
+            "parts": paged_parts(torch, dev, name, s, group, width),
+            "pool_copies": len(kerns),
+            "plain_ms": device_ms(torch, plain, 5, 1),
             "bound_ms": t_bound, "bound_by": by,
             "library_ms": graph_ms(torch, lib),
             "library_call": "torch.nn.functional.scaled_dot_product_attention "
@@ -777,10 +877,12 @@ def check_matmul_grau(torch, np, dev, shapes, rng, timed):
 
 def time_matmul_grau(torch, dev, spec, M, K, N):
     """One int8 product with the GRAU epilogue, timed over enough weight
-    copies to exceed L2: the kernel, its plain version, and as the library
-    yardstick torch._int_mm (cuBLASLt int8 -> int32, without the epilogue:
-    it writes 4 bytes an output where the kernel writes 1). The bound counts
-    x, w and the 8-bit output once, and 2 M K N int8 operations."""
+    copies to exceed L2: the kernel (CUDA-graph replay, and eager: eager
+    events read the host's enqueue for a small call), its plain version,
+    and as the library yardstick torch._int_mm (cuBLASLt int8 -> int32,
+    without the epilogue: it writes 4 bytes an output where the kernel
+    writes 1), replayed the same way. The bound counts x, w and the 8-bit
+    output once, and 2 M K N int8 operations."""
     from repro_torch.kernels import matmul_grau as mg
     from repro_torch.kernels.ref import wrap_int32
     x = torch.randint(-128, 128, (M, K), dtype=torch.int8, device=dev)
@@ -797,18 +899,19 @@ def time_matmul_grau(torch, dev, spec, M, K, N):
     # cuBLASLt's int8 kernels take both operands K-major: beside w as the
     # kernel takes it (row-major), time a column-major copy of it too
     kmajor = [w.t().contiguous().t() for w in ws]
+    kern = [(lambda w=w: mg.matmul_grau(x, w, regs, **kw)) for w in ws]
+    lib = [(lambda w=w: torch._int_mm(x, w)) for w in ws]
+    libk = [(lambda w=w: torch._int_mm(x, w)) for w in kmajor]
     return {"M": M, "K": K, "N": N,
-            "ms": device_ms(torch, cycling([
-                (lambda w=w: mg.matmul_grau(x, w, regs, **kw)) for w in ws]),
-                50, 5),
+            "ms": graph_ms(torch, cycling(kern)),
+            "eager_ms": device_ms(torch, cycling(kern), 50, 5),
             "plain_ms": device_ms(torch, cycling([
                 (lambda w=w: mg.matmul_grau_plain(x, w, regs, **kw))
                 for w in ws]), 5, 1),
             "bound_ms": t_bound, "bound_by": by,
-            "library_ms": device_ms(torch, cycling([
-                (lambda w=w: torch._int_mm(x, w)) for w in ws]), 50, 5),
-            "library_kmajor_ms": device_ms(torch, cycling([
-                (lambda w=w: torch._int_mm(x, w)) for w in kmajor]), 50, 5),
+            "library_ms": graph_ms(torch, cycling(lib)),
+            "library_eager_ms": device_ms(torch, cycling(lib), 50, 5),
+            "library_kmajor_ms": graph_ms(torch, cycling(libk)),
             "library_call": "torch._int_mm(x, w) on w row-major (K, N), as "
                             "the kernel takes it (library_kmajor_ms: on a "
                             "column-major copy): int8 -> int32 without the "
@@ -817,9 +920,9 @@ def time_matmul_grau(torch, dev, spec, M, K, N):
 
 def flash_cases(torch, timed):
     """(label, b, s_q, s_kv, h, kvh, d, dtype, causal, q_offset): slice
-    (e)'s shape causal and not, f32, head_dim 64 and 256, a ragged length
-    and queries after a prefix (q_offset, s_q < s_kv); the rehearsal's
-    shapes are cut to smoke size."""
+    (e)'s shape causal and not, f32, every head_dim of the reference's
+    archs, a ragged length and queries after a prefix (q_offset, s_q <
+    s_kv); the rehearsal's shapes are cut to smoke size."""
     bf, f32 = torch.bfloat16, torch.float32
     if timed:
         return [("train bf16 causal", 1, 4096, 4096, 24, 8, 128, bf, True, 0),
@@ -828,7 +931,14 @@ def flash_cases(torch, timed):
                 ("d64 bf16", 1, 2048, 2048, 8, 2, 64, bf, True, 0),
                 ("d256 bf16", 1, 1024, 1024, 16, 16, 256, bf, True, 0),
                 ("ragged 1000", 1, 1000, 1000, 24, 8, 128, bf, True, 0),
-                ("q_offset 700", 1, 300, 1000, 24, 8, 128, bf, True, 700)]
+                ("q_offset 700", 1, 300, 1000, 24, 8, 128, bf, True, 700),
+                # the reference's other head dims: glm4 (16), deepseek-smoke
+                # (48) on the mma.sync kernel, deepseek-v3 (192) on wgmma
+                ("d16 bf16", 1, 1000, 1000, 8, 2, 16, bf, True, 0),
+                ("d48 bf16", 1, 777, 777, 8, 8, 48, bf, False, 0),
+                ("d192 bf16", 1, 1000, 1000, 16, 16, 192, bf, True, 0),
+                ("d192 q_offset", 1, 200, 900, 16, 16, 192, bf, True, 700),
+                ("d48 f32", 1, 300, 300, 8, 8, 48, f32, True, 0)]
     return [("train bf16 causal", 1, 128, 128, 4, 2, 32, bf, True, 0),
             ("f32 causal", 2, 64, 64, 4, 2, 32, f32, True, 0),
             ("d256 f32", 1, 64, 64, 2, 2, 256, f32, False, 0),
@@ -929,11 +1039,12 @@ def flash_bf16_bound(torch, q, k, v, o, want, causal, q_offset):
 
 
 def time_flash(torch, dev, shape):
-    """Slice (e)'s attention in bf16, causal: the kernel, its plain version
-    and F.scaled_dot_product_attention(is_causal, enable_gqa) on (b, h, s,
-    d) copies made before timing. The bound: q, k, v read and o, lse
-    written once over the memory rate, against 4 b h s^2 d / 2 operations
-    (causal) over the bf16 tensor-core peak."""
+    """Slice (e)'s attention in bf16, causal: the kernel (CUDA-graph
+    replay, and eager), its plain version and
+    F.scaled_dot_product_attention(is_causal, enable_gqa) on (b, h, s, d)
+    copies made before timing (replay and eager too). The bound: q, k, v
+    read and o, lse written once over the memory rate, against 4 b h s^2 d
+    / 2 operations (causal) over the bf16 tensor-core peak."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -953,12 +1064,15 @@ def time_flash(torch, dev, shape):
          f"{err:.3g})")
     nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * b * h * s
     t_bound, by = bound(nbytes, 4 * b * h * s * s * d / 2, "bf16")
-    return {"shape": [b, s, h, kvh, d],
-            "ms": device_ms(torch, lambda: fa.flash_attention(q, k, v)),
+    kern = lambda: fa.flash_attention(q, k, v)  # noqa: E731
+    return {"shape": [b, s, h, kvh, d], "kernel": fa.kernel_for(q.dtype, d),
+            "ms": graph_ms(torch, kern, calls=10, replays=5),
+            "eager_ms": device_ms(torch, kern),
             "plain_ms": device_ms(torch, lambda: flash_attention_plain(
                 q, k, v), 5, 1),
             "bound_ms": t_bound, "bound_by": by,
-            "library_ms": device_ms(torch, lib),
+            "library_ms": graph_ms(torch, lib, calls=10, replays=5),
+            "library_eager_ms": device_ms(torch, lib),
             "library_call": "torch.nn.functional.scaled_dot_product_attention"
                             "(is_causal=True, enable_gqa=True) on (b, h, s, "
                             "d) copies"}
@@ -1632,9 +1746,9 @@ def profile_train(torch, dev, train_step, params, opt_state, batch_fn,
 
 
 def time_kernels_from(torch, np, dev, args):
-    """--kernels-from: the graph-replay times of the matmul_wq and prefill
-    rows at the main path's shapes, for the port on sys.path; one JSON
-    line."""
+    """--kernels-from: the graph-replay times of the matmul_wq, decode,
+    prefill and flash rows at the main path's shapes, for the port on
+    sys.path; one JSON line."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -1643,6 +1757,7 @@ def time_kernels_from(torch, np, dev, args):
              mlp={"w_gate": (3072, 8192), "w_down": (8192, 3072)})
     rng = np.random.default_rng(args.seed)
     torch.manual_seed(args.seed)
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul_wq as mm
     rows = []
     for wname in s["mlp"]:
@@ -1653,11 +1768,21 @@ def time_kernels_from(torch, np, dev, args):
                              "bits": bits, "M": M, "ms": graph_ms(
                                  torch, cycling([(lambda w=w: mm.matmul_wq(
                                      x, w)) for w in ws]))})
-    for kv_bits in (16, 8, 4):
-        kern, _, pargs, _, _, _ = paged_timing_case(
-            torch, np, dev, "paged_prefill", s, 3, rng, kv_bits)
-        rows.append({"name": "paged_prefill", "kv_bits": kv_bits,
-                     "ms": graph_ms(torch, lambda: kern(*pargs))})
+    for name in ("paged_attention", "paged_prefill"):
+        for kv_bits in (16, 8, 4):
+            kerns, _, _, _, _ = paged_timing_case(torch, np, dev, name, s, 3,
+                                                  rng, kv_bits)
+            rows.append({"name": name, "kv_bits": kv_bits,
+                         "ms": graph_ms(torch, cycling(kerns)),
+                         "pool_copies": len(kerns)})
+            del kerns
+    b, sq, h, kvh, d = 1, 4096, 24, 8, 128
+    q = torch.randn((b, sq, h, d), device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, sq, kvh, d), device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    rows.append({"name": "flash_attention", "shape": [b, sq, h, kvh, d],
+                 "ms": graph_ms(torch, lambda: fa.flash_attention(q, k, v),
+                                calls=10, replays=5)})
     report = {"kernels_from": str(args.kernels_from), "card": card,
               "rows": rows}
     if args.out:
@@ -1665,6 +1790,32 @@ def time_kernels_from(torch, np, dev, args):
         Path(args.out).write_text(json.dumps(report, indent=1))
     log(json.dumps(report))
     return 0
+
+
+def ptxas_summary(log_text):
+    """(kernel, registers, spill bytes) of each entry function in an nvcc
+    -Xptxas=-v log, the kernel named by its base name and template
+    integers (e.g. flash_wgmma_kernel<128>)."""
+    import re
+    out, name = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"\d+([a-z_0-9]+kernel)", mangled)
+            ints = re.findall(r"Li(\d+)E", mangled)
+            name = ((base.group(1) if base else mangled)
+                    + (f"<{','.join(ints)}>" if ints else ""))
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1724,10 +1875,13 @@ def main(argv=None) -> int:
         report["phase_s"] = {"build": report["build_s"]}
         log(f"kernel build: {report['build_s']:.1f} s "
             f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
+        report["ptxas"] = {}
         for name in kbuild.SOURCES:
-            for line in kbuild.ptxas_report(name).splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas[{name}]: {line.strip()}")
+            rows = ptxas_summary(kbuild.ptxas_report(name))
+            report["ptxas"][name] = rows
+            for kern, regs, spill in rows:
+                log(f"  ptxas[{name}]: {kern}: {regs} registers, {spill} "
+                    "bytes of spill stores")
 
     rng = np.random.default_rng(args.seed)
     torch.manual_seed(args.seed)

@@ -27,6 +27,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
 }
+// 8 bytes global -> shared (both 8-byte aligned); zero-filled when !valid
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

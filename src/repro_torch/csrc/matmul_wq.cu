@@ -51,9 +51,18 @@
 //   * f32 activations take the same grid and ring: x is split in registers
 //     into bf16 hi + mid + lo (x - hi - mid - lo is below 2^-26 |x|) and
 //     each weight fragment goes through three mmas.
-// Needs N % 16 == 0, tile % 16 == 0 and 16-byte aligned q, e and x (the
-// wrapper checks). Every product is exact; the sums are the reference's in
-// another order.
+//   * Ragged shapes: any pack tile (even at 4 bits). Payload rows and x
+//     columns past a tile's tp packed rows are staged as zeros, so a tile
+//     narrower than a stage, or than an mma step, adds exact zeros. Where
+//     x's columns of a tile half are not whole 16-byte vectors (tp not a
+//     multiple of 16 / sizeof(x) elements: a 4-bit tile of 24), x is staged
+//     element by element with plain loads instead of cp.async (no served
+//     shape does this). N must be a multiple of 16, so that weight rows are
+//     whole 16-byte vectors: the wrapper pads the payload and exponents of a
+//     ragged N with zero bytes (exact zeros, as the reference's padding) and
+//     slices the output.
+// Needs N % 16 == 0 and 16-byte aligned q, e and x (the wrapper checks).
+// Every product is exact; the sums are the reference's in another order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,6 +97,7 @@ struct Problem {
   const int8_t* e;
   void* out;        // the output (one part) or the f32 workspace
   int M, N, K, tile, tpp;   // tpp: pack tiles a part
+  int x_vec;        // x's tile halves are whole 16-byte vectors
   int out_kind;     // kOut* of `out`; the workspace is written as f32
   Epilogue epi;
 };
@@ -136,16 +146,28 @@ matmul_wq_kernel(Problem p) {
       // x: stage column j holds K-element kt*tile + r0 + j (4 bits: the
       // low nibbles' rows for j < 64, the high nibbles' for j >= 64)
       T* xs = reinterpret_cast<T*>(st + kWBytes + kBN);
-      for (int c = tid; c < kXChunks; c += kThreads) {
-        const int m = c / (L::XK / kXChunk);
-        const int j = (c % (L::XK / kXChunk)) * kXChunk;
-        const int half = BITS == 4 ? j / kPR : 0;
-        const int i = BITS == 4 ? j % kPR : j;
-        const bool ok = m0 + m < p.M && r0 + i < tp;
-        const T* src = ok ? x + (size_t)(m0 + m) * p.K + kt * p.tile +
-                                half * tp + r0 + i
-                          : x;
-        cp_async16(xs + m * L::XS + j, src, ok);
+      if (p.x_vec) {
+        for (int c = tid; c < kXChunks; c += kThreads) {
+          const int m = c / (L::XK / kXChunk);
+          const int j = (c % (L::XK / kXChunk)) * kXChunk;
+          const int half = BITS == 4 ? j / kPR : 0;
+          const int i = BITS == 4 ? j % kPR : j;
+          const bool ok = m0 + m < p.M && r0 + i < tp;
+          const T* src = ok ? x + (size_t)(m0 + m) * p.K + kt * p.tile +
+                                  half * tp + r0 + i
+                            : x;
+          cp_async16(xs + m * L::XS + j, src, ok);
+        }
+      } else {          // element by element (visible after __syncthreads)
+        for (int c = tid; c < MT * L::XK; c += kThreads) {
+          const int m = c / L::XK, j = c % L::XK;
+          const int half = BITS == 4 ? j / kPR : 0;
+          const int i = BITS == 4 ? j % kPR : j;
+          const bool ok = m0 + m < p.M && r0 + i < tp;
+          xs[m * L::XS + j] = ok ? x[(size_t)(m0 + m) * p.K + kt * p.tile +
+                                     half * tp + r0 + i]
+                                 : T(0.f);
+        }
       }
     }
     cp_async_commit();   // always: keeps the group count per stage fixed
@@ -326,7 +348,8 @@ int dispatch_m(const Problem& p, int parts, cudaStream_t st) {
 // (K/tile, N) int8; out_kind: 0 = f32, 1 = bf16, 2 = GRAU byte (regs: the
 // register file). `parts` K parts of `tpp` pack tiles each (the last may be
 // shorter); with parts > 1, `ws` is an f32 workspace of parts * M * N.
-// Needs N % 16 == 0, tile % 16 == 0, and x, q, e on 16-byte boundaries.
+// Needs N % 16 == 0 (the wrapper pads), an even tile at 4 bits, and x, q,
+// e on 16-byte boundaries.
 extern "C" int matmul_wq_launch(const void* x, const void* q, const void* e,
                                 void* out, void* ws, int M, int N, int K,
                                 int tile, int bits, int dtype, int out_kind,
@@ -334,7 +357,7 @@ extern "C" int matmul_wq_launch(const void* x, const void* q, const void* e,
                                 int num_exponents, int qmin, int qmax,
                                 float inv_s, void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  if (K <= 0 || tile <= 0 || K % tile != 0 || tile % 16 != 0 ||
+  if (K <= 0 || tile <= 0 || K % tile != 0 || (bits == 4 && tile % 2) ||
       N % 16 != 0 || (bits != 8 && bits != 4) || tpp < 1 || parts < 1 ||
       parts > kMaxParts || (parts - 1) * tpp >= K / tile ||
       parts * tpp < K / tile || (dtype != 0 && dtype != 1) ||
@@ -344,8 +367,13 @@ extern "C" int matmul_wq_launch(const void* x, const void* q, const void* e,
     return (int)cudaErrorInvalidValue;
   if (parts > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
   const Epilogue epi{(const int32_t*)regs, num_exponents, qmin, qmax, inv_s};
+  // x's tile halves (tp columns, from K-element kt * tile + half * tp) are
+  // whole 16-byte vectors when tp is a multiple of 16 bytes of x
+  const int tp = bits == 4 ? tile / 2 : tile;
+  const int x_vec = tp % (dtype == 0 ? 4 : 8) == 0;
   const Problem p{x, (const int8_t*)q, (const int8_t*)e,
-                  parts > 1 ? ws : out, M, N, K, tile, tpp, out_kind, epi};
+                  parts > 1 ? ws : out, M, N, K, tile, tpp, x_vec, out_kind,
+                  epi};
   const cudaStream_t st = (cudaStream_t)stream;
   int err;
   if (dtype == 0)

@@ -1,13 +1,15 @@
-// Paged attention for Hopper (sm_90a): one-token flash decode and chunked
-// (multi-query) prefill through the block table, with the GRAU epilogue
-// optionally fused.
+// Paged attention for Hopper (sm_90a) on f32 queries: one-token flash
+// decode and chunked (multi-query) prefill through the block table, with
+// the GRAU epilogue optionally fused.
 //
-// Replaces: the JAX package's kernels/paged_attention.py
+// Replaces: the JAX package's kernels/paged_attention.py, for f32 queries
+// (f32 pools, or 8-/4-bit pools):
 //   * _paged_attention_jit (via paged_attention)        -> paged_decode_kernel
 //   * _paged_prefill_jit (via paged_prefill_attention)  -> paged_prefill_kernel
-//     for f32 queries (f32 pools); bf16 queries, the served dtype, go to
-//     paged_prefill.cu's tensor-core kernel (the wrapper dispatches by dtype)
-// both with the fused grau_datapath epilogue (grau_datapath.cuh).
+// both with the fused grau_datapath epilogue (grau_datapath.cuh). bf16
+// queries, the served dtype, go to paged_prefill.cu's tensor-core kernels,
+// split over the sequence (the wrapper dispatches by dtype, not on
+// failure).
 //
 // What it computes: for batch row b and KV head kh, the query rows that
 // share kh — g = h / kvh heads for decode, C * g (chunk row, head) rows for
@@ -20,21 +22,22 @@
 // pushed through the GRAU datapath, emitting one byte per element.
 //
 // Bound on the H100: memory bytes. Decode reads each live KV block once
-// per (slot, KV head) for 2 * g * d flops per position — about 3 flops per
-// byte at g = 3 in bf16, far below the ~295 at which the tensor cores would
+// per (slot, KV head) for 2 * g * d flops per position — about 1.5 flops
+// per f32 byte at g = 3, far below the ~295 at which the tensor cores would
 // bind. Prefill at C = 32 does 32x the flops on the same bytes, still below
-// the line. Design (simple and right first): one CUDA block of 128 threads
-// per (row tile of 16 query rows, KV head, batch row); the TPU's sequential
-// block axis with its (m, l, acc) carry becomes a loop inside the block over
-// the live blocks only (never past cdiv(start + last row + 1, bs), never past
-// the table width), so HBM traffic follows live tokens. Each loop step
-// stages at least 64 positions (whole pool blocks, through the table) of K
-// and V in shared memory as f32 with 16-byte loads — enough bytes in flight
-// per step to amortise the load latency — and all the tile's query rows
-// read them there (K rows padded by one word against bank conflicts). The
-// softmax update runs one warp per row; the accumulator lives in registers,
-// 16 * d / 128 values a thread. No tensor cores, TMA or split over the
-// sequence yet: decode at 8 slots fills only 64 of the 132 SMs.
+// the line. Design (simple and right first: f32 is the CPU-parity dtype,
+// not the served one): one CUDA block of 128 threads per (row tile of 16
+// query rows, KV head, batch row); the TPU's sequential block axis with its
+// (m, l, acc) carry becomes a loop inside the block over the live blocks
+// only (never past cdiv(start + last row + 1, bs), never past the table
+// width), so HBM traffic follows live tokens. Each loop step stages at
+// least 64 positions (whole pool blocks, through the table) of K and V in
+// shared memory as f32 with 16-byte loads (8-byte ones where a 4-bit row is
+// not whole 16-byte vectors: 8 and 24 bytes at head_dim 16 and 48), and all
+// the tile's query rows read them there (K rows padded by one word against
+// bank conflicts). The softmax update runs one warp per row; the
+// accumulator lives in registers, 16 * d / 128 values a thread, on the FMA
+// units in f32 throughout.
 //
 // Quantized pools (kv_bits 8 / 4; replaces the kv_bits < 16 branch of the
 // reference's _dequant_tile, used by both kernels through _attend_block /
@@ -44,11 +47,12 @@
 // (block, kv head) carries one int8 exponent per tensor. The loaders
 // dequantize at load, into the same f32 staging: the block's 2^e is built
 // by bits (__int_as_float((e + 127) << 23)) once per block and loop step,
-// and one 16-byte load of a 4-bit row yields 32 elements, written to two
-// places in shared memory. Dequantized values are exact in f32, so the
+// and one vector load of a 4-bit row yields two values a byte, written to
+// two places in shared memory. Dequantized values are exact in f32, so the
 // recurrence after the load is the 16-bit one, and the bytes the kernel
 // moves follow kv_bits. A never-written block has exponent -126, a normal
-// 2^e, so the idle slot's null-block read stays finite.
+// 2^e, so the idle slot's null-block read stays finite. Head dims: any
+// multiple of 16, instantiated for 16, 32, 48, 64, 128, 192 and 256.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,19 +67,18 @@ constexpr int kMinTile = 64;
 constexpr float kNegInf = -1e30f;
 
 enum OutKind { kOutF32 = 0, kOutBF16 = 1, kOutGrau = 2 };
-// pool storage: 16-bit pools hold q's type; quantized pools int8 words
-enum PoolKind { kPoolF32 = 0, kPoolBF16 = 1, kPoolQ8 = 2, kPoolQ4 = 3 };
+// pool storage: 16-bit pools hold f32 (q's type); quantized pools int8
+enum PoolKind { kPoolF32 = 0, kPoolQ8 = 2, kPoolQ4 = 3 };
 
 // bytes of one (position, kv head) row of a pool of kind KIND
 template <int KIND, int D>
 __host__ __device__ constexpr int row_bytes() {
-  return KIND == kPoolF32 ? 4 * D : KIND == kPoolBF16 ? 2 * D
-         : KIND == kPoolQ8 ? D : D / 2;
+  return KIND == kPoolF32 ? 4 * D : KIND == kPoolQ8 ? D : D / 2;
 }
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// bytes a staging load: 16, or 8 where a row is not whole 16-byte vectors
+template <int KIND, int D>
+__host__ __device__ constexpr int vec_bytes() {
+  return row_bytes<KIND, D>() % 16 == 0 ? 16 : 8;
 }
 
 struct Epilogue {
@@ -100,40 +103,40 @@ __device__ __forceinline__ float exp2i(int e) {
   return __int_as_float((e + 127) << 23);
 }
 
-// word w (0..3) of a 16-byte vector held in registers
+// word w of a staging vector held in registers
 __device__ __forceinline__ uint32_t word_of(const uint4& v, int w) {
   return w == 0 ? v.x : w == 1 ? v.y : w == 2 ? v.z : v.w;
 }
 
-// Load 16-byte vector li of a pool row and write its values, as f32, into
-// the staged row `dst` (scale: the block's 2^e; 1 for 16-bit pools):
-// 4 floats, 8 bf16 values, 16 int8 values, or 32 int4 values of which the
-// low nibbles are elements li*16 + i and the high ones d/2 + li*16 + i.
+// Load vector li (VEC = vec_bytes bytes) of a pool row and write its
+// values, as f32, into the staged row `dst` (scale: the block's 2^e; 1 for
+// f32 pools): 4 floats, 16 int8 values, or 2 VEC int4 values of which the
+// low nibbles are elements VEC*li + i and the high ones d/2 + VEC*li + i.
 template <int KIND, int D>
-__device__ __forceinline__ void stage16(const uint8_t* row, int li,
-                                        float scale, float* dst) {
-  const uint4 v = *reinterpret_cast<const uint4*>(row + 16 * li);
-  if (KIND == kPoolF32) {
+__device__ __forceinline__ void stage_vec(const uint8_t* row, int li,
+                                          float scale, float* dst) {
+  constexpr int VEC = vec_bytes<KIND, D>();
+  uint4 v;
+  if constexpr (VEC == 16) {
+    v = *reinterpret_cast<const uint4*>(row + 16 * li);
+  } else {
+    const uint2 h = *reinterpret_cast<const uint2*>(row + 8 * li);
+    v = make_uint4(h.x, h.y, 0u, 0u);
+  }
+  if constexpr (KIND == kPoolF32) {
 #pragma unroll
     for (int w = 0; w < 4; ++w) dst[4 * li + w] = __uint_as_float(word_of(v, w));
-  } else if (KIND == kPoolBF16) {
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const uint32_t u = word_of(v, w);
-      dst[8 * li + 2 * w] = __uint_as_float(u << 16);
-      dst[8 * li + 2 * w + 1] = __uint_as_float(u & 0xffff0000u);
-    }
   } else {
 #pragma unroll
-    for (int c = 0; c < 16; ++c) {
+    for (int c = 0; c < VEC; ++c) {
       const int8_t b = (int8_t)(word_of(v, c >> 2) >> (8 * (c & 3)));
-      if (KIND == kPoolQ8) {
-        dst[16 * li + c] = (float)b * scale;
+      if constexpr (KIND == kPoolQ8) {
+        dst[VEC * li + c] = (float)b * scale;
       } else {
         const int8_t lo = (int8_t)((uint8_t)b << 4) >> 4;
         const int8_t hi = b >> 4;
-        dst[16 * li + c] = (float)lo * scale;
-        dst[D / 2 + 16 * li + c] = (float)hi * scale;
+        dst[VEC * li + c] = (float)lo * scale;
+        dst[D / 2 + VEC * li + c] = (float)hi * scale;
       }
     }
   }
@@ -151,15 +154,15 @@ struct Pools {
 // One CUDA block: query rows [r0, r0 + kRowTile) of the C * g rows that
 // share KV head kh in batch row b. Each loop step stages NB = tile_blocks
 // consecutive table blocks (P = NB * bs positions) of K and V.
-template <typename T, int KIND, int D>
-__device__ void attend_rows(const T* __restrict__ q, Pools pools,
+template <int KIND, int D>
+__device__ void attend_rows(const float* __restrict__ q, Pools pools,
                             const int32_t* __restrict__ table, int table_stride,
                             int start, void* __restrict__ out, int b, int C,
                             int h, int kvh, int bs, int nblocks, float scale,
                             int out_kind, Epilogue epi) {
   constexpr int kPer = kRowTile * D / kThreads;   // accumulator words/thread
   constexpr int kRow = row_bytes<KIND, D>();
-  constexpr int kLoads = kRow / 16;               // 16-byte loads per row
+  constexpr int kLoads = kRow / vec_bytes<KIND, D>();   // loads per row
   constexpr bool kQuant = KIND == kPoolQ8 || KIND == kPoolQ4;
   constexpr int kWarps = kThreads / 32;
   const int NB = bs >= kMinTile ? 1 : kMinTile / bs;
@@ -189,7 +192,7 @@ __device__ void attend_rows(const T* __restrict__ q, Pools pools,
     float val = 0.f;
     if (row < rows) {
       const int c = row / g, gi = row % g;
-      val = to_f32(q[(((size_t)b * C + c) * h + kh * g + gi) * D + dd]);
+      val = q[(((size_t)b * C + c) * h + kh * g + gi) * D + dd];
     }
     qs[idx] = val;
   }
@@ -231,8 +234,8 @@ __device__ void attend_rows(const T* __restrict__ q, Pools pools,
       float* vrow = vs + t * D;
       if (blk >= 0) {
         const size_t src = (((size_t)blk * bs + t % bs) * kvh + kh) * kRow;
-        stage16<KIND, D>(pools.k + src, li, kscale_s[t / bs], krow);
-        stage16<KIND, D>(pools.v + src, li, vscale_s[t / bs], vrow);
+        stage_vec<KIND, D>(pools.k + src, li, kscale_s[t / bs], krow);
+        stage_vec<KIND, D>(pools.v + src, li, vscale_s[t / bs], vrow);
       } else {   // past the live blocks: never read, never weighted
         constexpr int kElems = D / kLoads;     // elements one load covers
         constexpr int kSpan = KIND == kPoolQ4 ? kElems / 2 : kElems;
@@ -323,26 +326,26 @@ __device__ void attend_rows(const T* __restrict__ q, Pools pools,
   }
 }
 
-template <typename T, int KIND, int D>
+template <int KIND, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* q, Pools pools, const int32_t* table,
+paged_decode_kernel(const float* q, Pools pools, const int32_t* table,
                     int table_stride, const int32_t* lengths, void* out, int h,
                     int kvh, int bs, int nblocks, float scale, int out_kind,
                     Epilogue epi) {
   const int b = blockIdx.z;
-  attend_rows<T, KIND, D>(q, pools, table, table_stride, lengths[b] - 1, out,
-                          b, 1, h, kvh, bs, nblocks, scale, out_kind, epi);
+  attend_rows<KIND, D>(q, pools, table, table_stride, lengths[b] - 1, out, b,
+                       1, h, kvh, bs, nblocks, scale, out_kind, epi);
 }
 
-template <typename T, int KIND, int D>
+template <int KIND, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_prefill_kernel(const T* q, Pools pools, const int32_t* table,
+paged_prefill_kernel(const float* q, Pools pools, const int32_t* table,
                      int table_stride, const int32_t* starts, void* out, int C,
                      int h, int kvh, int bs, int nblocks, float scale,
                      int out_kind, Epilogue epi) {
   const int b = blockIdx.z;
-  attend_rows<T, KIND, D>(q, pools, table, table_stride, starts[b], out, b, C,
-                          h, kvh, bs, nblocks, scale, out_kind, epi);
+  attend_rows<KIND, D>(q, pools, table, table_stride, starts[b], out, b, C,
+                       h, kvh, bs, nblocks, scale, out_kind, epi);
 }
 
 // Everything one launch needs besides the compile-time choices.
@@ -368,50 +371,43 @@ cudaError_t allow_smem(Kern kern, size_t smem) {
                               (int)smem);
 }
 
-template <typename T, int KIND, int D>
+template <int KIND, int D>
 int launch(const Args& a) {
   const int rows = a.C * (a.h / a.kvh);
   const dim3 grid((rows + kRowTile - 1) / kRowTile, a.kvh, a.batch);
   const size_t smem = smem_bytes(D, a.bs);
-  const T* q = (const T*)a.q;
+  const float* q = (const float*)a.q;
+  cudaError_t err;
   if (a.decode) {
-    auto kern = paged_decode_kernel<T, KIND, D>;
-    const cudaError_t err = allow_smem(kern, smem);
+    auto kern = paged_decode_kernel<KIND, D>;
+    err = allow_smem(kern, smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<grid, kThreads, smem, a.stream>>>(
         q, a.pools, a.table, a.table_stride, a.start, a.out, a.h, a.kvh, a.bs,
         a.nblocks, a.scale, a.out_kind, a.epi);
-  } else if constexpr (sizeof(T) == 4) {   // bf16 q: paged_prefill.cu
-    auto kern = paged_prefill_kernel<T, KIND, D>;
-    const cudaError_t err = allow_smem(kern, smem);
+  } else {
+    auto kern = paged_prefill_kernel<KIND, D>;
+    err = allow_smem(kern, smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<grid, kThreads, smem, a.stream>>>(
         q, a.pools, a.table, a.table_stride, a.start, a.out, a.C, a.h, a.kvh,
         a.bs, a.nblocks, a.scale, a.out_kind, a.epi);
-  } else {
-    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T, int KIND>
+template <int KIND>
 int dispatch_d(int d, const Args& a) {
   switch (d) {
-    case 32: return launch<T, KIND, 32>(a);
-    case 64: return launch<T, KIND, 64>(a);
-    case 128: return launch<T, KIND, 128>(a);
-    case 256: return launch<T, KIND, 256>(a);
+    case 16: return launch<KIND, 16>(a);
+    case 32: return launch<KIND, 32>(a);
+    case 48: return launch<KIND, 48>(a);
+    case 64: return launch<KIND, 64>(a);
+    case 128: return launch<KIND, 128>(a);
+    case 192: return launch<KIND, 192>(a);
+    case 256: return launch<KIND, 256>(a);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-template <typename T>
-int dispatch_pool(int kv_bits, int d, const Args& a) {
-  if (kv_bits == 16)
-    return dispatch_d<T, sizeof(T) == 4 ? kPoolF32 : kPoolBF16>(d, a);
-  if (kv_bits == 8) return dispatch_d<T, kPoolQ8>(d, a);
-  if (kv_bits == 4) return dispatch_d<T, kPoolQ4>(d, a);
-  return (int)cudaErrorInvalidValue;
 }
 
 int dispatch(Args a, int dtype, int d, int kv_bits, const void* regs,
@@ -423,16 +419,18 @@ int dispatch(Args a, int dtype, int d, int kv_bits, const void* regs,
     return (int)cudaErrorInvalidValue;
   if (kv_bits != 16 && (a.pools.k_exp == nullptr || a.pools.v_exp == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;   // bf16: paged_prefill.cu
   a.epi = Epilogue{(const int32_t*)regs, num_exponents, qmin, qmax, inv_s};
-  if (dtype == 0) return dispatch_pool<float>(kv_bits, d, a);
-  if (dtype == 1) return dispatch_pool<__nv_bfloat16>(kv_bits, d, a);
+  if (kv_bits == 16) return dispatch_d<kPoolF32>(d, a);
+  if (kv_bits == 8) return dispatch_d<kPoolQ8>(d, a);
+  if (kv_bits == 4) return dispatch_d<kPoolQ4>(d, a);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (q, and the pools at kv_bits 16; prefill takes
-// f32 only, bf16 prefill is paged_prefill.cu's). kv_bits 8 / 4:
+// dtype: 0 = f32 (q, and the pools at kv_bits 16); bf16 q is
+// paged_prefill.cu's, and dtype 1 is refused. kv_bits 8 / 4:
 // int8 pools of width d / d/2 with (num_blocks, kvh) int8 exponent planes
 // k_exp / v_exp (null at 16). out_kind: 0 = f32, 1 = bf16, 2 = GRAU byte
 // (int8 or uint8). regs: GRAU register file (out_kind 2).

@@ -9,8 +9,13 @@ q_offset + r (as nn/attention.chunked_attention places it). Masked scores are
 -1e30 and the result acc / max(l, 1e-30), as in the reference.
 
 Bound on the H100: tensor-core operations at the training shape (see the
-source note in the .cu file). bf16 runs on the tensor cores (mma.sync,
-P rounded to bf16 before P V); f32 on the FMA units, in f32 throughout.
+source note in the .cu file). The kernel is chosen by dtype and head_dim,
+never on a failure (`kernel_for`): bf16 at head_dim 64, 128, 192 and 256
+runs the wgmma kernel (TMA tensor maps over the strided views, a producer
+and two consumer warpgroups), bf16 at 16, 32 and 48 the mma.sync kernel
+(wgmma's 64-column panels do not fit those widths), both rounding P to
+bf16 before P V; f32 runs on the FMA units, in f32 throughout, at every
+head_dim of HEAD_DIMS (the reference's archs').
 
 `flash_attention` launches the kernel for CUDA tensors and runs
 `ref.flash_attention_plain` for CPU tensors; both return (o, lse) with lse
@@ -38,7 +43,18 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {"flash_attention_launch": (
     (_P,) * 5 + (_I,) * 6 + (_L,) * 9 + (ctypes.c_float, _I, _I, _I, _P))}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128, 256)
+# every head_dim of the reference's configs/archs.py
+HEAD_DIMS = (16, 32, 48, 64, 128, 192, 256)
+WGMMA_HEAD_DIMS = (64, 128, 192, 256)
+
+
+def kernel_for(dtype: torch.dtype, d: int) -> str:
+    """The kernel of csrc/flash_attention.cu that a CUDA call at this dtype
+    and head_dim launches: "wgmma" (bf16, head_dim a multiple of 64),
+    "mma" (bf16 at 16, 32, 48) or "f32" (the FMA kernel)."""
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if d in WGMMA_HEAD_DIMS else "mma"
 
 
 def _check(q, k, v, q_offset: int) -> None:
@@ -68,13 +84,26 @@ def _check(q, k, v, q_offset: int) -> None:
 
 def _rows_aligned(x: torch.Tensor) -> torch.Tensor:
     """x itself when its last dimension is contiguous and every row starts
-    on 16 bytes (the kernel reads rows in 16-byte vectors through the other
-    strides); otherwise a contiguous copy on a fresh allocation."""
+    on 16 bytes (the kernels read rows in 16-byte vectors, and the wgmma
+    kernel's tensor maps need 16-byte strides, through the other strides;
+    a dimension of size 1 is never stepped); otherwise a contiguous copy on
+    a fresh allocation."""
     step = 16 // x.element_size()
     if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-            and all(s % step == 0 for s in x.stride()[:-1])):
+            and all(s % step == 0 and s > 0
+                    for s, n in zip(x.stride()[:-1], x.shape[:-1]) if n > 1)):
         return x
     return x.contiguous() if not x.is_contiguous() else x.clone()
+
+
+def _strides(x: torch.Tensor):
+    """x's element strides (b, s, heads), a dimension of size 1 given its
+    contiguous stride (its own is never stepped, and a tensor map takes
+    only positive multiples of 16 bytes)."""
+    b, s, heads, d = x.shape
+    dense = (s * heads * d, heads * d, d)
+    return tuple(st if n > 1 else ds
+                 for st, n, ds in zip(x.stride()[:3], (b, s, heads), dense))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -91,6 +120,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"dtype {q.dtype}: the kernel takes float32 or "
                          "bfloat16")
+    if kernel_for(q.dtype, q.shape[-1]) == "wgmma" and not scale > 0:
+        raise ValueError(f"scale {scale}: the wgmma kernel takes scale > 0 "
+                         "(it folds the scale into its exponent)")
     q, k, v = _rows_aligned(q), _rows_aligned(k), _rows_aligned(v)
     b, s_q, h, d = q.shape
     s_kv, kvh = k.shape[1], k.shape[2]
@@ -100,9 +132,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, s_q, s_kv, h, kvh, d,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
+        *_strides(q), *_strides(k), *_strides(v),
         float(scale), int(bool(causal)), int(q_offset), _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     kbuild.check(err, "flash_attention_launch")

@@ -15,7 +15,11 @@ them. The kernel's grid splits K into parts of whole pack tiles
 (`plan_parts`, a plain function of the shapes and the SM count); with more
 than one part the f32 partial sums go to a workspace [parts, M, N] that a
 second launch sums in part order, then writes the output. M above 32 runs
-as a grid over row tiles of 32.
+as a grid over row tiles of 32. Any pack tile the reference takes runs
+(the kernel zero-fills a tile's ragged edge); an N that is not a multiple
+of 16 is padded here with zero payload bytes — exact zeros, as the
+reference's own padding — and the output sliced back (a copy of the
+weight per call: no served shape has such an N).
 
 `matmul_wq` launches the kernel for CUDA tensors and runs `matmul_wq_plain`
 (the same per-tile f32 accumulation in torch) for CPU tensors; it counts
@@ -96,14 +100,7 @@ def _check(x, q, e, bits: int, kdim: int) -> int:
         for name, t in (("q", q), ("e", e)):
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
-        if n % 16:
-            raise ValueError(f"N={n} must be a multiple of 16 (the kernel "
-                             "reads weight rows in 16-byte vectors)")
-        if tile % 16:
-            raise ValueError(f"tile {tile} must be a multiple of 16 (the "
-                             "kernel stages x in 16-byte vectors, and at 4 "
-                             "bits takes 8 packed rows an mma step)")
-        if q.data_ptr() % 16 or e.data_ptr() % 16:
+        if n % 16 == 0 and (q.data_ptr() % 16 or e.data_ptr() % 16):
             raise ValueError("payload and exponents must start on a 16-byte "
                              "boundary")
     return tile
@@ -130,7 +127,18 @@ def matmul_wq_plain(x: torch.Tensor, q: torch.Tensor, e: torch.Tensor, *,
     return acc.to(out_dtype or x.dtype)
 
 
+def _pad_n(t: torch.Tensor, n: int) -> torch.Tensor:
+    """t (rows, N) int8 widened to n columns with zero bytes."""
+    out = torch.zeros((t.shape[0], n), dtype=t.dtype, device=t.device)
+    out[:, :t.shape[1]] = t
+    return out
+
+
 def _launch(x, q, e, *, bits, kdim, tile, spec, s_in, out_dtype):
+    n_out = e.shape[1]
+    if n_out % 16:      # weight rows in whole 16-byte vectors; zeros dequant
+        n16 = -(-n_out // 16) * 16                       # to exact zeros
+        q, e = _pad_n(q, n16), _pad_n(e, n16)
     m, n = x.shape[0], e.shape[1]
     if x.data_ptr() % 16:
         x = x.clone()                  # the kernel stages x in 16-byte vectors
@@ -155,7 +163,7 @@ def _launch(x, q, e, *, bits, kdim, tile, spec, s_in, out_dtype):
         _DTYPE_CODE[x.dtype], out_kind, parts, tpp, *epi,
         torch.cuda.current_stream(x.device).cuda_stream)
     kbuild.check(err, "matmul_wq_launch")
-    return out
+    return out if n == n_out else out[:, :n_out].contiguous()
 
 
 def matmul_wq(x: torch.Tensor, w, spec: Optional[GRAUSpec] = None, *,

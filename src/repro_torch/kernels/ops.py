@@ -2,8 +2,10 @@
 
 Handles GRAUSpec -> packed register file and shape normalisation (any rank
 -> 2-D). Unlike the TPU kernels, the CUDA kernels mask their ragged edges
-themselves, so no padding copy is made. A CPU tensor runs the kernel's plain
-torch version; a CUDA tensor launches the kernel.
+themselves (M, K, a pack tile of any width), so no padding copy is made —
+but for matmul_wq's N when it is not a multiple of 16, which its wrapper
+pads with zero bytes. A CPU tensor runs the kernel's plain torch version; a
+CUDA tensor launches the kernel.
 """
 from __future__ import annotations
 

@@ -14,15 +14,18 @@ decode, max(cdiv(start + C, bs), 1) for a prefill chunk, never past the
 table width — so bytes read follow live tokens, not pool capacity.
 
 Bound on the H100: memory bytes (see the source notes in the .cu files for
-the numbers and what the designs do about them). Decode, and prefill on f32
+the numbers and what the designs do about them). bf16 queries, the served
+dtype (csrc/paged_prefill.cu): one block per (sequence part, KV head,
+batch row) on the bf16 tensor cores — for prefill over all C * g query
+rows of the KV head, for decode over its g rows with 4 warps splitting
+each tile's positions; the parts are runs of whole table blocks planned on
+the host from the table width (`prefill_plan`, `decode_plan`), so a launch
+is capturable in a CUDA graph, and a second launch combines their (o, m,
+l) in part order from an f32 workspace: two CUDA launches a call. f32
 queries (csrc/paged_attention.cu): one CUDA block per (16 query rows, KV
 head, batch row) loops over the live blocks with the (m, l, acc) carry in
 shared memory and registers — the TPU grid's sequential block axis made a
-loop. Prefill on bf16 queries (csrc/paged_prefill.cu, the served dtype):
-one block per (batch row, KV head, sequence part) over all C * g query rows
-on the bf16 tensor cores; the parts are runs of whole table blocks planned
-on the host from the table width (`prefill_plan`), and a second launch
-combines their (o, m, l) in part order from an f32 workspace.
+loop. Both take every head_dim of HEAD_DIMS (the reference's archs').
 
 Quantized pools (`kv_bits` 8 or 4, quant/kv.py): the pools are int8 words
 of width packed_head_dim(d, kv_bits) and `k_exp` / `v_exp` the
@@ -36,9 +39,10 @@ shared GRAU datapath (csrc/grau_datapath.cuh), emitting the 8-bit bus.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain torch
 version (`*_plain`: the same online-softmax recurrence over the live blocks)
-for CPU tensors. `.launches` counts kernel launches, `.epilogue_launches`
-those that ran the fused GRAU datapath, and `.kv8_launches` /
-`.kv4_launches` those on 8- and 4-bit pools.
+for CPU tensors. `.launches` counts wrapper calls that launched the kernels
+(one per call, whatever the CUDA launches), `.epilogue_launches` those
+that ran the fused GRAU datapath, and `.kv8_launches` / `.kv4_launches`
+those on 8- and 4-bit pools.
 """
 from __future__ import annotations
 
@@ -63,18 +67,23 @@ SIGNATURES = {
     "paged_prefill_launch": _COMMON + (_I, _I, _I, _I, _I, _I, _I, _F, _I,
                                        _I, _P, _I, _I, _I, _F, _P),
 }
-# the tensor-core prefill (bf16 q): q, k, v, k_exp, v_exp, kv_bits, table,
-# stride, start, out, ws_o, ws_ml, batch, chunk, h, kvh, d, bs, nblocks,
-# parts, bpp, scale, out_kind, regs, num_exponents, qmin, qmax, inv_s, stream
+# the tensor-core kernels (bf16 q): q, k, v, k_exp, v_exp, kv_bits, table,
+# stride, start (decode: lengths), out, ws_o, ws_ml, batch, [chunk,] h, kvh,
+# d, bs, nblocks, parts, bpp, scale, out_kind, regs, num_exponents, qmin,
+# qmax, inv_s, stream
+_EPI = (_F, _I, _P, _I, _I, _I, _F, _P)
 BF16_SIGNATURES = {
-    "paged_prefill_bf16_launch": _COMMON + (_P, _P) + (_I,) * 9 + (
-        _F, _I, _P, _I, _I, _I, _F, _P),
+    "paged_prefill_bf16_launch": _COMMON + (_P, _P) + (_I,) * 9 + _EPI,
+    "paged_decode_bf16_launch": _COMMON + (_P, _P) + (_I,) * 8 + _EPI,
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _OUT_F32, _OUT_BF16, _OUT_GRAU = 0, 1, 2
-HEAD_DIMS = (32, 64, 128, 256)
+# every head_dim of the reference's configs/archs.py; the kernels take any
+# multiple of 16 and are instantiated for these
+HEAD_DIMS = (16, 32, 48, 64, 128, 192, 256)
 GROUP_ROWS = 128       # query rows a prefill block holds (paged_prefill.cu)
-MIN_PART_POSITIONS = 64
+MIN_PART_POSITIONS = 64    # one tile of the tensor-core kernels
+DECODE_BLOCKS_PER_SM = 4   # decode_plan's target before ragged lengths
 
 
 @functools.lru_cache(maxsize=1024)
@@ -90,6 +99,32 @@ def prefill_plan(batch: int, kvh: int, rows: int, width: int, bs: int,
     want = -(-sms // (batch * kvh * groups))
     bpp = -(-width // max(1, min(want, most)))
     return -(-width // bpp), bpp
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_plan(batch: int, kvh: int, width: int, bs: int,
+                sms: int = kbuild.H100_SMS) -> Tuple[int, int]:
+    """(parts, table blocks per part) of the bf16 decode kernel's split
+    over the sequence, from what the host knows — the table width, never
+    `lengths`: about as many parts as give batch x KV heads x parts
+    DECODE_BLOCKS_PER_SM blocks an SM (the ragged lengths idle the parts
+    past a slot's live blocks), each a run of whole table blocks of at
+    least MIN_PART_POSITIONS positions, rounded to whole 64-position tiles
+    where the block size divides 64 (the last part may be shorter)."""
+    most = max(1, width * bs // MIN_PART_POSITIONS)
+    want = -(-DECODE_BLOCKS_PER_SM * sms // (batch * kvh))
+    bpp = -(-width // max(1, min(want, most)))
+    if MIN_PART_POSITIONS % bs == 0:       # the nearest whole tiles
+        step = MIN_PART_POSITIONS // bs
+        bpp = max(1, (2 * bpp + step) // (2 * step)) * step
+    bpp = min(bpp, width)
+    return -(-width // bpp), bpp
+
+
+def _vector_bytes(row_bytes: int) -> int:
+    """Bytes a kernel copies at once from a pool row: 16, or 8 where the row
+    is not whole 16-byte vectors (4-bit rows at head_dim 16 and 48)."""
+    return 16 if row_bytes % 16 == 0 else 8
 
 
 def _check_pools(q, k_pool, v_pool, k_exp, v_exp, kv_bits: int) -> None:
@@ -153,9 +188,11 @@ def _check(q, k_pool, v_pool, block_table, start, *, rows_dim: int,
                         ("start", start), ("k_exp", k_exp), ("v_exp", v_exp)):
             if t is not None and not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
-        if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-            raise ValueError("pools must start on a 16-byte boundary (the "
-                             "kernels read K/V in 16-byte vectors)")
+        vec = _vector_bytes(k_pool.shape[3] * k_pool.element_size())
+        if k_pool.data_ptr() % vec or v_pool.data_ptr() % vec:
+            raise ValueError(f"pools must start on a {vec}-byte boundary "
+                             f"(the kernels read their rows in {vec}-byte "
+                             "vectors)")
 
 
 def _block_loader(k_pool, v_pool, k_exp, v_exp, kv_bits):
@@ -262,7 +299,7 @@ def _pool_ptrs(k_pool, v_pool, k_exp, v_exp, kv_bits):
 
 def _launch(fn_name, q, k_pool, v_pool, block_table, start, shape_args, *,
             scale, spec, s_in, out_dtype, k_exp, v_exp, kv_bits):
-    """Decode, or prefill on f32 q: csrc/paged_attention.cu."""
+    """f32 q, decode or prefill: csrc/paged_attention.cu."""
     d = q.shape[-1]
     out, out_kind, epi = _output(q, spec, s_in, out_dtype)
     lib = kbuild.library("paged_attention", SIGNATURES)
@@ -276,31 +313,37 @@ def _launch(fn_name, q, k_pool, v_pool, block_table, start, shape_args, *,
     return out
 
 
-def _launch_prefill_bf16(q, k_pool, v_pool, block_table, start, *, scale,
-                         spec, s_in, out_dtype, k_exp, v_exp, kv_bits):
-    """Prefill on bf16 q: csrc/paged_prefill.cu, with its part plan and
-    the f32 workspace for the parts' (o, m, l)."""
+def _launch_bf16(q, k_pool, v_pool, block_table, start, *, scale, spec,
+                 s_in, out_dtype, k_exp, v_exp, kv_bits):
+    """bf16 q: csrc/paged_prefill.cu's tensor-core kernels, decode (q 3-D,
+    `start` the lengths) or prefill (q 4-D), with the part plan and the f32
+    workspace for the parts' (o, m, l)."""
     if q.data_ptr() % 16:
         q = q.clone()                  # the kernel reads q in 16-byte vectors
-    b, chunk, h, d = q.shape
+    decode = q.dim() == 3
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
+    chunk = 1 if decode else q.shape[1]
     bs, kvh = k_pool.shape[1], k_pool.shape[2]
     width = block_table.shape[1]
     rows = chunk * (h // kvh)
-    parts, bpp = prefill_plan(b, kvh, rows, width, bs,
-                              kbuild.sm_count(q.device))
+    sms = kbuild.sm_count(q.device)
+    parts, bpp = (decode_plan(b, kvh, width, bs, sms) if decode else
+                  prefill_plan(b, kvh, rows, width, bs, sms))
     ws_o = torch.empty((b, kvh, parts, rows, d), dtype=torch.float32,
                        device=q.device)
     ws_ml = torch.empty((b, kvh, parts, rows, 2), dtype=torch.float32,
                         device=q.device)
     out, out_kind, epi = _output(q, spec, s_in, out_dtype)
     lib = kbuild.library("paged_prefill", BF16_SIGNATURES)
-    err = lib.paged_prefill_bf16_launch(
+    name = "paged_decode_bf16_launch" if decode else "paged_prefill_bf16_launch"
+    shape = (b, h) if decode else (b, chunk, h)
+    err = getattr(lib, name)(
         q.data_ptr(), *_pool_ptrs(k_pool, v_pool, k_exp, v_exp, kv_bits),
         block_table.data_ptr(), block_table.stride(0), start.data_ptr(),
-        out.data_ptr(), ws_o.data_ptr(), ws_ml.data_ptr(), b, chunk, h, kvh,
-        d, bs, width, parts, bpp, scale, out_kind, *epi,
+        out.data_ptr(), ws_o.data_ptr(), ws_ml.data_ptr(), *shape, kvh, d, bs,
+        width, parts, bpp, scale, out_kind, *epi,
         torch.cuda.current_stream(q.device).cuda_stream)
-    kbuild.check(err, "paged_prefill_bf16_launch")
+    kbuild.check(err, name)
     return out
 
 
@@ -342,9 +385,14 @@ def paged_attention(
                                      scale=scale, spec=spec, s_in=s_in,
                                      out_dtype=out_dtype, **kw)
     slots, h, _ = q.shape
-    out = _launch("paged_decode_launch", q, k_pool, v_pool, block_table,
-                  lengths, (slots, h), scale=scale, spec=spec, s_in=s_in,
-                  out_dtype=out_dtype, **kw)
+    if q.dtype == torch.bfloat16:          # the served dtype: tensor cores
+        out = _launch_bf16(q, k_pool, v_pool, block_table, lengths,
+                           scale=scale, spec=spec, s_in=s_in,
+                           out_dtype=out_dtype, **kw)
+    else:
+        out = _launch("paged_decode_launch", q, k_pool, v_pool, block_table,
+                      lengths, (slots, h), scale=scale, spec=spec, s_in=s_in,
+                      out_dtype=out_dtype, **kw)
     _count(paged_attention, spec, kv_bits)
     return out
 
@@ -385,9 +433,9 @@ def paged_prefill_attention(
                                    out_dtype=out_dtype, **kw)
     b, chunk, h, _ = q.shape
     if q.dtype == torch.bfloat16:          # the served dtype: tensor cores
-        out = _launch_prefill_bf16(q, k_pool, v_pool, block_table, start,
-                                   scale=scale, spec=spec, s_in=s_in,
-                                   out_dtype=out_dtype, **kw)
+        out = _launch_bf16(q, k_pool, v_pool, block_table, start,
+                           scale=scale, spec=spec, s_in=s_in,
+                           out_dtype=out_dtype, **kw)
     else:
         out = _launch("paged_prefill_launch", q, k_pool, v_pool,
                       block_table, start, (b, chunk, h), scale=scale,

@@ -144,8 +144,8 @@ def test_backward_gradcheck_float64():
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take():
     q = torch.zeros((1, 8, 2, 64))
-    with pytest.raises(ValueError, match="head_dim"):
-        tfa.flash_attention(q[..., :48], q[..., :48], q[..., :48])
+    with pytest.raises(ValueError, match="head_dim"):      # not in HEAD_DIMS
+        tfa.flash_attention(q[..., :40], q[..., :40], q[..., :40])
     with pytest.raises(ValueError, match="one device"):
         tfa.flash_attention(q, q.to("meta"), q)
     with pytest.raises(ValueError, match="head layout"):
@@ -154,6 +154,32 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
         tfa.flash_attention(q, q, q, q_offset=-1)
     with pytest.raises(ValueError, match="unknown attention impl"):
         tattn.chunked_attention(q, q, q, impl="sdpa")
+
+
+@pytest.mark.parametrize("d", [16, 48, 192])
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dims_of_the_reference_archs_match_reference_kernel(d, causal):
+    """head_dim 16 (glm4-smoke), 48 (deepseek-smoke) and 192 (deepseek-v3's
+    MLA width), which the wrapper now takes: o against the reference's
+    Pallas kernel in interpret mode at 3e-5, lse against a float64
+    logsumexp at 3e-5; the dispatch rule names the kernel each runs on the
+    card (bf16: wgmma at multiples of 64, mma.sync below; f32: FMA)."""
+    q, k, v = _inputs(d + causal, 1, 128, 128, 4, 2, d)
+    got, lse = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), causal=causal)
+    kern = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  causal=causal, blocks=(64, 64), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), **TOL)
+    s = np.einsum("bqkgd,bskd->bkgqs", q.astype(np.float64).reshape(
+        1, 128, 2, 2, d), k.astype(np.float64)) * d ** -0.5
+    if causal:
+        s = np.where(np.tril(np.ones((128, 128), bool)), s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    want = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse.numpy(), want.reshape(1, 4, 128), **TOL)
+    assert tfa.kernel_for(torch.float32, d) == "f32"
+    assert tfa.kernel_for(torch.bfloat16, d) == ("wgmma" if d % 64 == 0
+                                                 else "mma")
 
 
 def test_launch_counter_does_not_move_on_the_cpu():

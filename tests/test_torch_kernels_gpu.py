@@ -2,12 +2,15 @@
 
 Marked `gpu`: each test skips (inside the test) where no CUDA card is
 present. Run on the card with `python -m pytest -m gpu tests/`. Shapes
-cover what the main path does not: every head_dim the kernel is built for,
-group sizes 1-3, block sizes 8 and 16, ragged GRAU inputs, uint8 buses,
-column-sliced block tables, 8- and 4-bit KV pools, and for matmul_wq row
-counts 1-70 (a grid over row tiles above 32), ragged N, narrow tiles and
-multi-tile K; for flash attention every head_dim, group sizes 1-3, ragged
-lengths, q_offset, strided views, the backward, and a training step.
+cover what the main path does not: every head_dim the kernel is built for
+(16, 32, 48, 64, 128, 192, 256: the reference's archs'), group sizes 1-3,
+block sizes 8 and 16, ragged GRAU inputs, uint8 buses, column-sliced block
+tables, 8- and 4-bit KV pools, the split decode over several parts, and for
+matmul_wq row counts 1-70 (a grid over row tiles above 32), N and pack
+tiles that are not multiples of 16, narrow tiles and multi-tile K; for
+flash attention every head_dim on both bf16 kernels, group sizes 1-3,
+ragged lengths, q_offset, strided views, the backward, and a training
+step.
 """
 import numpy as np
 import pytest
@@ -83,7 +86,10 @@ def _pools(rng, nb, bs, kvh, d, dtype, dev):
     return k.to(dev, dtype), v.to(dev, dtype)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+HEAD_DIMS = [16, 32, 48, 64, 128, 192, 256]
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("h,kvh", [(4, 4), (4, 2), (6, 2)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bs", [8, 16])
@@ -166,7 +172,7 @@ def _quant_pools(rng, nb, bs, kvh, d, bits, dev):
     return k, v, ke, ve
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bs", [8, 16])
@@ -295,14 +301,40 @@ def test_matmul_wq_bf16_epilogue_on_the_f32_sum(cuda, bits, m, k, n):
 
 
 def test_matmul_wq_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    """N = 24 (the wrapper pads it to 32 with zero bytes) and pack tiles of
+    24 and 8 (the kernel zero-fills the tile's ragged edge; a 4-bit tile of
+    24 stages bf16 x element by element) run and match the plain version —
+    f32 sums within 2e-5 * sum_k |x| |w|, the epilogue bit-exact on them;
+    a misaligned payload and a CPU operand are still refused."""
     from repro_torch.kernels import matmul_wq as mm
+    from repro_torch.kernels.ref import attn_output_quant
+    from repro_torch.nn.common import build_lm_grau
+    from repro_torch.quant import weights as wq
     from repro_torch.quant.weights import QuantWeight
     rng = np.random.default_rng(0)
-    w = _packed(rng, 64, 24, 8, cuda)              # N = 24: not 16-aligned
-    x = torch.zeros((2, 64), device=cuda)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        mm.matmul_wq(x, w)
+    g = build_lm_grau("silu")
+    for bits in (8, 4):
+        for m, k, n, tile_k in ((2, 64, 24, 512), (5, 72, 40, 24),
+                                (33, 48, 24, 24), (8, 128, 16, 8)):
+            w = wq.pack_tensor(torch.from_numpy(rng.normal(size=(k, n)).astype(
+                np.float32)).to(cuda), bits, -2, tile_k)
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.from_numpy(rng.normal(size=(m, k)).astype(
+                    np.float32)).to(cuda, dt)
+                got = mm.matmul_wq(x, w, out_dtype=torch.float32)
+                torch.cuda.synchronize()
+                want = mm.matmul_wq_plain(x, w.q, w.e, bits=bits, kdim=k,
+                                          out_dtype=torch.float32)
+                bound = 2e-5 * (x.float().abs() @ wq.dense(w).abs())
+                assert got.shape == (m, n)
+                assert bool(((got - want).abs() <= bound).all()), \
+                    (bits, m, k, n, w.tile, dt)
+                fused = mm.matmul_wq(x, w, g.spec, s_in=g.s_in)
+                torch.cuda.synchronize()
+                assert torch.equal(fused.cpu(), attn_output_quant(
+                    got.cpu(), g.spec, g.s_in))
     w = _packed(rng, 64, 32, 8, cuda)
+    x = torch.zeros((2, 64), device=cuda)
     flat = torch.zeros(64 * 32 + 1, dtype=torch.int8, device=cuda)
     off = QuantWeight(q=flat[1:].view(64, 32), e=w.e, bits=8, caxis=-2,
                       kdim=64, tile=64)
@@ -312,7 +344,7 @@ def test_matmul_wq_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         mm.matmul_wq(x.cpu(), w)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("bits", [16, 8, 4])
 @pytest.mark.parametrize("case", ["long prefix", "batch 2", "two row groups"])
 def test_prefill_bf16_parts_match_plain(cuda, d, bits, case):
@@ -361,6 +393,83 @@ def test_prefill_bf16_parts_match_plain(cuda, d, bits, case):
     plain = pa.paged_prefill_plain(*args, spec=g.spec, s_in=g.s_in, **kw)
     assert int((quant.to(torch.int32) - plain.to(torch.int32)).abs().max()) \
         <= 1
+
+
+def _decode_f64(q, k, v, table, lengths, kv):
+    """Decode in float64 on the gathered dense view (a masked softmax, not
+    the kernels' recurrence)."""
+    from repro_torch.kernels.ref import dense_kv_views
+    kd, vd = dense_kv_views(k, v, table, **kv)
+    slots, h, d = q.shape
+    kvh = kd.shape[2]
+    qg = q.double().reshape(slots, kvh, h // kvh, d)
+    lg = torch.einsum("bkgd,bskd->bkgs", qg, kd.double()) * d ** -0.5
+    pos = torch.arange(kd.shape[1], device=q.device)
+    live = (pos[None] < lengths.long()[:, None])[:, None, None]
+    lg = lg.masked_fill(~live, float("-inf"))
+    o = torch.einsum("bkgs,bskd->bkgd", torch.softmax(lg, -1), vd.double())
+    return o.reshape(slots, h, d)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("bits", [16, 8, 4])
+def test_decode_bf16_parts_match_plain(cuda, d, bits):
+    """The split decode (bf16 q, 4 position warps a block) over a 128-block
+    table of 16-position blocks (several parts), slots ragged to 2048 with
+    an idle slot and lengths on part boundaries, on bf16, 8- and 4-bit
+    pools: f32 output within 2e-5 (1 + |want|) of the plain version's; the
+    bf16 output is that f32 output rounded; the fused epilogue bit-exact on
+    it and within one code of the plain version's. Then a float64 gate:
+    |f32 - f64| / (1 + |f64|) of the kernel within twice the plain
+    version's and 1e-5 (the f32 rounding of one softmax pass)."""
+    from functools import partial
+
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import attn_output_quant
+    from repro_torch.nn.common import build_lm_grau
+    bs, h, kvh, width, slots = 16, 6, 2, 128, 6
+    rng = np.random.default_rng(d + 3 * bits)
+    nb = slots * width + 1
+    table = torch.from_numpy(rng.permutation(np.arange(1, nb))
+                             .reshape(slots, width).astype(np.int32)).to(cuda)
+    parts, bpp = pa.decode_plan(slots, kvh, width, bs, kbuild.sm_count(cuda))
+    assert parts > 1
+    lengths = torch.tensor([0, 1, bpp * bs, bpp * bs + 1, 1000, width * bs],
+                           dtype=torch.int32, device=cuda)
+    table[0] = 0
+    if bits == 16:
+        k, v = _pools(rng, nb, bs, kvh, d, torch.bfloat16, cuda)
+        kw = {}
+    else:
+        k, v, ke, ve = _quant_pools(rng, nb, bs, kvh, d, bits, cuda)
+        kw = dict(k_exp=ke, v_exp=ve, kv_bits=bits)
+    q = torch.from_numpy(rng.normal(size=(slots, h, d)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    kern = partial(pa.paged_attention, **kw)
+    plain = partial(pa.paged_attention_plain, **kw)
+    args = (q, k, v, table, lengths)
+    n0 = pa.paged_attention.launches
+    f32 = kern(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    p32 = plain(*args, out_dtype=torch.float32)
+    torch.testing.assert_close(f32, p32, rtol=2e-5, atol=2e-5)
+    assert torch.isfinite(f32).all()
+    assert torch.equal(kern(*args), f32.to(torch.bfloat16))
+    g = build_lm_grau("identity")
+    quant = kern(*args, spec=g.spec, s_in=g.s_in)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == n0 + 3
+    assert torch.equal(quant.cpu(), attn_output_quant(f32.cpu(), g.spec,
+                                                      g.s_in))
+    qref = plain(*args, spec=g.spec, s_in=g.s_in)
+    assert int((quant.to(torch.int32) - qref.to(torch.int32)).abs().max()) \
+        <= 1
+    live = lengths > 0
+    o64 = _decode_f64(q, k, v, table, lengths, kw)[live]
+    dist = [float(((o.double()[live] - o64).abs() / (1 + o64.abs())).max())
+            for o in (f32, p32)]
+    assert dist[0] <= max(2 * dist[1], 1e-6) and dist[0] <= 1e-5, dist
 
 
 @pytest.mark.parametrize("quant", [dict(kv_bits=4), dict(weight_bits=4),
@@ -494,7 +603,18 @@ FLASH_CASES = [(2, 256, 256, 4, 4, 32, True, 0),
                (1, 77, 77, 4, 1, 128, False, 0),
                (1, 100, 300, 4, 2, 256, True, 200),
                (2, 130, 130, 2, 1, 256, True, 0),
-               (1, 5, 40, 3, 3, 64, True, 35)]
+               (1, 5, 40, 3, 3, 64, True, 35),
+               # the head dims of the reference's other archs: 16 and 48 on
+               # the mma.sync kernel, 192 on the wgmma kernel
+               (1, 300, 300, 4, 2, 16, True, 0),
+               (2, 130, 200, 4, 2, 16, False, 0),
+               (1, 257, 257, 6, 3, 48, True, 0),
+               (1, 100, 300, 4, 2, 48, True, 200),
+               (1, 333, 333, 4, 2, 192, True, 0),
+               (1, 129, 250, 2, 1, 192, False, 0),
+               (1, 60, 300, 4, 4, 192, True, 240),
+               (1, 1000, 1000, 6, 3, 64, False, 0),
+               (1, 200, 600, 4, 2, 128, True, 400)]
 
 
 def _flash_inputs(rng, b, s_q, s_kv, h, kvh, d, dev, dtype):
@@ -582,8 +702,11 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fa.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="one device"):
         fa.flash_attention(q, q.cpu(), q)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(q[..., :48], q[..., :48], q[..., :48])
+    with pytest.raises(ValueError, match="head_dim"):      # not in HEAD_DIMS
+        fa.flash_attention(q[..., :40], q[..., :40], q[..., :40])
+    qb = q.to(torch.bfloat16)       # the wgmma kernel folds scale into exp2
+    with pytest.raises(ValueError, match="scale"):
+        fa.flash_attention(qb, qb, qb, scale=-0.125)
 
 
 def test_train_step_through_the_flash_kernel(cuda):

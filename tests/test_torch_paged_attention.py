@@ -514,3 +514,196 @@ def test_prefill_parts_match_plain_and_reference_kernel(bits):
         np.testing.assert_array_equal(
             kernel_epilogue(got, ts, s_in).numpy(),
             tref.attn_output_quant(got, ts, s_in).numpy())
+
+
+# ---------------------------------------------------------------------------
+# The bf16 decode kernel's split over the sequence (csrc/paged_prefill.cu,
+# attend_kernel with 4 position warps)
+# ---------------------------------------------------------------------------
+
+def emulate_decode_parts(q, k_pool, v_pool, table, lengths, parts, bpp, *,
+                         k_exp=None, v_exp=None, kv_bits=16, tile=64,
+                         warps=4):
+    """The split decode's decomposition in plain torch (tests only). Part p
+    covers table blocks [p * bpp, (p + 1) * bpp) cut to the live blocks
+    max(cdiv(len, bs), 1); inside it `tile`-position tiles, of which warp w
+    takes positions [w * tile / warps, (w + 1) * tile / warps): each warp an
+    online softmax from m = NEG_INF, l = 0, o = 0 over its positions in tile
+    order, NEG_INF past the slot's length and -inf past the part's live
+    end. The warps' (o, m, l) are merged in warp order, then the live parts
+    in part order, both as m = max m_i, l = sum l_i e^(m_i - m), o = sum o_i
+    e^(m_i - m); out = o / max(l, 1e-30)."""
+    slots, h, d = q.shape
+    bs, kvh = k_pool.shape[1], k_pool.shape[2]
+    g, width = h // kvh, table.shape[1]
+    scale = d ** -0.5
+    qr = q.reshape(slots, kvh, g, d).float()
+    load = tpa._block_loader(k_pool, v_pool, k_exp, v_exp, kv_bits)
+    step = tile // warps
+
+    def merge(items):
+        m_all = items[0][1]
+        for _, m, _ in items[1:]:
+            m_all = torch.maximum(m_all, m)
+        l_all, o_all = 0.0, 0.0
+        for o, m, l in items:
+            f = torch.exp(m - m_all)
+            l_all = l_all + l * f
+            o_all = o_all + o * f
+        return o_all, m_all, l_all
+
+    out = torch.empty((slots, kvh, g, d))
+    for b in range(slots):
+        n = int(lengths[b])
+        live = min(max(-(-n // bs), 1), width)
+        got = []
+        for p in range(parts):
+            lo, hi = p * bpp, min((p + 1) * bpp, live)
+            if lo >= hi:
+                break
+            kk, vv = load(table[b, lo:hi].long())
+            kk, vv = kk.reshape(-1, kvh, d), vv.reshape(-1, kvh, d)
+            npos = kk.shape[0]
+            per_warp = []
+            for w in range(warps):
+                m = torch.full((kvh, g, 1), tref.NEG_INF)
+                l = torch.zeros((kvh, g, 1))
+                o = torch.zeros((kvh, g, d))
+                for t0 in range(0, npos, tile):
+                    idx = torch.arange(t0 + w * step, t0 + (w + 1) * step)
+                    dead = idx >= npos
+                    idx = idx.clamp(max=npos - 1)
+                    lg = torch.einsum("kgd,tkd->kgt", qr[b], kk[idx]) * scale
+                    lg = torch.where((lo * bs + idx < n)[None, None], lg,
+                                     tref.NEG_INF)
+                    lg = torch.where(dead[None, None], float("-inf"), lg)
+                    m_new = torch.maximum(m, lg.amax(-1, keepdim=True))
+                    e = torch.exp(lg - m_new)
+                    alpha = torch.exp(m - m_new)
+                    l = l * alpha + e.sum(-1, keepdim=True)
+                    o = o * alpha + torch.einsum("kgt,tkd->kgd", e, vv[idx])
+                    m = m_new
+                per_warp.append((o, m, l))
+            got.append(merge(per_warp))
+        o, _, l = merge(got)
+        out[b] = o / torch.clamp(l, min=1e-30)
+    return out.reshape(slots, h, d)
+
+
+@pytest.mark.parametrize("batch,kvh,width,bs", [
+    (8, 8, 128, 16),          # llama3.2-3b: 8 slots ragged to 2048, page 16
+    (1, 8, 128, 16), (8, 8, 16, 16), (4, 2, 6, 8), (2, 2, 33, 16),
+    (8, 8, 128, 128), (3, 1, 1, 16), (8, 4, 70, 24)])
+def test_decode_plan_covers_whole_table_blocks(batch, kvh, width, bs):
+    """Parts are runs of whole table blocks covering the table width once
+    (the last may be shorter, never empty), part 0 starting at block 0;
+    each part holds whole 64-position tiles where the block size divides 64
+    and at least 64 positions where the table has them; at the main shape
+    the grid holds at least 2 blocks an SM (4 planned)."""
+    parts, bpp = tpa.decode_plan(batch, kvh, width, bs)
+    assert bpp >= 1 and (parts - 1) * bpp < width <= parts * bpp
+    starts = [p * bpp for p in range(parts)]
+    assert starts[0] == 0 and all(s < width for s in starts)
+    assert bpp * bs >= min(tpa.MIN_PART_POSITIONS, width * bs)
+    if tpa.MIN_PART_POSITIONS % bs == 0 and bpp < width:
+        assert bpp * bs % tpa.MIN_PART_POSITIONS == 0
+    most = max(1, width * bs // tpa.MIN_PART_POSITIONS)
+    want = -(-2 * kbuild.H100_SMS // (batch * kvh))
+    assert batch * kvh * parts >= min(2 * kbuild.H100_SMS,
+                                      batch * kvh * max(1, min(most, want)
+                                                        // 2))
+    if (batch, kvh, width, bs) == (8, 8, 128, 16):
+        assert (parts, bpp) == (8, 16)
+        assert batch * kvh * parts >= 2 * kbuild.H100_SMS
+
+
+@pytest.mark.parametrize("bits", [16, 8, 4])
+def test_decode_parts_match_plain_and_reference_kernel(bits):
+    """The split decode emulated — per-warp (o, m, l) merged in warp order,
+    per-part merged in part order — equals the plain version (within 2e-5)
+    and the reference's Pallas kernel in interpret mode, on 16-, 8- and
+    4-bit pools, for one part and parts of 1, 2 and 3 table blocks: lengths
+    at part boundaries (16, 17, 24 with 8-position blocks), an idle slot,
+    length 1 and a full table, dead blocks poisoned; the fused epilogue's
+    arithmetic on the combined output is attn_output_quant's, bit for
+    bit."""
+    rng = np.random.default_rng(90 + bits)
+    slots, h, kvh, d, width, num_blocks = 7, 6, 2, 32, 8, 64
+    lengths = np.array([16, 17, 0, 24, 1, width * BS, 41], np.int32)
+    table = make_table(rng, [n if n else 0 for n in lengths], width,
+                       num_blocks)
+    table[lengths == 0] = 0
+    if bits == 16:
+        k = rng.normal(size=(num_blocks, BS, kvh, d)).astype(np.float32)
+        v = rng.normal(size=(num_blocks, BS, kvh, d)).astype(np.float32)
+        poison_dead(rng, k, v, table, 1e4)
+        arrays, tol = (k, v), TOL
+    else:
+        arrays, tol = quant_pools(rng, num_blocks, kvh, d, bits, table), \
+            F32_TOL
+    q = rng.normal(size=(slots, h, d)).astype(np.float32)
+    jarr, tarr = both(q, *arrays, table, lengths)
+    jq, jk, jv, jt, jl = jarr[0], jarr[1], jarr[2], jarr[-2], jarr[-1]
+    tq, tk, tv, tt, tl = tarr[0], tarr[1], tarr[2], tarr[-2], tarr[-1]
+    kw_j, kw_t = {}, {}
+    if bits < 16:
+        kw_j = dict(k_exp=jarr[3], v_exp=jarr[4], kv_bits=bits)
+        kw_t = dict(k_exp=tarr[3], v_exp=tarr[4], kv_bits=bits)
+    want = np.asarray(jpa.paged_attention(jq, jk, jv, jt, jl, interpret=True,
+                                          **kw_j))
+    plain = tpa.paged_attention_plain(tq, tk, tv, tt, tl,
+                                      out_dtype=torch.float32, **kw_t).numpy()
+    for bpp in (width, 1, 2, 3):
+        got = emulate_decode_parts(tq, tk, tv, tt, tl, -(-width // bpp), bpp,
+                                   tile=16, **kw_t)
+        assert np.all(np.isfinite(got.numpy()))      # the idle slot too
+        np.testing.assert_allclose(got.numpy(), plain, **F32_TOL)
+        np.testing.assert_allclose(got.numpy(), want, **tol)
+    _, ts = silu_spec_pair()
+    for s_in in (2**-10, 0.003):
+        np.testing.assert_array_equal(
+            kernel_epilogue(got, ts, s_in).numpy(),
+            tref.attn_output_quant(got, ts, s_in).numpy())
+
+
+@pytest.mark.parametrize("d", [16, 48])
+@pytest.mark.parametrize("bits", [16, 8, 4])
+def test_head_dims_16_and_48_match_reference_kernels(d, bits):
+    """head_dim 16 (glm4-smoke) and 48 (deepseek-smoke), where a 4-bit
+    pool row is 8 and 24 bytes (the kernels copy it in 8-byte pieces):
+    decode and prefill against the reference's Pallas kernels in interpret
+    mode, 16-bit pools at 3e-5 and quantized pools at 2e-5."""
+    rng = np.random.default_rng(d * 3 + bits)
+    h, kvh, width, num_blocks = 6, 2, 6, 40
+    lengths = np.array([5, 24, 0, 17, width * BS], np.int32)
+    table = make_table(rng, [n if n else 0 for n in lengths], width,
+                       num_blocks)
+    table[lengths == 0] = 0
+    if bits == 16:
+        k = rng.normal(size=(num_blocks, BS, kvh, d)).astype(np.float32)
+        v = rng.normal(size=(num_blocks, BS, kvh, d)).astype(np.float32)
+        poison_dead(rng, k, v, table, 1e4)
+        arrays, tol = (k, v), TOL
+    else:
+        arrays, tol = quant_pools(rng, num_blocks, kvh, d, bits, table), \
+            F32_TOL
+    q = rng.normal(size=(5, h, d)).astype(np.float32)
+    qp = rng.normal(size=(2, 16, h, d)).astype(np.float32)
+    starts = np.array([0, 8], np.int32)
+    jarr, tarr = both(q, qp, *arrays, table, lengths, starts)
+    kw_j, kw_t = {}, {}
+    if bits < 16:
+        kw_j = dict(k_exp=jarr[4], v_exp=jarr[5], kv_bits=bits)
+        kw_t = dict(k_exp=tarr[4], v_exp=tarr[5], kv_bits=bits)
+    jk, jv, tk, tv = jarr[2], jarr[3], tarr[2], tarr[3]
+    jt, tt = jarr[-3], tarr[-3]
+    want = np.asarray(jpa.paged_attention(jarr[0], jk, jv, jt, jarr[-2],
+                                          interpret=True, **kw_j))
+    got = tpa.paged_attention(tarr[0], tk, tv, tt, tarr[-2], **kw_t).numpy()
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, **tol)
+    want = np.asarray(jpa.paged_prefill_attention(
+        jarr[1], jk, jv, jt[:2], jarr[-1], interpret=True, **kw_j))
+    got = tpa.paged_prefill_attention(tarr[1], tk, tv, tt[:2].contiguous(),
+                                      tarr[-1], **kw_t).numpy()
+    np.testing.assert_allclose(got, want, **tol)
