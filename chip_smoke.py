@@ -17,10 +17,12 @@ Phases (any failure exits non-zero):
      kernel's own f32 output — then timed (CUDA-graph replay, and eager
      CUDA events) beside its plain version, a PyTorch library call for the
      same function where one exists, and the card's bound; decode and
-     matmul_wq over operand copies larger than the 50 MB L2;
+     matmul_wq over operand copies larger than the 50 MB L2, the GRAU unit
+     at slice (d)'s shapes and at 2048 x 8192 over copies past L2;
      matmul_grau (the int8 matmul with the GRAU epilogue) bit for bit at the
      quickstart's, the kernel bench's, ragged and the llama3.2-3b MLP
-     shapes, on signed, unsigned and random register files; flash_attention
+     shapes (with one and several K parts), on signed, unsigned and random
+     register files, timed over weight copies past L2; flash_attention
      (dense GQA attention forward) against its plain version (o and lse) at
      slice (e)'s shape causal and not, in f32, at every head_dim of the
      reference's archs (16, 48, 64, 192, 256 beside 128) on both bf16
@@ -53,8 +55,10 @@ Without a CUDA card, or outside a checkout of the repository, it prints why
 on stderr and exits 2. `--rehearse` runs the same phases at smoke size on
 the CPU (plain versions, no timings) to check the control flow, and exits 1.
 `--kernels-from DIR` times only the rows of matmul_wq (its 8 MLP shapes),
-of the decode and the prefill (16-, 8- and 4-bit pools) and of
-flash_attention (slice (e)'s shape) of the port under DIR/src — an
+of the decode and the prefill (16-, 8- and 4-bit pools), of
+flash_attention (slice (e)'s shape), of matmul_grau (the quickstart's
+product and the MLP products at 32 and 2048 rows) and of the GRAU unit
+(slice (d)'s shapes and 2048 x 8192) of the port under DIR/src — an
 unpacked earlier commit, or this checkout — in CUDA-graph replay, and
 prints them as one JSON line, so two versions compare on one card.
 """
@@ -72,9 +76,10 @@ ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 PEAK_OPS = {                      # dense peaks, H100 SXM
     "bf16": 989e12,               # tensor cores (data sheet)
-    # the data sheet has no int32 entry: 64 INT32 lanes per SM are half the
-    # 128 FP32 lanes behind its 67e12 float32 rate
-    "int32": 33.5e12,
+    # the data sheet has no int32 entry: 64 INT32 lanes per SM x 132 SMs x
+    # the 1.98 GHz boost clock, one operation a lane a cycle (a compare, a
+    # shift, a select or an add is one operation, not a multiply-add pair)
+    "int32": 16.7e12,
     "int8": 1979e12,              # tensor cores, dense (data sheet)
 }
 # Kernel vs plain, element by element: |got - want| <= atol + rtol * |want|.
@@ -252,19 +257,90 @@ def check_grau(torch, np, dev, shapes, rng, timed):
            "source": "src/repro_torch/csrc/grau.cu",
            "replaces": "src/repro/kernels/grau.py:103", "max_abs_err": 0}
     if timed:
-        spec = specs[0]
-        regs = spec.packed(dev)
-        kw = dict(num_exponents=spec.num_exponents, qmin=spec.qmin,
-                  qmax=spec.qmax)
-        row["ms"] = device_ms(torch, lambda: gk.grau_unit(small, regs, **kw))
-        row["plain_ms"] = device_ms(torch, lambda: gk.grau_plain(small, regs,
-                                                                 **kw), 5, 1)
-        # per element: 7 compares + 3 selects + per stage (shift, test, add)
-        # + multiply-add + clamp
-        ops_per = 7 + 3 + 3 * spec.num_exponents + 4
-        row["bound_ms"], row["bound_by"] = bound(5 * n, ops_per * n, "int32")
+        spec = quickstart_unit()
+        row["shapes"] = [time_grau(torch, dev, spec, r, c, rng)
+                         for r, c in GRAU_TIMED]
+        main = row["shapes"][0]                 # the quickstart's unit call
+        row.update({k: main[k] for k in ("ms", "eager_ms", "plain_ms",
+                                         "bound_ms", "bound_by")})
         row["library_ms"] = None
+        for r in row["shapes"]:
+            log(f"timed grau: {json.dumps(r)}")
     return row
+
+
+# The GRAU unit's timed shapes: slice (d)'s calls (the quickstart's 256 x
+# 512, Table III's SFC layers (batch 128 x 256) and CNV layers (128 x 16 x
+# 16 x 16 and 128 x 8 x 8 x 32 as rows x channels)), and a 2048 x 8192
+# array of MAC outputs (an MLP's width at 2048 rows), timed over copies
+# past L2.
+GRAU_TIMED = [(256, 512), (128, 256), (32768, 16), (8192, 32), (2048, 8192)]
+# Integer operations of the datapath an element, as csrc/grau_datapath.cuh
+# runs it: 7 compares and 7 adds (the comparator bank), 3 table selects,
+# the enc mask, the multiply-add and 2 clamps; then 4 a fired stage (find
+# the lowest set bit, shift, add, clear the bit).
+GRAU_OPS_BASE, GRAU_OPS_STAGE = 21, 4
+
+
+def quickstart_unit():
+    """The quickstart's SiLU unit (signed bus; APoT, 6 segments, 8
+    exponents over a +/-30000 MAC range)."""
+    from repro_torch.core.build import build_grau
+    from repro_torch.core.folding import fold
+    return build_grau(fold("silu", s_in=2 ** -10, s_out=2 ** -4, out_bits=8),
+                      mac_range=(-30000, 30000), segments=6, num_exponents=8,
+                      mode="apot", bias_mode="lsq").spec
+
+
+def grau_ops(torch, x, spec):
+    """The integer operations the datapath needs on x: GRAU_OPS_BASE an
+    element plus GRAU_OPS_STAGE for each stage that fires on it (the set
+    bits of enc[segment] below num_exponents), counted from the data."""
+    from repro_torch.pwlf.spec import MAX_SEGMENTS, REG_BP, REG_ENC
+    regs = spec.packed(x.device)
+    seg = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    for i in range(MAX_SEGMENTS - 1):
+        seg += (x > regs[REG_BP + i]).to(torch.int32)
+    per_seg = torch.bincount(seg.reshape(-1).long(), minlength=MAX_SEGMENTS)
+    mask = (1 << spec.num_exponents) - 1
+    fired = [bin(int(e) & mask).count("1")
+             for e in regs[REG_ENC:REG_ENC + MAX_SEGMENTS].cpu()]
+    stages = sum(int(n) * f for n, f in zip(per_seg.cpu(), fired))
+    return GRAU_OPS_BASE * x.numel() + GRAU_OPS_STAGE * stages, stages
+
+
+def grau_timing_case(torch, np, dev, rows, cols, rng):
+    """MAC outputs in the quickstart's range (+/-60000) at (rows, cols):
+    one array (slice (d)'s activations come warm from the layer before), or
+    copies past L2_SPAN_BYTES when one array alone exceeds the 50 MB L2."""
+    x = torch.from_numpy(rng.integers(-60000, 60000, size=(rows, cols))
+                         .astype(np.int32)).to(dev)
+    n = 4 * x.numel()
+    copies = max(2, -(-L2_SPAN_BYTES // n)) if n > 50_000_000 else 1
+    return [x] + [x.clone() for _ in range(copies - 1)]
+
+
+def time_grau(torch, dev, spec, rows, cols, rng):
+    """The unit on (rows, cols) int32 MAC outputs: the kernel under CUDA-
+    graph replay (and eager events, which read the host's enqueue for a
+    small call), its plain version, and the bound: 5 bytes an element
+    against grau_ops' count at the int32 rate."""
+    import numpy as np
+    from repro_torch.kernels import grau as gk
+    xs = grau_timing_case(torch, np, dev, rows, cols, rng)
+    regs = spec.packed(dev)
+    kw = dict(num_exponents=spec.num_exponents, qmin=spec.qmin,
+              qmax=spec.qmax)
+    kern = cycling([(lambda x=x: gk.grau_unit(x, regs, **kw)) for x in xs])
+    ops, stages = grau_ops(torch, xs[0], spec)
+    t_bound, by = bound(5 * xs[0].numel(), ops, "int32")
+    return {"shape": [rows, cols], "copies": len(xs),
+            "ms": graph_ms(torch, kern),
+            "eager_ms": device_ms(torch, kern, 50, 5),
+            "plain_ms": device_ms(torch, lambda: gk.grau_plain(
+                xs[0], regs, **kw), 5, 1),
+            "bound_ms": t_bound, "bound_by": by, "int_ops": ops,
+            "fired_stages": stages}
 
 
 def random_pools(torch, dev, dtype, shape, kv_bits):
@@ -819,13 +895,10 @@ def matmul_grau_specs(np, rng):
     from repro_torch.core.build import build_grau
     from repro_torch.core.folding import fold
     from repro_torch.pwlf.spec import make_spec
-    kw = dict(mac_range=(-30000, 30000), segments=6, num_exponents=8,
-              mode="apot")
-    silu = build_grau(fold("silu", s_in=2 ** -10, s_out=2 ** -4, out_bits=8),
-                      bias_mode="lsq", **kw).spec
     relu = build_grau(fold("relu", s_in=2 ** -10, s_out=2 ** -4, out_bits=8,
-                           out_signed=False), **kw).spec
-    return [silu, relu] + random_specs(np, make_spec, rng, 8)
+                           out_signed=False), mac_range=(-30000, 30000),
+                      segments=6, num_exponents=8, mode="apot").spec
+    return [quickstart_unit(), relu] + random_specs(np, make_spec, rng, 8)
 
 
 def check_matmul_grau(torch, np, dev, shapes, rng, timed):
@@ -875,6 +948,23 @@ def check_matmul_grau(torch, np, dev, shapes, rng, timed):
     return row
 
 
+# matmul_grau's timed shapes (M, K, N): the quickstart's product, and the
+# llama3.2-3b MLP products (w_gate 3072 -> 8192, w_down 8192 -> 3072) at 32
+# and 2048 rows
+MM_GRAU_TIMED = [(128, 256, 128), (32, 3072, 8192), (32, 8192, 3072),
+                 (2048, 3072, 8192), (2048, 8192, 3072)]
+
+
+def matmul_grau_case(torch, dev, M, K, N):
+    """Random int8 x (M, K), and copies of one int8 weight (K, N) that
+    together exceed 60 MB, so that a call cycling through them reads its
+    weight from device memory."""
+    x = torch.randint(-128, 128, (M, K), dtype=torch.int8, device=dev)
+    base = torch.randint(-128, 128, (K, N), dtype=torch.int8, device=dev)
+    return x, [base] + [base.clone() for _ in
+                        range(max(2, -(-60_000_000 // (K * N))) - 1)]
+
+
 def time_matmul_grau(torch, dev, spec, M, K, N):
     """One int8 product with the GRAU epilogue, timed over enough weight
     copies to exceed L2: the kernel (CUDA-graph replay, and eager: eager
@@ -882,12 +972,12 @@ def time_matmul_grau(torch, dev, spec, M, K, N):
     and as the library yardstick torch._int_mm (cuBLASLt int8 -> int32,
     without the epilogue: it writes 4 bytes an output where the kernel
     writes 1), replayed the same way. The bound counts x, w and the 8-bit
-    output once, and 2 M K N int8 operations."""
+    output once, and 2 M K N int8 operations. `row_tile`, `parts` and
+    `steps_per_part`: the kernel's plan (K split into `parts`)."""
     from repro_torch.kernels import matmul_grau as mg
     from repro_torch.kernels.ref import wrap_int32
-    x = torch.randint(-128, 128, (M, K), dtype=torch.int8, device=dev)
-    base = torch.randint(-128, 128, (K, N), dtype=torch.int8, device=dev)
-    ws = [base.clone() for _ in range(max(2, -(-60_000_000 // (K * N))))]
+    x, ws = matmul_grau_case(torch, dev, M, K, N)
+    base = ws[0]
     # the yardstick computes the kernel's int32 sums (float64 is exact here)
     need(torch.equal(torch._int_mm(x, base),
                      wrap_int32((x.double() @ base.double()).long())),
@@ -902,7 +992,9 @@ def time_matmul_grau(torch, dev, spec, M, K, N):
     kern = [(lambda w=w: mg.matmul_grau(x, w, regs, **kw)) for w in ws]
     lib = [(lambda w=w: torch._int_mm(x, w)) for w in ws]
     libk = [(lambda w=w: torch._int_mm(x, w)) for w in kmajor]
-    return {"M": M, "K": K, "N": N,
+    bm, parts, spp = mg.plan(M, N, K, sm_count(torch, dev))
+    return {"M": M, "K": K, "N": N, "row_tile": bm, "parts": parts,
+            "steps_per_part": spp, "weight_copies": len(ws),
             "ms": graph_ms(torch, cycling(kern)),
             "eager_ms": device_ms(torch, cycling(kern), 50, 5),
             "plain_ms": device_ms(torch, cycling([
@@ -1747,8 +1839,8 @@ def profile_train(torch, dev, train_step, params, opt_state, batch_fn,
 
 def time_kernels_from(torch, np, dev, args):
     """--kernels-from: the graph-replay times of the matmul_wq, decode,
-    prefill and flash rows at the main path's shapes, for the port on
-    sys.path; one JSON line."""
+    prefill, flash, matmul_grau and GRAU-unit rows at the main paths'
+    shapes, for the port on sys.path; one JSON line."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -1783,6 +1875,28 @@ def time_kernels_from(torch, np, dev, args):
     rows.append({"name": "flash_attention", "shape": [b, sq, h, kvh, d],
                  "ms": graph_ms(torch, lambda: fa.flash_attention(q, k, v),
                                 calls=10, replays=5)})
+    # matmul_grau at the quickstart's and the MLP's shapes over weight
+    # copies past L2; the GRAU unit at slice (d)'s shapes and 2048 x 8192
+    spec = quickstart_unit()
+    regs = spec.packed(dev)
+    kw = dict(num_exponents=spec.num_exponents, qmin=spec.qmin,
+              qmax=spec.qmax)
+    from repro_torch.kernels import grau as gk
+    from repro_torch.kernels import matmul_grau as mg
+    for M, K, N in MM_GRAU_TIMED:
+        x, ws = matmul_grau_case(torch, dev, M, K, N)
+        rows.append({"name": "matmul_grau", "M": M, "K": K, "N": N,
+                     "ms": graph_ms(torch, cycling([
+                         (lambda w=w: mg.matmul_grau(x, w, regs, **kw))
+                         for w in ws]))})
+        del ws
+    for r, c in GRAU_TIMED:
+        xs = grau_timing_case(torch, np, dev, r, c, rng)
+        rows.append({"name": "grau", "shape": [r, c], "copies": len(xs),
+                     "ms": graph_ms(torch, cycling([
+                         (lambda x=x: gk.grau_unit(x, regs, **kw))
+                         for x in xs]))})
+        del xs
     report = {"kernels_from": str(args.kernels_from), "card": card,
               "rows": rows}
     if args.out:
@@ -1832,7 +1946,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rehearse", action="store_true",
                     help="smoke-size control-flow run on the CPU; exits 1")
     ap.add_argument("--kernels-from", default=None, metavar="DIR",
-                    help="time only the matmul_wq and prefill rows of the "
+                    help="time only the kernel rows (graph replay) of the "
                          "port in DIR/src and print them as JSON")
     args = ap.parse_args(argv)
     try:
@@ -1909,7 +2023,8 @@ def main(argv=None) -> int:
                                       ((512, 1024), (1024, 512))]
                                      if timed else [])
                          + [((m, k), (k, n)) for m, k, n in mlp_mkn])
-    shapes["mm_grau_timed"] = [(128, 256, 128)] + mlp_mkn
+    shapes["mm_grau_timed"] = (MM_GRAU_TIMED if timed else
+                               [(128, 256, 128)] + mlp_mkn)
     # flash attention: slice (e)'s (b, s, h, kvh, d)
     shapes["flash"] = (1, 4096, 24, 8, 128) if timed else (1, 128, 4, 2, 32)
     phase_s = report.setdefault("phase_s", {})

@@ -742,32 +742,6 @@ flash_f32_kernel(Params p) {
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime's entry-point
-// query (the library links no libcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &res);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &res);
-#endif
-    return err == cudaSuccess && res == cudaDriverEntryPointSuccess
-               ? (EncodeTiled)f : nullptr;
-  }();
-  return fn;
-}
-
 // A bf16 (batch, seq, heads, d) view with element strides (sb, ss, sh) as a
 // 4-D tensor map of boxes of 64 columns x `rows` rows, 128-byte swizzled;
 // rows past seq read as zeros.

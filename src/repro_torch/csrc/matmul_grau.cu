@@ -1,6 +1,7 @@
 // Fused int8 matrix product + GRAU epilogue for Hopper (sm_90a): the paper's
 // "End-to-End MAC to Quant" — an int8 MAC array whose outputs go straight
-// through the GRAU unit, so no int32 activation ever reaches device memory.
+// through the GRAU unit, so no int32 activation reaches device memory when
+// K is not split.
 //
 // Replaces: the JAX package's kernels/matmul_grau.py::matmul_grau_pallas
 // (body _mm_grau_kernel; the epilogue is grau_datapath).
@@ -8,264 +9,475 @@
 // What it computes: out[m, n] = grau(sum_k x[m, k] * w[k, n]) for x (M, K)
 // int8 row-major, w (K, N) int8 row-major (N contiguous, the reference's
 // layout); the sum is exact in int32 and wraps modulo 2^32 as the
-// reference's int32 dot does (mma.sync without .satfinite wraps). The bus
-// byte is int8 or uint8 by the mode register (the clamped value fits
-// either, so the byte is the same; the wrapper picks the tensor type).
+// reference's int32 dot does (wgmma without .satfinite wraps). The bus byte
+// is int8 or uint8 by the mode register (the clamped value fits either, so
+// the byte is the same; the wrapper picks the tensor type).
 //
-// Bound on the H100: operations at the MLP widths. M 2048, K 3072, N 8192
-// is 103 G int8 operations (52 us at 1,979 TOP/s) against 48 MB of bytes
-// (14 us at 3.35 TB/s); at M = 32 the weight stream bounds it instead.
+// Bound on the H100: operations at 2048 rows (M 2048, K 3072, N 8192 is
+// 103 G int8 operations, 52 us at 1,979 TOP/s, against 48 MB, 14 us at
+// 3.35 TB/s); the weight's bytes at 32 rows (25 MB, 7.6 us).
 //
-// Design (right and simple first; wgmma, TMA and a persistent grid are for
-// the PR that makes it fast):
-//   * One block of 256 threads owns a 128 x 128 output tile and loops over
-//     K in steps of 64 (the TPU's sequential K grid axis with its VMEM
-//     accumulator becomes this loop, the int32 sums in registers: 8 warps of
-//     64 x 32, 64 accumulators a thread). The GRAU epilogue runs once, after
-//     the loop, with the 32-word register file staged in shared memory.
-//   * Products on the int8 tensor cores: mma.sync m16n8k32 s8.s8.s32, A row-
-//     major and B "col", i.e. both operands K-contiguous. x already is; w is
-//     N-contiguous and ldmatrix.trans moves 16-bit elements only, so each
-//     thread reads a 4 (k) x 4 (n) byte block of w and transposes it in
-//     registers with four __byte_perm pairs while staging it into shared
-//     memory as 16 words per column n (4 k-values a word), at word
-//     (kw ^ swz(n)): the XOR swizzle makes the fragment reads conflict-free
-//     and the staging stores at most two-way. (wgmma with s8 also takes
-//     both operands K-major only, so the fast kernel keeps this transpose or
-//     asks for w stored as (N, K).) x rows are staged padded to 80 bytes,
-//     which makes its fragment reads conflict-free too.
-//   * Double buffering through registers: the next K step's global loads
-//     are issued before the current step's products, and land in the other
-//     shared buffer after them; one barrier a step.
-//   * Ragged edges are masked, never padded by a copy: rows past M and
-//     K past its end load as zeros, columns past N are not stored. When K is
-//     a multiple of 16, N of 4 and the bases aligned, x moves in 16-byte and
-//     w in 4-byte loads; otherwise a byte-wise loader takes any shape.
+// Design:
+//   * Operands swapped: each block computes a tile of out^T = w^T x^T, so
+//     the weight's N fills wgmma's fixed 64-row side and x's rows become
+//     wgmma's N (32 or 128 by the plan: a 32-row product multiplies no
+//     zero rows). x (M, K) row-major is K-major, wgmma's shared B operand:
+//     TMA loads it with the 128-byte swizzle. s8 wgmma takes no N-major
+//     operand from shared memory, so w (N contiguous) goes in as the
+//     register A operand: TMA lands w tiles as rows of 128 bytes (128 n)
+//     per k in the same swizzle, and each consumer thread reads 4 x 4 byte
+//     blocks (4 k rows x 4 n columns, one 32-bit load a row) and transposes
+//     them with __byte_perm into A fragments (4 consecutive k a register);
+//     the lanes of the upper two k-quads read their rows in rotated order,
+//     so the 8 loads of a k step are conflict-free. A thread's 4 columns go
+//     to rows g, g + 8 of two 64-row tiles, so after the products each
+//     thread holds, for each of its x rows, 4 consecutive outputs of one row
+//     of out: the transpose back costs nothing.
+//   * Block: a producer warpgroup (setmaxnreg down to 40; one thread
+//     issues the TMA loads) and two consumer warpgroups (up to 232), each
+//     owning 128 w columns (two m64 wgmma tiles sharing one B): 256
+//     columns x 32 or 128 rows a block. A ring of 6 or 4 stages of 128 k
+//     (36 or 48 KB a stage) with full/empty mbarriers; within a stage the
+//     consumers build the next k step's A fragments while the previous
+//     step's products run (two A register sets, wgmma.wait_group 1), and
+//     they release a stage once its products have retired.
+//   * Epilogue: the int32 sums go through shared memory (the idle ring, 4
+//     consecutive columns a 16-byte store), and a rolled loop runs the GRAU
+//     datapath on 4 sums a thread a pass (grau_eval4: only the fired
+//     stages) and writes 4 bytes, a warp 128 contiguous bytes of a row of
+//     out.
+//   * Split K, planned on the host (kernels/matmul_grau.plan, a function of
+//     the shapes and the SM count only, so a launch is graph-capturable):
+//     when the output tiles are fewer than the SMs, each of `parts` blocks
+//     of a tile sums a run of `spp` k steps and stores its int32 partial
+//     sums to a workspace [parts, M, N]; a second launch sums the parts
+//     (modulo 2^32: any order gives the same integers) and runs the GRAU
+//     datapath once per output. With one part the datapath runs on the
+//     accumulators.
+//   * Edges: TMA zero-fills rows past M, columns past N and k past K, and
+//     stores are masked. TMA needs K and N multiples of 16 and both bases
+//     on 16 bytes; any other shape (K 200, 260, N 96 + 1, a view that
+//     starts mid-row) runs the same kernel with the producer warpgroup
+//     writing the tiles byte by byte into the same swizzled layout.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "grau_datapath.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 64;
-constexpr int kThreads = 256;              // 8 warps: 2 along M x 4 along N
-constexpr int kWarpM = 64, kWarpN = 32;
-constexpr int kMT = kWarpM / 16;           // m16 tiles a warp
-constexpr int kNT = kWarpN / 8;            // n8 tiles a warp
-constexpr int kAStride = kBK + 16;         // bytes per staged x row
-constexpr int kBWords = kBK / 4;           // words per staged w column
-constexpr int kChunks = 2;                 // 16-byte x chunks a thread a step
-constexpr int kBlocks = 2;                 // 4x4 w blocks a thread a step
+constexpr int kBK = 128;                // k a stage: one swizzled x row
+constexpr int kBN = 256;                // w columns a block
+constexpr int kThreads = 384;           // producer + 2 consumer warpgroups
+constexpr int kWBox = 128;              // w columns a TMA box
+constexpr int kWPanel = kBK * kWBox;    // a w box: 16 KB
+constexpr int kWStage = 2 * kWPanel;    // 256 columns
+constexpr int kStRow = 128 * 4 + 16;    // a staged row of int32 sums
+// registers a thread (setmaxnreg) of the producer warpgroup and of the
+// consumers: 128 x 40 + 256 x 232 = 384 x 168, the launch bound's budget
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 
-// where word kw (4 k-values) of staged column n lives within its 16 words
-__device__ __forceinline__ int swz(int n) {
-  return ((n >> 3) & 3) | ((((n >> 1) ^ (n >> 5)) & 3) << 2);
-}
-
-struct Staged {
-  uint4 a[kChunks];          // x: row c / 4, bytes 16 (c % 4) .. + 15
-  uint32_t b[kBlocks][4];    // w: 4 rows (k) of 4 bytes (n) each
+template <int BM>
+struct Cfg {
+  static constexpr int kX = BM * kBK;                       // x tile bytes
+  static constexpr int kStage = kX + kWStage;
+  static constexpr int kStages = BM == 128 ? 4 : 6;
+  static constexpr int kBar = kStages * kStage;             // barriers
+  static constexpr int kSmem = kBar + 16 * kStages + 1024;  // + alignment
 };
 
-// The K step starting at k0: chunk c = tid + i * kThreads of x is row c / 4,
-// k-bytes 16 (c % 4) ..; block id = tid + i * kThreads of w is n-quad
-// id % 32 (the lane: a warp reads 128 contiguous bytes of a w row) and
-// k-quad id / 32.
-template <bool kVec>
-__device__ __forceinline__ void load_step(Staged& st, const int8_t* __restrict__ x,
-                                          const int8_t* __restrict__ w, int M,
-                                          int N, int K, int bm, int bn, int k0,
-                                          int tid) {
+struct Params {
+  const int8_t* x;
+  const int8_t* w;
+  uint8_t* out;        // the bus (one part)
+  int32_t* ws;         // [parts, M, N] partial sums (several parts), or null
+  int M, N, K;
+  int spp;             // k steps of kBK a part
+  const int32_t* regs;
+  int num_exponents, qmin, qmax;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// byte offset, within a 1024-byte-aligned tile, of logical offset `off`
+// under CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk (bits 4-6) XOR the
+// 128-byte row (bits 7-9)
+__device__ __forceinline__ uint32_t swz(uint32_t off) {
+  return off ^ ((off >> 3) & 0x70u);
+}
+
+// 4 x 4 byte transpose of rows read in the order (rot = 0) 0, 1, 2, 3 or
+// (rot = 1) 2, 3, 0, 1: l[i] holds columns 0..3 (column 0 in the low byte)
+// of one row; col[j] gets column j's bytes of rows 0..3 (row 0 low). The
+// rotation is undone by the last step's selectors, `lo` / `hi` = 0x5410 /
+// 0x7632, or 0x1054 / 0x3276 when rotated.
+__device__ __forceinline__ void transpose4(const uint32_t (&l)[4], uint32_t lo,
+                                           uint32_t hi, uint32_t (&col)[4]) {
+  const uint32_t t0 = __byte_perm(l[0], l[1], 0x5140);
+  const uint32_t t1 = __byte_perm(l[2], l[3], 0x5140);
+  const uint32_t t2 = __byte_perm(l[0], l[1], 0x7362);
+  const uint32_t t3 = __byte_perm(l[2], l[3], 0x7362);
+  col[0] = __byte_perm(t0, t1, lo);
+  col[1] = __byte_perm(t0, t1, hi);
+  col[2] = __byte_perm(t2, t3, lo);
+  col[3] = __byte_perm(t2, t3, hi);
+}
+
+// The A fragments of k step `ks` (32 k) of a stage for both m64 tiles:
+// rows 32 ks + 16 kh + 4 t + i of the thread's w box (128-byte rows), 4
+// columns from byte `wcol`. Tile T's rows g / g + 8 are the thread's
+// columns 2T / 2T + 1; registers 0, 1 hold k-quad t, registers 2, 3 k-quad
+// t + 4. Under the 128-byte swizzle the rows 4t + i of threads t and t + 2
+// would share a bank; lanes with t >= 2 read their 4 rows rotated by 2
+// (`rot`), so each of the 8 loads is conflict-free.
+__device__ __forceinline__ void build_a(const unsigned char* wp, int ks,
+                                        int t, int rot, uint32_t lo,
+                                        uint32_t hi, uint32_t wcol,
+                                        uint32_t (&a)[2][4]) {
+  uint32_t col[2][4];
 #pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int c = tid + i * kThreads;
-    const int row = bm + (c >> 2);
-    const int k = k0 + (c & 3) * 16;
-    if (kVec) {
-      st.a[i] = (row < M && k < K)
-                    ? __ldg(reinterpret_cast<const uint4*>(x + (int64_t)row * K + k))
-                    : make_uint4(0u, 0u, 0u, 0u);
-    } else {
-      uint32_t v[4];
+  for (int kh = 0; kh < 2; ++kh) {
+    uint32_t l[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        uint32_t word = 0u;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int kk = k + q * 4 + b;
-          if (row < M && kk < K)
-            word |= (uint32_t)(uint8_t)x[(int64_t)row * K + kk] << (8 * b);
-        }
-        v[q] = word;
-      }
-      st.a[i] = make_uint4(v[0], v[1], v[2], v[3]);
-    }
+    for (int i = 0; i < 4; ++i)
+      l[i] = *reinterpret_cast<const uint32_t*>(
+          wp + swz((32 * ks + 16 * kh + 4 * t + ((i + 2 * rot) & 3)) * 128 +
+                   wcol));
+    transpose4(l, lo, hi, col[kh]);
   }
 #pragma unroll
-  for (int i = 0; i < kBlocks; ++i) {
-    const int id = tid + i * kThreads;
-    const int n = bn + (id & 31) * 4;
-    const int kq = k0 + (id >> 5) * 4;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int k = kq + r;
-      if (kVec) {
-        st.b[i][r] = (k < K && n < N)
-                         ? __ldg(reinterpret_cast<const unsigned int*>(
-                               w + (int64_t)k * N + n))
-                         : 0u;
-      } else {
-        uint32_t word = 0u;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          if (k < K && n + b < N)
-            word |= (uint32_t)(uint8_t)w[(int64_t)k * N + n + b] << (8 * b);
-        }
-        st.b[i][r] = word;
-      }
-    }
+  for (int T = 0; T < 2; ++T) {
+    a[T][0] = col[0][2 * T];
+    a[T][1] = col[0][2 * T + 1];
+    a[T][2] = col[1][2 * T];
+    a[T][3] = col[1][2 * T + 1];
   }
 }
 
-__device__ __forceinline__ void store_step(const Staged& st, uint8_t* As,
-                                           uint32_t* Bs, int tid) {
+template <int BM>
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[BM / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (BM == 32) wgmma_s8_rs_n32(d, a, db);
+  else wgmma_s8_rs_n128(d, a, db);
+}
+
+// The producer's fallback for shapes TMA does not take: the stage's x and
+// w tiles written by the producer warpgroup's 128 threads, a byte at a
+// time, in the layout TMA gives (zeros past M, N and K).
+template <int BM>
+__device__ void load_stage_bytes(const Params& p, unsigned char* sx, int m0,
+                                 int n0, int k0, int pt) {
+  for (int q = pt; q < BM * kBK / 4; q += 128) {
+    const int r = q >> 5, kw = q & 31, m = m0 + r;
+    uint32_t word = 0u;
 #pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int c = tid + i * kThreads;
-    *reinterpret_cast<uint4*>(As + (c >> 2) * kAStride + (c & 3) * 16) = st.a[i];
-  }
-#pragma unroll
-  for (int i = 0; i < kBlocks; ++i) {
-    const int id = tid + i * kThreads;
-    const int nq = id & 31, kw = id >> 5;
-    const uint32_t* r = st.b[i];
-    // 4x4 byte transpose: col[j] holds column j's bytes of rows 0..3
-    const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
-    const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
-    const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);
-    const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
-    const uint32_t col[4] = {__byte_perm(t0, t1, 0x5410),
-                             __byte_perm(t0, t1, 0x7632),
-                             __byte_perm(t2, t3, 0x5410),
-                             __byte_perm(t2, t3, 0x7632)};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = nq * 4 + j;
-      Bs[n * kBWords + (kw ^ swz(n))] = col[j];
+    for (int b = 0; b < 4; ++b) {
+      const int k = k0 + 4 * kw + b;
+      if (m < p.M && k < p.K)
+        word |= (uint32_t)(uint8_t)p.x[(int64_t)m * p.K + k] << (8 * b);
     }
+    *reinterpret_cast<uint32_t*>(sx + swz(r * kBK + 4 * kw)) = word;
+  }
+  unsigned char* sw = sx + Cfg<BM>::kX;
+  for (int q = pt; q < kWStage / 4; q += 128) {
+    const int pn = q >> 12, r = (q >> 5) & (kBK - 1), cw = q & 31;
+    const int k = k0 + r, n = n0 + kWBox * pn + 4 * cw;
+    uint32_t word = 0u;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      if (k < p.K && n + b < p.N)
+        word |= (uint32_t)(uint8_t)p.w[(int64_t)k * p.N + n + b] << (8 * b);
+    }
+    *reinterpret_cast<uint32_t*>(sw + pn * kWPanel +
+                                 swz(r * kWBox + 4 * cw)) = word;
   }
 }
 
-__device__ __forceinline__ void mma_s8(int32_t (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+template <int BM, bool kTma>
+__global__ void __launch_bounds__(kThreads, 1)
+matmul_grau_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap wmap, const Params p) {
+  using C = Cfg<BM>;
+  constexpr int S = C::kStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int4 table[GRAU_MAX_SEGMENTS];   // the unit's segment rows
+  unsigned char* sm =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(sm);
+  const uint32_t full0 = base + C::kBar, empty0 = full0 + 8 * S;
 
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-matmul_grau_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                   uint8_t* __restrict__ out, int M, int N, int K,
-                   const int32_t* __restrict__ regs_g, int num_exponents,
-                   int qmin, int qmax) {
-  __shared__ __align__(16) uint8_t As[2][kBM * kAStride];
-  __shared__ __align__(16) uint32_t Bs[2][kBN * kBWords];
-  __shared__ int32_t regs[GRAU_REG_WORDS];
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * BM;
+  const int steps = p.K > 0 ? (p.K + kBK - 1) / kBK : 1;
+  const int first = blockIdx.z * p.spp;
+  const int n_steps = min(steps, first + p.spp) - first;   // >= 1 (host)
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;        // mma fragment coordinates
-  const int wm = (warp >> 2) * kWarpM, wn = (warp & 3) * kWarpN;
-  const int bm = blockIdx.y * kBM, bn = blockIdx.x * kBN;
-  if (tid < GRAU_REG_WORDS) regs[tid] = regs_g[tid];
-
-  int32_t acc[kMT][kNT][4];
-#pragma unroll
-  for (int mi = 0; mi < kMT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < kNT; ++ni)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0;
-
-  const int steps = (K + kBK - 1) / kBK;
-  Staged st;
-  if (steps > 0) {
-    load_step<kVec>(st, x, w, M, N, K, bm, bn, 0, tid);
-    store_step(st, As[0], Bs[0], tid);
+  if (tid < GRAU_MAX_SEGMENTS)
+    grau_table_fill(table, grau_unit_load(p.regs, p.num_exponents, p.qmin,
+                                          p.qmax), tid);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 256);   // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  for (int s = 0; s < steps; ++s) {
-    const int cur = s & 1;
-    if (s + 1 < steps) load_step<kVec>(st, x, w, M, N, K, bm, bn, (s + 1) * kBK, tid);
-    const uint8_t* A = As[cur];
-    const uint32_t* B = Bs[cur];
+
+  if (wg == 0) {
+    // ----- producer -----
+    setmaxnreg_dec<kProducerRegs>();
+    for (int it = 0; it < n_steps; ++it) {
+      const int s = it % S;
+      const uint32_t full = full0 + 8 * s, sx = base + s * C::kStage;
+      const int k0 = (first + it) * kBK;
+      if constexpr (kTma) {
+        if (tid != 0) break;
+        mbar_wait(empty0 + 8 * s, ((it / S) & 1) ^ 1);
+        mbar_expect_tx(full, C::kStage);
+        tma_load_2d(sx, &xmap, full, k0, m0);
 #pragma unroll
-    for (int ks = 0; ks < kBK / 32; ++ks) {
-      uint32_t a[kMT][4], b[kNT][2];
-#pragma unroll
-      for (int mi = 0; mi < kMT; ++mi) {
-        const uint8_t* p = A + (wm + mi * 16 + g) * kAStride + ks * 32 + t * 4;
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * kAStride);
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        a[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * kAStride + 16);
+        for (int pn = 0; pn < 2; ++pn)
+          tma_load_2d(sx + C::kX + pn * kWPanel, &wmap, full,
+                      n0 + kWBox * pn, k0);
+      } else {
+        mbar_wait(empty0 + 8 * s, ((it / S) & 1) ^ 1);
+        load_stage_bytes<BM>(p, sm + s * C::kStage, m0, n0, k0, tid);
+        fence_proxy_async();   // the x tile is read by wgmma
+        asm volatile("bar.sync 1, 128;\n" ::: "memory");
+        if (tid == 0) mbar_arrive(full);
       }
-#pragma unroll
-      for (int ni = 0; ni < kNT; ++ni) {
-        const int n = wn + ni * 8 + g;
-        const int kw = ks * 8 + t, sw = swz(n);
-        b[ni][0] = B[n * kBWords + (kw ^ sw)];
-        b[ni][1] = B[n * kBWords + ((kw + 4) ^ sw)];
-      }
-#pragma unroll
-      for (int mi = 0; mi < kMT; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < kNT; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
     }
-    if (s + 1 < steps) store_step(st, As[cur ^ 1], Bs[cur ^ 1], tid);
-    __syncthreads();
+    return;
   }
 
-  // epilogue: the GRAU datapath on each accumulator, once; c0/c1 are row g,
-  // c2/c3 row g + 8, columns 2t and 2t + 1 of each n8 tile
+  // ----- consumers: 128 w columns each -----
+  setmaxnreg_inc<kConsumerRegs>();
+  const int c = wg - 1, lt = tid & 127, warp = lt >> 5, lane = lt & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // this thread's w columns: n0 + 128 c + 32 warp + 4 g + (0..3), in box c
+  // at byte 32 warp + 4 g
+  const int wpanel = C::kX + c * kWPanel;
+  const uint32_t wcol = 32 * warp + 4 * g;
+  const int rot = t >> 1;
+  const uint32_t lo = rot ? 0x1054u : 0x5410u, hi = rot ? 0x3276u : 0x7632u;
+
+  int32_t acc[2][BM / 2];
 #pragma unroll
-  for (int mi = 0; mi < kMT; ++mi)
+  for (int T = 0; T < 2; ++T)
 #pragma unroll
-    for (int ni = 0; ni < kNT; ++ni)
+    for (int i = 0; i < BM / 2; ++i) acc[T][i] = 0;
+  uint32_t a[2][2][4];         // two sets of A fragments, k steps alternate
+
+  for (int it = 0; it < n_steps; ++it) {
+    const int s = it % S;
+    mbar_wait(full0 + 8 * s, (it / S) & 1);
+    const unsigned char* wp = sm + s * C::kStage + wpanel;
+    const uint32_t xs = base + s * C::kStage;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = bm + wm + mi * 16 + g + (i >> 1) * 8;
-        const int col = bn + wn + ni * 8 + t * 2 + (i & 1);
-        if (row < M && col < N)
-          out[(int64_t)row * N + col] = (uint8_t)grau_datapath(
-              acc[mi][ni][i], regs, num_exponents, qmin, qmax);
+    for (int ks = 0; ks < kBK / 32; ++ks) {
+      build_a(wp, ks, t, rot, lo, hi, wcol, a[ks & 1]);
+#pragma unroll
+      for (int T = 0; T < 2; ++T) {
+        fence_regs(a[ks & 1][T]);   // every A register defined before the
+        fence_regs(acc[T]);         // fence, none between the products
       }
+      wgmma_fence();
+      const uint64_t db = desc_sw128(xs + 32 * ks);
+      wgmma_s8<BM>(acc[0], a[ks & 1][0], db);
+      wgmma_s8<BM>(acc[1], a[ks & 1][1], db);
+      wgmma_commit();
+      if (ks + 1 < kBK / 32) wgmma_wait<1>();   // the previous k step
+    }
+    // the stage's products retire before it is released (and before the
+    // next full-barrier wait: a wait inside an open wgmma pipeline makes
+    // ptxas serialize every product)
+    wgmma_wait<0>();
+    mbar_arrive(empty0 + 8 * s);
+  }
+#pragma unroll
+  for (int T = 0; T < 2; ++T) fence_regs(acc[T]);
+
+  // outputs: x row m0 + 8 j + 2 t + e holds w columns nb .. nb + 3 as
+  // acc[0][4j + e], acc[0][4j + 2 + e], acc[1][4j + e], acc[1][4j + 2 + e]
+  const int nb = n0 + 128 * c + 32 * warp + 4 * g;
+  const bool vec = (p.N & 3) == 0;          // nb + 3 < N then as well
+  if (p.ws != nullptr) {
+    // a K part: the int32 partial sums to the workspace
+    if (nb >= p.N) return;
+    int32_t* ws = p.ws + (int64_t)blockIdx.z * p.M * p.N;
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + 8 * j + 2 * t + e;
+        if (m >= p.M) continue;
+        const int32_t v[4] = {acc[0][4 * j + e], acc[0][4 * j + 2 + e],
+                              acc[1][4 * j + e], acc[1][4 * j + 2 + e]};
+        int32_t* o = ws + (int64_t)m * p.N + nb;
+        if (vec) {
+          *reinterpret_cast<int4*>(o) = make_int4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (nb + q < p.N) o[q] = v[q];
+        }
+      }
+    return;
+  }
+  // the whole sum: staged through the (now idle) ring as this consumer's
+  // BM x 128 int32 tile, rows padded to kStRow bytes (the 4 rows a warp's
+  // 16-byte stores hit then fall in different banks), then the datapath in
+  // a rolled loop (one copy of its code: unrolled over 128 sums a thread
+  // it overflows the instruction cache), a warp on 32 x 4 columns of a row
+  named_sync(2);                     // both consumers are done with the ring
+  int32_t* st = reinterpret_cast<int32_t*>(sm + c * BM * kStRow);
+#pragma unroll
+  for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      *reinterpret_cast<int4*>(st + (8 * j + 2 * t + e) * (kStRow / 4) +
+                               32 * warp + 4 * g) =
+          make_int4(acc[0][4 * j + e], acc[0][4 * j + 2 + e],
+                    acc[1][4 * j + e], acc[1][4 * j + 2 + e]);
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + c) : "memory");
+  const GrauUnit u = grau_unit_load(p.regs, p.num_exponents, p.qmin, p.qmax);
+#pragma unroll 1
+  for (int q = lt; q < BM * 32; q += 128) {
+    const int r = q >> 5, m = m0 + r, n = n0 + 128 * c + 4 * (q & 31);
+    if (m >= p.M || n >= p.N) continue;
+    const uint32_t word = grau_eval4(
+        u, table,
+        *reinterpret_cast<const int4*>(st + r * (kStRow / 4) + 4 * (q & 31)));
+    uint8_t* o = p.out + (int64_t)m * p.N + n;
+    if (vec) {
+      *reinterpret_cast<uint32_t*>(o) = word;
+    } else {
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (n + b < p.N) o[b] = (uint8_t)(word >> (8 * b));
+    }
+  }
+}
+
+// Sums the K parts' int32 partials (modulo 2^32) and runs the datapath once
+// per output: 4 outputs a thread from 16-byte loads when N % 4 == 0.
+__global__ void __launch_bounds__(256)
+combine_kernel(const int32_t* __restrict__ ws, uint8_t* __restrict__ out,
+               int parts, int64_t mn, int N, const int32_t* __restrict__ regs_g,
+               int num_exponents, int qmin, int qmax) {
+  __shared__ int4 table[GRAU_MAX_SEGMENTS];
+  const GrauUnit u = grau_unit_load(regs_g, num_exponents, qmin, qmax);
+  grau_table_fill(table, u, threadIdx.x);
+  __syncthreads();
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if ((N & 3) == 0) {
+    const int64_t n4 = mn >> 2;
+    const int4* w4 = reinterpret_cast<const int4*>(ws);
+    for (int64_t i = tid; i < n4; i += stride) {
+      int4 s = w4[i];
+      for (int pi = 1; pi < parts; ++pi) {
+        const int4 v = w4[pi * n4 + i];
+        s.x = (int32_t)((uint32_t)s.x + (uint32_t)v.x);
+        s.y = (int32_t)((uint32_t)s.y + (uint32_t)v.y);
+        s.z = (int32_t)((uint32_t)s.z + (uint32_t)v.z);
+        s.w = (int32_t)((uint32_t)s.w + (uint32_t)v.w);
+      }
+      reinterpret_cast<uint32_t*>(out)[i] = grau_eval4(u, table, s);
+    }
+  } else {
+    for (int64_t i = tid; i < mn; i += stride) {
+      uint32_t s = 0u;
+      for (int pi = 0; pi < parts; ++pi) s += (uint32_t)ws[pi * mn + i];
+      out[i] = (uint8_t)grau_eval(u, (int32_t)s);
+    }
+  }
+}
+
+// An int8 (rows, cols) row-major matrix as a 2-D tensor map of boxes of
+// `box_cols` x `box_rows`, 128-byte swizzled; reads past its edges are
+// zeros.
+bool make_map(CUtensorMap* map, const void* base, int rows, int cols,
+              int box_cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, (void*)base, dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM, bool kTma>
+int launch(const CUtensorMap& xm, const CUtensorMap& wm, const Params& p,
+           int parts, cudaStream_t s) {
+  using C = Cfg<BM>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      matmul_grau_kernel<BM, kTma>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.N + kBN - 1) / kBN, (p.M + BM - 1) / BM, parts);
+  matmul_grau_kernel<BM, kTma><<<grid, kThreads, C::kSmem, s>>>(xm, wm, p);
+  return (int)cudaGetLastError();
+}
+
+template <int BM>
+int launch_bm(bool tma, const CUtensorMap& xm, const CUtensorMap& wm,
+              const Params& p, int parts, cudaStream_t s) {
+  return tma ? launch<BM, true>(xm, wm, p, parts, s)
+             : launch<BM, false>(xm, wm, p, parts, s);
 }
 
 }  // namespace
 
+// x (M, K) and w (K, N) int8, contiguous; out (M, N) bytes. `bm` (32 or
+// 128) rows of x a block, `parts` K parts of `spp` steps of 128 k (the
+// wrapper's plan); with parts > 1, `ws` is an int32 workspace of parts * M
+// * N. `sms` sizes the combine's grid.
 extern "C" int matmul_grau_launch(const void* x, const void* w, void* out,
-                                  int M, int N, int K, const void* regs,
+                                  void* ws, int M, int N, int K, int bm,
+                                  int parts, int spp, const void* regs,
                                   int num_exponents, int qmin, int qmax,
-                                  void* stream) {
-  if (M < 0 || N < 0 || K < 0) return (int)cudaErrorInvalidValue;
+                                  int sms, void* stream) {
+  if (M < 0 || N < 0 || K < 0 || parts < 1 || spp < 1 || sms < 1)
+    return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return 0;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  const bool vec = K % 16 == 0 && N % 4 == 0 &&
-                   (uintptr_t)x % 16 == 0 && (uintptr_t)w % 4 == 0;
+  const int steps = K > 0 ? (K + kBK - 1) / kBK : 1;
+  if ((long long)(parts - 1) * spp >= steps || (long long)parts * spp < steps ||
+      (parts > 1 && ws == nullptr) || (M + bm - 1) / bm > 65535 ||
+      parts > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Params p{(const int8_t*)x, (const int8_t*)w, (uint8_t*)out,
+                 parts > 1 ? (int32_t*)ws : nullptr, M, N, K, spp,
+                 (const int32_t*)regs, num_exponents, qmin, qmax};
+  const bool tma = K % 16 == 0 && N % 16 == 0 && K > 0 &&
+                   (uintptr_t)x % 16 == 0 && (uintptr_t)w % 16 == 0;
+  CUtensorMap xm{}, wm{};
+  if (tma && (!make_map(&xm, x, M, K, kBK, bm) ||
+              !make_map(&wm, w, K, N, kWBox, kBK)))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (vec)
-    matmul_grau_kernel<true><<<grid, kThreads, 0, s>>>(
-        (const int8_t*)x, (const int8_t*)w, (uint8_t*)out, M, N, K,
-        (const int32_t*)regs, num_exponents, qmin, qmax);
-  else
-    matmul_grau_kernel<false><<<grid, kThreads, 0, s>>>(
-        (const int8_t*)x, (const int8_t*)w, (uint8_t*)out, M, N, K,
-        (const int32_t*)regs, num_exponents, qmin, qmax);
+  int err;
+  switch (bm) {
+    case 32: err = launch_bm<32>(tma, xm, wm, p, parts, s); break;
+    case 128: err = launch_bm<128>(tma, xm, wm, p, parts, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != 0 || parts == 1) return err;
+  const long long mn = (long long)M * N;
+  const long long work = (N % 4 == 0 ? mn / 4 : mn);
+  long long blocks = (work + 255) / 256;
+  if (blocks > (long long)sms * 8) blocks = (long long)sms * 8;
+  combine_kernel<<<(unsigned)blocks, 256, 0, s>>>(
+      (const int32_t*)ws, (uint8_t*)out, parts, mn, N, (const int32_t*)regs,
+      num_exponents, qmin, qmax);
   return (int)cudaGetLastError();
 }

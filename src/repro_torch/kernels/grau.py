@@ -8,10 +8,12 @@ datapath grau_datapath). Per element of a 2-D int32 array:
     acc   = sum_k ((bits >> k) & 1) * (x >> (pre_shift + k))
     out   = clamp(sign[seg] * acc + bias[seg], qmin, qmax) -> int8 / uint8
 
-Bound on the H100: memory bytes (4 in + 1 out per element for a few dozen
-integer operations). The kernel streams 16-byte loads and keeps the 32-word
-register file (runtime data, spec.packed) in shared memory; see the source
-note in csrc/grau.cu.
+Bound on the H100: memory bytes and integer operations alike (4 bytes in
+and 1 out an element against ~21 operations plus 4 a fired stage). The
+kernel's grid is sized to the SMs; each thread evaluates 8 elements from two
+16-byte loads, visiting only the stages that fire, with the 32-word register
+file (runtime data, spec.packed) in shared memory; see the source note in
+csrc/grau.cu.
 
 `grau_unit` launches the kernel for a CUDA tensor and runs `grau_plain`, the
 same datapath in plain torch, for a CPU tensor; `grau_unit.launches` counts
@@ -29,7 +31,8 @@ from repro_torch.pwlf.spec import (MAX_SEGMENTS, REG_BIAS, REG_BP, REG_ENC,
                                    REG_PRE, REG_SIGN, REG_WORDS)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SIGNATURES = {"grau_launch": (_P, _P, ctypes.c_longlong, _P, _I, _I, _I, _P)}
+SIGNATURES = {"grau_launch": (_P, _P, ctypes.c_longlong, _P, _I, _I, _I, _I,
+                               _P)}
 
 
 def out_dtype(qmin: int) -> torch.dtype:
@@ -81,6 +84,7 @@ def grau_unit(x: torch.Tensor, regs: torch.Tensor, *, num_exponents: int,
     lib = kbuild.library("grau", SIGNATURES)
     err = lib.grau_launch(x.data_ptr(), out.data_ptr(), x.numel(),
                           regs.data_ptr(), num_exponents, qmin, qmax,
+                          kbuild.sm_count(x.device),
                           torch.cuda.current_stream(x.device).cuda_stream)
     kbuild.check(err, "grau_launch")
     grau_unit.launches += 1

@@ -9,15 +9,23 @@ modes).
 
 Bound on the H100: int8 tensor-core operations at the MLP widths, the weight
 bytes at a few rows; the source note in the .cu file has the numbers. The
-kernel masks its own ragged edges, so no operand is padded.
+kernel computes out^T = w^T x^T on wgmma (w as the register operand, x by
+TMA) in blocks of 256 w columns x `row_tile` rows of x, and splits K into
+parts when the output tiles are fewer than the SMs (`plan`, a plain function
+of the shapes and the SM count); the parts' int32 partial sums go to a
+workspace [parts, M, N] that a second launch sums (modulo 2^32: any order
+gives the same integers) before the datapath. The kernel masks its own
+ragged edges, so no operand is padded.
 
 `matmul_grau` launches the kernel for CUDA tensors and runs
 `matmul_grau_plain` for CPU tensors; `matmul_grau.launches` counts kernel
-launches.
+launches (one per call, whatever the part count).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
@@ -27,8 +35,35 @@ from repro_torch.kernels.ref import wrap_int32
 from repro_torch.pwlf.spec import REG_WORDS
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SIGNATURES = {"matmul_grau_launch": (_P, _P, _P, _I, _I, _I, _P, _I, _I, _I,
-                                     _P)}
+# x, w, out, ws, M, N, K, bm, parts, spp, regs, num_exponents, qmin, qmax,
+# sms, stream
+SIGNATURES = {"matmul_grau_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _P, _I, _I, _I, _I, _P)}
+BLOCK_N = 256          # w columns a CUDA block (csrc/matmul_grau.cu kBN)
+STEP_K = 128           # k a pipeline stage (kBK)
+MIN_PART_STEPS = 4     # a K part sums at least 512 k (when K has them)
+
+
+def _tiles(m: int, n: int, bm: int) -> int:
+    return -(-n // BLOCK_N) * -(-m // bm)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(m: int, n: int, k: int,
+         sms: int = kbuild.H100_SMS) -> Tuple[int, int, int]:
+    """(row tile, parts, k steps a part) of the kernel's grid, from the
+    shapes and the SM count only (so a launch can be captured in a CUDA
+    graph). The row tile is 128 rows of x when that still gives a block
+    per SM, else 32; if the output tiles are then fewer than the SMs, K is
+    split into as many parts (runs of whole 128-k steps, at least
+    MIN_PART_STEPS each where K has them) as give every SM a block. The
+    last part may hold fewer steps."""
+    bm = 128 if _tiles(m, n, 128) >= sms else 32
+    tiles = _tiles(m, n, bm)
+    steps = max(1, -(-k // STEP_K))
+    want = -(-sms // tiles)
+    spp = min(steps, max(MIN_PART_STEPS, -(-steps // want)))
+    return bm, -(-steps // spp), spp
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, regs: torch.Tensor) -> None:
@@ -74,10 +109,15 @@ def matmul_grau(x: torch.Tensor, w: torch.Tensor, regs: torch.Tensor, *,
     x, w = x.contiguous(), w.contiguous()
     (m, k), n = x.shape, w.shape[1]
     out = torch.empty((m, n), dtype=out_dtype(qmin), device=x.device)
+    sms = kbuild.sm_count(x.device)
+    bm, parts, spp = plan(m, n, k, sms)
+    ws = (torch.empty((parts, m, n), dtype=torch.int32, device=x.device)
+          if parts > 1 else None)
     lib = kbuild.library("matmul_grau", SIGNATURES)
     err = lib.matmul_grau_launch(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, regs.data_ptr(),
-        num_exponents, qmin, qmax,
+        x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), m, n, k, bm, parts, spp,
+        regs.data_ptr(), num_exponents, qmin, qmax, sms,
         torch.cuda.current_stream(x.device).cuda_stream)
     kbuild.check(err, "matmul_grau_launch")
     matmul_grau.launches += 1

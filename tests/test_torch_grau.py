@@ -192,3 +192,134 @@ def test_surrogate_forward_and_ste_match_reference():
     np.testing.assert_allclose(out.detach().numpy(), want, rtol=0, atol=1e-6)
     np.testing.assert_allclose(zt.grad.numpy(), want_grad, rtol=1e-6,
                                atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' fired-stage datapath (csrc/grau_datapath.cuh), emulated
+# ---------------------------------------------------------------------------
+
+def _wrap32(v):
+    """int64 -> the int32 value of its low 32 bits (still int64)."""
+    return torch.remainder(v + (1 << 31), 1 << 32) - (1 << 31)
+
+
+def _fired_stage_datapath(x, regs, *, num_exponents, qmin, qmax, warp=128):
+    """csrc/grau_datapath.cuh's grau_eval4 as torch: enc[seg] masked to its
+    low num_exponents bits; the stages visited are the union of the fired
+    bits over a warp's `warp` elements (32 lanes x 4), lowest first, each
+    element adding its own fired stages' shift terms (counts >= 32
+    sign-fill to the right and give 0 to the left); int32 wrap-around.
+    Returns (clamped int32 as int64, most stages a warp visited)."""
+    from repro_torch.pwlf.spec import (MAX_SEGMENTS, REG_BIAS, REG_BP,
+                                       REG_ENC, REG_PRE, REG_SIGN)
+    x64, r = x.reshape(-1).long(), regs.long()
+    seg = (x64[..., None] > r[REG_BP:REG_BP + MAX_SEGMENTS - 1]).sum(-1)
+    bits = r[REG_ENC:REG_ENC + MAX_SEGMENTS][seg] & ((1 << num_exponents) - 1)
+    pre = int(r[REG_PRE])
+    pad = -x64.numel() % warp
+    acc = torch.zeros_like(x64)
+    visited = torch.zeros(-(-x64.numel() // warp), dtype=torch.int64)
+    for k in range(32):
+        fire = ((bits >> k) & 1) != 0
+        in_warp = torch.cat([fire, fire.new_zeros(pad)]).view(-1, warp).any(1)
+        if not bool(in_warp.any()):
+            continue
+        visited += in_warp.long()
+        s = pre + k
+        term = (x64 >> min(s, 31) if s >= 0 else
+                torch.zeros_like(x64) if -s >= 32 else _wrap32(x64 << -s))
+        acc = torch.where(fire, _wrap32(acc + term), acc)
+    y = _wrap32(r[REG_SIGN:REG_SIGN + MAX_SEGMENTS][seg] * acc
+                + r[REG_BIAS:REG_BIAS + MAX_SEGMENTS][seg])
+    return y.clamp(qmin, qmax).reshape(x.shape), int(visited.max())
+
+
+@pytest.mark.parametrize("seed,pre", [(0, (28, 34)), (1, (-40, -28)),
+                                      (2, (-3, 36)), (3, (28, 34))])
+def test_fired_stage_loop_matches_plain_and_reference_kernel(seed, pre):
+    """The kernels' datapath visits only the stages that fire. Emulated with
+    enc words carrying stray bits above num_exponents (bit 31 included,
+    which the mask drops) and shift counts 31-40 both ways, it equals
+    grau_plain on the clean register file and the reference's grau_pallas
+    (interpret mode) on the same stray-bit words, byte for byte; a warp
+    visits no stage that no segment of the unit fires."""
+    from repro.kernels.grau import grau_pallas
+    from repro_torch.pwlf.spec import MAX_SEGMENTS, REG_ENC
+    rng = np.random.default_rng(300 + seed)
+    for _ in range(3):
+        js, ts = random_specs(rng, pre_lo=pre[0], pre_hi=pre[1])
+        ne = ts.num_exponents
+        x = torch.from_numpy(int_inputs(rng, (24, 37), bound=1 << 31))
+        clean = ts.packed("cpu")
+        dirty = clean.clone()
+        stray = rng.integers(1, 1 << (31 - ne), size=MAX_SEGMENTS) << ne
+        stray[0] |= 1 << (31 - ne)          # the sign bit of word 0
+        dirty[REG_ENC:REG_ENC + MAX_SEGMENTS] |= torch.from_numpy(
+            (stray.astype(np.int64) & 0xFFFFFFFF).astype(np.uint32)
+            .view(np.int32))
+        kw = dict(num_exponents=ne, qmin=ts.qmin, qmax=ts.qmax)
+        got, passes = _fired_stage_datapath(x, dirty, **kw)
+        want = tgrau_kernel.grau_plain(x, clean, **kw)
+        np.testing.assert_array_equal(got.numpy(), want.long().numpy())
+        union = 0
+        for e in clean[REG_ENC:REG_ENC + MAX_SEGMENTS].numpy():
+            union |= int(e) & 0xFFFFFFFF
+        assert passes <= bin(union).count("1") <= ne
+        d = dirty.numpy()
+        ref = np.asarray(grau_pallas(
+            jnp.asarray(x.numpy()), jnp.asarray(d[0:7]),
+            jnp.asarray(d[REG_ENC:REG_ENC + MAX_SEGMENTS]),
+            jnp.asarray(d[15:23]), jnp.asarray(d[23:31]), jnp.asarray(d[31]),
+            num_exponents=ne, qmin=ts.qmin, qmax=ts.qmax, block=(8, 128),
+            interpret=True))
+        np.testing.assert_array_equal(
+            got.numpy().astype(np.int64), ref.astype(np.int64))
+
+
+def test_fired_stage_loop_on_fitted_units_runs_few_passes():
+    """On the fitted APoT units of the quickstart and the LM (6 segments, 8
+    exponents) a segment fires 0-4 of the 8 stages and all segments
+    together 7 and 5 of them: a warp visits at most those, where the
+    reference's pipeline tests all 8; a warp whose elements all fall in
+    segments that fire nothing (beyond the fitted MAC range) visits none."""
+    from repro_torch.pwlf.spec import MAX_SEGMENTS, REG_ENC
+    js = jbuild_grau(jfold("silu", s_in=2 ** -10, s_out=2 ** -4, out_bits=8),
+                     mac_range=(-30000, 30000), segments=6, num_exponents=8,
+                     mode="apot", bias_mode="lsq").spec
+    ts = tbuild_grau(tfold("silu", s_in=2 ** -10, s_out=2 ** -4, out_bits=8),
+                     mac_range=(-30000, 30000), segments=6, num_exponents=8,
+                     mode="apot", bias_mode="lsq").spec
+    for spec in (ts, build_lm_grau("silu").spec):
+        regs = spec.packed("cpu")
+        x = torch.from_numpy(int_inputs(np.random.default_rng(9), (64, 64),
+                                        bound=1 << 17))
+        kw = dict(num_exponents=spec.num_exponents, qmin=spec.qmin,
+                  qmax=spec.qmax)
+        got, passes = _fired_stage_datapath(x, regs, **kw)
+        np.testing.assert_array_equal(
+            got.numpy(), tgrau_kernel.grau_plain(x, regs, **kw).long().numpy())
+        enc = [int(e) for e in regs[REG_ENC:REG_ENC + MAX_SEGMENTS]]
+        union = 0
+        for e in enc:
+            union |= e
+        assert max(bin(e).count("1") for e in enc) <= 4
+        assert 1 <= passes <= bin(union).count("1") < spec.num_exponents
+        far = torch.full((4, 64), 1 << 30, dtype=torch.int32)   # top segment
+        got, passes = _fired_stage_datapath(far, regs, **kw)
+        np.testing.assert_array_equal(
+            got.numpy(), tgrau_kernel.grau_plain(far, regs, **kw).long().numpy())
+        assert passes == bin(enc[spec.num_segments - 1]).count("1")
+    np.testing.assert_array_equal(np.asarray(js.enc), ts.enc.numpy())
+
+
+def test_right_shifts_compose_as_the_kernels_use_them():
+    """The kernels' pre-shift >= 0 path computes stage k's term as (x >>
+    min(pre, 31)) >> k; that equals the pinned x >> min(pre + k, 31) for
+    every int32 x, pre 0-40 and stage 0-15."""
+    x = torch.from_numpy(int_inputs(np.random.default_rng(5), (4096,),
+                                    bound=1 << 31))
+    for pre in range(41):
+        y = torch.bitwise_right_shift(x, min(pre, 31))
+        for k in range(16):
+            assert torch.equal(torch.bitwise_right_shift(y, k),
+                               tgrau.shift_term(x, pre + k))

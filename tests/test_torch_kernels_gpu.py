@@ -554,6 +554,56 @@ def test_matmul_grau_kernel_bit_exact(cuda, signed, m, k, n):
                                       ref.matmul_grau_ref(xt, wt, spec).numpy())
 
 
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("m,k,n", [(1, 200, 96), (1, 8192, 3072),
+                                   (32, 8192, 3072), (32, 260, 8192),
+                                   (33, 8192, 96), (33, 200, 3072),
+                                   (2048, 260, 96), (2048, 8192, 3072),
+                                   (2048, 3072, 8192)])
+def test_matmul_grau_tiles_and_k_parts_bit_exact(cuda, signed, m, k, n):
+    """The wgmma kernel at row tiles of 32 and 128, with one K part and
+    with several (the plan splits K at 1-33 rows and K 8192), on the TMA
+    path (K, N multiples of 16) and the byte-wise one (K 200, 260), both
+    buses: bit for bit against the plain version (float64, exact)."""
+    from repro_torch.kernels import matmul_grau as mg
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.integers(-128, 128, size=(m, k))
+                         .astype(np.int8)).to(cuda)
+    w = torch.from_numpy(rng.integers(-128, 128, size=(k, n))
+                         .astype(np.int8)).to(cuda)
+    bm, parts, _ = mg.plan(m, n, k, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert (parts > 1) == (m <= 33 and k == 8192)
+    for _ in range(2):
+        spec = _spec(rng, signed, pre_lo=-3, pre_hi=40)
+        got = ops.matmul_grau(x, w, spec)
+        torch.cuda.synchronize()
+        want = mg.matmul_grau_plain(x, w, spec.packed(cuda),
+                                    num_exponents=spec.num_exponents,
+                                    qmin=spec.qmin, qmax=spec.qmax)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("signed", [True, False])
+def test_grau_kernel_bit_exact_at_2048x8192(cuda, signed):
+    """The unit at an MLP's width (2048 x 8192 MAC outputs) on random
+    register files: bit for bit against the plain version."""
+    from repro_torch.kernels import grau as gk
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(8192 + signed)
+    x = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(2048, 8192),
+                                      dtype=np.int64).astype(np.int32)).to(cuda)
+    for _ in range(3):
+        spec = _spec(rng, signed, pre_lo=-40, pre_hi=40)
+        got = ops.grau(x, spec)
+        torch.cuda.synchronize()
+        want = gk.grau_plain(x, spec.packed(cuda),
+                             num_exponents=spec.num_exponents,
+                             qmin=spec.qmin, qmax=spec.qmax)
+        assert torch.equal(got.to(torch.int32), want)
+
+
 def test_matmul_grau_batched_and_views(cuda):
     """The (2, 17, 128) x (128, 96) batched case, a 1-D x, and operands that
     do not start on an aligned address (a column-sliced view is copied)."""

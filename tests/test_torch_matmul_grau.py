@@ -168,3 +168,103 @@ def test_matmul_grau_counts_only_kernel_launches():
     tops.matmul_grau(torch.zeros((2, 32), dtype=torch.int8),
                      torch.zeros((32, 8), dtype=torch.int8), tspec)
     assert kernels.launch_counts()["matmul_grau"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the kernel's plan and its split-K, swapped-operand arithmetic, emulated
+# ---------------------------------------------------------------------------
+
+MLP_ROWS32 = [(32, 3072, 8192), (32, 8192, 3072), (1, 8192, 3072),
+              (8, 3072, 8192)]
+
+
+@pytest.mark.parametrize("m,k,n", MLP_ROWS32 + [
+    (128, 256, 128), (2048, 3072, 8192), (2048, 8192, 3072), (1, 200, 128),
+    (33, 260, 96), (300, 2048, 136), (5, 0, 7), (4096, 128, 64)])
+@pytest.mark.parametrize("sms", [132, 114, 8])
+def test_plan_parts_cover_k_exactly(m, k, n, sms):
+    """The parts are runs of whole 128-k steps that cover K once: every part
+    non-empty, the last possibly shorter; the row tile is one the kernel is
+    built for; a plan is a function of the shapes and the SM count alone."""
+    bm, parts, spp = tmg.plan(m, n, k, sms)
+    steps = max(1, -(-k // tmg.STEP_K))
+    assert bm in (32, 128) and parts >= 1 and spp >= 1
+    assert (parts - 1) * spp < steps <= parts * spp
+    covered = [s for p in range(parts)
+               for s in range(p * spp, min(steps, (p + 1) * spp))]
+    assert covered == list(range(steps))
+    tmg.plan.cache_clear()
+    assert tmg.plan(m, n, k, sms) == (bm, parts, spp)
+
+
+@pytest.mark.parametrize("m,k,n", MLP_ROWS32)
+def test_plan_gives_every_sm_a_block_at_32_rows(m, k, n):
+    """At the MLP widths with 32 rows or fewer the output tiles are fewer
+    than the SMs; splitting K gives every SM at least one block (on an H100
+    and on a 114-SM part), no part shorter than MIN_PART_STEPS but the
+    last, and no row tile wider than 32."""
+    for sms in (132, 114):
+        bm, parts, spp = tmg.plan(m, n, k, sms)
+        blocks = -(-n // tmg.BLOCK_N) * -(-m // bm) * parts
+        assert bm == 32 and parts > 1 and blocks >= sms
+        assert spp >= tmg.MIN_PART_STEPS
+
+
+def _split_swap_emulation(x, w, regs, spec, plan, rng):
+    """The kernel's arithmetic in torch: each K part's int32 partial sums of
+    the swapped product out^T = w^T x^T (exact in int64, wrapped to int32),
+    combined in a shuffled part order modulo 2^32, transposed back, then the
+    plain datapath."""
+    bm, parts, spp = plan
+    k = x.shape[1]
+    step = tmg.STEP_K
+    partial = []
+    for p in range(parts):
+        k0, k1 = p * spp * step, min(k, (p + 1) * spp * step)
+        pt = w[k0:k1].long().t() @ x[:, k0:k1].long().t()        # (N, M)
+        partial.append(tref.wrap_int32(pt).long())
+    acc = torch.zeros_like(partial[0])
+    for p in rng.permutation(parts):
+        acc = tref.wrap_int32(acc + partial[p]).long()
+    return tmg.grau_plain(acc.t().contiguous().to(torch.int32), regs,
+                          num_exponents=spec.num_exponents, qmin=spec.qmin,
+                          qmax=spec.qmax).to(tmg.out_dtype(spec.qmin))
+
+
+@pytest.mark.parametrize("m,k,n,act,signed", [
+    (33, 1100, 96, "silu", True), (70, 1300, 200, "relu", False),
+    (5, 600, 130, "silu", True), (1, 520, 257, "relu", False)])
+def test_split_k_and_swapped_operands_match_reference_kernel(m, k, n, act,
+                                                             signed):
+    """Ragged M, K and N whose plan splits K into 2-3 parts: the emulated
+    split and operand swap equal the reference's Pallas kernel (interpret
+    mode) and the port's plain version byte for byte, on both buses."""
+    jspec, tspec = _fitted(act, signed)
+    rng = np.random.default_rng(m * 31 + k + n)
+    x, w = _operands(rng, (m, k), k, n)
+    plan = tmg.plan(m, n, k)
+    assert plan[1] > 1
+    got = _split_swap_emulation(torch.from_numpy(x), torch.from_numpy(w),
+                                tspec.packed("cpu"), tspec, plan, rng)
+    want = np.asarray(jops.matmul_grau(jnp.asarray(x), jnp.asarray(w), jspec,
+                                       tiles=(64, 128, 256), interpret=True))
+    assert got.numpy().dtype == want.dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tops.matmul_grau(torch.from_numpy(x), torch.from_numpy(w),
+                         tspec).numpy(), want)
+
+
+def test_split_combine_wraps_modulo_2_32_in_any_order():
+    """Per-part int32 partial sums near the int32 edges, combined in every
+    order of a shuffle, give the int32 wrap of their exact total, which is
+    what the reference's int32 dot gives for the whole sum."""
+    rng = np.random.default_rng(11)
+    parts = rng.integers(-(1 << 31), 1 << 31, size=(7, 64), dtype=np.int64)
+    parts[:, 0], parts[:, 1], parts[:, 2] = (1 << 31) - 1, -(1 << 31), -1
+    want = tref.wrap_int32(torch.from_numpy(parts.sum(0)))
+    for _ in range(5):
+        acc = torch.zeros(64, dtype=torch.int64)
+        for p in rng.permutation(len(parts)):
+            acc = tref.wrap_int32(acc + torch.from_numpy(parts[p])).long()
+        assert torch.equal(acc.to(torch.int32), want)
