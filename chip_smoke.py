@@ -27,7 +27,13 @@ Phases (any failure exits non-zero):
      slice (e)'s shape causal and not, in f32, at every head_dim of the
      reference's archs (16, 48, 64, 192, 256 beside 128) on both bf16
      kernels, on a ragged length and after a prefix, and its backward
-     against autograd;
+     against autograd; then the bf16 decode and prefill at glm4-9b's GQA
+     group of 16 (32 heads over 2) and qwen1.5-32b's group of 1 (40 over
+     40) on 16- and 4-bit pools with the fused epilogue (the same checks and
+     float64 gates), a decode tick whose outputs must be the same bits in a
+     quarter-capacity bucket and in the whole table, a prefill over table
+     blocks shared with another slot's row, and copy_pool_block
+     byte-exact;
   3. the slices: full-width llama3.2-3b in bf16 (weights drawn from --seed
      on the card) serves 8 requests through ServeEngine with the kernels,
      (a) with float activations, (b) with the GRAU MLP activation plus the
@@ -47,6 +53,18 @@ Phases (any failure exits non-zero):
      through the flash kernel held against the plain attention scan on
      batch 0, 8 steps with the kernel's launches counted, and a checkpoint
      / resume check at llama3-smoke size whose loss must fall.
+     Then (f), full-width llama3.2-3b in (b)'s setup with EOS off: a
+     shared-prefix trace (16 requests, one 1024-token prefix, then the
+     first served alone through its prefill) cache-off and cache-on, whose
+     streams must be the same bits with 15 x 1024 prefix tokens cached and
+     as many fewer computed; the same trace with one request cancelled
+     mid-prefill and one mid-decode; and an overload trace (12 requests of
+     512-1024 prompt tokens on 256 usable blocks) that must preempt, finish
+     every request in full and return every block and pin, beside an
+     unpreempted run whose identical-token share it prints. Then (g), (b)'s
+     8 requests on glm4-9b (full width and depth) and qwen1.5-32b (full
+     width, 16 of 64 layers: the bf16 weights of all 64 leave no room on an
+     80 GB card), through the kernels and the gather path.
      Launch counters are zeroed before and read after each run.
 Each phase prints its seconds. The last two lines are the kernels JSON and
 the result line.
@@ -55,7 +73,8 @@ Without a CUDA card, or outside a checkout of the repository, it prints why
 on stderr and exits 2. `--rehearse` runs the same phases at smoke size on
 the CPU (plain versions, no timings) to check the control flow, and exits 1.
 `--kernels-from DIR` times only the rows of matmul_wq (its 8 MLP shapes),
-of the decode and the prefill (16-, 8- and 4-bit pools), of
+of the decode and the prefill (16-, 8- and 4-bit pools; the decode also in
+buckets of 32 and 64 of its 128 blocks), of
 flash_attention (slice (e)'s shape), of matmul_grau (the quickstart's
 product and the MLP products at 32 and 2048 rows) and of the GRAU unit
 (slice (d)'s shapes and 2048 x 8192) of the port under DIR/src — an
@@ -88,7 +107,8 @@ F32_TOL = 2e-5      # f32: the same sums in another order (FMA contraction)
 # they may land one bf16 ulp (<= 2**-7 * |want|) apart, and no further
 BF16_RTOL, BF16_ATOL = 2 ** -7, 1e-6
 # relative L2, first decode logits, kernel path vs gather path
-SLICE_TOL = {"float": 2e-2, "grau": 5e-2, "wq4_kv4_grau": 5e-2}
+SLICE_TOL = {"float": 2e-2, "grau": 5e-2, "wq4_kv4_grau": 5e-2,
+             "glm4_grau": 5e-2, "qwen_grau": 5e-2}
 # flash kernel vs its plain version, element by element (o, lse): the
 # reference tests' tolerances for o (f32 3e-5, bf16 2e-2); lse is the same
 # f32 scores and sums in another order (bf16: a fast exp as well)
@@ -108,6 +128,7 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-3, 5e-2
 # a timed operand set spans at least this many bytes: twice the H100's 50
 # MB L2, so a call cycling through it reads device memory
 L2_SPAN_BYTES = 100_000_000
+DECODE_BUCKETS_TIMED = (32, 64)   # --kernels-from: decode buckets (blocks)
 # multi-part decode and prefill, f32 output against a float64 attention
 # (|f32 - f64| / (1 + |f64|)): the kernel within F64_REL x the plain
 # version's distance + F64_FLOOR (the multi-part prefill read 0.7x at most
@@ -532,7 +553,8 @@ def prefill_f64(torch, q, k, v, table, start, kv):
     return o.permute(0, 3, 1, 2, 4).reshape(b, C, h, d)
 
 
-def prefill_parts_case(torch, np, dev, s, rng, kv_bits, g, sync, draws=4):
+def prefill_parts_case(torch, np, dev, s, rng, kv_bits, g, sync, draws=4,
+                       tag=""):
     """Bf16 prefill chunks (batch 1) at the end of a full-width table, which
     the tensor-core kernel splits into several sequence parts, on `draws`
     fresh pools and queries: f32 output within F32_TOL of the plain
@@ -562,7 +584,7 @@ def prefill_parts_case(torch, np, dev, s, rng, kv_bits, g, sync, draws=4):
         need(parts > 1, f"the multi-part prefill case plans {parts} part")
         kern, plain = (partial(pa.paged_prefill_attention, **kv),
                        partial(pa.paged_prefill_plain, **kv))
-        label = f"paged_prefill kv{kv_bits} {parts} parts"
+        label = f"paged_prefill kv{kv_bits} {tag} {parts} parts"
         f32 = kern(*args, out_dtype=torch.float32)
         sync()
         p32 = plain(*args, out_dtype=torch.float32)
@@ -591,9 +613,10 @@ def prefill_parts_case(torch, np, dev, s, rng, kv_bits, g, sync, draws=4):
             "|want|)), bf16 output its rounding bit for bit (max |bf16 - "
             f"plain bf16| = {err:.3g}); epilogue bit-exact on the kernel's "
             "f32 output")
-    log(f"paged_prefill kv{kv_bits}: over {draws} draws, max |f32 - f64| / "
-        f"(1 + |f64|): kernel {vs64['kernel']:.3g}, plain {vs64['plain']:.3g}")
-    f64_gate(f"paged_prefill kv{kv_bits}", vs64)
+    log(f"paged_prefill kv{kv_bits} {tag}: over {draws} draws, max |f32 - "
+        f"f64| / (1 + |f64|): kernel {vs64['kernel']:.3g}, plain "
+        f"{vs64['plain']:.3g}")
+    f64_gate(f"paged_prefill kv{kv_bits} {tag}", vs64)
     return parts, vs64
 
 
@@ -609,7 +632,8 @@ def f64_gate(label, vs64):
          f"{F64_FLOOR})")
 
 
-def decode_parts_case(torch, np, dev, s, rng, kv_bits, g, sync, draws=4):
+def decode_parts_case(torch, np, dev, s, rng, kv_bits, g, sync, draws=4,
+                      tag=""):
     """Bf16 decode ticks at the main shape (slots ragged up to max_len,
     one idle), which the tensor-core kernel splits into decode_plan's
     sequence parts, on `draws` fresh pools and queries: f32 output within
@@ -628,11 +652,12 @@ def decode_parts_case(torch, np, dev, s, rng, kv_bits, g, sync, draws=4):
             torch, np, dev, torch.bfloat16, s, rng, kv_bits)
         args = (q, k, v, table, lengths)
         parts, _ = pa.decode_plan(q.shape[0], s["kvh"], table.shape[1],
-                                  s["bs"], sm_count(torch, dev))
+                                  table.stride(0), s["bs"],
+                                  sm_count(torch, dev))
         need(parts > 1, f"the multi-part decode case plans {parts} part")
         kern, plain = (partial(pa.paged_attention, **kv),
                        partial(pa.paged_attention_plain, **kv))
-        label = f"paged_attention kv{kv_bits} {parts} parts"
+        label = f"paged_attention kv{kv_bits} {tag} {parts} parts"
         f32 = kern(*args, out_dtype=torch.float32)
         sync()
         p32 = plain(*args, out_dtype=torch.float32)
@@ -661,9 +686,10 @@ def decode_parts_case(torch, np, dev, s, rng, kv_bits, g, sync, draws=4):
             f"{table.shape[1]}): f32 output {err32:.3g} from plain (within "
             f"{F32_TOL} (1 + |want|)), bf16 output its rounding bit for bit; "
             "epilogue bit-exact on the kernel's f32 output")
-    log(f"paged_attention kv{kv_bits}: over {draws} draws, max |f32 - f64| / "
-        f"(1 + |f64|): kernel {vs64['kernel']:.3g}, plain {vs64['plain']:.3g}")
-    f64_gate(f"paged_attention kv{kv_bits}", vs64)
+    log(f"paged_attention kv{kv_bits} {tag}: over {draws} draws, max |f32 - "
+        f"f64| / (1 + |f64|): kernel {vs64['kernel']:.3g}, plain "
+        f"{vs64['plain']:.3g}")
+    f64_gate(f"paged_attention kv{kv_bits} {tag}", vs64)
     return parts, vs64
 
 
@@ -672,9 +698,12 @@ def sm_count(torch, dev):
     return kbuild.sm_count(dev) if dev.type == "cuda" else kbuild.H100_SMS
 
 
-def paged_timing_case(torch, np, dev, name, s, group, rng, kv_bits):
+def paged_timing_case(torch, np, dev, name, s, group, rng, kv_bits,
+                      bucket=None):
     """The main path's shape in bf16: a decode tick at the widest bucket (8
-    slots, ragged up to max_len), or one prefill chunk (b = 1) starting
+    slots, ragged up to max_len) or, with `bucket`, at the table sliced to
+    that many blocks (its row stride kept, as the engine slices it; every
+    length inside the bucket), or one prefill chunk (b = 1) starting
     mid-prompt, over 16-, 8- or 4-bit pools. Returns (kernel, plain, a list
     of argument tuples, bytes, flops, library call); the bytes count the
     live pools at kv_bits. Decode gets copies of its pools (and exponent
@@ -687,6 +716,12 @@ def paged_timing_case(torch, np, dev, name, s, group, rng, kv_bits):
     (q, k, v, table, lengths), kv = paged_case(torch, np, dev,
                                                torch.bfloat16, s, rng,
                                                kv_bits)
+    if bucket is not None:
+        top = bucket * s["bs"]
+        ends = rng.integers(1, top + 1, size=q.shape[0])
+        ends[0], ends[1], ends[2] = 0, top, 1             # idle, full, 1
+        lengths = torch.from_numpy(ends.astype(np.int32)).to(dev)
+        table = table[:, :bucket]
     kd, vd = dequant_pools(torch, k, v, kv, torch.bfloat16)
     h, d, kvh, bs = s["h"], s["d"], s["kvh"], s["bs"]
     if name == "paged_attention":
@@ -727,7 +762,7 @@ def paged_parts(torch, dev, name, s, group, width):
     if name == "paged_prefill":
         return pa.prefill_plan(1, s["kvh"], s["chunk"] * group, width,
                                s["bs"], sm_count(torch, dev))[0]
-    return pa.decode_plan(s["slots"], s["kvh"], width, s["bs"],
+    return pa.decode_plan(s["slots"], s["kvh"], width, width, s["bs"],
                           sm_count(torch, dev))[0]
 
 
@@ -1408,6 +1443,536 @@ def slice_phase(torch, np, dev, args, rehearse):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 2b: the paged kernels at the new archs' GQA groups, over shared
+# blocks, and the copy-on-write block copy
+# ---------------------------------------------------------------------------
+
+def group_shapes(shapes, timed):
+    """(label, shapes) of glm4-9b's GQA group of 16 (32 heads over 2) and
+    qwen1.5-32b's group of 1 (40 over 40), head_dim 128, at the main path's
+    slots, page, chunk and max_len (smaller head counts in a rehearsal)."""
+    heads = ((32, 2), (40, 40)) if timed else ((16, 1), (4, 4))
+    return [(f"g{h // kvh}", dict(shapes, h=h, kvh=kvh)) for h, kvh in heads]
+
+
+def check_paged_groups(torch, np, dev, shapes, rng, timed):
+    """Decode and prefill, bf16 q split over several parts, at GQA groups 16
+    and 1 on 16- and 4-bit pools with the fused GRAU epilogue (the checks
+    and float64 gates of decode_parts_case / prefill_parts_case); a prefill
+    chunk over table blocks shared with another slot's row; and
+    copy_pool_block byte-exact on 16-, 8- and 4-bit pools."""
+    from repro_torch.nn.common import build_lm_grau
+    g = build_lm_grau("identity")
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {}
+    for label, s in group_shapes(shapes, timed):
+        for bits in (16, 4):
+            key = f"{label}_kv{bits}"
+            dparts, dvs = decode_parts_case(torch, np, dev, s, rng, bits, g,
+                                            sync, draws=2, tag=label)
+            pparts, pvs = prefill_parts_case(torch, np, dev, s, rng, bits, g,
+                                             sync, draws=2, tag=label)
+            out[key] = {"h": s["h"], "kvh": s["kvh"], "decode_parts": dparts,
+                        "decode_f32_vs_f64": dvs, "prefill_parts": pparts,
+                        "prefill_f32_vs_f64": pvs}
+    out["decode_bucket"] = decode_bucket_case(torch, np, dev, shapes, rng, g,
+                                              sync)
+    for bits in (16, 4):
+        out[f"shared_prefill_kv{bits}"] = shared_prefill_case(
+            torch, np, dev, shapes, rng, bits, sync)
+    out["copy_pool_block"] = copy_block_case(torch, np, dev, shapes, rng,
+                                             sync)
+    return out
+
+
+def decode_bucket_case(torch, np, dev, s, rng, g, sync):
+    """One bf16 decode tick at the main shape with the fused GRAU epilogue,
+    its table sliced to a quarter of the slot capacity and to all of it,
+    every length inside the quarter. As column views of one table (the
+    engine's buckets, planned from the row stride) the f32, bf16 and GRAU
+    outputs must be the same bits at both widths; as contiguous copies of
+    those columns (each planned from its own width, so the two cut a slot
+    at different blocks) the elements that differ are counted and
+    reported."""
+    from repro_torch.kernels import paged_attention as pa
+    (q, k, v, table, _), _ = paged_case(torch, np, dev, torch.bfloat16, s,
+                                        rng, 16)
+    cap = table.shape[1]
+    quarter = cap // 4
+    lengths = torch.from_numpy(rng.integers(
+        1, quarter * s["bs"] + 1, size=q.shape[0]).astype(np.int32)).to(dev)
+    out = {}
+    for key, copy in (("capacity_planned", False), ("width_planned", True)):
+        runs = []
+        for width in (quarter, cap):
+            tab = table[:, :width].contiguous() if copy else table[:, :width]
+            args = (q, k, v, tab, lengths)
+            runs.append((
+                pa.paged_attention(*args, out_dtype=torch.float32),
+                pa.paged_attention(*args),
+                pa.paged_attention(*args, spec=g.spec, s_in=g.s_in)))
+        sync()
+        out[key] = {name: int((a != b).sum()) for name, a, b in
+                    zip(("f32", "bf16", "grau"), *runs)}
+    out["elements"] = q.numel()
+    need(not any(out["capacity_planned"].values()),
+         f"decode at widths {quarter} and {cap} of one table: "
+         f"{out['capacity_planned']} elements differ")
+    log(f"decode bucket: widths {quarter} and {cap} of {q.numel()} output "
+        f"elements, lengths {lengths.tolist()}: views of one table "
+        f"{out['capacity_planned']} differ; contiguous copies (planned from "
+        f"the width) {out['width_planned']} differ")
+    return out
+
+
+def shared_prefill_case(torch, np, dev, s, rng, kv_bits, sync):
+    """A bf16 prefill chunk of slot 1 whose first table blocks are slot 0's
+    (a cached prefix pinned into two rows): its f32 output within F32_TOL of
+    the plain version's, and the same bits as through private copies of
+    those blocks (copy_pool_block)."""
+    from functools import partial
+
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.nn.attention import PagedKVCache, QuantPagedKVCache
+    from repro_torch.serve import kv_cache as kvc
+    (_, k, v, table, _), kv = paged_case(torch, np, dev, torch.bfloat16, s,
+                                         rng, kv_bits)
+    C, bs = s["chunk"], s["bs"]
+    shared = s["max_len"] // bs // 2
+    start = torch.tensor([shared * bs], dtype=torch.int32, device=dev)
+    width = -(-(shared * bs + C) // bs)
+    rows = table[:3, :width].clone()
+    rows[1, :shared] = rows[0, :shared]
+    q = torch.randn((1, C, s["h"], s["d"]), device=dev).to(torch.bfloat16)
+    kern = partial(pa.paged_prefill_attention, out_dtype=torch.float32, **kv)
+    row = rows[1:2].contiguous()
+    f32 = kern(q, k, v, row, start)
+    sync()
+    ok, err = close(f32, pa.paged_prefill_plain(q, k, v, row, start,
+                                                out_dtype=torch.float32,
+                                                **kv), F32_TOL, F32_TOL)
+    need(ok, f"shared prefill kv{kv_bits}: f32 output off by {err:.3g}")
+    pool = (PagedKVCache(k[None], v[None]) if kv_bits == 16 else
+            QuantPagedKVCache(k[None], v[None], kv["k_exp"][None],
+                              kv["v_exp"][None], kv_bits))
+    own = rows[2:3].contiguous()          # slot 2's blocks take the copies
+    for src, dst in zip(rows[0, :shared].tolist(), own[0, :shared].tolist()):
+        kvc.copy_pool_block(((pool,),), src, dst)
+    own[0, shared:] = row[0, shared:]
+    same = bool(torch.equal(kern(q, k, v, own, start), f32))
+    sync()
+    need(same, f"shared prefill kv{kv_bits}: not the bits of private copies")
+    log(f"paged_prefill kv{kv_bits} over {shared} table blocks shared with "
+        f"another row (start {int(start)}): f32 output {err:.3g} from plain, "
+        "the same bits as through private copies")
+    return {"shared_blocks": shared, "f32_vs_plain": err,
+            "same_bits_as_private_copies": same}
+
+
+def copy_block_case(torch, np, dev, s, rng, sync):
+    """copy_pool_block on 16-, 8- and 4-bit pools of two layers: block dst
+    becomes block src in every buffer (payload and exponent planes), byte
+    for byte, and nothing else moves."""
+    from repro_torch.nn.attention import PagedKVCache, QuantPagedKVCache
+    from repro_torch.serve import kv_cache as kvc
+    out = {}
+    nb, shape = 64, (64, s["bs"], s["kvh"], s["d"])
+    for bits in (16, 8, 4):
+        layers = []
+        for _ in range(2):
+            k, v, kv = random_pools(torch, dev, torch.bfloat16, shape, bits)
+            layers.append(PagedKVCache(k[None], v[None]) if bits == 16 else
+                          QuantPagedKVCache(k[None], v[None],
+                                            kv["k_exp"][None],
+                                            kv["v_exp"][None], bits))
+        src, dst = (int(x) for x in rng.choice(np.arange(1, nb), 2,
+                                               replace=False))
+        bufs = [b for pool in layers for b in pool if torch.is_tensor(b)]
+        want = []
+        for b in bufs:
+            w = b.clone()
+            w[:, dst] = b[:, src]
+            want.append(w)
+        kvc.copy_pool_block((tuple(layers),), src, dst)
+        sync()
+        same = all(torch.equal(b.view(torch.uint8), w.view(torch.uint8))
+                   for b, w in zip(bufs, want))
+        need(same, f"copy_pool_block kv{bits}: not byte-exact")
+        out[f"kv{bits}"] = {"buffers": len(bufs), "byte_exact": same}
+    log(f"copy_pool_block on the card: byte-exact on 16-, 8- and 4-bit pools "
+        f"({json.dumps(out)})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# slice (f): the prefix cache, preemption and cancel
+# ---------------------------------------------------------------------------
+
+def total_pins(radix) -> int:
+    stack, n = [radix.root], 0
+    while stack:
+        node = stack.pop()
+        n += node.pins
+        stack.extend(node.children.values())
+    return n
+
+
+def drive(eng, reqs, first_alone, hooks=()):
+    """Serve `reqs`: with `first_alone`, submit the first one alone and step
+    until its prefill is done, then the rest; else all at once. `hooks` are
+    called with the engine after every step, each until it returns True.
+    Returns (polled requests, wall s)."""
+    done, pending = [], list(hooks)
+    t0 = time.perf_counter()
+    first = reqs[0]
+    rest = reqs[1:] if first_alone else []
+    for r in ([first] if first_alone else reqs):
+        eng.submit(r)
+
+    def prefilled():
+        return (first.rid not in [r.rid for r in eng.scheduler.waiting]
+                and not any(r is not None and r.rid == first.rid
+                            and r.pending_chunks for r in eng.slot_req))
+    while rest and not prefilled():
+        eng.step()
+        done.extend(eng.poll())
+    for r in rest:
+        eng.submit(r)
+    steps = 0
+    while eng.scheduler.waiting or any(r is not None for r in eng.slot_req):
+        eng.step()
+        done.extend(eng.poll())
+        pending = [h for h in pending if not h(eng)]
+        steps += 1
+        need(steps < 100_000, "the engine did not finish")
+    done.extend(eng.poll())
+    return done, time.perf_counter() - t0
+
+
+def shared_prefix_trace(np, Request, vocab, full, seed):
+    """16 requests: one shared prefix (1024 tokens; 128 in a rehearsal)
+    then each its own suffix of 16-256 tokens (16-64), 32 new tokens
+    (8), all drawn from `seed`."""
+    rng = np.random.default_rng(seed + 17)
+    plen, (lo, hi), new = (1024, (16, 256), 32) if full else (128, (16, 64),
+                                                              8)
+    prefix = rng.integers(2, vocab, size=plen)
+    return plen, [Request(rid=i, prompt=np.concatenate(
+        [prefix, rng.integers(2, vocab, size=int(rng.integers(lo, hi + 1)))]),
+        max_new_tokens=new) for i in range(16)]
+
+
+def overload_trace(np, Request, vocab, scale, seed):
+    """12 requests of 512-1024 prompt tokens (each length divided by
+    `scale` in a rehearsal) and 64 new tokens (/ scale), in an arrival order
+    that makes the head of the queue wait while shorter later arrivals are
+    admitted past it: two long prompts (992-1023) and two short ones
+    (512-559), then the head (1024), then seven of 560-1023, shortest
+    first. With 256 usable blocks of 16 tokens, the first four reserve
+    200-216 blocks, the head needs 68 and the shortest later arrival 39-42
+    (admitted past it); when a short one retires, the head preempts."""
+    rng = np.random.default_rng(seed + 29)
+    lens = ([int(x) for x in rng.integers(992, 1024, size=2)]
+            + [int(x) for x in rng.integers(512, 560, size=2)] + [1024]
+            + sorted(int(x) for x in rng.integers(560, 1024, size=7)))
+    lens[5] = min(lens[5], 600)          # the first later arrival fits
+    return [Request(rid=i, prompt=rng.integers(2, vocab, size=n // scale),
+                    max_new_tokens=64 // scale) for i, n in enumerate(lens)]
+
+
+def served(eng, done, wall, counts):
+    ttft = sorted(r.ttft for r in eng.scheduler.finished if r.ttft)
+    m = eng.metrics()
+    return {"requests": len(done), "prefill_tokens": m["prefill_tokens"],
+            "cached_prefix_tokens": m["cached_prefix_tokens"],
+            "prefix_hit_rate": m["prefix_hit_rate"],
+            "preempted": m["preempted"], "hol_skips": m["hol_skips"],
+            "evictions": m["evictions"], "chunks": m["chunks"],
+            "ticks": m["ticks"], "decode_tokens": m["decode_tokens"],
+            "wall_s": wall, "tokens_per_s": m["decode_tokens"] / wall,
+            "ttft_mean_s": float(sum(ttft) / len(ttft)),
+            "ttft_p50_s": float(ttft[len(ttft) // 2]),
+            "launches": counts}
+
+
+def need_kernels(counts, label, rehearse):
+    """The run went through both attention kernels with the epilogue (a
+    CPU rehearsal runs the plain versions: no launches to count)."""
+    need(rehearse or all(counts[k] > 0 for k in (
+        "paged_attention", "paged_prefill", "paged_attention_epilogue",
+        "paged_prefill_epilogue")),
+        f"{label}: the attention kernels (with the fused GRAU epilogue) did "
+        f"not both run: {counts}")
+
+
+def pool_returned(eng, label):
+    """After poll(): evicting the whole radix cache leaves every block free
+    and no pin held."""
+    pins = total_pins(eng.radix)
+    eng.radix.evict(eng.allocator.num_blocks)
+    free = eng.allocator.free_blocks
+    need(pins == 0 and free == eng.allocator.num_blocks - 1,
+         f"{label}: {free} of {eng.allocator.num_blocks - 1} blocks free, "
+         f"{pins} pins held after every request finished")
+    return {"free_blocks": free, "pins": pins}
+
+
+def first_divergence(streams, other):
+    """(rid, index) of the earliest token where two runs' streams differ."""
+    best = None
+    for rid, toks in streams.items():
+        j = next((i for i, (a, b) in enumerate(zip(toks, other[rid]))
+                  if a != b), None)
+        if j is not None and (best is None or j < best[1]):
+            best = (rid, j)
+    return best
+
+
+def prefix_slice(torch, np, dev, args, rehearse):
+    """Slice (f), at llama3.2-3b's full width and depth in slice (b)'s
+    setup (GRAU MLP, fused GRAU attention epilogue, 16-bit pools, 8 slots,
+    max_seq 2048, page 16, chunk 32; weights from --seed; EOS off, so every
+    stream runs its full budget): the shared-prefix trace cache-off and
+    cache-on (streams the same bits; 15 x 1024 prefix tokens cached, as
+    many fewer computed), the overload trace on 256 usable blocks (every
+    request complete, preemptions, the pool returned) beside an unpreempted
+    run, and cancels mid-prefill and mid-decode."""
+    from repro_torch import kernels
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.config import GRAUConfig
+    from repro_torch.nn.attention import AttnQuant
+    from repro_torch.nn.common import build_lm_grau
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    cfg = get_config("llama3.2-3b", smoke=rehearse).replace(grau=GRAUConfig())
+    dtype = torch.float32 if rehearse else torch.bfloat16
+    params = lm.init_lm(cfg, seed=args.seed, dtype=dtype, device=dev)
+    attn = build_lm_grau("identity")
+    max_seq = 256 if rehearse else 2048
+    base = dict(slots=8, max_seq=max_seq, page_size=16, prefill_chunk=32,
+                attn_grau=attn, eos_id=-1, seed=args.seed)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "max_seq": max_seq}
+
+    def run(kw, reqs, hooks=(), first_alone=True):
+        eng = ServeEngine(cfg, params, EngineConfig(**{**base, **kw}),
+                          device=dev)
+        eng.warmup()
+        sync()
+        kernels.reset_launches()
+        done, wall = drive(eng, reqs, first_alone, hooks)
+        sync()
+        counts = kernels.launch_counts()
+        return eng, done, served(eng, done, wall, counts)
+
+    # shared prefix: cache off, then on
+    plen, _ = shared_prefix_trace(np, Request, cfg.vocab_size, not rehearse,
+                                  args.seed)
+    streams = {}
+    for on in (False, True):
+        _, trace = shared_prefix_trace(np, Request, cfg.vocab_size,
+                                       not rehearse, args.seed)
+        eng, done, res = run({"prefix_cache": on}, trace)
+        label = f"shared_prefix_cache_{'on' if on else 'off'}"
+        need(len(done) == 16 and all(len(r.out_tokens) == r.max_new_tokens
+                                     for r in done),
+             f"{label}: {len(done)} of 16 served in full")
+        need_kernels(res["launches"], label, rehearse)
+        streams[on] = {r.rid: list(r.out_tokens) for r in done}
+        out[label] = res
+        log(f"slice[f] {label}: prefill_tokens {res['prefill_tokens']}, hit "
+            f"rate {res['prefix_hit_rate']:.4f}, TTFT mean "
+            f"{res['ttft_mean_s']:.3f} s (p50 {res['ttft_p50_s']:.3f}), "
+            f"decode {res['tokens_per_s']:.1f} tokens/s")
+        del eng
+    off, on = out["shared_prefix_cache_off"], out["shared_prefix_cache_on"]
+    need(streams[True] == streams[False],
+         "shared prefix: cache-on and cache-off streams differ")
+    want = 15 * plen
+    need(on["cached_prefix_tokens"] == want
+         and off["prefill_tokens"] - on["prefill_tokens"] == want,
+         f"shared prefix: {on['cached_prefix_tokens']} prefix tokens cached "
+         f"and {off['prefill_tokens'] - on['prefill_tokens']} fewer "
+         f"computed, want {want} each")
+    out["shared_prefix_streams_identical"] = True
+    log(f"slice[f] shared prefix: cache-on and cache-off streams identical; "
+        f"{want} = 15 x {plen} prefix tokens cached, as many fewer computed")
+
+    # cancel, during the same trace with the cache on
+    cancelled = {}
+
+    def cancel_mid_prefill(eng):
+        for slot in eng._prefilling:
+            rs = eng.slot_req[slot]
+            if rs.rid != 0 and rs.computed_prefill_tokens > 0:
+                need(eng.cancel(rs.rid), "cancel mid-prefill refused")
+                cancelled["mid_prefill"] = rs.rid
+                return True
+        return False
+
+    def cancel_mid_decode(eng):
+        for rs in eng.slot_req:
+            if (rs is not None and rs.rid not in cancelled.values()
+                    and 0 < len(rs.out_tokens) < rs.max_new_tokens - 2):
+                need(eng.cancel(rs.rid), "cancel mid-decode refused")
+                cancelled["mid_decode"] = rs.rid
+                return True
+        return False
+    _, trace = shared_prefix_trace(np, Request, cfg.vocab_size, not rehearse,
+                                   args.seed)
+    eng, done, res = run({"prefix_cache": True}, trace,
+                         (cancel_mid_prefill, cancel_mid_decode))
+    need(set(cancelled) == {"mid_prefill", "mid_decode"},
+         f"cancel: only {cancelled} happened")
+    reasons = {rs.rid: rs.finish_reason for rs in eng.scheduler.finished}
+    need(len(done) == 16 and all(reasons[rid] == "cancelled"
+                                 for rid in cancelled.values()),
+         f"cancel: {len(done)} polled, reasons {reasons}")
+    need(all(len(r.out_tokens) == r.max_new_tokens for r in done
+             if r.rid not in cancelled.values()),
+         "cancel: another stream was cut")
+    res.update(cancelled=cancelled, pool=pool_returned(eng, "cancel"))
+    out["cancel"] = res
+    log(f"slice[f] cancel: rid {cancelled['mid_prefill']} mid-prefill and "
+        f"rid {cancelled['mid_decode']} mid-decode came back 'cancelled'; "
+        f"pool returned {res['pool']}")
+    del eng
+
+    # overload: preemption on 256 usable blocks, beside an unpreempted run
+    scale = 4 if rehearse else 1
+    ov_seq = 2048 // scale
+    kw = dict(prefix_cache=True, preempt_after_ticks=8, max_seq=ov_seq)
+    if rehearse:
+        kw.update(page_size=4, prefill_chunk=8)
+    blocks = 1 + 256
+    reqs = overload_trace(np, Request, cfg.vocab_size, scale, args.seed)
+    eng, done, res = run({**kw, "num_blocks": blocks}, reqs,
+                         first_alone=False)
+    need(len(done) == 12 and all(len(r.out_tokens) == r.max_new_tokens
+                                 for r in done),
+         f"overload: {len(done)} of 12 finished in full")
+    need(res["preempted"] > 0, "overload: no request was preempted")
+    need_kernels(res["launches"], "overload", rehearse)
+    res["pool"] = pool_returned(eng, "overload")
+    res["prompt_lens"] = [len(r.prompt) for r in
+                          overload_trace(np, Request, cfg.vocab_size, scale,
+                                         args.seed)]
+    pre = {r.rid: list(r.out_tokens) for r in done}
+    del eng
+    reqs = overload_trace(np, Request, cfg.vocab_size, scale, args.seed)
+    eng, done, roomy = run(kw, reqs, first_alone=False)
+    need(roomy["preempted"] == 0, "overload: the roomy run preempted")
+    base_streams = {r.rid: list(r.out_tokens) for r in done}
+    del eng
+    res["identical_share"] = compare_streams(pre, base_streams)
+    res["unpreempted_tokens_per_s"] = roomy["tokens_per_s"]
+    div = first_divergence(pre, base_streams)
+    if div is not None:
+        rid, j = div
+        prompt = reqs[rid].prompt
+        ctx = np.concatenate([prompt, np.asarray(base_streams[rid][:j])])
+        aq = AttnQuant(attn.spec.to(dev), attn.s_in, attn.s_out)
+        lk, _ = first_decode_logits(torch, np, dev, cfg, params, aq, [ctx],
+                                    ov_seq, 16, 32)
+        top = torch.topk(lk[0], 2).values
+        res["first_divergence"] = {"rid": rid, "token": j,
+                                   "top2_logit_gap": float(top[0] - top[1])}
+    out["overload"] = res
+    log(f"slice[f] overload: {res['preempted']} preemptions, "
+        f"{res['hol_skips']} head-of-line skips, every request complete, "
+        f"pool returned {res['pool']}; streams identical to the unpreempted "
+        f"run: {res['identical_share']:.4f} of tokens"
+        + (f"; first divergence {res['first_divergence']}" if div else ""))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# slice (g): glm4-9b and qwen1.5-32b on the card
+# ---------------------------------------------------------------------------
+
+QWEN_LAYERS = 16     # of 64: all 64 in bf16 take ~70 GB, which leaves no
+# room for the pools and activations on one 80 GB card, and packing needs
+# the bf16 tree first
+
+
+def new_archs_slice(torch, np, dev, args, rehearse):
+    """Slice (g), in slice (b)'s setup (GRAU MLP, fused GRAU attention
+    epilogue, bf16, 8 slots, max_seq 2048, page 16, chunk 32) and its 8
+    requests: glm4-9b at full width and depth (a GQA group of 16, an untied
+    head) and qwen1.5-32b at full width and QWEN_LAYERS layers (MHA, QKV
+    bias, an untied head), each through the kernels and through the gather
+    path, the first decode logits of the two within the GRAU slice's
+    tolerance."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.config import GRAUConfig, dense_groups
+    from repro_torch.nn.attention import AttnQuant
+    from repro_torch.nn.common import build_lm_grau
+    from repro_torch.serve.engine import Request
+
+    attn = build_lm_grau("identity")
+    aq = AttnQuant(attn.spec.to(dev), attn.s_in, attn.s_out)
+    dtype = torch.float32 if rehearse else torch.bfloat16
+    max_seq = 256 if rehearse else 2048
+    lo, hi = (8, 100) if rehearse else (64, 1024)
+    ecfg = dict(slots=8, max_seq=max_seq, page_size=16, seed=args.seed,
+                attn_grau=attn)
+    out = {}
+    for arch, label in (("glm4-9b", "glm4_grau"), ("qwen1.5-32b",
+                                                   "qwen_grau")):
+        cfg = get_config(arch, smoke=rehearse).replace(grau=GRAUConfig())
+        cut = None
+        if arch == "qwen1.5-32b" and not rehearse:
+            cut = (f"{QWEN_LAYERS} of {cfg.num_layers} layers: the bf16 "
+                   "weights of all 64 take ~70 GB, leaving no room for the "
+                   "pools and activations on one 80 GB card")
+            cfg = cfg.replace(groups=dense_groups(QWEN_LAYERS))
+        t0 = time.perf_counter()
+        params = lm.init_lm(cfg, seed=args.seed, dtype=dtype, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        nparams = sum(t.numel() for t in iter_tensors(params))
+        log(f"init_lm {cfg.name} (d_model {cfg.d_model}, {cfg.num_layers} "
+            f"layers, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+            f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+            f"untied head, qkv_bias {cfg.qkv_bias}; {nparams / 1e9:.2f} B "
+            f"parameters) {dtype}: {time.perf_counter() - t0:.1f} s"
+            + (f"; depth cut to {cut}" if cut else ""))
+        reqs_fn = lambda: make_requests(  # noqa: E731
+            np, Request, cfg.vocab_size, 8, lo, hi, 32, args.seed)
+        res, streams = serve(torch, np, dev, cfg, params, ecfg, reqs_fn)
+        need_kernels(res["launches"], label, rehearse)
+        gres, gstreams = serve(torch, np, dev, cfg, params,
+                               {**ecfg, "paged_impl": "gather"}, reqs_fn)
+        res["gather_tokens_per_s"] = gres["tokens_per_s"]
+        res["greedy_identical_share"] = compare_streams(streams, gstreams)
+        lk, lg = first_decode_logits(torch, np, dev, cfg, params, aq,
+                                     [r.prompt for r in reqs_fn()], max_seq,
+                                     16, 32)
+        res.update(arch=cfg.name, layers=cfg.num_layers,
+                   params_b=nparams / 1e9, depth_cut=cut)
+        out[label] = check_logits(torch, label, res, lk, lg)
+        del params, lk, lg
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    return out
+
+
+def iter_tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from iter_tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from iter_tensors(v)
+    else:
+        yield tree
+
+
 def paper_flow(torch, np, dev, args, rehearse):
     """Slice (d): the quickstart's steps, then Table III for SFC and CNV
     with SiLU through the GRAU unit kernel, then the kernel path against the
@@ -1868,6 +2433,15 @@ def time_kernels_from(torch, np, dev, args):
                          "ms": graph_ms(torch, cycling(kerns)),
                          "pool_copies": len(kerns)})
             del kerns
+    # decode in the smaller buckets most served ticks run
+    for width in DECODE_BUCKETS_TIMED:
+        kerns, _, nbytes, flops, _ = paged_timing_case(
+            torch, np, dev, "paged_attention", s, 3, rng, 16, bucket=width)
+        rows.append({"name": "paged_attention", "kv_bits": 16,
+                     "bucket": width, "ms": graph_ms(torch, cycling(kerns)),
+                     "bound_ms": bound(nbytes, flops, "bf16")[0],
+                     "pool_copies": len(kerns)})
+        del kerns
     b, sq, h, kvh, d = 1, 4096, 24, 8, 128
     q = torch.randn((b, sq, h, d), device=dev).to(torch.bfloat16)
     k, v = (torch.randn((b, sq, kvh, d), device=dev).to(torch.bfloat16)
@@ -2041,6 +2615,8 @@ def main(argv=None) -> int:
                                                     rng, timed))
         rows = phase("paged_attention", lambda: check_paged(
             torch, np, dev, shapes, rng, timed))
+        groups = phase("paged_groups", lambda: check_paged_groups(
+            torch, np, dev, shapes, rng, timed))
         rows["matmul_wq"] = phase("matmul_wq", lambda: check_matmul_wq(
             torch, np, dev, shapes, rng, timed))
         rows["matmul_grau"] = phase("matmul_grau", lambda: check_matmul_grau(
@@ -2053,12 +2629,21 @@ def main(argv=None) -> int:
                                                      args.rehearse))
         train = phase("slice_e", lambda: train_slice(torch, np, dev, args,
                                                       args.rehearse))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        prefix = phase("slice_f", lambda: prefix_slice(torch, np, dev, args,
+                                                       args.rehearse))
+        archs = phase("slice_g", lambda: new_archs_slice(
+            torch, np, dev, args, args.rehearse))
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     report["slice"] = slice_res
     report["paper_flow"] = paper
     report["train"] = train
+    report["paged_groups"] = groups
+    report["prefix_cache"] = prefix
+    report["new_archs"] = archs
     # launches on the main paths: the 16-bit attention rows from (b), where
     # the GRAU datapath runs fused in the attention kernels' epilogue; the
     # 4-bit attention rows and matmul_wq from (c); the GRAU unit and
@@ -2080,6 +2665,15 @@ def main(argv=None) -> int:
     rows["matmul_wq"].update(launches=lc["matmul_wq"],
                              epilogue_launches=lc["matmul_wq_epilogue"])
     rows["flash_attention"]["launches"] = train["train"]["flash_launches"]
+    # the attention kernels' launches on slices (f) and (g), each run's
+    # counts zeroed just before it and read just after
+    runs_f = [prefix[k]["launches"] for k in (
+        "shared_prefix_cache_off", "shared_prefix_cache_on", "cancel",
+        "overload")]
+    for name in ("paged_attention", "paged_prefill"):
+        rows[name]["launches_slice_f"] = sum(c[name] for c in runs_f)
+        rows[name]["launches_slice_g"] = {
+            k: archs[k]["launches"][name] for k in ("glm4_grau", "qwen_grau")}
     kernel_rows = [grau_row] + [rows[n] for n in (
         "paged_attention", "paged_prefill", "paged_attention_kv4",
         "paged_prefill_kv4", "matmul_wq", "matmul_grau", "flash_attention")]

@@ -53,9 +53,59 @@ def llama3_smoke() -> ModelConfig:
     )
 
 
+# ---------------------------------------------------------------------------
+# [dense] glm4-9b — GQA kv=2 (a 16-query-head group), untied head
+# ---------------------------------------------------------------------------
+
+def glm4_9b() -> ModelConfig:
+    return ModelConfig(
+        name="glm4-9b",
+        d_model=4096, num_heads=32, num_kv_heads=2, head_dim=128,
+        d_ff=13696, vocab_size=151552,
+        groups=dense_groups(40),
+        activation="silu",
+    )
+
+
+def glm4_smoke() -> ModelConfig:
+    return ModelConfig(
+        name="glm4-smoke",
+        d_model=128, num_heads=8, num_kv_heads=2, head_dim=16,
+        d_ff=256, vocab_size=512,
+        groups=dense_groups(2),
+        activation="silu",
+    )
+
+
+# ---------------------------------------------------------------------------
+# [dense] qwen1.5-32b — QKV bias, MHA (kv=40), untied head
+# ---------------------------------------------------------------------------
+
+def qwen1_5_32b() -> ModelConfig:
+    return ModelConfig(
+        name="qwen1.5-32b",
+        d_model=5120, num_heads=40, num_kv_heads=40, head_dim=128,
+        d_ff=27392, vocab_size=152064,
+        groups=dense_groups(64),
+        activation="silu", qkv_bias=True,
+    )
+
+
+def qwen_smoke() -> ModelConfig:
+    return ModelConfig(
+        name="qwen-smoke",
+        d_model=128, num_heads=4, num_kv_heads=4, head_dim=32,
+        d_ff=256, vocab_size=512,
+        groups=dense_groups(2),
+        activation="silu", qkv_bias=True,
+    )
+
+
 ARCHS = {
     "gemma-7b": (gemma_7b, gemma_smoke),
     "llama3.2-3b": (llama3_2_3b, llama3_smoke),
+    "glm4-9b": (glm4_9b, glm4_smoke),
+    "qwen1.5-32b": (qwen1_5_32b, qwen_smoke),
 }
 
 

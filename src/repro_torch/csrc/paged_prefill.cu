@@ -36,9 +36,11 @@
 //
 // Design:
 //   * Grid: (sequence parts) x (KV head x row groups) x (batch row). Parts
-//     are runs of whole table blocks cut from the table width on the host
-//     (never from `start` / `lengths`, which live on the device, so a launch
-//     is capturable in a CUDA graph): prefill_plan / decode_plan in
+//     are runs of whole table blocks cut on the host, the prefill's from
+//     the table width, the decode's from its row stride so that every
+//     bucket sliced from one table cuts a slot at the same blocks (never
+//     from `start` / `lengths`, which live on the device, so a launch is
+//     capturable in a CUDA graph): prefill_plan / decode_plan in
 //     kernels/paged_attention.py. Each block finds its live range from
 //     start on the device and returns at once when its part lies past the
 //     live blocks.

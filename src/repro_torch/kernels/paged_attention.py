@@ -19,13 +19,13 @@ dtype (csrc/paged_prefill.cu): one block per (sequence part, KV head,
 batch row) on the bf16 tensor cores — for prefill over all C * g query
 rows of the KV head, for decode over its g rows with 4 warps splitting
 each tile's positions; the parts are runs of whole table blocks planned on
-the host from the table width (`prefill_plan`, `decode_plan`), so a launch
-is capturable in a CUDA graph, and a second launch combines their (o, m,
-l) in part order from an f32 workspace: two CUDA launches a call. f32
-queries (csrc/paged_attention.cu): one CUDA block per (16 query rows, KV
-head, batch row) loops over the live blocks with the (m, l, acc) carry in
-shared memory and registers — the TPU grid's sequential block axis made a
-loop. Both take every head_dim of HEAD_DIMS (the reference's archs').
+the host from the table width (`prefill_plan`) or the table's row stride
+(`decode_plan`), so a launch is capturable in a CUDA graph, and a second
+launch combines their (o, m, l) in part order from an f32 workspace: two
+CUDA launches a call. f32 queries (csrc/paged_attention.cu): one CUDA
+block per (16 query rows, KV head, batch row) loops over the live blocks
+with the (m, l, acc) carry in shared memory and registers — the TPU grid's
+sequential block axis made a loop. Both take every head_dim of HEAD_DIMS (the reference's archs').
 
 Quantized pools (`kv_bits` 8 or 4, quant/kv.py): the pools are int8 words
 of width packed_head_dim(d, kv_bits) and `k_exp` / `v_exp` the
@@ -102,22 +102,27 @@ def prefill_plan(batch: int, kvh: int, rows: int, width: int, bs: int,
 
 
 @functools.lru_cache(maxsize=1024)
-def decode_plan(batch: int, kvh: int, width: int, bs: int,
+def decode_plan(batch: int, kvh: int, width: int, capacity: int, bs: int,
                 sms: int = kbuild.H100_SMS) -> Tuple[int, int]:
     """(parts, table blocks per part) of the bf16 decode kernel's split
-    over the sequence, from what the host knows — the table width, never
-    `lengths`: about as many parts as give batch x KV heads x parts
-    DECODE_BLOCKS_PER_SM blocks an SM (the ragged lengths idle the parts
-    past a slot's live blocks), each a run of whole table blocks of at
-    least MIN_PART_POSITIONS positions, rounded to whole 64-position tiles
-    where the block size divides 64 (the last part may be shorter)."""
-    most = max(1, width * bs // MIN_PART_POSITIONS)
+    over the sequence, from what the host knows — never `lengths`. The part
+    size comes from `capacity` (the blocks a table row holds, >= `width`:
+    the wrapper passes the table's row stride): about as many parts as give
+    batch x KV heads x parts DECODE_BLOCKS_PER_SM blocks an SM at that
+    width (the ragged lengths idle the parts past a slot's live blocks),
+    each a run of whole table blocks of at least MIN_PART_POSITIONS
+    positions, rounded to whole 64-position tiles where the block size
+    divides 64. The table width then only sets how many parts there are:
+    any bucket (column slice of the same table) that covers a slot's live
+    blocks cuts them at the same boundaries, and the combine reads only the
+    live parts, so a slot's output does not depend on the decode bucket."""
+    most = max(1, capacity * bs // MIN_PART_POSITIONS)
     want = -(-DECODE_BLOCKS_PER_SM * sms // (batch * kvh))
-    bpp = -(-width // max(1, min(want, most)))
+    bpp = -(-capacity // max(1, min(want, most)))
     if MIN_PART_POSITIONS % bs == 0:       # the nearest whole tiles
         step = MIN_PART_POSITIONS // bs
         bpp = max(1, (2 * bpp + step) // (2 * step)) * step
-    bpp = min(bpp, width)
+    bpp = min(bpp, capacity)
     return -(-width // bpp), bpp
 
 
@@ -317,7 +322,9 @@ def _launch_bf16(q, k_pool, v_pool, block_table, start, *, scale, spec,
                  s_in, out_dtype, k_exp, v_exp, kv_bits):
     """bf16 q: csrc/paged_prefill.cu's tensor-core kernels, decode (q 3-D,
     `start` the lengths) or prefill (q 4-D), with the part plan and the f32
-    workspace for the parts' (o, m, l)."""
+    workspace for the parts' (o, m, l). Decode plans its parts from the
+    table's row stride: every bucket sliced from one table cuts a slot's
+    blocks at the same boundaries."""
     if q.data_ptr() % 16:
         q = q.clone()                  # the kernel reads q in 16-byte vectors
     decode = q.dim() == 3
@@ -327,8 +334,11 @@ def _launch_bf16(q, k_pool, v_pool, block_table, start, *, scale, spec,
     width = block_table.shape[1]
     rows = chunk * (h // kvh)
     sms = kbuild.sm_count(q.device)
-    parts, bpp = (decode_plan(b, kvh, width, bs, sms) if decode else
-                  prefill_plan(b, kvh, rows, width, bs, sms))
+    if decode:
+        cap = max(width, block_table.stride(0))
+        parts, bpp = decode_plan(b, kvh, width, cap, bs, sms)
+    else:
+        parts, bpp = prefill_plan(b, kvh, rows, width, bs, sms)
     ws_o = torch.empty((b, kvh, parts, rows, d), dtype=torch.float32,
                        device=q.device)
     ws_ml = torch.empty((b, kvh, parts, rows, 2), dtype=torch.float32,
@@ -366,9 +376,11 @@ def paged_attention(
 
     `nblocks` (the table width) is the live-block bucket the caller chose;
     the table may be a column slice of a wider one (its row stride is
-    passed). With `spec` (+ `s_in`, the f32 -> MAC-domain scale) the GRAU
-    epilogue quantizes the output to the spec's 8-bit bus; otherwise the
-    output dtype is `out_dtype` (default: q's). With `kv_bits` 8 or 4 the
+    passed). The bf16 kernel sizes its sequence parts from that row stride
+    (`decode_plan`), so every bucket sliced from one table gives a slot's
+    output the same bits. With `spec` (+ `s_in`, the f32 -> MAC-domain
+    scale) the GRAU epilogue quantizes the output to the spec's 8-bit bus;
+    otherwise the output dtype is `out_dtype` (default: q's). With `kv_bits` 8 or 4 the
     pools are packed int8 with exponent planes `k_exp` / `v_exp`.
     """
     if spec is not None and s_in is None:

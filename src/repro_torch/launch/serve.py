@@ -1,5 +1,6 @@
 """Serving launcher for the PyTorch port: continuous batching over the paged
-KV pool with the CUDA kernels, printing the engine's metrics as JSON.
+KV pool with the CUDA kernels, the radix prefix cache and preemption,
+printing the engine's metrics as JSON.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
@@ -8,6 +9,19 @@ Examples:
       --grau --attn-grau identity
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --dtype float32 --weight-bits 4 --kv-bits 4 --grau --attn-grau identity
+  # a shared 48-token system prompt served through the prefix cache
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --prefix-cache --shared-prefix 48
+  # a pool of 10 blocks: a blocked queue head preempts a later arrival
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --num-blocks 10 --prompt-len 4 64 --max-new 16 --requests 8 \
+      --preempt-after-ticks 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
+      --smoke --device cpu            # also --arch qwen1.5-32b
+
+Archs: llama3.2-3b, gemma-7b, glm4-9b, qwen1.5-32b (configs/archs.py).
+Greedy decoding only: sampled decoding, telemetry, deadlines, the journal
+and the mesh are not ported yet.
 
 Weights are random, drawn from --seed on the device (the published weight
 files are not in the repository). At startup it prints the analytic KV and
@@ -65,7 +79,8 @@ def print_cost_tables(cfg, args) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-3b")
+    from repro_torch.configs.archs import ARCHS
+    ap.add_argument("--arch", default="llama3.2-3b", choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true",
                     help="use the arch's reduced smoke config")
     ap.add_argument("--device", default=None,
@@ -84,6 +99,20 @@ def main(argv=None) -> None:
     ap.add_argument("--prefill-chunk", type=int, default=None)
     ap.add_argument("--prefill-budget", type=int, default=None)
     ap.add_argument("--policy", choices=["fcfs", "prefill"], default="fcfs")
+    ap.add_argument("--max-prefills-per-tick", type=int, default=None,
+                    help="admissions per tick (default: 1 under fcfs, every "
+                         "free slot under prefill)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix-tree shared-prefix KV reuse")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend a shared synthetic system prompt of this "
+                         "many tokens to every request (prefix-cache demo)")
+    ap.add_argument("--no-preemption", action="store_true",
+                    help="disable KV-pressure preemption (a blocked request "
+                         "then waits for natural retirements)")
+    ap.add_argument("--preempt-after-ticks", type=int, default=8,
+                    help="ticks a blocked queue head must wait before it "
+                         "may evict later-arrival decode slots")
     ap.add_argument("--paged-impl", choices=["kernel", "gather"],
                     default=None)
     ap.add_argument("--grau", action="store_true",
@@ -123,14 +152,19 @@ def main(argv=None) -> None:
                    else None),
         prefill_chunk=args.prefill_chunk,
         prefill_token_budget=args.prefill_budget, policy=args.policy,
+        max_prefills_per_tick=args.max_prefills_per_tick,
+        prefix_cache=args.prefix_cache, preemption=not args.no_preemption,
+        preempt_after_ticks=args.preempt_after_ticks,
         kv_bits=args.kv_bits, weight_bits=args.weight_bits, seed=args.seed)
     engine = ServeEngine(cfg, params, ecfg, device=device)
     print_cost_tables(cfg, args)
     engine.warmup()
     rng = np.random.default_rng(args.seed)
     lo, hi = args.prompt_len
-    reqs = [Request(rid=i, prompt=rng.integers(2, cfg.vocab_size,
-                                               size=int(rng.integers(lo, hi))),
+    shared = rng.integers(2, cfg.vocab_size, size=args.shared_prefix)
+    reqs = [Request(rid=i, prompt=np.concatenate(
+                [shared, rng.integers(2, cfg.vocab_size,
+                                      size=int(rng.integers(lo, hi)))]),
                     max_new_tokens=args.max_new)
             for i in range(args.requests)]
     t0 = time.perf_counter()
@@ -142,6 +176,11 @@ def main(argv=None) -> None:
         print(f"rid={r.rid} prompt_len={len(r.prompt)} "
               f"tokens={r.out_tokens}")
     m = engine.metrics()
+    print(f"prefix cache: hit_rate={m['prefix_hit_rate']:.2f} "
+          f"cached_prefix_tokens={m['cached_prefix_tokens']} "
+          f"evictions={m['evictions']}")
+    print(f"preemption: preempted={m['preempted']} "
+          f"hol_skips={m['hol_skips']}")
     m.update(arch=cfg.name, wall_s=wall,
              tokens_per_s=m["decode_tokens"] / wall if wall > 0 else None)
     print(json.dumps(m))

@@ -1,15 +1,38 @@
 """Continuous-batching serving engine over the paged KV pool: chunked prefill
-on the absolute grid, decode block buckets, on-device termination and
-deferred drains — the main path of the JAX package's serve/engine.py.
+on the absolute grid, the radix prefix cache, preemption and cancel, decode
+block buckets, on-device termination and deferred drains — the paged path
+of the JAX package's serve/engine.py.
 
 Request lifecycle: `submit()` enqueues; each `step()` admits waiting
-requests into free slots (reserving their blocks), advances mid-prefill
-slots by whole chunks under the prefill token budget (round-robin), and
-runs one decode tick for every activated slot. The tick's sampled tokens
-and EOS/max-token flags are computed on the device and stay there: the host
-learns about them only when the pending ticks are drained — at `poll()`,
-before an admission, or at `max_pending_ticks` — so the decode loop never
-waits on the device per token.
+requests into free slots (reserving their blocks, or preempting later
+arrivals for a blocked head), advances mid-prefill slots by whole chunks
+under the prefill token budget (round-robin), and runs one decode tick for
+every activated slot. The tick's sampled tokens and EOS/max-token flags are
+computed on the device and stay there: the host learns about them only when
+the pending ticks are drained — at `poll()`, before an admission, or at
+`max_pending_ticks` — so the decode loop never waits on the device per
+token.
+
+Prefix cache (`prefix_cache`): admission matches the prompt against a radix
+tree of block-aligned cached prefixes (serve/radix_cache.py), pins the
+matched blocks into the slot's table and prefills only the suffix chunks; a
+partially matched final block is copied on write (kv_cache.copy_pool_block;
+not at kv_bits < 16, whose block exponents depend on the donor's trailing
+positions). Each chunk publishes its full blocks as it runs. Because the
+chunk grid, the chunk-table widths and the decode kernel's sequence parts
+(sized from the table's row stride, kernels/paged_attention.decode_plan)
+never depend on how much prefix was cached or which bucket a tick runs,
+cache-on and cache-off streams and pool contents are the same bits.
+
+Overload: when the queue head cannot reserve blocks while slots are free
+and it has waited `preempt_after_ticks`, the engine evicts last-admitted
+decoding slots that arrived after it (LIFO), folds their generated tokens
+into their prompts and requeues them for recompute through the same chunked
+prefill. `cancel()` releases a request wherever it is (queued, mid-prefill,
+mid-decode). Both leave the device slot "ghost-active", as a retirement
+does: its table row is NULLed (the one row update a retirement makes), its
+decode writes land in the trash block, the remaining countdown bounds them,
+and `_activate` re-arms the slot for its next request.
 
 Each decode tick slices the block table to the smallest decode bucket that
 covers the longest live context, and attention runs through the CUDA
@@ -22,10 +45,10 @@ packed pools with power-of-two block exponents, read by the same kernels)
 and serving-weight bits (8/4: the parameter tree is packed once at
 construction; the MLP runs through the matmul_wq kernel).
 
-Left out of this slice (ROADMAP A5/A7/A8): the prefix cache, preemption,
-cancel, deadlines, fault injection and containment, the journal,
-snapshots, telemetry, the mesh, the dense backend and sampled decoding. A
-failing chunk or tick raises to the caller.
+Left out of this slice (ROADMAP A3-A6, A8, A10): sampled decoding,
+deadlines, fault injection and containment, the journal, snapshots,
+telemetry, the mesh and the dense backend. A failing chunk or tick raises
+to the caller.
 """
 from __future__ import annotations
 
@@ -43,6 +66,7 @@ from repro_torch.quant import weights as wq_lib
 from repro_torch.quant.policy import PrecisionPolicy
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve import sampling as samp_lib
+from repro_torch.serve.radix_cache import RadixCache
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import RequestState, Scheduler
 
@@ -75,6 +99,9 @@ class EngineConfig:
     # page_size multiple); None = 32 rounded up to one page
     prefill_token_budget: Optional[int] = None  # max prefill tokens per
     # tick across all prefilling slots; None = one chunk per tick
+    prefix_cache: bool = False    # radix-tree shared-prefix KV reuse:
+    # admissions pin the longest cached block-aligned prefix and prefill
+    # only the suffix
     precision: Optional[Any] = None   # quant/policy.PrecisionPolicy: per-
     # layer KV-pool bits (16 float; 8/4 packed int pools with power-of-two
     # block exponents) and serving-weight bits (16 float; 8/4 packed planes)
@@ -84,8 +111,17 @@ class EngineConfig:
     # (<16 packs the parameter tree once at construction); composes with
     # kv_bits into one policy; mutually exclusive with `precision`
     policy: str = "fcfs"          # "fcfs" | "prefill" (serve/scheduler.py)
+    max_prefills_per_tick: Optional[int] = None   # None: 1 under fcfs,
+    # every free slot under prefill
     max_pending_ticks: int = 32   # force a host drain after this many
     # undelivered decode ticks (bounds ghost decode past an unseen EOS)
+    preemption: bool = True       # KV-pressure preemption: when a waiting
+    # request cannot reserve blocks while slots are free, evict
+    # last-admitted decode slots (their generated tokens fold into the
+    # prompt and are recomputed through chunked prefill on re-admission)
+    preempt_after_ticks: int = 8  # a blocked head must have waited this many
+    # ticks (since submit, or since its own last preemption) before it may
+    # evict running requests
     seed: int = 0
 
 
@@ -157,6 +193,8 @@ class ServeEngine:
         num_blocks = (ecfg.num_blocks if ecfg.num_blocks is not None else
                       kvc.pool_blocks(ecfg.slots, ecfg.max_seq, bs))
         self.allocator = kvc.BlockAllocator(num_blocks)
+        self.radix = (RadixCache(self.allocator, bs) if ecfg.prefix_cache
+                      else None)
         self.caches = kvc.init_paged_caches(cfg, num_blocks, bs,
                                             dtype=self.dtype,
                                             device=self.device,
@@ -219,9 +257,14 @@ class ServeEngine:
         self._prefilling: List[int] = []     # slots mid-chunked-prefill,
         # admission order; chunk grants rotate round-robin across them
         self._prefill_rr = 0
-        self.scheduler = Scheduler(ecfg.policy, prefill_token_budget=budget)
+        if ecfg.preempt_after_ticks < 1:
+            raise ValueError("preempt_after_ticks must be >= 1, got "
+                             f"{ecfg.preempt_after_ticks}")
+        self.scheduler = Scheduler(ecfg.policy, ecfg.max_prefills_per_tick,
+                                   prefill_token_budget=budget)
         self.stats: Dict[str, Any] = {"ticks": 0, "decode_tokens": 0,
-                                      "prefill_tokens": 0, "chunks": 0}
+                                      "prefill_tokens": 0, "chunks": 0,
+                                      "cached_prefix_tokens": 0}
         self._requests: Dict[int, Request] = {}
         self._finished_unpolled: List[RequestState] = []
         wbits = sorted(set(wq_lib.weight_bits_by_layer(
@@ -234,6 +277,7 @@ class ServeEngine:
             "weight_bytes": wq_lib.packed_param_bytes(self.params),
             "kv_bits": kbits[0] if len(kbits) == 1 else kbits,
             "kv_quantized": self._kv_quant,
+            "prefix_cache": self.radix is not None,
         }
 
     # --- host -> device ---------------------------------------------------
@@ -256,7 +300,10 @@ class ServeEngine:
     def _decode_tick(self, width: int):
         """Fused decode step + greedy sampling + termination, all on the
         device. Inactive slots decode masked garbage (their writes land in
-        the null block) and their state is held frozen by `active`."""
+        the null block) and their state is held frozen by `active`. The
+        bucket is a column slice of the one table, whose row stride sizes
+        the kernel's sequence parts, so a slot's output does not depend on
+        the bucket `width`."""
         st = self._state
         paged = PagedState(self._table_dev[:, :width], st.lengths)
         logits, _ = lm.decode_step(self.params, self.cfg, st.last_tok,
@@ -331,29 +378,106 @@ class ServeEngine:
         return kvc.blocks_for(rs.prompt_len + rs.max_new_tokens,
                               self.ecfg.page_size)
 
+    def _match_prefix(self, rs: RequestState):
+        """Longest usable cached prefix for `rs` under the chunk grid:
+        (match, blocks, nodes, cached_tokens, cow_src). Pure — the match is
+        committed (LRU bump, hit/miss counts) only once the admission lands.
+
+        Full coverage (the whole context cached, block-aligned or through a
+        copy-on-write partial block) uses every matched block; otherwise
+        reuse rounds down to a chunk-grid multiple, so the suffix chunks
+        land on the same absolute grid positions (the same inputs, table
+        widths and kernel plans) as a cache-off admission."""
+        ctx = rs.prompt_len - 1
+        if self.radix is None or ctx <= 0:
+            return None, [], [], 0, None
+        memo = rs.match_memo
+        if memo is not None and memo[0] == self.radix.clock:
+            return memo[1]
+        m = self.radix.match(rs.prompt[:ctx])
+        if self._kv_quant and m.cow_src is not None:
+            # a quantized block's exponent depends on all of its positions,
+            # the donor's trailing ones too: a partial-block copy would make
+            # the reused prefix depend on the donor's suffix. Full blocks
+            # stay exact (identical writes: identical payload and exponent)
+            m = dataclasses.replace(m, cow_src=None, cow_node=None,
+                                    cow_tokens=0)
+        if m.tokens_matched + m.cow_tokens >= ctx:
+            out = (m, m.blocks, m.nodes, ctx, m.cow_src)
+        else:
+            used = ((m.tokens_matched // self.prefill_chunk)
+                    * self.prefill_chunk)
+            nb = used // self.ecfg.page_size
+            out = (m, m.blocks[:nb], m.nodes[:nb], used, None)
+        rs.match_memo = (self.radix.clock, out)
+        return out
+
     def _can_admit(self, rs: RequestState) -> bool:
-        return self.allocator.can_alloc(self._blocks_needed(rs))
+        need = self._blocks_needed(rs)
+        if self.radix is None:
+            return self.allocator.can_alloc(need)
+        _, blocks, _, _, _ = self._match_prefix(rs)
+        if need - len(blocks) <= self.allocator.free_blocks:
+            return True
+        # cache-only blocks are evictable headroom, but the matched chain is
+        # about to be pinned: never count it as both reused and evictable
+        headroom = max(0, self.radix.evictable_blocks() - len(blocks))
+        return need - len(blocks) <= self.allocator.free_blocks + headroom
 
     def _admit(self, rs: RequestState) -> bool:
-        """Reserve blocks and arm the chunk-grid prefill; False means the
-        reservation no longer fits (same-tick over-commit) and the caller
-        requeues it. The decode-visible table row stays NULL until
-        activation, so ghost decode writes keep landing in trash."""
+        """Reserve blocks, pin the longest cached prefix, and arm the
+        chunk-grid suffix prefill; False means the reservation no longer
+        fits (same-tick over-commit) and the caller requeues it. The
+        decode-visible table row stays NULL until activation, so ghost
+        decode writes keep landing in trash."""
         slot = self.slot_req.index(None)
         ctx = rs.prompt_len - 1       # prompt[-1] is fed by the first decode
         total = self._blocks_needed(rs)
-        blocks = self.allocator.alloc(total)
+        match, cached, nodes, cached_tokens, cow_src = self._match_prefix(rs)
+        if cached:
+            # pin and hold before any eviction runs: the matched chain must
+            # survive the allocation below
+            self.radix.pin(nodes)
+            self.allocator.incref(cached)
+        need_new = total - len(cached)
+        if self.radix is not None and not self.allocator.can_alloc(need_new):
+            self.radix.evict(need_new)
+        blocks = self.allocator.alloc(need_new)
         if blocks is None:
+            if cached:
+                self.allocator.free(cached)
+                self.radix.unpin(nodes)
             return False
+        if match is not None:
+            self.radix.commit(match)
         rs.blocks = blocks
+        rs.cached_blocks = list(cached)
+        rs.radix_nodes = list(nodes)
         row = np.zeros(self._chunk_cols, np.int32)
-        row[:total] = blocks
+        row[:len(cached)] = cached
+        row[len(cached):total] = blocks
         rs.table_row = row
+        if cow_src is not None:
+            # decode writes position ctx into the block holding the matched
+            # partial prefix: copy it into the slot's first private block so
+            # the shared copy stays pristine
+            kvc.copy_pool_block(self.caches, cow_src, row[len(cached)])
         rs.slot = slot
         self.slot_req[slot] = rs
-        rs.prefill_pos = 0
+        rs.prefill_pos = cached_tokens
         rs.prefill_ctx = ctx
-        rs.pending_chunks = list(kvc.chunk_starts(0, ctx, self.prefill_chunk))
+        # full coverage needs no chunks and may sit off the grid; partial
+        # reuse is always on it
+        rs.pending_chunks = ([] if cached_tokens >= ctx else
+                             list(kvc.chunk_starts(cached_tokens, ctx,
+                                                   self.prefill_chunk)))
+        rs.match_memo = None
+        rs.cached_prefix_tokens = cached_tokens
+        self.stats["cached_prefix_tokens"] += cached_tokens
+        # publish cursor: suffix chunks extend the trie from the end of the
+        # matched chain
+        rs.published_blocks = len(cached)
+        rs.radix_tail = nodes[-1] if nodes else None
         if not rs.pending_chunks:
             self._activate(slot, rs)
         else:
@@ -362,7 +486,8 @@ class ServeEngine:
 
     def _activate(self, slot: int, rs: RequestState) -> None:
         """Prefill complete: make the slot decode-visible (install its table
-        row, arm the device slot state)."""
+        row, arm the device slot state — also a ghost-active slot's, left by
+        a preemption, cancel or undrained finish)."""
         ctx = rs.prefill_ctx
         self._set_table_row(slot, rs.table_row)
         self._host_len[slot] = ctx
@@ -387,13 +512,31 @@ class ServeEngine:
         rs.computed_prefill_tokens += n
         self.stats["prefill_tokens"] += n
         self.stats["chunks"] += 1
+        if self.radix is not None:
+            # publish the newly completed full blocks now: a same-prefix
+            # request admitted a tick later can pin them (stream order makes
+            # the values visible to any later reader); the cursor resumes
+            # from the last published node
+            bs = self.ecfg.page_size
+            nfull = min(rs.prefill_pos, rs.prefill_ctx) // bs
+            prev = rs.published_blocks
+            if nfull > prev:
+                tail, walked = self.radix.insert(
+                    rs.prompt[prev * bs:nfull * bs],
+                    list(rs.table_row[prev:nfull]), node=rs.radix_tail)
+                # pinned until retirement: the cursor must survive eviction
+                self.radix.pin(walked)
+                rs.radix_nodes.extend(walked)
+                rs.radix_tail = tail
+                rs.published_blocks = nfull
 
     def _run_prefill_chunks(self) -> int:
         """Advance mid-prefill slots on the absolute chunk grid, spending at
         most the per-tick prefill token budget; grants rotate round-robin
-        across prefilling slots (one chunk per slot per pass). A failing
-        chunk raises: containment belongs to the robustness slice.
-        Returns the number of chunks run."""
+        across prefilling slots (one chunk per slot per pass). Slots write
+        disjoint blocks and shared cached blocks are read-only, so chunk
+        order is invisible in the values. A failing chunk raises:
+        containment belongs to a later slice. Returns the chunks run."""
         if not self._prefilling:
             return 0
         budget = self.scheduler.prefill_token_budget
@@ -425,16 +568,153 @@ class ServeEngine:
         self._prefilling = still
         return ran
 
-    def _retire(self, slot: int, rs: RequestState, reason: str,
-                now: float, tick: int) -> None:
-        self.scheduler.retire(rs, tick, now, reason)
+    def _free_slot(self, slot: int, rs: RequestState) -> None:
+        """Drop a slotted request's pool holds — its private blocks, its
+        references to shared cached blocks (the cache's own reference keeps
+        them warm) and its radix pins — and NULL the slot's table row, so
+        the ghost-active device slot writes to trash."""
         self.slot_req[slot] = None
         self._host_len[slot] = 0
         self.allocator.free(rs.blocks)
         rs.blocks = []
+        if rs.cached_blocks:
+            self.allocator.free(rs.cached_blocks)
+            rs.cached_blocks = []
+        if rs.radix_nodes:
+            self.radix.unpin(rs.radix_nodes)
+            rs.radix_nodes = []
         self._set_table_row(slot, np.full(self._chunk_cols, kvc.NULL_BLOCK,
                                           np.int32))
+
+    def _retire(self, slot: int, rs: RequestState, reason: str,
+                now: float, tick: int) -> None:
+        self.scheduler.retire(rs, tick, now, reason)
+        self._free_slot(slot, rs)
         self._finished_unpolled.append(rs)
+
+    def _retire_unslotted(self, rs: RequestState, reason: str, now: float,
+                          tick: int) -> None:
+        """Retire a request that holds no slot and no blocks (still queued):
+        it becomes deliverable at the next poll()."""
+        self.scheduler.retire(rs, tick, now, reason)
+        self._finished_unpolled.append(rs)
+
+    # --- preemption -------------------------------------------------------
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Evict one decoding slot under KV-pool pressure and requeue its
+        request at the queue head (scheduler.preempt). Its generated tokens
+        fold into the prompt, so re-admission recomputes the whole context
+        through the absolute-grid chunked prefill; prefill-computed full
+        blocks it published stay cached (unpinned: evictable headroom, a
+        cheap re-match at resume), decode-written blocks are dropped. The
+        device slot goes ghost-active (see `_free_slot`)."""
+        rs = self.slot_req[slot]
+        self._release_slot_resources(slot, rs)
+        new = rs.out_tokens[rs.folded_tokens:]
+        if new:
+            # a spent budget retires at drain, and preemption runs against a
+            # drained pending buffer: budget remains
+            assert len(new) < rs.max_new_tokens
+            rs.prompt = np.concatenate(
+                [rs.prompt, np.asarray(new, np.int32)])
+            rs.max_new_tokens -= len(new)
+            rs.folded_tokens = len(rs.out_tokens)
+        self.scheduler.preempt(rs, self.stats["ticks"])
+
+    def _release_slot_resources(self, slot: int, rs: RequestState) -> None:
+        """`_free_slot`, then reset the request's slot and prefill state for
+        a later re-admission. Its delivered tokens and fold bookkeeping are
+        untouched."""
+        self._free_slot(slot, rs)
+        rs.slot = -1
+        rs.table_row = None
+        rs.prefill_pos = rs.prefill_ctx = 0
+        rs.pending_chunks = []
+        rs.match_memo = None
+        rs.cached_prefix_tokens = 0
+        rs.published_blocks = 0
+        rs.radix_tail = None
+
+    def _maybe_preempt(self) -> int:
+        """Admit-or-preempt: when the blocked queue head has waited
+        `preempt_after_ticks` (since submit, or since its own last
+        preemption), evict last-admitted decode slots — LIFO, least progress
+        lost — until the head's reservation fits. Returns slots preempted.
+
+        Runs against a drained pending buffer. Victims are only requests
+        that arrived after the head (a strict order, so two requests can
+        never evict each other in turn) and are past their prefill. A
+        what-if gate skips the whole round when even preempting every
+        victim could not admit the head; the head is held out of the queue
+        while victims requeue, so the freed blocks admit it first."""
+        sched = self.scheduler
+        head = sched.waiting[0]
+        if self._can_admit(head):
+            return 0
+        if head.wait_age(self.stats["ticks"]) < self.ecfg.preempt_after_ticks:
+            return 0
+        victims = sorted(
+            (s for s, r in enumerate(self.slot_req)
+             if r is not None and s not in self._prefilling
+             and r.arrival_seq > head.arrival_seq),
+            key=lambda s: (self.slot_req[s].admit_tick, s))
+        if not victims:
+            return 0
+        # what-if headroom across all victims: their private blocks that no
+        # cache reference holds, plus cache blocks that become evictable
+        # once every victim chain is unpinned, minus the head's own matched
+        # chain (about to be pinned: never both reused and evictable)
+        _, matched, _, _, _ = self._match_prefix(head)
+        chains: List[Any] = []
+        direct = 0
+        for s in victims:
+            rs = self.slot_req[s]
+            chains.extend(rs.radix_nodes)
+            published_own = max(0, rs.published_blocks
+                                - len(rs.cached_blocks))
+            direct += len(rs.blocks) - published_own
+        headroom = 0
+        if self.radix is not None:
+            headroom = max(0, self.radix.evictable_after_unpin(chains)
+                           - len(matched))
+        if (self._blocks_needed(head) - len(matched)
+                > self.allocator.free_blocks + direct + headroom):
+            return 0
+        sched.waiting.popleft()
+        n = 0
+        while victims and not self._can_admit(head):
+            self._preempt_slot(victims.pop())
+            n += 1
+        sched.waiting.appendleft(head)
+        return n
+
+    # --- cancellation -----------------------------------------------------
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a live request wherever it is — queued, mid-chunked-
+        prefill or mid-decode — releasing its blocks and pins. True if it
+        was cancelled; False if it is unknown or already finished (pending
+        ticks are drained first, so a stream that just completed keeps its
+        tokens). The request retires with reason "cancelled" and poll()
+        returns it with the tokens it produced."""
+        if rid not in self._requests:
+            return False
+        self._drain()
+        now = time.perf_counter()
+        tick = self.stats["ticks"]
+        for rs in self.scheduler.waiting:
+            if rs.rid == rid:
+                self.scheduler.waiting.remove(rs)
+                self._retire_unslotted(rs, "cancelled", now, tick)
+                return True
+        for slot, rs in enumerate(self.slot_req):
+            if rs is not None and rs.rid == rid:
+                if slot in self._prefilling:
+                    self._prefilling.remove(slot)
+                self._retire(slot, rs, "cancelled", now, tick)
+                return True
+        return False
 
     # --- decode tick ------------------------------------------------------
 
@@ -455,6 +735,11 @@ class ServeEngine:
             # admission needs an up-to-date view of free slots
             self._drain()
             free = self.slot_req.count(None)
+            if free and self.ecfg.preemption:
+                # head blocked on blocks (not slots): evict last-admitted
+                # decode slots so it admits instead of stalling the queue
+                if self._maybe_preempt():
+                    free = self.slot_req.count(None)
             if free:
                 not_admitted = [
                     rs for rs in self.scheduler.pick(
@@ -546,11 +831,21 @@ class ServeEngine:
         return completed
 
     def metrics(self) -> Dict[str, Any]:
-        return {**self.scheduler.metrics(), **self.stats,
-                **self._static_metrics,
-                "paged_impl": self.paged_impl,
-                "device": str(self.device),
-                "decode_buckets": list(self.decode_buckets),
-                "prefill_chunk": self.prefill_chunk,
-                "total_blocks": self.allocator.num_blocks,
-                "free_blocks": self.allocator.free_blocks}
+        m = {**self.scheduler.metrics(), **self.stats,
+             **self._static_metrics,
+             "paged_impl": self.paged_impl,
+             "device": str(self.device),
+             "decode_buckets": list(self.decode_buckets),
+             "prefill_chunk": self.prefill_chunk,
+             "total_blocks": self.allocator.num_blocks,
+             "free_blocks": self.allocator.free_blocks}
+        # the prefix-cache counters are present with the cache off too
+        cached = self.stats["cached_prefix_tokens"]
+        m["prefix_hit_rate"] = cached / max(
+            cached + self.stats["prefill_tokens"], 1)
+        m["evictions"] = self.radix.evictions if self.radix else 0
+        if self.radix is not None:
+            m["prefix_cache_nodes"] = self.radix.num_nodes()
+            m["prefix_cache_hits"] = self.radix.hits
+            m["prefix_cache_misses"] = self.radix.misses
+        return m

@@ -3,7 +3,8 @@
 Storage is a pool of fixed-size blocks per layer (nn/attention.PagedKVCache);
 this module owns everything around it: the host-side refcounted block
 allocator, pool construction mirroring the model's (group, period-layer,
-repeats) tree, and the prompt / decode-block / chunk-table bucket ladders.
+repeats) tree, the prompt / decode-block / chunk-table bucket ladders, and
+the copy-on-write block copy of the prefix cache.
 
 Conventions
 -----------
@@ -12,7 +13,8 @@ Conventions
   prefill blocks past a prompt's reservation) lands in scratch storage that no
   reader ever treats as valid.
 * Blocks for a request's full lifetime (prompt + max_new_tokens) are reserved
-  at admission; a request that cannot reserve waits in the queue.
+  at admission; a request that cannot reserve waits in the queue (or, once
+  it has waited, preempts later arrivals: serve/engine.py).
 """
 from __future__ import annotations
 
@@ -99,9 +101,10 @@ class BlockAllocator:
     """Refcounted free-list allocator over the pool's block ids.
 
     Block 0 (the null/trash block) is reserved and never handed out. Blocks
-    come back refcount 1 from `alloc` and `free` decrements — a block
-    returns to the free list only when its last holder lets go (extra
-    holders arrive with the prefix cache, ROADMAP A7). Freeing a block that
+    come back refcount 1 from `alloc`, `incref` adds a holder (a slot
+    pinning a cached prefix block, the radix cache keeping a retired
+    request's prefix) and `free` drops one — a block returns to the free
+    list only when its last holder lets go. Freeing a block that
     is not currently allocated (double-free, never-allocated id,
     out-of-range id, the null block) raises instead of corrupting the free
     list.
@@ -118,6 +121,15 @@ class BlockAllocator:
     def free_blocks(self) -> int:
         return len(self._free)
 
+    @property
+    def live_blocks(self) -> int:
+        return len(self._refs)
+
+    @property
+    def shared_blocks(self) -> int:
+        """Live blocks held by more than one owner (prefix sharing)."""
+        return sum(1 for r in self._refs.values() if r > 1)
+
     def live_block_ids(self) -> List[int]:
         return list(self._refs)
 
@@ -131,6 +143,18 @@ class BlockAllocator:
         for b in taken:
             self._refs[b] = 1
         return taken
+
+    def refcount(self, block: int) -> int:
+        return self._refs.get(block, 0)
+
+    def incref(self, blocks: Sequence[int]) -> None:
+        """Take an extra reference on already-allocated blocks (prefix
+        sharing: a slot pinning cached blocks, the radix cache retaining a
+        retired request's prefix)."""
+        for b in blocks:
+            if b not in self._refs:
+                raise ValueError(f"incref of unallocated block {b}")
+            self._refs[b] += 1
 
     def free(self, blocks: Sequence[int]) -> None:
         """Drop one reference per block; recycle at refcount zero.
@@ -235,3 +259,29 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int, *,
                 bits=bits))
         caches.append(tuple(per_layer))
     return tuple(caches)
+
+
+# ---------------------------------------------------------------------------
+# Pool block ops
+# ---------------------------------------------------------------------------
+
+def copy_pool_block(pools, src: int, dst: int):
+    """Copy one block (every layer's K and V) from pool id `src` to `dst`,
+    in place, on the pools' device (one indexed copy a buffer, no host round
+    trip).
+
+    The copy-on-write step for partial-block prefix reuse: a cached block
+    whose leading tokens match the new prompt is duplicated into a
+    slot-private block before decode starts writing into it, so the shared
+    cached copy is never mutated. Quantized pools copy the payload and the
+    `k_exp` / `v_exp` exponent planes together: the planes have the same
+    (repeats, block, ...) leading layout as the payloads."""
+    src, dst = int(src), int(dst)
+    for group in pools:
+        for pool in group:
+            bufs = [pool.k, pool.v]
+            if isinstance(pool, QuantPagedKVCache):
+                bufs += [pool.k_exp, pool.v_exp]
+            for buf in bufs:
+                buf[:, dst].copy_(buf[:, src])
+    return pools

@@ -1,14 +1,18 @@
 """Admission/retirement scheduling for the continuous-batching engine.
 
 Pure host-side bookkeeping: the waiting queue, each request's lifecycle
-record (submit -> admit -> first token -> finish), and running aggregates.
-The engine asks it each tick which requests to admit into free slots.
+record (submit -> admit -> first token -> finish, with preemptions between),
+and running aggregates. The engine asks it each tick which requests to admit
+into free slots.
 
 Policies
 --------
 * "fcfs"    — admit in arrival order, at most `max_prefills_per_tick`
               (default 1) per tick.
 * "prefill" — admit in arrival order into every free slot each tick.
+
+Both look past up to `lookahead` unadmittable queue entries (the head keeps
+its position) until the head has waited `head_age_cap` ticks.
 """
 from __future__ import annotations
 
@@ -22,8 +26,6 @@ import numpy as np
 from repro_torch.serve.sampling import SamplingParams
 
 POLICIES = ("fcfs", "prefill")
-LOOKAHEAD = 8          # unadmittable queue entries pick() may look past
-HEAD_AGE_CAP = 64      # ticks after which a blocked head gets strict order
 KEEP_FINISHED = 100_000   # retired records kept for metrics
 
 
@@ -46,21 +48,45 @@ class RequestState:
     slot: int = -1
     blocks: List[int] = dataclasses.field(default_factory=list)
     finish_reason: str = ""
+    # preemption: evictions from a decode slot under KV pressure and the tick
+    # of the latest — waiting is measured from it, so a requeued victim
+    # cannot at once trigger a counter-preemption
+    preempt_count: int = 0
+    preempt_tick: int = -1
+    # arrival order (total, unlike submit_tick which same-tick submissions
+    # share): a blocked head may only preempt later arrivals
     arrival_seq: int = -1
+    # generated tokens already folded into `prompt` by past preemptions
+    # (out_tokens itself is never truncated: it aliases the user's Request)
+    folded_tokens: int = 0
     # chunked-prefill state machine: next grid position to compute, the
-    # context target, and the grid chunks still to run
+    # context target, and the grid chunks still to run; prefix-cache
+    # accounting rides along
     prefill_pos: int = 0
     prefill_ctx: int = 0
+    cached_prefix_tokens: int = 0
     computed_prefill_tokens: int = 0
+    cached_blocks: List[int] = dataclasses.field(default_factory=list)
+    radix_nodes: List = dataclasses.field(default_factory=list)
     table_row: Optional[np.ndarray] = None
+    # incremental radix publish cursor: full blocks already in the trie and
+    # the deepest published node (pinned, so eviction cannot detach it)
+    published_blocks: int = 0
+    radix_tail: Optional[object] = None
     pending_chunks: List[int] = dataclasses.field(default_factory=list)
+    # memoized prefix match, keyed on the radix mutation clock
+    match_memo: Optional[tuple] = None
 
     @property
     def prompt_len(self) -> int:
         return int(len(self.prompt))
 
     def wait_age(self, tick: int) -> int:
-        return tick - self.submit_tick
+        """Ticks waited since the last queue entry (submit, or the latest
+        preemption)."""
+        base = (self.preempt_tick if self.preempt_tick >= 0
+                else self.submit_tick)
+        return tick - base
 
     @property
     def queue_ticks(self) -> int:
@@ -75,11 +101,21 @@ class RequestState:
 
 class Scheduler:
     def __init__(self, policy: str = "fcfs",
-                 prefill_token_budget: Optional[int] = None):
+                 max_prefills_per_tick: Optional[int] = None,
+                 prefill_token_budget: Optional[int] = None,
+                 lookahead: int = 8, head_age_cap: int = 64):
         if policy not in POLICIES:
             raise ValueError(f"policy {policy!r} not in {POLICIES}")
+        if lookahead < 0:
+            raise ValueError(f"lookahead must be >= 0, got {lookahead}")
+        if head_age_cap < 1:
+            raise ValueError(f"head_age_cap must be >= 1, got {head_age_cap}")
         self.policy = policy
-        self.max_prefills_per_tick = 1 if policy == "fcfs" else 1 << 30
+        self.lookahead = lookahead
+        self.head_age_cap = head_age_cap
+        if max_prefills_per_tick is None:
+            max_prefills_per_tick = 1 if policy == "fcfs" else 1 << 30
+        self.max_prefills_per_tick = max_prefills_per_tick
         # chunked-prefill pacing: at most this many prefill tokens per tick
         self.prefill_token_budget = prefill_token_budget
         self.waiting: Deque[RequestState] = deque()
@@ -87,10 +123,14 @@ class Scheduler:
         self.submitted = 0
         self.admitted = 0
         self.retired = 0
+        self.preempted = 0
+        self.hol_skips = 0       # unadmittable entries looked past by pick()
         self.max_queue_depth = 0
         self._queue_tick_sum = 0
         self._ttft_sum = 0.0
         self._ttft_n = 0
+        self._computed_prefill_sum = 0
+        self._cached_prefix_sum = 0
 
     def submit(self, rs: RequestState, tick: int, now: float) -> None:
         rs.submit_tick = tick
@@ -103,20 +143,22 @@ class Scheduler:
     def pick(self, free_slots: int, tick: int,
              can_admit: Callable[[RequestState], bool]) -> List[RequestState]:
         """Requests to admit this tick, in arrival order, looking past up to
-        LOOKAHEAD blocked entries (which keep their queue position) until
-        the head has waited HEAD_AGE_CAP ticks (then strict order)."""
+        `lookahead` blocked entries (which keep their queue position) until
+        the head has waited `head_age_cap` ticks (then strict order)."""
         budget = min(free_slots, self.max_prefills_per_tick)
         chosen: List[RequestState] = []
         now = time.perf_counter()
         skipped: List[RequestState] = []
-        allow_skip = LOOKAHEAD
-        if self.waiting and self.waiting[0].wait_age(tick) >= HEAD_AGE_CAP:
+        allow_skip = self.lookahead
+        if (self.waiting
+                and self.waiting[0].wait_age(tick) >= self.head_age_cap):
             allow_skip = 0
         while self.waiting and len(chosen) < budget:
             if not can_admit(self.waiting[0]):
                 if len(skipped) >= allow_skip:
                     break
                 skipped.append(self.waiting.popleft())
+                self.hol_skips += 1
                 continue
             rs = self.waiting.popleft()
             rs.admit_tick = tick
@@ -128,14 +170,30 @@ class Scheduler:
             self.waiting.appendleft(rs)
         return chosen
 
-    def requeue_front(self, rs: RequestState) -> None:
-        """Return a picked-but-unadmittable request to the queue head,
-        reverting its admission marks."""
+    def revert_admission(self, rs: RequestState) -> None:
+        """Undo the admission marks pick() stamped, without touching the
+        queue (shared by requeue_front and preempt)."""
         if rs.admit_tick >= 0:
             self._queue_tick_sum -= rs.queue_ticks
             self.admitted -= 1
             rs.admit_tick = -1
             rs.admit_time = None
+
+    def requeue_front(self, rs: RequestState) -> None:
+        """Return a picked-but-unadmittable request (a same-tick
+        over-commit) to the queue head, reverting its admission marks."""
+        self.revert_admission(rs)
+        self.waiting.appendleft(rs)
+
+    def preempt(self, rs: RequestState, tick: int) -> None:
+        """Return an admitted-and-running request to the queue head: the
+        engine evicted it from its slot under KV-pool pressure and will
+        re-admit it through pick(). Admission marks are reverted and the
+        preempt tick stamped, so its wait is measured from here."""
+        self.preempted += 1
+        rs.preempt_count += 1
+        rs.preempt_tick = tick
+        self.revert_admission(rs)
         self.waiting.appendleft(rs)
 
     def retire(self, rs: RequestState, tick: int, now: float,
@@ -147,6 +205,8 @@ class Scheduler:
         if rs.ttft is not None:
             self._ttft_sum += rs.ttft
             self._ttft_n += 1
+        self._computed_prefill_sum += rs.computed_prefill_tokens
+        self._cached_prefix_sum += rs.cached_prefix_tokens
         self.finished.append(rs)
 
     def metrics(self) -> dict:
@@ -155,10 +215,18 @@ class Scheduler:
             "submitted": self.submitted,
             "admitted": self.admitted,
             "retired": self.retired,
+            "preempted": self.preempted,
+            "hol_skips": self.hol_skips,
             "waiting": len(self.waiting),
             "max_queue_depth": self.max_queue_depth,
             "mean_queue_ticks": (self._queue_tick_sum / self.admitted
                                  if self.admitted else 0.0),
             "mean_ttft_s": (self._ttft_sum / self._ttft_n
                             if self._ttft_n else None),
+            "prefill_tokens_per_request": (
+                self._computed_prefill_sum / self.retired
+                if self.retired else 0.0),
+            "cached_prefix_tokens_per_request": (
+                self._cached_prefix_sum / self.retired
+                if self.retired else 0.0),
         }

@@ -1,8 +1,8 @@
 """chip_smoke.py, the port's check on a CUDA card: it refuses to run (exit 2)
 without one, and its phases — the kernels, serving slices (a)-(c), the
-paper's flow (d) and training (e) — hold together end to end in a CPU
-rehearsal at smoke size (plain kernel versions, no timings; exit 1 by
-design)."""
+paper's flow (d), training (e), the prefix cache, preemption and cancel (f)
+and the glm4 / qwen archs (g) — hold together end to end in a CPU rehearsal
+at smoke size (plain kernel versions, no timings; exit 1 by design)."""
 import importlib.util
 import json
 from pathlib import Path
@@ -85,9 +85,39 @@ def test_cpu_rehearsal_runs_every_phase(capsys, tmp_path):
     assert res["resumed_losses"] == res["uninterrupted_losses"][3:]
     assert kernels[-1]["replaces"] == "src/repro/kernels/flash_attention.py:79"
     assert kernels[-1]["launches"] == 0
+    # the new archs' GQA groups (16 and 1), the shared-block prefill and the
+    # copy-on-write block copy
+    groups = report["paged_groups"]
+    assert {k for k in groups if k.startswith("g")} == {
+        "g16_kv16", "g16_kv4", "g1_kv16", "g1_kv4"}
+    assert groups["g16_kv4"]["h"] // groups["g16_kv4"]["kvh"] == 16
+    assert groups["g1_kv16"]["h"] == groups["g1_kv16"]["kvh"]
+    assert groups["decode_bucket"]["capacity_planned"] == {
+        "f32": 0, "bf16": 0, "grau": 0}
+    assert groups["shared_prefill_kv4"]["same_bits_as_private_copies"]
+    assert all(v["byte_exact"] for v in groups["copy_pool_block"].values())
+    # slice (f): cache-on/off streams identical (gated in the script), the
+    # prefix tokens cached, preemption with every request complete and the
+    # pool returned, and the two cancels
+    pc = report["prefix_cache"]
+    on, off = pc["shared_prefix_cache_on"], pc["shared_prefix_cache_off"]
+    assert pc["shared_prefix_streams_identical"]
+    assert on["cached_prefix_tokens"] == 15 * 128
+    assert off["prefill_tokens"] - on["prefill_tokens"] == 15 * 128
+    assert pc["overload"]["preempted"] > 0
+    assert pc["overload"]["pool"] == {"free_blocks": 256, "pins": 0}
+    assert set(pc["cancel"]["cancelled"]) == {"mid_prefill", "mid_decode"}
+    # slice (g): glm4 and qwen (smoke size here), kernel path vs gather
+    for label in ("glm4_grau", "qwen_grau"):
+        res = report["new_archs"][label]
+        assert res["requests"] == 8 and res["greedy_identical_share"] == 1.0
+        assert res["first_step_logits_rel_l2"] < 1e-5
+    assert report["new_archs"]["qwen_grau"]["depth_cut"] is None
+    assert all("launches_slice_f" in k for k in kernels[1:3])
     assert set(report["phase_s"]) >= {"grau", "paged_attention", "matmul_wq",
                                       "matmul_grau", "flash_attention",
-                                      "slices_abc", "slice_d", "slice_e"}
+                                      "slices_abc", "slice_d", "slice_e",
+                                      "paged_groups", "slice_f", "slice_g"}
     assert '"ok"' not in out.out
 
 

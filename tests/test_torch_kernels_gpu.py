@@ -5,7 +5,9 @@ present. Run on the card with `python -m pytest -m gpu tests/`. Shapes
 cover what the main path does not: every head_dim the kernel is built for
 (16, 32, 48, 64, 128, 192, 256: the reference's archs'), group sizes 1-3,
 block sizes 8 and 16, ragged GRAU inputs, uint8 buses, column-sliced block
-tables, 8- and 4-bit KV pools, the split decode over several parts, and for
+tables, 8- and 4-bit KV pools, the split decode over several parts (the
+same bits in every decode bucket), GQA groups of 16 and 1 at head_dim 128,
+a prefill over blocks shared with another row, copy_pool_block, and for
 matmul_wq row counts 1-70 (a grid over row tiles above 32), N and pack
 tiles that are not multiples of 16, narrow tiles and multi-tile K; for
 flash attention every head_dim on both bf16 kernels, group sizes 1-3,
@@ -433,7 +435,8 @@ def test_decode_bf16_parts_match_plain(cuda, d, bits):
     nb = slots * width + 1
     table = torch.from_numpy(rng.permutation(np.arange(1, nb))
                              .reshape(slots, width).astype(np.int32)).to(cuda)
-    parts, bpp = pa.decode_plan(slots, kvh, width, bs, kbuild.sm_count(cuda))
+    parts, bpp = pa.decode_plan(slots, kvh, width, width, bs,
+                                kbuild.sm_count(cuda))
     assert parts > 1
     lengths = torch.tensor([0, 1, bpp * bs, bpp * bs + 1, 1000, width * bs],
                            dtype=torch.int32, device=cuda)
@@ -789,3 +792,213 @@ def test_train_step_through_the_flash_kernel(cuda):
     _, _, m = step(params, optim.init_opt_state(params), batch)
     assert torch.isfinite(m["loss"])
     assert fa.flash_attention.launches - n0 == 2 * cfg.num_layers
+
+
+@pytest.mark.parametrize("bits", [16, 4])
+def test_decode_bf16_same_bits_in_every_bucket(cuda, bits):
+    """One slot's bf16 decode through the kernel and the fused GRAU
+    epilogue, at the llama3.2-3b shape (24 heads over 8, head_dim 128, page
+    16, 8 slots), sliced from one 128-block table to the 32-block bucket
+    and to the whole table, with the same pools and lengths: the f32, bf16
+    and GRAU outputs are the same bits. The buckets are column views of one
+    table, as the engine's are, and the wrapper plans the parts from the
+    row stride (decode_plan), which fixes their boundaries, so a cache-on
+    and a cache-off schedule that put the slot in different buckets decode
+    it alike."""
+    from functools import partial
+
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.nn.common import build_lm_grau
+    bs, h, kvh, d, slots, cap = 16, 24, 8, 128, 8, 128
+    rng = np.random.default_rng(7 + bits)
+    nb = slots * cap + 1
+    table = torch.from_numpy(rng.permutation(np.arange(1, nb))
+                             .reshape(slots, cap).astype(np.int32)).to(cuda)
+    lengths = torch.from_numpy(rng.integers(1, 32 * bs, size=slots)
+                               .astype(np.int32)).to(cuda)
+    lengths[0] = 300
+    if bits == 16:
+        k, v = _pools(rng, nb, bs, kvh, d, torch.bfloat16, cuda)
+        kw = {}
+    else:
+        k, v, ke, ve = _quant_pools(rng, nb, bs, kvh, d, bits, cuda)
+        kw = dict(k_exp=ke, v_exp=ve, kv_bits=bits)
+    q = torch.from_numpy(rng.normal(size=(slots, h, d)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    g = build_lm_grau("identity")
+    kern = partial(pa.paged_attention, **kw)
+    outs = []
+    for width in (32, cap):
+        args = (q, k, v, table[:, :width], lengths)
+        outs.append((kern(*args, out_dtype=torch.float32), kern(*args),
+                     kern(*args, spec=g.spec, s_in=g.s_in)))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert pa.decode_plan(slots, kvh, 32, cap, bs, 132)[1] == \
+        pa.decode_plan(slots, kvh, cap, cap, bs, 132)[1]
+
+
+@pytest.mark.parametrize("h,kvh", [(32, 2), (40, 40)], ids=["g16", "g1"])
+@pytest.mark.parametrize("bits", [16, 4])
+def test_paged_bf16_group_16_and_1_match_plain(cuda, h, kvh, bits):
+    """glm4-9b's GQA group of 16 (every row of decode's m16 fragment real)
+    and qwen1.5-32b's group of 1 (MHA: one real row), head_dim 128, page
+    16, on 16- and 4-bit pools: bf16 decode at 8 ragged slots and a bf16
+    prefill chunk after a prefix, each split over several parts: f32 output
+    at 2e-5 of the plain version's, bf16 within one bf16 ulp, the fused
+    GRAU epilogue bit-exact on the kernel's f32 output and within one code
+    of the plain version's, and the decode's f32 output within twice the
+    plain version's distance from a float64 attention."""
+    from functools import partial
+
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import attn_output_quant
+    from repro_torch.nn.common import build_lm_grau
+    bs, d, slots, width = 16, 128, 8, 128
+    rng = np.random.default_rng(h + bits)
+    nb = slots * width + 1
+    table = torch.from_numpy(rng.permutation(np.arange(1, nb))
+                             .reshape(slots, width).astype(np.int32)).to(cuda)
+    if bits == 16:
+        k, v = _pools(rng, nb, bs, kvh, d, torch.bfloat16, cuda)
+        kw = {}
+    else:
+        k, v, ke, ve = _quant_pools(rng, nb, bs, kvh, d, bits, cuda)
+        kw = dict(k_exp=ke, v_exp=ve, kv_bits=bits)
+    g = build_lm_grau("identity")
+    lengths = torch.from_numpy(rng.integers(1, width * bs, size=slots)
+                               .astype(np.int32)).to(cuda)
+    lengths[0], lengths[1] = 1, width * bs
+    q = torch.from_numpy(rng.normal(size=(slots, h, d)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    qp = torch.from_numpy(rng.normal(size=(1, 32, h, d)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    start = torch.tensor([1000], dtype=torch.int32, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pa.decode_plan(slots, kvh, width, width, bs, sms)[0] > 1
+    assert pa.prefill_plan(1, kvh, 32 * h // kvh, 66, bs, sms)[0] > 1
+    for kern, plain, args in (
+            (pa.paged_attention, pa.paged_attention_plain,
+             (q, k, v, table, lengths)),
+            (pa.paged_prefill_attention, pa.paged_prefill_plain,
+             (qp, k, v, table[2:3, :66].contiguous(), start))):
+        kern, plain = partial(kern, **kw), partial(plain, **kw)
+        f32 = _assert_matches_plain(kern, plain, args, torch.bfloat16)
+        quant = kern(*args, spec=g.spec, s_in=g.s_in)
+        torch.cuda.synchronize()
+        assert torch.equal(quant.cpu(), attn_output_quant(f32.cpu(), g.spec,
+                                                          g.s_in))
+        qref = plain(*args, spec=g.spec, s_in=g.s_in)
+        assert int((quant.to(torch.int32) - qref.to(torch.int32)).abs()
+                   .max()) <= 1
+    f32 = pa.paged_attention(q, k, v, table, lengths, out_dtype=torch.float32,
+                             **kw)
+    p32 = pa.paged_attention_plain(q, k, v, table, lengths,
+                                   out_dtype=torch.float32, **kw)
+    o64 = _decode_f64(q, k, v, table, lengths, kw)
+    dist = [float(((o.double() - o64).abs() / (1 + o64.abs())).max())
+            for o in (f32, p32)]
+    assert dist[0] <= max(2 * dist[1], 1e-6) and dist[0] <= 1e-5, dist
+
+
+@pytest.mark.parametrize("bits", [16, 4])
+def test_prefill_over_blocks_shared_with_another_row(cuda, bits):
+    """A prefill chunk of row 1 whose first 40 table blocks are row 0's (a
+    cached prefix pinned into two slots' tables): equal to the plain
+    version, and to the same chunk through a private copy of those
+    blocks, bit for bit."""
+    from functools import partial
+
+    from repro_torch.kernels import paged_attention as pa
+    bs, h, kvh, d, width, shared = 16, 24, 8, 128, 48, 40
+    rng = np.random.default_rng(bits)
+    nb = 3 * width + 1
+    ids = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    table = torch.from_numpy(ids[:2 * width].reshape(2, width)).to(cuda)
+    table[1, :shared] = table[0, :shared]
+    if bits == 16:
+        k, v = _pools(rng, nb, bs, kvh, d, torch.bfloat16, cuda)
+        kw = {}
+    else:
+        k, v, ke, ve = _quant_pools(rng, nb, bs, kvh, d, bits, cuda)
+        kw = dict(k_exp=ke, v_exp=ve, kv_bits=bits)
+    q = torch.from_numpy(rng.normal(size=(1, 32, h, d)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    start = torch.tensor([shared * bs], dtype=torch.int32, device=cuda)
+    row = table[1:2].contiguous()
+    kern = partial(pa.paged_prefill_attention, **kw)
+    f32 = _assert_matches_plain(kern, partial(pa.paged_prefill_plain, **kw),
+                                (q, k, v, row, start), torch.bfloat16)
+    private = torch.from_numpy(ids[2 * width:2 * width + shared]).to(cuda)
+    from repro_torch.nn.attention import PagedKVCache, QuantPagedKVCache
+    pool = (PagedKVCache(k[None], v[None]) if bits == 16 else
+            QuantPagedKVCache(k[None], v[None], kw["k_exp"][None],
+                              kw["v_exp"][None], bits))
+    from repro_torch.serve import kv_cache as kvc
+    for src, dst in zip(table[0, :shared].tolist(), private.tolist()):
+        kvc.copy_pool_block(((pool,),), src, dst)
+    own = row.clone()
+    own[0, :shared] = private
+    assert torch.equal(kern(q, k, v, own, start, out_dtype=torch.float32),
+                       f32)
+
+
+@pytest.mark.parametrize("bits", [16, 8, 4])
+def test_copy_pool_block_byte_exact_on_card(cuda, bits):
+    """copy_pool_block on the card, 16-, 8- and 4-bit pools of two layers:
+    block dst becomes block src in every buffer (payload and exponent
+    planes), byte for byte, and nothing else moves."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.quant.policy import PrecisionPolicy
+    from repro_torch.serve import kv_cache as kvc
+    cfg = get_config("llama3.2-3b", smoke=True)
+    pools = kvc.init_paged_caches(
+        cfg, 9, 16, dtype=torch.bfloat16, device=cuda,
+        policy=PrecisionPolicy(kv_default_bits=bits))
+    gen = torch.Generator(device=cuda).manual_seed(bits)
+    for pool in pools[0]:
+        for buf in pool:
+            if torch.is_tensor(buf):
+                buf.copy_(torch.randint(-100, 100, buf.shape, device=cuda,
+                                        generator=gen).to(buf.dtype))
+    before = [[b.clone() for b in pool if torch.is_tensor(b)]
+              for pool in pools[0]]
+    kvc.copy_pool_block(pools, 3, 7)
+    torch.cuda.synchronize()
+    for pool, old in zip(pools[0], before):
+        for buf, was in zip([b for b in pool if torch.is_tensor(b)], old):
+            want = was.clone()
+            want[:, 7] = was[:, 3]
+            assert torch.equal(buf, want)
+
+
+def test_engine_prefix_cache_same_bits_on_card(cuda):
+    """Smoke-size bf16 serving on the card through the kernels with the
+    GRAU MLP and the fused attention epilogue: a shared-prefix trace served
+    cache-off and cache-on gives the same greedy streams (the decode
+    buckets differ between the two schedules), and the cache-on run
+    computes fewer prefill tokens."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.config import GRAUConfig
+    from repro_torch.nn.common import build_lm_grau
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    cfg = get_config("llama3.2-3b", smoke=True).replace(grau=GRAUConfig())
+    params = lm.init_lm(cfg, seed=0, dtype=torch.bfloat16, device=cuda)
+    rng = np.random.default_rng(3)
+    prefix = rng.integers(2, cfg.vocab_size, size=200)
+    tails = [rng.integers(2, cfg.vocab_size, size=int(n))
+             for n in rng.integers(3, 60, size=6)]
+    out, prefill = {}, {}
+    for on in (False, True):
+        eng = ServeEngine(cfg, params, EngineConfig(
+            slots=4, max_seq=512, page_size=16, prefix_cache=on,
+            attn_grau=build_lm_grau("identity")))
+        done = eng.run([Request(rid=i, prompt=np.concatenate([prefix, t]),
+                                max_new_tokens=24)
+                        for i, t in enumerate(tails)])
+        out[on] = {r.rid: r.out_tokens for r in done}
+        prefill[on] = eng.stats["prefill_tokens"]
+    assert out[True] == out[False]
+    assert prefill[True] < prefill[False]

@@ -26,6 +26,9 @@ from repro_torch.nn import attention as tattn  # noqa: E402
 from repro_torch.serve import kv_cache as tkvc  # noqa: E402
 
 BS, CHUNK, BLOCKS_PER_SLOT = 8, 16, 8
+# glm4: a GQA group of 4 at smoke size (16 at full size), head_dim 16, an
+# untied head; qwen: MHA with QKV bias and an untied head
+ARCHS = ["llama3.2-3b", "gemma-7b", "glm4-9b", "qwen1.5-32b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -45,7 +48,7 @@ def _configs(arch, grau):
     return jcfg, tcfg
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "gemma-7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_configs_match_reference(arch):
     for smoke in (False, True):
         j, t = jget_config(arch, smoke=smoke), tget_config(arch, smoke=smoke)
@@ -76,7 +79,7 @@ def test_init_lm_layout_matches_reference():
     assert float(mine["embed"].abs().max()) <= 0.04 + 1e-6
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "gemma-7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("grau", [False, True])
 def test_paged_prefill_and_decode_logits_match_reference(arch, grau):
     jcfg, tcfg = _configs(arch, grau)
@@ -140,3 +143,85 @@ def test_paged_prefill_and_decode_logits_match_reference(arch, grau):
     for jpool, tpool in zip(jcaches[0], tcaches[0]):
         np.testing.assert_allclose(tpool.k.numpy(), np.asarray(jpool.k),
                                    **TOL)
+
+
+def _flat_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_leaves(v, f"{prefix}.{k}" if prefix else k)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _flat_leaves(v, f"{prefix}.{i}")
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "qwen1.5-32b"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_pack_params_untied_head_matches_reference(arch, bits):
+    """The packed tree of the untied-head archs: every leaf's bytes are the
+    reference's, the head (d_model, vocab) packed along d_model (caxis -2,
+    the logits' contraction) and qwen's QKV biases left in float."""
+    from repro.quant import policy as jpol
+    from repro.quant import weights as jwq
+    from repro_torch.quant import policy as tpol
+    from repro_torch.quant import weights as twq
+    jcfg, tcfg = _configs(arch, False)
+    jparams, _ = jlm.init_lm(jcfg, jax.random.PRNGKey(1), dtype=jnp.float32)
+    mine = twq.pack_params(from_reference(jparams, tcfg, device="cpu"), tcfg,
+                           tpol.weight_policy(bits))
+    theirs = from_reference(jwq.pack_params(jparams, jcfg,
+                                            jpol.weight_policy(bits)),
+                            tcfg, device="cpu")
+    got, want = dict(_flat_leaves(mine)), dict(_flat_leaves(theirs))
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        g = got[name]
+        assert type(g) is type(w), name
+        if isinstance(w, twq.QuantWeight):
+            assert (g.bits, g.caxis, g.kdim, g.tile) == (
+                w.bits, w.caxis, w.kdim, w.tile), name
+            assert torch.equal(g.q, w.q) and torch.equal(g.e, w.e), name
+        else:
+            assert torch.equal(g, w), name
+    head = mine["head"]
+    assert isinstance(head, twq.QuantWeight) and head.caxis == -2
+    assert head.kdim == tcfg.d_model
+    assert torch.equal(twq.dense(head), twq.dense(theirs["head"]))
+    if tcfg.qkv_bias:
+        assert not isinstance(got["group0.0.l0.attn.bq"], twq.QuantWeight)
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "qwen1.5-32b"])
+def test_engine_streams_match_reference_new_archs(arch):
+    """The port's engine (kernels' plain versions, prefix cache on) and the
+    reference engine (gather path) serve the same requests at glm4-smoke
+    and qwen-smoke with the same greedy streams, float and with int4
+    weights (the untied head packed)."""
+    from repro.serve import engine as jeng
+    from repro_torch.serve import engine as teng
+    jcfg, tcfg = _configs(arch, False)
+    jparams, _ = jlm.init_lm(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    tparams = from_reference(jparams, tcfg, device="cpu")
+    rng = np.random.default_rng(2)
+    shared = rng.integers(2, jcfg.vocab_size, size=40)
+    prompts = [np.concatenate([shared, rng.integers(2, jcfg.vocab_size,
+                                                    size=n)])
+               for n in (3, 11, 30)]
+    for extra in ({}, {"weight_bits": 4}):
+        kw = dict(slots=2, max_seq=96, page_size=8, prefill_chunk=16,
+                  prefix_cache=True,
+                  **extra)
+        je = jeng.ServeEngine(jcfg, jparams, jeng.EngineConfig(
+            paged_impl="gather", telemetry=False, **kw))
+        te = teng.ServeEngine(tcfg, tparams, teng.EngineConfig(**kw),
+                              device="cpu")
+        want = {r.rid: r.out_tokens for r in je.run(
+            [jeng.Request(rid=i, prompt=p, max_new_tokens=6)
+             for i, p in enumerate(prompts)])}
+        got = {r.rid: r.out_tokens for r in te.run(
+            [teng.Request(rid=i, prompt=p, max_new_tokens=6)
+             for i, p in enumerate(prompts)])}
+        assert got == want
+        assert (te.metrics()["cached_prefix_tokens"]
+                == je.metrics()["cached_prefix_tokens"] > 0)

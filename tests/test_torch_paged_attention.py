@@ -600,7 +600,7 @@ def test_decode_plan_covers_whole_table_blocks(batch, kvh, width, bs):
     each part holds whole 64-position tiles where the block size divides 64
     and at least 64 positions where the table has them; at the main shape
     the grid holds at least 2 blocks an SM (4 planned)."""
-    parts, bpp = tpa.decode_plan(batch, kvh, width, bs)
+    parts, bpp = tpa.decode_plan(batch, kvh, width, width, bs)
     assert bpp >= 1 and (parts - 1) * bpp < width <= parts * bpp
     starts = [p * bpp for p in range(parts)]
     assert starts[0] == 0 and all(s < width for s in starts)
@@ -615,6 +615,63 @@ def test_decode_plan_covers_whole_table_blocks(batch, kvh, width, bs):
     if (batch, kvh, width, bs) == (8, 8, 128, 16):
         assert (parts, bpp) == (8, 16)
         assert batch * kvh * parts >= 2 * kbuild.H100_SMS
+
+
+@pytest.mark.parametrize("batch,kvh,cap,bs", [
+    (8, 8, 128, 16),          # llama3.2-3b: 8 slots, max_seq 2048, page 16
+    (8, 2, 128, 16),          # glm4-9b: 2 KV heads
+    (8, 40, 128, 16),         # qwen1.5-32b: 40 KV heads
+    (1, 8, 128, 16), (4, 2, 6, 8), (2, 2, 33, 16), (8, 4, 70, 24)])
+def test_decode_plan_from_capacity_is_the_same_in_every_bucket(batch, kvh,
+                                                               cap, bs):
+    """Planned from the table's capacity (its row stride), every decode
+    bucket of the ladder cuts the table at the same part boundaries (the
+    same blocks a part), so a slot's live parts — the only ones the combine
+    reads — are the same in every bucket that covers them; the engine's
+    row stride (the capacity plus a chunk's blocks) plans as the capacity
+    does at the main shape (the timed one: 8 parts of 16 blocks)."""
+    from repro_torch.serve import kv_cache as tkvc
+    full = tpa.decode_plan(batch, kvh, cap, cap, bs)
+    for w in tkvc.decode_block_buckets(cap):
+        parts, bpp = tpa.decode_plan(batch, kvh, w, cap, bs)
+        assert bpp == full[1] and parts == -(-w // bpp)
+    if (batch, kvh, cap, bs) == (8, 8, 128, 16):
+        assert full == (8, 16)
+        assert tpa.decode_plan(batch, kvh, cap, cap + 32 // bs, bs) == full
+
+
+@pytest.mark.parametrize("bits", [16, 4])
+def test_decode_parts_same_bits_in_every_bucket(bits):
+    """The split decode emulated at a 16-block bucket and at the whole
+    64-block table (8-position blocks, 8 SMs), each planned from the
+    table's capacity (64, its row stride): one part of 16 blocks covers
+    every live length (<= 128 positions) in both, and the outputs are equal
+    bit for bit. Planned from the 16-block width alone, the same slots
+    would split at 64 positions: the dependence on the bucket that
+    planning from the row stride removes."""
+    rng = np.random.default_rng(70 + bits)
+    slots, h, kvh, d, cap = 4, 6, 2, 32, 64
+    num_blocks = slots * cap + 1
+    lengths = np.array([1, 40, 100, 128], np.int32)
+    table = make_table(rng, list(lengths), cap, num_blocks)
+    if bits == 16:
+        k = rng.normal(size=(num_blocks, BS, kvh, d)).astype(np.float32)
+        v = rng.normal(size=(num_blocks, BS, kvh, d)).astype(np.float32)
+        arrays = (k, v)
+    else:
+        arrays = quant_pools(rng, num_blocks, kvh, d, bits, table)
+    q = rng.normal(size=(slots, h, d)).astype(np.float32)
+    _, tarr = both(q, *arrays, table, lengths)
+    tq, tk, tv, tt, tl = tarr[0], tarr[1], tarr[2], tarr[-2], tarr[-1]
+    kw = dict(k_exp=tarr[3], v_exp=tarr[4], kv_bits=bits) if bits < 16 else {}
+    outs = []
+    for w in (16, cap):
+        parts, bpp = tpa.decode_plan(slots, kvh, w, cap, BS, sms=8)
+        assert bpp == 16
+        outs.append(emulate_decode_parts(tq, tk, tv, tt[:, :w], tl, parts,
+                                         bpp, tile=16, **kw))
+    assert tpa.decode_plan(slots, kvh, 16, 16, BS, sms=8)[1] == 8
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.parametrize("bits", [16, 8, 4])
