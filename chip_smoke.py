@@ -64,7 +64,26 @@ Phases (any failure exits non-zero):
      unpreempted run whose identical-token share it prints. Then (g), (b)'s
      8 requests on glm4-9b (full width and depth) and qwen1.5-32b (full
      width, 16 of 64 layers: the bf16 weights of all 64 leave no room on an
-     80 GB card), through the kernels and the gather path.
+     80 GB card), through the kernels and the gather path. Then (h),
+     (b)'s setup with EOS off: (1) the sampler (serve/sampling.py, threefry
+     keys from serve/prng.py) on the card against itself on the CPU — the
+     same (8, 128256) logits and keys, 32 draws under four SamplingParams:
+     raw bits equal, tokens equal but for near-ties (2 f32 ulps, each
+     printed), and a chi-square of 200,000 draws at a 16-way distribution
+     (p > 1e-3); (2) (f)'s shared-prefix trace sampled, cache off and on:
+     the streams the same tokens, 15 x 1024 prefix tokens cached; (3)
+     (b)'s 8 requests sampled with telemetry on and off: the same streams,
+     the 30 metric families in the Prometheus text, counters equal to the
+     engine's stats, a valid JSONL trace with submit -> finish per request,
+     tick-phase p50 / p99; (4) one FaultPlan on them — nan_logits on one
+     request, chunk_error on another, a deadline that lands inside a 1 s
+     slow step on a third: each retires with its reason, the watchdog
+     degrades and recovers, every other stream as in (3), the audit finds
+     no leak and every block is free; (5) real NaN written into a decoding
+     slot's block under (a)'s float setup: that slot retires
+     numeric_error, its neighbour's stream is unchanged, its blocks read
+     back zero and a fresh request reusing them decodes; under (b)'s
+     epilogue the same poison is printed, not gated.
      Launch counters are zeroed before and read after each run.
 Each phase prints its seconds. The last two lines are the kernels JSON and
 the result line.
@@ -1962,6 +1981,437 @@ def new_archs_slice(torch, np, dev, args, rehearse):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice (h): sampled decoding, telemetry and traces, fault containment
+# ---------------------------------------------------------------------------
+
+# (temperature, top_k, top_p) of slice (h)'s sampled requests, in turn
+SAMPLED = [(0.0, 0, 1.0), (0.8, 40, 0.9), (1.0, 50, 1.0), (0.7, 0, 0.95)]
+CHI2_P = 1e-3           # the 16-way chi-square's p-value must exceed this
+NEAR_TIE_ULPS = 2       # a card-vs-CPU token flip is allowed only when its
+# two candidates' logit / T + gumbel lie within this many f32 ulps
+
+
+def f32_ulps(a, b):
+    """Distance of two f32 values in units in the last place."""
+    import struct
+
+    def key(x):
+        i = struct.unpack("<i", struct.pack("<f", float(x)))[0]
+        return i if i >= 0 else -(i & 0x7FFFFFFF)
+    return abs(key(a) - key(b))
+
+
+def sampler_check(torch, np, dev, vocab, seed, full):
+    """Part 1: the sampler on the card against the sampler on the CPU, on
+    the same (8, vocab) f32 logits and keys, 32 draws under each of the
+    four SamplingParams: raw bits equal, tokens equal but for reported
+    near-ties; then a chi-square of draws at a 16-way distribution, keys
+    fold_in(base, i), against its softmax."""
+    from repro_torch.serve import prng
+    from repro_torch.serve import sampling as samp
+    gen = torch.Generator().manual_seed(seed + 41)
+    logits = torch.randn(8, vocab, generator=gen) * 3.0
+    ldev = logits.to(dev)
+    base = prng.prng_key(seed)
+    seeds = torch.tensor([(7919 * i + 13) & 0x7FFFFFFF for i in range(8)])
+    out = {"vocab": vocab, "draws": 0, "flips": [], "bits_compared": 0}
+    for params in SAMPLED:
+        sp = samp.pack([samp.SamplingParams(*params)] * 8)
+        for d in range(32):
+            keys = prng.fold_in(prng.fold_in(base, seeds), d)
+            kdev = keys.to(dev)
+            bits = prng.random_bits(kdev, (vocab,)).cpu()
+            need(torch.equal(bits, prng.random_bits(keys, (vocab,))),
+                 f"sampler: card and CPU bits differ ({params}, draw {d})")
+            out["bits_compared"] += bits.numel()
+            got = samp.sample(ldev, sp, kdev).cpu()
+            want = samp.sample(logits, sp, keys)
+            out["draws"] += 8
+            for s in torch.nonzero(got != want).flatten().tolist():
+                a, b = int(want[s]), int(got[s])
+                vc = (prng.gumbel(keys[s:s + 1], (vocab,))
+                      + samp.filter_logits(logits[s:s + 1], samp.pack(
+                          [samp.SamplingParams(*params)])))[0]
+                vd = (prng.gumbel(kdev[s:s + 1], (vocab,))
+                      + samp.filter_logits(ldev[s:s + 1], samp.pack(
+                          [samp.SamplingParams(*params)])))[0].cpu()
+                gap = min(f32_ulps(vc[a], vc[b]), f32_ulps(vd[a], vd[b]))
+                flip = {"params": params, "draw": d, "slot": s, "cpu": a,
+                        "card": b, "gap_ulps": gap}
+                log(f"slice[h] sampler flip: {flip}")
+                out["flips"].append(flip)
+    need(all(f["gap_ulps"] <= NEAR_TIE_ULPS for f in out["flips"]),
+         f"sampler: a card/CPU token flip is not a near-tie: {out['flips']}")
+    # chi-square at a fixed 16-way distribution
+    from scipy import stats
+    n = 200_000 if full else 20_000
+    l16 = torch.linspace(-2.0, 1.0, 16)
+    keys = prng.fold_in(base.to(dev), torch.arange(n, device=dev))
+    sp = samp.pack([samp.SamplingParams(1.0)] * n)
+    toks = samp.sample(l16.to(dev).expand(n, 16).contiguous(), sp, keys)
+    counts = torch.bincount(toks.cpu(), minlength=16).double().numpy()
+    expect = torch.softmax(l16.double(), 0).numpy() * n
+    chi2, p = stats.chisquare(counts, expect)
+    out.update(chi2_draws=n, chi2=float(chi2), chi2_p=float(p))
+    need(p > CHI2_P, f"sampler: chi-square p = {p:.3g} <= {CHI2_P} over {n} "
+         "draws")
+    if dev.type == "cuda":
+        sp = samp.pack([samp.SamplingParams(*SAMPLED[1])] * 8)
+        keys = prng.fold_in(prng.fold_in(base, seeds), 0).to(dev)
+        out["sample_ms"] = device_ms(torch, lambda: samp.sample(ldev, sp,
+                                                                keys))
+        out["argmax_ms"] = device_ms(torch, lambda: torch.argmax(ldev, -1))
+    log(f"slice[h] sampler: {out['bits_compared']} bits equal card / CPU; "
+        f"{out['draws']} draws, {len(out['flips'])} flips (near-ties); "
+        f"chi-square {out['chi2']:.2f} over {n} draws, p {out['chi2_p']:.3g}"
+        + (f"; sample() {out['sample_ms']:.3f} ms, argmax "
+           f"{out['argmax_ms']:.4f} ms" if "sample_ms" in out else ""))
+    return out
+
+
+def with_sampling(reqs):
+    from repro_torch.serve.sampling import SamplingParams
+    for i, r in enumerate(reqs):
+        r.sampling = SamplingParams(*SAMPLED[i % len(SAMPLED)])
+    return reqs
+
+
+def timed_drive(eng, reqs, sync):
+    """Submit every request, step and poll to the end, recording after each
+    step (ticks, seconds since submit, {rid: tokens so far}). Returns
+    (done, wall s, timeline)."""
+    done, timeline = [], []
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    live = {r.rid: r for r in reqs}
+    while eng.scheduler.waiting or any(r is not None for r in eng.slot_req):
+        eng.step()
+        done.extend(eng.poll())
+        timeline.append((eng.stats["ticks"], time.perf_counter() - t0,
+                         {rid: len(r.out_tokens) for rid, r in live.items()}))
+        need(len(timeline) < 100_000, "the engine did not finish")
+    done.extend(eng.poll())
+    sync()
+    return done, time.perf_counter() - t0, timeline
+
+
+def phase_quantiles(eng):
+    h = eng.registry.get("serve_tick_phase_seconds")
+    return {ph: {"p50_s": h.labels(phase=ph).quantile(50),
+                 "p99_s": h.labels(phase=ph).quantile(99),
+                 "count": h.labels(phase=ph).count}
+            for ph in ("schedule", "dispatch", "device_step", "drain")}
+
+
+def sampled_slice(torch, np, dev, args, rehearse, greedy_f=None,
+                  greedy_b=None):
+    """Slice (h), at llama3.2-3b's full width and depth in slice (b)'s
+    setup (GRAU MLP, fused GRAU attention epilogue, 16-bit pools, 8 slots,
+    max_seq 2048, page 16, chunk 32; weights from --seed; EOS off): (1) the
+    sampler card vs CPU; (2) (f)'s shared-prefix trace sampled, cache off
+    and on; (3) (b)'s 8 requests sampled with telemetry on and off; (4)
+    one FaultPlan on them (nan_logits, chunk_error, a deadline, a slow
+    step); (5) real NaN in a decoding slot's block under (a)'s float
+    setup (gated) and (b)'s epilogue (printed)."""
+    from repro_torch import kernels
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.config import GRAUConfig
+    from repro_torch.nn.common import build_lm_grau
+    from repro_torch.serve import faults as faults_lib
+    from repro_torch.serve import trace as trace_lib
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    full = not rehearse
+    cfg = get_config("llama3.2-3b", smoke=rehearse)
+    gcfg = cfg.replace(grau=GRAUConfig())
+    dtype = torch.float32 if rehearse else torch.bfloat16
+    params = lm.init_lm(gcfg, seed=args.seed, dtype=dtype, device=dev)
+    attn = build_lm_grau("identity")
+    max_seq = 256 if rehearse else 2048
+    base = dict(slots=8, max_seq=max_seq, page_size=16, prefill_chunk=32,
+                attn_grau=attn, eos_id=-1, seed=args.seed)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "max_seq": max_seq, "launches": {}}
+
+    def engine(kw, c=gcfg):
+        eng = ServeEngine(c, params, EngineConfig(**{**base, **kw}),
+                          device=dev)
+        eng.warmup()
+        sync()
+        kernels.reset_launches()
+        return eng
+
+    def launches(label, need_epilogue=True):
+        counts = kernels.launch_counts()
+        out["launches"][label] = counts
+        if need_epilogue:
+            need_kernels(counts, f"slice (h) {label}", rehearse)
+        else:
+            need(rehearse or (counts["paged_attention"] > 0
+                              and counts["paged_prefill"] > 0),
+                 f"slice (h) {label}: the attention kernels did not both "
+                 f"run: {counts}")
+        return counts
+
+    # 1. the sampler, card against CPU
+    out["sampler"] = sampler_check(torch, np, dev, cfg.vocab_size, args.seed,
+                                   full)
+
+    # 2. sampled serving of (f)'s shared-prefix trace, cache off and on
+    plen, _ = shared_prefix_trace(np, Request, cfg.vocab_size, full,
+                                  args.seed)
+    streams = {}
+    for on in (False, True):
+        _, trace = shared_prefix_trace(np, Request, cfg.vocab_size, full,
+                                       args.seed)
+        eng = engine({"prefix_cache": on})
+        done, wall = drive(eng, with_sampling(trace), True)
+        sync()
+        label = f"shared_prefix_sampled_cache_{'on' if on else 'off'}"
+        res = served(eng, done, wall, launches(label))
+        need(len(done) == 16 and all(len(r.out_tokens) == r.max_new_tokens
+                                     for r in done),
+             f"{label}: {len(done)} of 16 served in full")
+        streams[on] = {r.rid: list(r.out_tokens) for r in done}
+        out[label] = res
+        log(f"slice[h] {label}: prefill_tokens {res['prefill_tokens']}, "
+            f"TTFT mean {res['ttft_mean_s']:.3f} s (p50 "
+            f"{res['ttft_p50_s']:.3f}), decode {res['tokens_per_s']:.1f} "
+            "tokens/s")
+        del eng
+    need(streams[True] == streams[False],
+         "slice (h): sampled cache-on and cache-off streams differ")
+    need(any(len(set(s)) > 1 for s in streams[True].values()),
+         "slice (h): the sampled streams are constant")
+    on = out["shared_prefix_sampled_cache_on"]
+    need(on["cached_prefix_tokens"] == 15 * plen,
+         f"slice (h): {on['cached_prefix_tokens']} prefix tokens cached, "
+         f"want {15 * plen}")
+    out["greedy_shared_prefix"] = greedy_f
+    log("slice[h] shared prefix sampled: cache-on and cache-off streams "
+        f"identical; {15 * plen} prefix tokens cached"
+        + (f"; greedy (slice f) {greedy_f['off']:.1f} / "
+           f"{greedy_f['on']:.1f} tokens/s off / on" if greedy_f else ""))
+
+    # 3. telemetry on and off, (b)'s 8 requests sampled
+    lo, hi = (8, 100) if rehearse else (64, 1024)
+
+    def b_requests():
+        return with_sampling(make_requests(np, Request, cfg.vocab_size, 8,
+                                           lo, hi, 32, args.seed))
+    tel_runs, timeline = {}, None
+    for on in (True, False):
+        eng = engine({"telemetry": on})
+        done, wall, tl = timed_drive(eng, b_requests(), sync)
+        label = f"telemetry_{'on' if on else 'off'}"
+        counts = launches(label)
+        need(len(done) == 8, f"{label}: {len(done)} of 8 served")
+        run = {"tokens_per_s": eng.stats["decode_tokens"] / wall,
+               "wall_s": wall, "ticks": eng.stats["ticks"],
+               "streams": {r.rid: list(r.out_tokens) for r in done},
+               "launches": counts}
+        if on:
+            text = eng.prometheus_text()
+            schema = eng.registry.schema()
+            need(len(schema) == 30 and all(
+                f"# TYPE {name} {s['kind']}" in text
+                for name, s in schema.items()),
+                f"{label}: the Prometheus text lacks a golden family")
+            snap = eng.registry.snapshot()
+            need(snap["serve_decode_tokens_total"]
+                 == eng.stats["decode_tokens"]
+                 and snap["serve_prefill_tokens_total"] == {
+                     "kind=computed": eng.stats["prefill_tokens"],
+                     "kind=cached": eng.stats["cached_prefix_tokens"]},
+                 f"{label}: registry counters differ from stats")
+            path = ROOT / "build" / "slice_h_trace.jsonl"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            nlines = eng.export_trace(path)
+            evs = [json.loads(x) for x in path.read_text().splitlines()]
+            bad = [e for e in evs if trace_lib.validate_event(e)]
+            spans = {r.rid: [e["event"] for e in evs if e["rid"] == r.rid]
+                     for r in done}
+            need(not bad and all(k and k[0] == "submit" and k[-1] == "finish"
+                                 for k in spans.values()),
+                 f"{label}: trace invalid ({bad[:2]}) or a span is not "
+                 "submit -> finish")
+            run.update(trace_lines=nlines, phases=phase_quantiles(eng))
+            timeline = tl
+        tel_runs[label] = run
+        del eng
+    runs = list(tel_runs.values())
+    need(all(r["streams"] == runs[0]["streams"] for r in runs),
+         "slice (h): telemetry on and off give different streams")
+    clean = runs[0]["streams"]
+    out["telemetry"] = {k: {kk: vv for kk, vv in v.items() if kk != "streams"}
+                        for k, v in tel_runs.items()}
+    out["telemetry"]["greedy_b_tokens_per_s"] = greedy_b
+    ph = runs[0]["phases"]
+    log("slice[h] telemetry: streams identical on / off; tokens/s "
+        + " / ".join(f"{r['tokens_per_s']:.1f}" for r in runs)
+        + f"; {len(schema)} families; phases p50/p99 ms: "
+        + ", ".join(f"{k} {v['p50_s'] * 1e3:.3f}/{v['p99_s'] * 1e3:.3f}"
+                    for k, v in ph.items() if v["p50_s"] is not None))
+
+    # 4. one FaultPlan at full width: nan_logits, chunk_error, a deadline
+    # that lands inside a 1 s slow step, which trips the armed watchdog
+    reqs = b_requests()
+    plens = {r.rid: len(r.prompt) for r in reqs}
+    chunk_rid = min(plens, key=plens.get)      # the fewest chunks to skip
+    nan_rid = max((r for r in plens if r != chunk_rid), key=plens.get)
+    pick = None
+    for ticks, t, ntok in timeline:
+        if ticks < 20:
+            continue
+        for rid, n in sorted(ntok.items(), key=lambda kv: kv[1]):
+            if (rid not in (chunk_rid, nan_rid) and 3 <= n <= 32 - 12
+                    and timeline[-1][0] - ticks >= 12):
+                pick = (ticks, t, rid)
+                break
+        if pick:
+            break
+    need(pick is not None, "slice (h): no request is mid-decode after "
+         "tick 20 in the clean run")
+    slow_tick, t_slow, dl_rid = pick
+    slow_tick -= 1                        # the tick the step enqueued
+    plan = faults_lib.FaultPlan()
+    plan.arm("nan_logits", rid=nan_rid, nth=4)
+    plan.arm("chunk_error", rid=chunk_rid)
+    plan.arm("slow_step", tick=slow_tick, delay_s=1.0)
+    deadline_ms = (t_slow + 0.5) * 1e3
+    for r in reqs:
+        if r.rid == dl_rid:
+            r.deadline_ms = deadline_ms
+    eng = engine({"faults": plan})
+    done, wall, _ = timed_drive(eng, reqs, sync)
+    counts = launches("faults")
+    reasons = {rs.rid: rs.finish_reason for rs in eng.scheduler.finished}
+    got = {r.rid: list(r.out_tokens) for r in done}
+    want = {nan_rid: "numeric_error", chunk_rid: "internal_error",
+            dl_rid: "deadline"}
+    need(all(reasons[r] == w for r, w in want.items()),
+         f"faults: reasons {reasons}, want {want}")
+    need(0 < len(got[dl_rid]) < 32 and got[dl_rid]
+         == clean[dl_rid][:len(got[dl_rid])],
+         f"faults: the deadline did not cut rid {dl_rid} mid-decode "
+         f"({len(got[dl_rid])} tokens)")
+    need(got[nan_rid] == clean[nan_rid][:4],
+         f"faults: rid {nan_rid} kept {len(got[nan_rid])} tokens, want 4")
+    others = [r for r in got if r not in want]
+    need(all(got[r] == clean[r] for r in others),
+         "faults: a stream without a fault differs from the clean run")
+    health = [(e["state"], e["reason"]) for e in eng.trace.events()
+              if e["event"] == "health"]
+    need(health[:2] == [("degraded", "watchdog"),
+                        ("healthy", "watchdog_recovered")],
+         f"faults: health trace {health}")
+    audit = eng.audit()
+    need(audit["leaked_after"] == 0, f"faults: audit {audit}")
+    need(eng.allocator.free_blocks == eng.allocator.num_blocks - 1,
+         f"faults: {eng.allocator.free_blocks} of "
+         f"{eng.allocator.num_blocks - 1} blocks free")
+    out["faults"] = {"reasons": reasons, "targets": want,
+                     "slow_tick": slow_tick, "deadline_ms": deadline_ms,
+                     "deadline_tokens": len(got[dl_rid]), "health": health,
+                     "audit": {k: v for k, v in audit.items()
+                               if k != "mismatches"},
+                     "faults_injected": eng.metrics()["faults_injected"],
+                     "wall_s": wall, "launches": counts}
+    log(f"slice[h] faults: rid {nan_rid} numeric_error, rid {chunk_rid} "
+        f"internal_error, rid {dl_rid} deadline after "
+        f"{len(got[dl_rid])} tokens; {len(others)} other streams as the "
+        f"clean run; health {health}; audit leaked_after 0; every block "
+        "free")
+    del eng
+
+    # 5. real NaN in a decoding slot's first block
+    def poisoned(c, kw, label):
+        two = make_requests(np, Request, cfg.vocab_size, 2, lo, hi, 32,
+                            args.seed)
+        eng = engine(kw, c)
+        ref, _, _ = timed_drive(eng, two, sync)
+        ref_streams = {r.rid: list(r.out_tokens) for r in ref}
+        del eng
+        two = make_requests(np, Request, cfg.vocab_size, 2, lo, hi, 32,
+                            args.seed)
+        eng = engine(kw, c)
+        for r in two:
+            eng.submit(r)
+        while not all(len(r.out_tokens) >= 2 for r in two):
+            eng.step()
+            eng.poll()
+        eng.drain()
+        victim = next(rs for rs in eng.slot_req if rs is not None)
+        other = next(r for r in two if r.rid != victim.rid)
+        blocks = list(victim.blocks)
+        for group in eng.caches:
+            for pool in group:
+                pool.k[:, blocks[0]] = float("nan")
+                pool.v[:, blocks[0]] = float("nan")
+        res = {"victim": victim.rid, "blocks": len(blocks),
+               "scrubbed_zero": None}
+        fresh = None
+        steps = 0
+        while (eng.scheduler.waiting
+               or any(r is not None for r in eng.slot_req)):
+            eng.step()
+            eng.poll()
+            steps += 1
+            need(steps < 100_000, f"{label}: the engine did not finish")
+            if victim.finish_reason and fresh is None:
+                # the victim's private blocks, scrubbed at its quarantine,
+                # top the free list: a fresh request of its size reuses them
+                sync()
+                if victim.finish_reason == "numeric_error":
+                    res["scrubbed_zero"] = all(
+                        not bool(pool.k[:, b].any())
+                        and not bool(pool.v[:, b].any())
+                        for group in eng.caches for pool in group
+                        for b in blocks)
+                fresh = Request(rid=99, prompt=np.random.default_rng(
+                    args.seed).integers(2, cfg.vocab_size, size=len(
+                        blocks) * base["page_size"] - 8), max_new_tokens=8)
+                eng.submit(fresh)
+        eng.poll()
+        fin = {rs.rid: rs for rs in eng.scheduler.finished}
+        fr = fin.get(99)
+        res.update(
+            victim_reason=fin[victim.rid].finish_reason,
+            victim_tokens=len(victim.out_tokens),
+            other_identical=list(other.out_tokens)
+            == ref_streams[other.rid],
+            fresh_reason=fr.finish_reason if fr else None,
+            fresh_tokens=len(fresh.out_tokens) if fresh else 0,
+            fresh_reused_blocks=(len(set(int(b) for b in fr.table_row)
+                                     & set(blocks)) if fr else 0),
+            all_free=eng.allocator.free_blocks
+            == eng.allocator.num_blocks - 1,
+            audit_leaked=eng.audit()["leaked_after"])
+        del eng
+        return res
+
+    nan_float = poisoned(cfg, {"attn_grau": None}, "nan_float")
+    launches("nan_float", need_epilogue=False)
+    need(nan_float["victim_reason"] == "numeric_error"
+         and nan_float["other_identical"]
+         and nan_float["scrubbed_zero"] is True
+         and nan_float["fresh_reason"] == "max_tokens"
+         and nan_float["fresh_reused_blocks"] > 0
+         and nan_float["all_free"] and nan_float["audit_leaked"] == 0,
+         f"real NaN (float setup): {nan_float}")
+    out["nan_float"] = nan_float
+    out["nan_grau"] = poisoned(gcfg, {}, "nan_grau")
+    launches("nan_grau")
+    log(f"slice[h] real NaN, float: {nan_float}")
+    log(f"slice[h] real NaN under the GRAU epilogue (not gated): "
+        f"{out['nan_grau']}")
+    return out
+
+
 def iter_tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2635,6 +3085,14 @@ def main(argv=None) -> int:
                                                        args.rehearse))
         archs = phase("slice_g", lambda: new_archs_slice(
             torch, np, dev, args, args.rehearse))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        greedy_f = {k: prefix[f"shared_prefix_cache_{k}"]["tokens_per_s"]
+                    for k in ("off", "on")}
+        greedy_b = {k: slice_res["grau"][k] for k in (
+            "tokens_per_s", "ttft_mean_s", "ttft_p50_s")}
+        sampled = phase("slice_h", lambda: sampled_slice(
+            torch, np, dev, args, args.rehearse, greedy_f, greedy_b))
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2644,6 +3102,7 @@ def main(argv=None) -> int:
     report["paged_groups"] = groups
     report["prefix_cache"] = prefix
     report["new_archs"] = archs
+    report["sampled"] = sampled
     # launches on the main paths: the 16-bit attention rows from (b), where
     # the GRAU datapath runs fused in the attention kernels' epilogue; the
     # 4-bit attention rows and matmul_wq from (c); the GRAU unit and
@@ -2674,6 +3133,9 @@ def main(argv=None) -> int:
         rows[name]["launches_slice_f"] = sum(c[name] for c in runs_f)
         rows[name]["launches_slice_g"] = {
             k: archs[k]["launches"][name] for k in ("glm4_grau", "qwen_grau")}
+        # slice (h): every served run, each counted from 0 just before it
+        rows[name]["launches_slice_h"] = sum(
+            c[name] for c in sampled["launches"].values())
     kernel_rows = [grau_row] + [rows[n] for n in (
         "paged_attention", "paged_prefill", "paged_attention_kv4",
         "paged_prefill_kv4", "matmul_wq", "matmul_grau", "flash_attention")]

@@ -18,10 +18,16 @@ Examples:
       --preempt-after-ticks 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
       --smoke --device cpu            # also --arch qwen1.5-32b
+  # sampled decoding, a per-request deadline, the lifecycle trace as JSONL
+  # and a Prometheus /metrics endpoint while it runs
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --temperature 0.8 --top-k 40 --top-p 0.9 --deadline-ms 60000 \
+      --trace-out build/trace.jsonl --metrics-port 0
 
 Archs: llama3.2-3b, gemma-7b, glm4-9b, qwen1.5-32b (configs/archs.py).
-Greedy decoding only: sampled decoding, telemetry, deadlines, the journal
-and the mesh are not ported yet.
+The journal, snapshots and the mesh are not ported yet. A first SIGINT or
+SIGTERM drains (in-flight streams finish, queued requests wait), a second
+stops at once.
 
 Weights are random, drawn from --seed on the device (the published weight
 files are not in the repository). At startup it prints the analytic KV and
@@ -33,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import signal
 import time
 
 import numpy as np
@@ -128,8 +135,34 @@ def main(argv=None) -> None:
                     help="serving-weight precision: 16 = float, 8/4 = packed "
                          "power-of-two planes (the MLP runs the matmul_wq "
                          "kernel)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request wall-clock budget: a request past it "
+                         "retires with reason 'deadline' at the next tick "
+                         "boundary, keeping the tokens generated before")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--no-telemetry", action="store_true",
+                    help="disable the metrics registry and lifecycle traces "
+                         "(on by default; the streams are the same)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve Prometheus /metrics, /metrics.json and "
+                         "/healthz on 127.0.0.1 at this port while running; "
+                         "0 picks a free port")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the per-request lifecycle trace as JSONL "
+                         "here on exit")
+    ap.add_argument("--audit-interval", type=int, default=None,
+                    help="run the engine's invariant audit every N ticks "
+                         "(default: on demand only)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    telemetry = not args.no_telemetry
+    if args.metrics_port is not None and not telemetry:
+        ap.error("--metrics-port requires telemetry (drop --no-telemetry)")
+    if args.trace_out is not None and not telemetry:
+        ap.error("--trace-out requires telemetry (drop --no-telemetry)")
 
     import torch
 
@@ -138,6 +171,7 @@ def main(argv=None) -> None:
     from repro_torch.models.config import GRAUConfig
     from repro_torch.nn.common import build_lm_grau
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    from repro_torch.serve.sampling import SamplingParams
 
     device = lm.resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -155,35 +189,81 @@ def main(argv=None) -> None:
         max_prefills_per_tick=args.max_prefills_per_tick,
         prefix_cache=args.prefix_cache, preemption=not args.no_preemption,
         preempt_after_ticks=args.preempt_after_ticks,
-        kv_bits=args.kv_bits, weight_bits=args.weight_bits, seed=args.seed)
+        kv_bits=args.kv_bits, weight_bits=args.weight_bits,
+        telemetry=telemetry, audit_interval=args.audit_interval,
+        seed=args.seed)
     engine = ServeEngine(cfg, params, ecfg, device=device)
+    if args.metrics_port is not None:
+        # engine-owned endpoint: engine.close() (the finally below) stops
+        # the socket and joins its thread however the launcher exits
+        server = engine.serve_metrics(args.metrics_port)
+        print(f"metrics: http://{server.server_address[0]}:"
+              f"{server.server_address[1]}/metrics")
     print_cost_tables(cfg, args)
     engine.warmup()
     rng = np.random.default_rng(args.seed)
     lo, hi = args.prompt_len
     shared = rng.integers(2, cfg.vocab_size, size=args.shared_prefix)
+    sampling = SamplingParams(temperature=args.temperature,
+                              top_k=args.top_k, top_p=args.top_p)
     reqs = [Request(rid=i, prompt=np.concatenate(
                 [shared, rng.integers(2, cfg.vocab_size,
                                       size=int(rng.integers(lo, hi)))]),
-                    max_new_tokens=args.max_new)
+                    max_new_tokens=args.max_new, sampling=sampling,
+                    deadline_ms=args.deadline_ms)
             for i in range(args.requests)]
-    t0 = time.perf_counter()
-    done = engine.run(reqs)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    wall = time.perf_counter() - t0
-    for r in sorted(done, key=lambda r: r.rid):
-        print(f"rid={r.rid} prompt_len={len(r.prompt)} "
-              f"tokens={r.out_tokens}")
-    m = engine.metrics()
-    print(f"prefix cache: hit_rate={m['prefix_hit_rate']:.2f} "
-          f"cached_prefix_tokens={m['cached_prefix_tokens']} "
-          f"evictions={m['evictions']}")
-    print(f"preemption: preempted={m['preempted']} "
-          f"hol_skips={m['hol_skips']}")
-    m.update(arch=cfg.name, wall_s=wall,
-             tokens_per_s=m["decode_tokens"] / wall if wall > 0 else None)
-    print(json.dumps(m))
+
+    signals = {"count": 0}
+
+    def on_signal(signum, frame):
+        signals["count"] += 1
+
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, on_signal)
+    try:
+        t0 = time.perf_counter()
+        for req in reqs:
+            engine.submit(req)
+        done = []
+        ticks = 0
+        while (engine.scheduler.waiting
+               or any(r is not None for r in engine.slot_req)):
+            if signals["count"] and engine.health != "draining":
+                engine.begin_draining("signal")
+                print("draining: finishing in-flight streams (signal again "
+                      "to stop now)")
+            if signals["count"] > 1 or (
+                    signals["count"]
+                    and all(r is None for r in engine.slot_req)):
+                break
+            made_progress = (engine.step() > 0
+                             or not engine.scheduler.waiting)
+            done.extend(engine.poll())
+            ticks += 1
+            if ticks >= 100000 or (not made_progress and not any(
+                    r is not None for r in engine.slot_req)):
+                break    # queue head can never admit: bail, don't spin
+        done.extend(engine.poll())
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        for r in sorted(done, key=lambda r: r.rid):
+            print(f"rid={r.rid} prompt_len={len(r.prompt)} "
+                  f"tokens={r.out_tokens}")
+        m = engine.metrics()
+        print(f"prefix cache: hit_rate={m['prefix_hit_rate']:.2f} "
+              f"cached_prefix_tokens={m['cached_prefix_tokens']} "
+              f"evictions={m['evictions']}")
+        print(f"preemption: preempted={m['preempted']} "
+              f"hol_skips={m['hol_skips']}")
+        m.update(arch=cfg.name, wall_s=wall,
+                 tokens_per_s=m["decode_tokens"] / wall if wall > 0 else None)
+        print(json.dumps(m))
+        if args.trace_out:
+            n = engine.export_trace(args.trace_out)
+            print(f"wrote {n} trace events to {args.trace_out}")
+    finally:
+        engine.close()
 
 
 if __name__ == "__main__":

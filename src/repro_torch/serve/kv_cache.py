@@ -285,3 +285,26 @@ def copy_pool_block(pools, src: int, dst: int):
             for buf in bufs:
                 buf[:, dst].copy_(buf[:, src])
     return pools
+
+
+def scrub_pool_block(pools, blk: int):
+    """Zero one block (every layer's K and V) in place — the numeric
+    quarantine's step before a block that may hold NaN/Inf goes back to the
+    allocator.
+
+    Freeing alone would be unsound: a recycled block's stale payload is
+    normally harmless (dead positions are masked by context length), but
+    the attention still reads the bytes, and NaN survives a `0 *` mask.
+    Copying from the null block is no better: ghost-active slots write real
+    (possibly poisoned) values there. So float pools go to 0, and packed
+    pools to a zero payload with EXP_EMPTY exponents (the never-written
+    scale state, so the first real write re-arms the scale)."""
+    blk = int(blk)
+    for group in pools:
+        for pool in group:
+            pool.k[:, blk].zero_()
+            pool.v[:, blk].zero_()
+            if isinstance(pool, QuantPagedKVCache):
+                pool.k_exp[:, blk].fill_(kvq.EXP_EMPTY)
+                pool.v_exp[:, blk].fill_(kvq.EXP_EMPTY)
+    return pools

@@ -23,6 +23,7 @@ from typing import Callable, Deque, List, Optional
 
 import numpy as np
 
+from repro_torch.serve import telemetry as tel
 from repro_torch.serve.sampling import SamplingParams
 
 POLICIES = ("fcfs", "prefill")
@@ -47,7 +48,10 @@ class RequestState:
     finish_time: Optional[float] = None
     slot: int = -1
     blocks: List[int] = dataclasses.field(default_factory=list)
-    finish_reason: str = ""
+    finish_reason: str = ""        # tel.ServingMetrics.retired_by_reason keys
+    # per-request deadline in ms from submit (None = no deadline), enforced
+    # at tick boundaries: an expired request retires with reason "deadline"
+    deadline_ms: Optional[float] = None
     # preemption: evictions from a decode slot under KV pressure and the tick
     # of the latest — waiting is measured from it, so a requeued victim
     # cannot at once trigger a counter-preemption
@@ -98,11 +102,22 @@ class RequestState:
             return None
         return self.first_token_time - self.submit_time
 
+    @property
+    def tpot(self) -> Optional[float]:
+        """Mean time per output token after the first (needs >= 2 tokens
+        and a finish time)."""
+        n = len(self.out_tokens)
+        if (self.first_token_time is None or self.finish_time is None
+                or n < 2):
+            return None
+        return (self.finish_time - self.first_token_time) / (n - 1)
+
 
 class Scheduler:
     def __init__(self, policy: str = "fcfs",
                  max_prefills_per_tick: Optional[int] = None,
                  prefill_token_budget: Optional[int] = None,
+                 metrics: Optional[tel.ServingMetrics] = None,
                  lookahead: int = 8, head_age_cap: int = 64):
         if policy not in POLICIES:
             raise ValueError(f"policy {policy!r} not in {POLICIES}")
@@ -131,6 +146,21 @@ class Scheduler:
         self._ttft_n = 0
         self._computed_prefill_sum = 0
         self._cached_prefix_sum = 0
+        # latency distributions: fixed-bucket histograms (bounded memory,
+        # cheap quantiles). With the engine's ServingMetrics the same
+        # observations land in the exported registry; otherwise standalone
+        # histograms keep metrics() cheap
+        self._tel = metrics
+        if metrics is not None:
+            self._ttft_hist = metrics.ttft
+            self._tpot_hist = metrics.tpot
+            self._qwait_hist = metrics.queue_wait
+        else:
+            self._ttft_hist, self._tpot_hist, self._qwait_hist = (
+                tel.Histogram(name, "", (),
+                              tel.DEFAULT_LATENCY_BUCKETS).labels()
+                for name in ("serve_ttft_seconds", "serve_tpot_seconds",
+                             "serve_queue_wait_seconds"))
 
     def submit(self, rs: RequestState, tick: int, now: float) -> None:
         rs.submit_tick = tick
@@ -139,6 +169,9 @@ class Scheduler:
         self.waiting.append(rs)
         self.submitted += 1
         self.max_queue_depth = max(self.max_queue_depth, len(self.waiting))
+        if self._tel is not None:
+            self._tel.requests_submitted.inc()
+            self._tel.queue_depth.set(len(self.waiting))
 
     def pick(self, free_slots: int, tick: int,
              can_admit: Callable[[RequestState], bool]) -> List[RequestState]:
@@ -168,6 +201,10 @@ class Scheduler:
             chosen.append(rs)
         for rs in reversed(skipped):
             self.waiting.appendleft(rs)
+        if self._tel is not None and chosen:
+            # the admitted counter is published by the engine once the
+            # reservation lands (requeue_front never walks it backwards)
+            self._tel.queue_depth.set(len(self.waiting))
         return chosen
 
     def revert_admission(self, rs: RequestState) -> None:
@@ -184,6 +221,8 @@ class Scheduler:
         over-commit) to the queue head, reverting its admission marks."""
         self.revert_admission(rs)
         self.waiting.appendleft(rs)
+        if self._tel is not None:
+            self._tel.queue_depth.set(len(self.waiting))
 
     def preempt(self, rs: RequestState, tick: int) -> None:
         """Return an admitted-and-running request to the queue head: the
@@ -195,6 +234,9 @@ class Scheduler:
         rs.preempt_tick = tick
         self.revert_admission(rs)
         self.waiting.appendleft(rs)
+        if self._tel is not None:
+            self._tel.preemptions.inc()
+            self._tel.queue_depth.set(len(self.waiting))
 
     def retire(self, rs: RequestState, tick: int, now: float,
                reason: str) -> None:
@@ -205,9 +247,22 @@ class Scheduler:
         if rs.ttft is not None:
             self._ttft_sum += rs.ttft
             self._ttft_n += 1
+            self._ttft_hist.observe(rs.ttft)
+        if rs.tpot is not None:
+            self._tpot_hist.observe(rs.tpot)
+        if rs.admit_time is not None:
+            self._qwait_hist.observe(rs.admit_time - rs.submit_time)
         self._computed_prefill_sum += rs.computed_prefill_tokens
         self._cached_prefix_sum += rs.cached_prefix_tokens
         self.finished.append(rs)
+        if self._tel is not None:
+            self._tel.retired_by_reason[reason].inc()
+
+    def ttft_percentiles(self, qs=(50, 90, 99)) -> List[Optional[float]]:
+        """Exact TTFT percentiles over the retained `finished` window (the
+        live metrics() snapshot uses the histogram estimates instead)."""
+        return tel.percentiles(
+            [rs.ttft for rs in self.finished if rs.ttft is not None], qs)
 
     def metrics(self) -> dict:
         return {
@@ -223,6 +278,13 @@ class Scheduler:
                                  if self.admitted else 0.0),
             "mean_ttft_s": (self._ttft_sum / self._ttft_n
                             if self._ttft_n else None),
+            "p50_ttft_s": self._ttft_hist.quantile(50),
+            "p90_ttft_s": self._ttft_hist.quantile(90),
+            "p99_ttft_s": self._ttft_hist.quantile(99),
+            "p50_tpot_s": self._tpot_hist.quantile(50),
+            "p99_tpot_s": self._tpot_hist.quantile(99),
+            "p50_queue_wait_s": self._qwait_hist.quantile(50),
+            "p99_queue_wait_s": self._qwait_hist.quantile(99),
             "prefill_tokens_per_request": (
                 self._computed_prefill_sum / self.retired
                 if self.retired else 0.0),

@@ -1,7 +1,8 @@
 """chip_smoke.py, the port's check on a CUDA card: it refuses to run (exit 2)
 without one, and its phases — the kernels, serving slices (a)-(c), the
-paper's flow (d), training (e), the prefix cache, preemption and cancel (f)
-and the glm4 / qwen archs (g) — hold together end to end in a CPU rehearsal
+paper's flow (d), training (e), the prefix cache, preemption and cancel (f),
+the glm4 / qwen archs (g) and sampled decoding, telemetry and fault
+containment (h) — hold together end to end in a CPU rehearsal
 at smoke size (plain kernel versions, no timings; exit 1 by design)."""
 import importlib.util
 import json
@@ -10,6 +11,7 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_trace_sweep import port_trace_sweep  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -114,10 +116,39 @@ def test_cpu_rehearsal_runs_every_phase(capsys, tmp_path):
         assert res["first_step_logits_rel_l2"] < 1e-5
     assert report["new_archs"]["qwen_grau"]["depth_cut"] is None
     assert all("launches_slice_f" in k for k in kernels[1:3])
+    # slice (h): (1) the sampler card vs CPU (both the CPU here) with its
+    # chi-square; (2) sampled cache-on / off streams (gated) and the prefix
+    # cached; (3) telemetry on / off; (4) the FaultPlan's three targets,
+    # the watchdog's trip and recovery, a clean audit; (5) real NaN
+    h = report["sampled"]
+    assert h["sampler"]["flips"] == [] and h["sampler"]["chi2_p"] > 1e-3
+    assert h["sampler"]["bits_compared"] == 4 * 32 * 8 * h["sampler"][
+        "vocab"]
+    assert h["shared_prefix_sampled_cache_on"]["cached_prefix_tokens"] == \
+        15 * 128
+    tele = h["telemetry"]
+    assert set(tele) >= {"telemetry_on", "telemetry_off"}
+    assert tele["telemetry_on"]["trace_lines"] > 8 * 4
+    assert tele["telemetry_on"]["phases"]["dispatch"]["count"] == \
+        tele["telemetry_on"]["ticks"]
+    f = h["faults"]
+    assert sorted(f["targets"].values()) == ["deadline", "internal_error",
+                                             "numeric_error"]
+    assert all(f["reasons"][r] == w for r, w in f["targets"].items())
+    assert f["health"][:2] == [["degraded", "watchdog"],
+                               ["healthy", "watchdog_recovered"]]
+    assert f["audit"]["leaked_after"] == 0
+    assert f["faults_injected"] == {"nan_logits": 1, "chunk_error": 1,
+                                    "slow_step": 1}
+    nan = h["nan_float"]
+    assert nan["victim_reason"] == "numeric_error" and nan["other_identical"]
+    assert nan["scrubbed_zero"] and nan["fresh_reused_blocks"] > 0
+    assert all("launches_slice_h" in k for k in kernels[1:3])
     assert set(report["phase_s"]) >= {"grau", "paged_attention", "matmul_wq",
                                       "matmul_grau", "flash_attention",
                                       "slices_abc", "slice_d", "slice_e",
-                                      "paged_groups", "slice_f", "slice_g"}
+                                      "paged_groups", "slice_f", "slice_g",
+                                      "slice_h"}
     assert '"ok"' not in out.out
 
 

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_trace_sweep import port_trace_sweep  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -74,16 +75,25 @@ def test_engine_requires_a_device_choice_and_greedy_sampling():
     params = tlm.init_lm(tcfg, seed=0, dtype=torch.float32, device="cpu")
     eng = teng.ServeEngine(tcfg, params, teng.EngineConfig(
         slots=2, max_seq=64, page_size=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        eng.submit(teng.Request(rid=0, prompt=np.array([3, 4]),
-                                sampling=SamplingParams(temperature=0.7)))
     with pytest.raises(ValueError):
         eng.submit(teng.Request(rid=1, prompt=np.array([3] * 60),
                                 max_new_tokens=8))
     with pytest.raises(ValueError):
+        eng.submit(teng.Request(rid=2, prompt=np.array([3, 4]),
+                                deadline_ms=0.0))
+    with pytest.raises(ValueError):
         teng.ServeEngine(tcfg, params, teng.EngineConfig(paged_impl="nope"),
                          device="cpu")
     assert eng.warmup() == len(eng.decode_buckets) + len(eng.chunk_widths)
+    assert eng.allocator.free_blocks == eng.allocator.num_blocks - 1
+    # sampled decoding is served (it was refused before the sampler was
+    # ported), next to a greedy request
+    done = eng.run([teng.Request(rid=0, prompt=np.array([3, 4]),
+                                 max_new_tokens=4,
+                                 sampling=SamplingParams(temperature=0.7)),
+                    teng.Request(rid=3, prompt=np.array([5, 6, 7]),
+                                 max_new_tokens=4)])
+    assert sorted(len(r.out_tokens) for r in done) == [4, 4]
     assert eng.allocator.free_blocks == eng.allocator.num_blocks - 1
 
 

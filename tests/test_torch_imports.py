@@ -43,7 +43,8 @@ def test_port_files_exist():
                  "kernels/flash_attention.py", "configs/shapes.py",
                  "train/optim.py", "train/loop.py", "ckpt/checkpoint.py",
                  "launch/steps.py", "launch/train.py",
-                 "launch/train_lm_grau.py"):
+                 "launch/train_lm_grau.py", "serve/prng.py",
+                 "serve/telemetry.py", "serve/trace.py", "serve/faults.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_trace_sweep import port_trace_sweep  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -179,6 +180,19 @@ def _overload_requests(mod):
                         max_new_tokens=8) for i, n in enumerate(lens)]
 
 
+def _sampled(reqs_fn):
+    """reqs_fn's requests with sampling (greedy, top-k + top-p, top-k,
+    top-p, taken in turn)."""
+    mix = [(0.0, 0, 1.0), (0.8, 40, 0.9), (1.0, 50, 1.0), (0.7, 0, 0.95)]
+
+    def fn(mod):
+        reqs = reqs_fn(mod)
+        for i, r in enumerate(reqs):
+            r.sampling = mod.SamplingParams(*mix[i % len(mix)])
+        return reqs
+    return fn
+
+
 PREEMPT_CASES = {
     "hol": (lambda mod: _hol_requests(mod, _hol_prompts()),
             dict(slots=3, max_seq=64, page_size=16, num_blocks=4,
@@ -192,6 +206,15 @@ PREEMPT_CASES = {
     "overload_kv4": (_overload_requests,
                      dict(slots=8, max_seq=160, page_size=8, prefill_chunk=16,
                           num_blocks=65, kv_bits=4)),
+    # sampled streams resume on the keys they would have drawn: the
+    # preempted requests' sample_step is re-armed at len(out_tokens)
+    "hol_sampled": (_sampled(lambda mod: _hol_requests(mod, _hol_prompts())),
+                    dict(slots=3, max_seq=64, page_size=16, num_blocks=4,
+                         preempt_after_ticks=2, seed=6)),
+    "overload_sampled": (_sampled(_overload_requests),
+                         dict(slots=8, max_seq=160, page_size=8,
+                              prefill_chunk=16, num_blocks=65,
+                              prefix_cache=True, seed=6)),
 }
 
 

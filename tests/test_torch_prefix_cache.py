@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_trace_sweep import port_trace_sweep  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -97,8 +98,12 @@ def _port(models, mode, **kw):
                             device="cpu")
 
 
+# (temperature, top_k, top_p) of sampled requests, taken in turn
+SAMPLED = [(0.0, 0, 1.0), (0.8, 40, 0.9), (1.0, 50, 1.0), (0.7, 0, 0.95)]
+
+
 def shared_prefix_requests(mod, n, *, prefix_len=70, n_prefixes=2,
-                           max_new=4, seed=3, tail=(2, 12)):
+                           max_new=4, seed=3, tail=(2, 12), sampled=False):
     rng = np.random.default_rng(seed)
     prefixes = [rng.integers(2, 512, size=prefix_len)
                 for _ in range(n_prefixes)]
@@ -106,8 +111,10 @@ def shared_prefix_requests(mod, n, *, prefix_len=70, n_prefixes=2,
     for i in range(n):
         pre = prefixes[int(rng.integers(0, n_prefixes))]
         t = rng.integers(2, 512, size=int(rng.integers(tail[0], tail[1])))
+        sp = (mod.SamplingParams(*SAMPLED[i % len(SAMPLED)]) if sampled
+              else mod.SamplingParams())
         reqs.append(mod.Request(rid=i, prompt=np.concatenate([pre, t]),
-                                max_new_tokens=max_new))
+                                max_new_tokens=max_new, sampling=sp))
     return reqs
 
 
@@ -423,6 +430,29 @@ def test_shared_prefix_trace_matches_reference(models, mode):
     assert {k: tm[k] for k in COUNTERS} == {k: jm[k] for k in COUNTERS}
     assert tm["cached_prefix_tokens"] > 0 and tm["prefix_cache"] is True
     assert te.allocator.free_blocks == je.allocator.free_blocks
+
+
+@pytest.mark.parametrize("prefix_cache", [False, True],
+                         ids=["cache_off", "cache_on"])
+def test_sampled_streams_match_reference(models, prefix_cache):
+    """Sampled requests (greedy, top-k + top-p, top-k, top-p mixed) on the
+    shared-prefix trace: the port's streams equal the reference engine's
+    with the cache off and on, and the port's cache-on streams equal its
+    cache-off streams (the draw keys fold the rid and the draw count, never
+    the tick)."""
+    je, te = _engines(models, "float", **ecfg(prefix_cache, seed=4))
+    jr = shared_prefix_requests(jeng, 8, max_new=6, sampled=True)
+    tr = shared_prefix_requests(teng, 8, max_new=6, sampled=True)
+    je.run(jr)
+    te.run(tr)
+    assert _streams(tr) == _streams(jr)
+    assert any(len(set(t)) > 1 for t in _streams(tr).values())
+    other = _port(models, "float", **ecfg(not prefix_cache, seed=4))
+    orq = shared_prefix_requests(teng, 8, max_new=6, sampled=True)
+    other.run(orq)
+    assert _streams(orq) == _streams(tr)
+    on = te if prefix_cache else other
+    assert on.metrics()["cached_prefix_tokens"] > 0
 
 
 # ---------------------------------------------------------------------------
