@@ -70,8 +70,10 @@ Phases (any failure exits non-zero):
      same (8, 128256) logits and keys, 32 draws under four SamplingParams:
      raw bits equal, tokens equal but for near-ties (2 f32 ulps, each
      printed), and a chi-square of 200,000 draws at a 16-way distribution
-     (p > 1e-3); (2) (f)'s shared-prefix trace sampled, cache off and on:
-     the streams the same tokens, 15 x 1024 prefix tokens cached; (3)
+     (p > 1e-3); (2) (f)'s shared-prefix trace sampled, cache off and on
+     (at 7 of the 28 layers, as part 5: reruns of earlier paths, cut to
+     keep the script inside its limit): the streams the same tokens, 15 x
+     1024 prefix tokens cached; (3)
      (b)'s 8 requests sampled with telemetry on and off: the same streams,
      the 30 metric families in the Prometheus text, counters equal to the
      engine's stats, a valid JSONL trace with submit -> finish per request,
@@ -83,7 +85,34 @@ Phases (any failure exits non-zero):
      slot's block under (a)'s float setup: that slot retires
      numeric_error, its neighbour's stream is unchanged, its blocks read
      back zero and a fresh request reusing them decodes; under (b)'s
-     epilogue the same poison is printed, not gated.
+     epilogue the same poison is printed, not gated. Telemetry's cost is
+     timed off, on, off, on (`ab_runs`) and reported as medians.
+     Then (i), durable serving in (b)'s setup with EOS off, even rids
+     greedy and odd sampled (T 0.8, top-k 40): (1) the uninterrupted run
+     with the write-ahead journal off and on (off, on, off, on): the same
+     streams, the journal's records, bytes and fsyncs, tokens/s medians;
+     (2) process_crash at a tick with a request mid-prefill, one with >= 3
+     slots mid-decode and the last tick: each engine dropped without
+     close(), ServeEngine.recover from its journal into a fresh engine
+     (config from the EngineConfig, once from a snapshot) and finished —
+     the journal's streams equal (1)'s, every pre-kill prefix kept, the
+     replay idempotent with one epoch more and nothing live, every block
+     free; seconds from recover() to the first resumed token and the
+     prefill tokens recomputed; (3) `python -m repro_torch.launch.serve
+     --journal` at (i)'s settings as a process, SIGKILLed after 40 token
+     records and rerun with --resume: the journal's streams equal an
+     uninterrupted journaled run's; (4) a snapshot with every slot busy
+     (its bytes: no KV pool), ServeEngine.restore, the streams as (1)'s;
+     (5) live handoff mid-decode to a same-config engine (the streams as
+     (1)'s, the source DRAINING with every block free, the gauge at 3
+     during it) and to wq4 + kv4 (matmul_wq and the 4-bit pools; none
+     failed, the shared-prefix share printed); (6) the asyncio FrontDoor:
+     8 concurrent submits with max_waiting=2 (the queue never above 2), one
+     stream cancelled after its 4th token (its blocks released), the other
+     streams as (1)'s, tokens/s beside run()'s; then a FrontDoor.handoff
+     under open streams, every stream as (1)'s. Every stream gate is exact:
+     a readmitted request replays its delivered tokens through decode
+     ticks, the uninterrupted run's kernel calls.
      Launch counters are zeroed before and read after each run.
 Each phase prints its seconds. The last two lines are the kernels JSON and
 the result line.
@@ -1985,6 +2014,11 @@ def new_archs_slice(torch, np, dev, args, rehearse):
 # slice (h): sampled decoding, telemetry and traces, fault containment
 # ---------------------------------------------------------------------------
 
+# slice (h)'s reruns of earlier paths — (f)'s shared-prefix trace sampled,
+# and real NaN in the pool — run at this many of llama3.2-3b's 28 layers,
+# which keeps the whole script inside its time limit; each compares runs of
+# its own depth with each other (PERF.md §4)
+RERUN_LAYERS = 7
 # (temperature, top_k, top_p) of slice (h)'s sampled requests, in turn
 SAMPLED = [(0.0, 0, 1.0), (0.8, 40, 0.9), (1.0, 50, 1.0), (0.7, 0, 0.95)]
 CHI2_P = 1e-3           # the 16-way chi-square's p-value must exceed this
@@ -2097,6 +2131,18 @@ def timed_drive(eng, reqs, sync):
     return done, time.perf_counter() - t0, timeline
 
 
+def ab_runs(run, a, b, rounds=2):
+    """Run two settings in alternating order (a, b, a, b, ...), `rounds`
+    times each, so neither always runs first on a card that warms up or a
+    host that settles; run(setting, i) gets the round i. Returns {setting:
+    [results in order]} (report each setting's median)."""
+    out = {a: [], b: []}
+    for i in range(rounds):
+        for setting in (a, b):
+            out[setting].append(run(setting, i))
+    return out
+
+
 def phase_quantiles(eng):
     h = eng.registry.get("serve_tick_phase_seconds")
     return {ph: {"p50_s": h.labels(phase=ph).quantile(50),
@@ -2107,18 +2153,19 @@ def phase_quantiles(eng):
 
 def sampled_slice(torch, np, dev, args, rehearse, greedy_f=None,
                   greedy_b=None):
-    """Slice (h), at llama3.2-3b's full width and depth in slice (b)'s
-    setup (GRAU MLP, fused GRAU attention epilogue, 16-bit pools, 8 slots,
-    max_seq 2048, page 16, chunk 32; weights from --seed; EOS off): (1) the
+    """Slice (h), at llama3.2-3b's full width in slice (b)'s setup (GRAU
+    MLP, fused GRAU attention epilogue, 16-bit pools, 8 slots, max_seq
+    2048, page 16, chunk 32; weights from --seed; EOS off): (1) the
     sampler card vs CPU; (2) (f)'s shared-prefix trace sampled, cache off
-    and on; (3) (b)'s 8 requests sampled with telemetry on and off; (4)
-    one FaultPlan on them (nan_logits, chunk_error, a deadline, a slow
+    and on; (3) (b)'s 8 requests sampled with telemetry off, on, off, on;
+    (4) one FaultPlan on them (nan_logits, chunk_error, a deadline, a slow
     step); (5) real NaN in a decoding slot's block under (a)'s float
-    setup (gated) and (b)'s epilogue (printed)."""
+    setup (gated) and (b)'s epilogue (printed). Parts 3 and 4 run all 28
+    layers, parts 2 and 5 RERUN_LAYERS."""
     from repro_torch import kernels
     from repro_torch.configs.archs import get_config
     from repro_torch.models import lm
-    from repro_torch.models.config import GRAUConfig
+    from repro_torch.models.config import GRAUConfig, dense_groups
     from repro_torch.nn.common import build_lm_grau
     from repro_torch.serve import faults as faults_lib
     from repro_torch.serve import trace as trace_lib
@@ -2129,17 +2176,23 @@ def sampled_slice(torch, np, dev, args, rehearse, greedy_f=None,
     gcfg = cfg.replace(grau=GRAUConfig())
     dtype = torch.float32 if rehearse else torch.bfloat16
     params = lm.init_lm(gcfg, seed=args.seed, dtype=dtype, device=dev)
+    # parts 2 and 5 at RERUN_LAYERS (the smoke config is already shallow)
+    cut_cfg = cfg if rehearse else cfg.replace(
+        groups=dense_groups(RERUN_LAYERS))
+    cut_g = cut_cfg.replace(grau=GRAUConfig())
+    cut_params = (params if rehearse else
+                  lm.init_lm(cut_g, seed=args.seed, dtype=dtype, device=dev))
     attn = build_lm_grau("identity")
     max_seq = 256 if rehearse else 2048
     base = dict(slots=8, max_seq=max_seq, page_size=16, prefill_chunk=32,
                 attn_grau=attn, eos_id=-1, seed=args.seed)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     out = {"arch": cfg.name, "layers": cfg.num_layers,
-           "d_model": cfg.d_model, "max_seq": max_seq, "launches": {}}
+           "rerun_layers": cut_cfg.num_layers, "d_model": cfg.d_model,
+           "max_seq": max_seq, "launches": {}}
 
-    def engine(kw, c=gcfg):
-        eng = ServeEngine(c, params, EngineConfig(**{**base, **kw}),
-                          device=dev)
+    def engine(kw, c=gcfg, p=params):
+        eng = ServeEngine(c, p, EngineConfig(**{**base, **kw}), device=dev)
         eng.warmup()
         sync()
         kernels.reset_launches()
@@ -2168,7 +2221,7 @@ def sampled_slice(torch, np, dev, args, rehearse, greedy_f=None,
     for on in (False, True):
         _, trace = shared_prefix_trace(np, Request, cfg.vocab_size, full,
                                        args.seed)
-        eng = engine({"prefix_cache": on})
+        eng = engine({"prefix_cache": on}, cut_g, cut_params)
         done, wall = drive(eng, with_sampling(trace), True)
         sync()
         label = f"shared_prefix_sampled_cache_{'on' if on else 'off'}"
@@ -2203,17 +2256,16 @@ def sampled_slice(torch, np, dev, args, rehearse, greedy_f=None,
     def b_requests():
         return with_sampling(make_requests(np, Request, cfg.vocab_size, 8,
                                            lo, hi, 32, args.seed))
-    tel_runs, timeline = {}, None
-    for on in (True, False):
+    def tel_run(on, i):
         eng = engine({"telemetry": on})
         done, wall, tl = timed_drive(eng, b_requests(), sync)
-        label = f"telemetry_{'on' if on else 'off'}"
+        label = f"telemetry_{'on' if on else 'off'}" + (f"_{i}" if i else "")
         counts = launches(label)
         need(len(done) == 8, f"{label}: {len(done)} of 8 served")
         run = {"tokens_per_s": eng.stats["decode_tokens"] / wall,
                "wall_s": wall, "ticks": eng.stats["ticks"],
                "streams": {r.rid: list(r.out_tokens) for r in done},
-               "launches": counts}
+               "launches": counts, "timeline": tl}
         if on:
             text = eng.prometheus_text()
             schema = eng.registry.schema()
@@ -2239,21 +2291,38 @@ def sampled_slice(torch, np, dev, args, rehearse, greedy_f=None,
                                  for k in spans.values()),
                  f"{label}: trace invalid ({bad[:2]}) or a span is not "
                  "submit -> finish")
-            run.update(trace_lines=nlines, phases=phase_quantiles(eng))
-            timeline = tl
-        tel_runs[label] = run
+            run.update(trace_lines=nlines, phases=phase_quantiles(eng),
+                       families=len(schema))
         del eng
-    runs = list(tel_runs.values())
+        return run
+
+    # telemetry off and on in alternating order (off, on, off, on), so
+    # neither setting always runs first
+    ab = ab_runs(tel_run, False, True)
+    runs = ab[False] + ab[True]
     need(all(r["streams"] == runs[0]["streams"] for r in runs),
          "slice (h): telemetry on and off give different streams")
     clean = runs[0]["streams"]
-    out["telemetry"] = {k: {kk: vv for kk, vv in v.items() if kk != "streams"}
-                        for k, v in tel_runs.items()}
+    timeline = ab[True][0]["timeline"]
+    out["telemetry"] = {
+        f"telemetry_{'on' if on else 'off'}": {
+            k: v for k, v in ab[on][0].items()
+            if k not in ("streams", "timeline")} for on in (True, False)}
+    out["telemetry"]["order"] = "off, on, off, on"
+    out["telemetry"]["tokens_per_s"] = {
+        "on": [r["tokens_per_s"] for r in ab[True]],
+        "off": [r["tokens_per_s"] for r in ab[False]]}
+    med = {k: float(np.median(v))
+           for k, v in out["telemetry"]["tokens_per_s"].items()}
+    out["telemetry"]["median_tokens_per_s"] = med
     out["telemetry"]["greedy_b_tokens_per_s"] = greedy_b
-    ph = runs[0]["phases"]
-    log("slice[h] telemetry: streams identical on / off; tokens/s "
-        + " / ".join(f"{r['tokens_per_s']:.1f}" for r in runs)
-        + f"; {len(schema)} families; phases p50/p99 ms: "
+    ph = ab[True][0]["phases"]
+    log("slice[h] telemetry: streams identical on / off; tokens/s (off, "
+        "on, off, on) "
+        + " / ".join(f"{r['tokens_per_s']:.1f}" for r in
+                     (ab[False][0], ab[True][0], ab[False][1], ab[True][1]))
+        + f"; median on {med['on']:.1f}, off {med['off']:.1f}; "
+        + f"{ab[True][0]['families']} families; phases p50/p99 ms: "
         + ", ".join(f"{k} {v['p50_s'] * 1e3:.3f}/{v['p99_s'] * 1e3:.3f}"
                     for k, v in ph.items() if v["p50_s"] is not None))
 
@@ -2332,13 +2401,13 @@ def sampled_slice(torch, np, dev, args, rehearse, greedy_f=None,
     def poisoned(c, kw, label):
         two = make_requests(np, Request, cfg.vocab_size, 2, lo, hi, 32,
                             args.seed)
-        eng = engine(kw, c)
+        eng = engine(kw, c, cut_params)
         ref, _, _ = timed_drive(eng, two, sync)
         ref_streams = {r.rid: list(r.out_tokens) for r in ref}
         del eng
         two = make_requests(np, Request, cfg.vocab_size, 2, lo, hi, 32,
                             args.seed)
-        eng = engine(kw, c)
+        eng = engine(kw, c, cut_params)
         for r in two:
             eng.submit(r)
         while not all(len(r.out_tokens) >= 2 for r in two):
@@ -2394,7 +2463,7 @@ def sampled_slice(torch, np, dev, args, rehearse, greedy_f=None,
         del eng
         return res
 
-    nan_float = poisoned(cfg, {"attn_grau": None}, "nan_float")
+    nan_float = poisoned(cut_cfg, {"attn_grau": None}, "nan_float")
     launches("nan_float", need_epilogue=False)
     need(nan_float["victim_reason"] == "numeric_error"
          and nan_float["other_identical"]
@@ -2404,12 +2473,572 @@ def sampled_slice(torch, np, dev, args, rehearse, greedy_f=None,
          and nan_float["all_free"] and nan_float["audit_leaked"] == 0,
          f"real NaN (float setup): {nan_float}")
     out["nan_float"] = nan_float
-    out["nan_grau"] = poisoned(gcfg, {}, "nan_grau")
+    out["nan_grau"] = poisoned(cut_g, {}, "nan_grau")
     launches("nan_grau")
     log(f"slice[h] real NaN, float: {nan_float}")
     log(f"slice[h] real NaN under the GRAU epilogue (not gated): "
         f"{out['nan_grau']}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# slice (i): durable serving — the journal, crash recovery, the launcher's
+# kill and --resume, snapshot / restore, live handoff, the front door
+# ---------------------------------------------------------------------------
+
+SAMPLED_I = (0.8, 40, 1.0)     # odd rids of slice (i): T, top-k, top-p
+
+
+def journal_streams(path):
+    """{rid: every delivered token} from a journal's token records (the
+    torn tail of a killed writer skipped)."""
+    out = {}
+    for line in Path(path).read_bytes().splitlines():
+        try:
+            rec = json.loads(line)
+        except json.JSONDecodeError:
+            continue
+        if rec["kind"] == "submit":
+            out.setdefault(rec["rid"], [])
+        elif rec["kind"] == "token":
+            out[rec["rid"]].append(rec["tok"])
+    return out
+
+
+def busy(eng):
+    return bool(eng.scheduler.waiting
+                or any(r is not None for r in eng.slot_req))
+
+
+def run_out(eng):
+    """step / poll to the end; returns the polled requests."""
+    done, steps = [], 0
+    while busy(eng):
+        eng.step()
+        done.extend(eng.poll())
+        steps += 1
+        need(steps < 100_000, "the engine did not finish")
+    done.extend(eng.poll())
+    return done
+
+
+def slot_counts(eng):
+    """(slots mid-prefill, slots mid-decode)."""
+    live = [r for r in eng.slot_req if r is not None]
+    pre = sum(1 for r in live if r.pending_chunks)
+    return pre, len(live) - pre
+
+
+def durable_slice(torch, np, dev, args, rehearse):
+    """Slice (i), at llama3.2-3b's full width and depth in slice (b)'s
+    setup (GRAU MLP, fused GRAU attention epilogue, 16-bit pools, 8 slots,
+    max_seq 2048, page 16, chunk 32; weights from --seed; EOS off; even
+    rids greedy, odd sampled at T 0.8 / top-k 40 / top-p 1.0): (1) the
+    uninterrupted run, journal off and on interleaved; (2) process_crash at
+    three ticks (a request mid-prefill, >= 3 slots mid-decode, the last
+    tick), each recovered from its journal into a fresh engine; (3) the
+    launcher as a process, SIGKILLed and rerun with --resume; (4) snapshot
+    with every slot busy, restore; (5) live handoff to the same config and
+    to wq4 + kv4; (6) the asyncio front door: cancel, backpressure, a
+    handoff under open streams."""
+    import asyncio
+    import gc
+    import shutil
+    import signal
+
+    from repro_torch import kernels
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.config import GRAUConfig
+    from repro_torch.nn.common import build_lm_grau
+    from repro_torch.serve import faults as faults_lib
+    from repro_torch.serve import journal as journal_lib
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    from repro_torch.serve.frontdoor import FrontDoor
+    from repro_torch.serve.sampling import SamplingParams
+
+    cfg = get_config("llama3.2-3b", smoke=rehearse)
+    gcfg = cfg.replace(grau=GRAUConfig())
+    dtype = torch.float32 if rehearse else torch.bfloat16
+    params = lm.init_lm(gcfg, seed=args.seed, dtype=dtype, device=dev)
+    attn = build_lm_grau("identity")
+    max_seq = 256 if rehearse else 2048
+    lo, hi = (8, 100) if rehearse else (64, 1024)
+    base = dict(slots=8, max_seq=max_seq, page_size=16, prefill_chunk=32,
+                attn_grau=attn, eos_id=-1, seed=args.seed)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    work = ROOT / "build" / "slice_i"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "max_seq": max_seq, "launches": {}}
+
+    def requests():
+        reqs = make_requests(np, Request, cfg.vocab_size, 8, lo, hi, 32,
+                             args.seed)
+        for r in reqs:
+            if r.rid % 2:
+                r.sampling = SamplingParams(*SAMPLED_I)
+        return reqs
+
+    def engine(**kw):
+        # no warmup: the slices before built and loaded every kernel
+        eng = ServeEngine(gcfg, params, EngineConfig(**{**base, **kw}),
+                          device=dev)
+        sync()
+        kernels.reset_launches()
+        return eng
+
+    def release():
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def launches(label):
+        counts = kernels.launch_counts()
+        out["launches"][label] = counts
+        need_kernels(counts, f"slice (i) {label}", rehearse)
+        return counts
+
+    def same_streams(label, got, want):
+        """got == want, stream for stream and bit for bit; on a failure the
+        first differing token of each stream is named."""
+        bad = {rid: first_divergence({rid: got.get(rid, [])},
+                                     {rid: want[rid]})
+               for rid in want if got.get(rid) != want[rid]}
+        need(set(got) == set(want) and not bad,
+             f"{label}: streams differ from the uninterrupted run's (rid, "
+             f"first differing index): {bad}")
+
+    # 1. the uninterrupted run, journal off and on, interleaved
+    def uninterrupted(on, i):
+        path = work / f"uninterrupted_{i}.journal"
+        jr = journal_lib.RequestJournal(path) if on else None
+        eng = engine(journal=jr)
+        reqs = requests()
+        timeline = []
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        done, steps = [], 0
+        while busy(eng):
+            timeline.append((eng.stats["ticks"],) + slot_counts(eng))
+            eng.step()
+            done.extend(eng.poll())
+            steps += 1
+            need(steps < 100_000, "the engine did not finish")
+        sync()
+        wall = time.perf_counter() - t0
+        label = f"journal_{'on' if on else 'off'}" + (f"_{i}" if i else "")
+        res = {"tokens_per_s": eng.stats["decode_tokens"] / wall,
+               "wall_s": wall, "ticks": eng.stats["ticks"],
+               "launches": launches(label), "timeline": timeline,
+               "streams": streams_of(done)}
+        eng.close()
+        if on:
+            jr.close()
+            res.update(journal_records=jr.records, journal_fsyncs=jr.syncs,
+                       journal_bytes=path.stat().st_size)
+            need(journal_streams(path) == res["streams"],
+                 f"{label}: the journal's tokens differ from the streams")
+        del eng
+        return res
+
+    ab = ab_runs(uninterrupted, False, True)
+    runs = ab[False] + ab[True]
+    clean = runs[0]["streams"]
+    need(len(clean) == 8 and all(len(t) == 32 for t in clean.values()),
+         "slice (i): the uninterrupted run did not serve 8 x 32 tokens")
+    need(all(r["streams"] == clean for r in runs),
+         "slice (i): journal on and off give different streams")
+    need(any(len(set(clean[r])) > 1 for r in clean if r % 2),
+         "slice (i): the sampled streams are constant")
+    on0 = ab[True][0]
+    med = {k: float(np.median([r["tokens_per_s"] for r in ab[v]]))
+           for k, v in (("on", True), ("off", False))}
+    out["journal"] = {
+        "order": "off, on, off, on",
+        "tokens_per_s": {k: [r["tokens_per_s"] for r in ab[v]]
+                         for k, v in (("on", True), ("off", False))},
+        "median_tokens_per_s": med,
+        "records": on0["journal_records"], "bytes": on0["journal_bytes"],
+        "fsyncs": on0["journal_fsyncs"], "ticks": on0["ticks"]}
+    log(f"slice[i] journal: streams identical on / off; "
+        f"{on0['journal_records']} records, {on0['journal_bytes']} bytes, "
+        f"{on0['journal_fsyncs']} fsyncs; tokens/s (off, on, off, on) "
+        + " / ".join(f"{r['tokens_per_s']:.1f}" for r in
+                     (ab[False][0], ab[True][0], ab[False][1], ab[True][1]))
+        + f"; median off {med['off']:.1f}, on {med['on']:.1f}")
+    # 2. process_crash at three ticks, each recovered from its journal
+    tl = on0["timeline"]
+    k_pre = next((t for t, pre, _ in tl if pre and t >= 2), None)
+    k_dec = next((t for t, _, dec in tl
+                  if dec >= 3 and k_pre is not None and t > k_pre), None)
+    k_last = tl[-1][0]
+    need(None not in (k_pre, k_dec) and k_dec < k_last,
+         f"slice (i): no kill ticks in the timeline ({k_pre}, {k_dec}, "
+         f"{k_last})")
+    out["crashes"] = []
+    for n, (kind, k) in enumerate((("mid_prefill", k_pre),
+                                   ("mid_decode", k_dec),
+                                   ("last_tick", k_last))):
+        jpath = work / f"crash_{kind}.journal"
+        snapdir = work / f"crash_{kind}_snapshot"
+        from_snapshot = n == 1
+        plan = faults_lib.FaultPlan()
+        plan.arm("process_crash", tick=k)
+        eng = engine(journal=journal_lib.RequestJournal(jpath), faults=plan)
+        eng._owns_journal = True
+        if from_snapshot:
+            eng.snapshot(snapdir, step=0)
+        for r in requests():
+            eng.submit(r)
+        crash = None
+        try:
+            run_out(eng)
+        except faults_lib.ProcessCrash as e:
+            crash = e.tick
+        need(crash == k, f"slice (i) crash {kind}: process_crash fired at "
+             f"{crash}, want tick {k}")
+        pre_n, dec_n = slot_counts(eng)
+        del eng                          # simulated death: no close()
+        release()
+        state = journal_lib.replay(jpath)
+        first = {}
+        t0 = time.perf_counter()
+        if from_snapshot:
+            eng = ServeEngine.recover(gcfg, params, jpath,
+                                      snapshot_dir=snapdir,
+                                      overrides={"attn_grau": attn},
+                                      device=dev)
+        else:
+            eng = ServeEngine.recover(gcfg, params, jpath,
+                                      ecfg=EngineConfig(**base), device=dev)
+        kernels.reset_launches()
+        eng.token_sink = lambda rid, tok: first.setdefault(
+            "t", time.perf_counter())
+        run_out(eng)
+        sync()
+        wall = time.perf_counter() - t0
+        label = f"crash_{kind}"
+        counts = launches(label)
+        final = journal_lib.replay(jpath)
+        need(final == journal_lib.replay(jpath)
+             and final.epochs == state.epochs + 1 and not final.live,
+             f"{label}: the final replay is not idempotent, has "
+             f"{final.epochs} epochs (want {state.epochs + 1}) or "
+             f"{len(final.live)} live requests")
+        got = journal_streams(jpath)
+        need(all(got[rid][:len(lr.delivered)] == lr.delivered
+                 for rid, lr in state.live.items()),
+             f"{label}: a pre-kill delivered prefix was not kept")
+        need(eng.allocator.free_blocks == eng.allocator.num_blocks - 1,
+             f"{label}: {eng.allocator.free_blocks} of "
+             f"{eng.allocator.num_blocks - 1} blocks free after recovery")
+        same_streams(label, got, clean)
+        res = {"kill_tick": k, "config_from": ("snapshot" if from_snapshot
+                                               else "ecfg"),
+               "slots_mid_prefill": pre_n, "slots_mid_decode": dec_n,
+               "live_at_kill": len(state.live),
+               "delivered_at_kill": sum(len(lr.delivered)
+                                        for lr in state.live.values()),
+               "recover_to_first_token_s": (first["t"] - t0
+                                            if "t" in first else None),
+               "prefill_tokens_recomputed": eng.stats["prefill_tokens"],
+               "recovered_wall_s": wall, "launches": counts}
+        out["crashes"].append(res)
+        log(f"slice[i] {label} at tick {k} ({pre_n} slots mid-prefill, "
+            f"{dec_n} mid-decode; config from {res['config_from']}): "
+            f"{res['live_at_kill']} live, {res['delivered_at_kill']} tokens "
+            f"delivered (replayed); recover() -> first resumed token "
+            f"{res['recover_to_first_token_s']:.3f} s, "
+            f"{res['prefill_tokens_recomputed']} prefill tokens recomputed; "
+            "streams as the uninterrupted run's")
+        eng.close()
+        del eng
+        release()
+
+    # 3. the launcher as a real process: SIGKILL, then --resume
+    flags = ["--arch", "llama3.2-3b", "--grau", "--attn-grau", "identity",
+             "--slots", "8", "--max-seq", str(max_seq), "--page-size", "16",
+             "--prefill-chunk", "32", "--requests", "8", "--prompt-len",
+             str(lo), str(hi + 1), "--max-new", "32", "--temperature",
+             str(SAMPLED_I[0]), "--top-k", str(SAMPLED_I[1]), "--top-p",
+             str(SAMPLED_I[2]), "--alternate-greedy", "--eos-id", "-1",
+             "--seed", str(args.seed)]
+    flags += (["--smoke", "--device", "cpu", "--dtype", "float32"]
+              if rehearse else ["--device", "cuda"])
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+
+    def launcher(name, *extra, kill_after=None):
+        """One launcher process; with kill_after, SIGKILL once its journal
+        holds that many token records. Returns (exit code, seconds, the
+        path of its output)."""
+        log_path = work / f"launcher_{name}.log"
+        t0 = time.perf_counter()
+        with open(log_path, "w") as logf:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.serve", *flags,
+                 *extra], cwd=ROOT, env=env, stdout=logf,
+                stderr=subprocess.STDOUT)
+            try:
+                if kill_after is not None:
+                    jp = Path(extra[extra.index("--journal") + 1])
+                    while (not jp.exists() or jp.read_bytes().count(
+                            b'"kind": "token"') < kill_after):
+                        need(proc.poll() is None,
+                             f"launcher {name} ended before its kill: "
+                             f"{log_path.read_text()[-2000:]}")
+                        need(time.perf_counter() - t0 < 600,
+                             f"launcher {name}: no tokens journaled")
+                        time.sleep(0.01)
+                    proc.send_signal(signal.SIGKILL)
+                proc.wait(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return proc.returncode, time.perf_counter() - t0, log_path
+
+    full_j, kill_j = work / "launcher_full.journal", work / "launcher.journal"
+    rc, s_full, lp = launcher("uninterrupted", "--journal", str(full_j))
+    need(rc == 0, f"launcher (uninterrupted): exit {rc}: "
+         f"{lp.read_text()[-2000:]}")
+    rc, s_kill, lp = launcher("killed", "--journal", str(kill_j),
+                              kill_after=40)
+    need(rc == -signal.SIGKILL, f"launcher (killed): exit {rc}")
+    killed = journal_lib.replay(kill_j)
+    need(killed.live, "launcher: nothing was live at the kill")
+    rc, s_resume, lp = launcher("resumed", "--journal", str(kill_j),
+                                "--resume")
+    need(rc == 0, f"launcher (--resume): exit {rc}: "
+         f"{lp.read_text()[-2000:]}")
+    need(not journal_lib.replay(kill_j).live,
+         "launcher: requests still live after --resume")
+    want = journal_streams(full_j)
+    need(len(want) == 8 and all(len(t) == 32 for t in want.values()),
+         "launcher: the uninterrupted run did not serve 8 x 32 tokens")
+    same_streams("launcher_resume", journal_streams(kill_j), want)
+    out["launcher"] = {"uninterrupted_s": s_full, "killed_s": s_kill,
+                       "resumed_s": s_resume,
+                       "live_at_kill": len(killed.live),
+                       "delivered_at_kill": sum(
+                           len(lr.delivered) for lr in killed.live.values())}
+    log(f"slice[i] launcher: uninterrupted {s_full:.1f} s; SIGKILL after "
+        f"{s_kill:.1f} s with {len(killed.live)} live requests; --resume "
+        f"{s_resume:.1f} s; replayed streams as the uninterrupted run's")
+
+    # 4. snapshot with every slot busy, close, restore
+    eng = engine()
+    for r in requests():
+        eng.submit(r)
+    done = []
+    while not (all(r is not None for r in eng.slot_req)
+               and slot_counts(eng)[1] >= 3):
+        need(busy(eng), "slice (i) snapshot: never every slot busy")
+        eng.step()
+        done.extend(eng.poll())
+    path = eng.snapshot(work / "snapshot")
+    snap_bytes = sum(f.stat().st_size for f in path.rglob("*")
+                     if f.is_file())
+    snap_tick = eng.stats["ticks"]
+    eng.close()
+    del eng
+    release()
+    eng = ServeEngine.restore(gcfg, params, work / "snapshot",
+                              overrides={"attn_grau": attn}, device=dev)
+    kernels.reset_launches()
+    done += run_out(eng)
+    counts = launches("restore")
+    same_streams("restore", streams_of(done), clean)
+    out["snapshot"] = {"tick": snap_tick, "bytes": snap_bytes,
+                       "restored": int(eng._tel.restored_requests.value),
+                       "launches": counts}
+    log(f"slice[i] snapshot at tick {snap_tick} (every slot busy): "
+        f"{snap_bytes} bytes; restored {out['snapshot']['restored']} "
+        "requests; streams as the uninterrupted run's")
+    eng.close()
+    del eng
+    release()
+
+    # 5. live handoff, mid-decode: to the same config, then to wq4 + kv4
+    def mid_decode(eng):
+        for r in requests():
+            eng.submit(r)
+        done = []
+        while slot_counts(eng)[1] < 3:
+            need(busy(eng), "slice (i) handoff: never 3 slots mid-decode")
+            eng.step()
+            done.extend(eng.poll())
+        return done
+
+    out["handoff"] = {}
+    for label, kw in (("handoff_same", {}),
+                      ("handoff_wq4_kv4", {"weight_bits": 4,
+                                           "kv_bits": 4})):
+        src = engine()
+        done = mid_decode(src)
+        tgt = engine(**kw)
+        gauge = []
+        readmit = tgt._readmit
+
+        def watched(records, journal_known_rids=frozenset()):
+            gauge.append(src.registry.snapshot()["serve_health"])
+            return readmit(records, journal_known_rids)
+
+        tgt._readmit = watched
+        t0 = time.perf_counter()
+        summary = src.handoff(tgt)
+        sync()
+        took = time.perf_counter() - t0
+        need(src.health == "draining" and gauge == [3.0],
+             f"{label}: the source is {src.health}, the gauge read {gauge} "
+             "during the handoff (want 3)")
+        need(src.allocator.free_blocks == src.allocator.num_blocks - 1,
+             f"{label}: the source kept blocks")
+        kernels.reset_launches()
+        done += run_out(tgt)
+        counts = launches(label)
+        reasons = {rs.rid: rs.finish_reason for rs in tgt.scheduler.finished}
+        need(len(reasons) == summary["transferred"]
+             and all(v == "max_tokens" for v in reasons.values()),
+             f"{label}: transferred requests did not all finish: "
+             f"{reasons}")
+        got = streams_of(done)
+        res = {"transferred": summary["transferred"], "seconds": took,
+               "launches": counts}
+        if kw:
+            need(rehearse or (counts["matmul_wq"] > 0
+                              and counts["paged_attention_kv4"] > 0),
+                 f"{label}: the target did not run matmul_wq and the 4-bit "
+                 f"pools: {counts}")
+            shared = sum(next((i for i, (x, y) in enumerate(zip(
+                got[r], clean[r])) if x != y), len(clean[r]))
+                for r in clean)
+            res["shared_prefix_share"] = shared / sum(map(len,
+                                                          clean.values()))
+        else:
+            same_streams(label, got, clean)
+        out["handoff"][label] = res
+        log(f"slice[i] {label}: {summary['transferred']} requests moved in "
+            f"{took:.3f} s; source draining, every block free, gauge 3 "
+            "during the handoff; "
+            + (f"none failed, shared-prefix share "
+               f"{res['shared_prefix_share']:.3f}" if kw else
+               "streams as the uninterrupted run's"))
+        src.close()
+        tgt.close()
+        del src, tgt, watched
+        release()
+
+    # 6. the front door: concurrent submits, a cancel after the 4th token,
+    # max_waiting=2; then a handoff under open streams
+    cancel_rid = 2
+
+    async def door_run(eng, max_waiting=None, handoff_to=None):
+        depth, cancelled = [], {}
+        async with FrontDoor(eng, max_waiting=max_waiting) as door:
+            async def submit(r):
+                # only a submit adds to the queue: its depth right after
+                # each one is the queue's high-water mark
+                s = await door.submit(r.prompt, r.max_new_tokens,
+                                      sampling=r.sampling, rid=r.rid)
+                depth.append(len(door.engine.scheduler.waiting))
+                return s
+
+            async def consume(s):
+                toks = []
+                async for tok in s:
+                    toks.append(tok)
+                    if (handoff_to is None and s.rid == cancel_rid
+                            and len(toks) == 4):
+                        rs = next(x for x in door.engine.slot_req
+                                  if x is not None and x.rid == s.rid)
+                        blocks = list(rs.blocks)
+                        need(await s.cancel(), "front door: cancel refused")
+                        cancelled["released"] = all(
+                            door.engine.allocator.refcount(b) == 0
+                            for b in blocks)
+                return toks, s.finish_reason
+
+            async def swap():
+                while slot_counts(door.engine)[1] < 3:
+                    await asyncio.sleep(0)
+                t0 = time.perf_counter()
+                summary = await door.handoff(handoff_to)
+                return summary, time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            streams = await asyncio.gather(*(submit(r) for r in requests()))
+            swapper = (asyncio.ensure_future(swap()) if handoff_to
+                       else None)
+            res = await asyncio.gather(*(consume(s) for s in streams))
+            sync()
+            wall = time.perf_counter() - t0
+            moved = await swapper if swapper else None
+            final = door.engine
+            tokens = final.stats["decode_tokens"] + (
+                eng.stats["decode_tokens"] if handoff_to else 0)
+        got = {s.rid: toks for s, (toks, _) in zip(streams, res)}
+        reasons = {s.rid: why for s, (_, why) in zip(streams, res)}
+        return {"streams": got, "reasons": reasons, "depth_max": max(depth),
+                "wall_s": wall, "tokens_per_s": tokens / wall,
+                "cancelled": cancelled, "moved": moved,
+                "free_blocks": final.allocator.free_blocks,
+                "num_blocks": final.allocator.num_blocks}
+
+    eng = engine()
+    d1 = asyncio.run(door_run(eng, max_waiting=2))
+    counts = launches("frontdoor")
+    del eng
+    release()
+    got, reasons = d1["streams"], d1["reasons"]
+    need(all(got[r] == clean[r] for r in clean if r != cancel_rid),
+         "front door: a stream differs from engine.run's")
+    c = got[cancel_rid]
+    need(reasons[cancel_rid] == "cancelled" and 4 <= len(c) < 32
+         and c == clean[cancel_rid][:len(c)]
+         and d1["cancelled"].get("released"),
+         f"front door: the cancelled stream ({reasons[cancel_rid]}, "
+         f"{len(c)} tokens, blocks released "
+         f"{d1['cancelled'].get('released')}) did not stop cleanly")
+    need(d1["depth_max"] <= 2, f"front door: the waiting queue reached "
+         f"{d1['depth_max']} with max_waiting=2")
+    need(d1["free_blocks"] == d1["num_blocks"] - 1,
+         "front door: blocks held after the door closed")
+    src, tgt = engine(), engine()
+    d2 = asyncio.run(door_run(src, handoff_to=tgt))
+    counts2 = launches("frontdoor_handoff")
+    need(src.health == "draining" and d2["moved"] is not None
+         and d2["moved"][0]["transferred"] >= 1,
+         "front door: the handoff did not move the live requests")
+    need(all(v == "max_tokens" for v in d2["reasons"].values()),
+         f"front door handoff: reasons {d2['reasons']}")
+    same_streams("frontdoor_handoff", d2["streams"], clean)
+    src.close()
+    del src, tgt
+    release()
+    out["frontdoor"] = {
+        "tokens_per_s": d1["tokens_per_s"], "wall_s": d1["wall_s"],
+        "run_tokens_per_s_median": med["off"],
+        "cancelled_tokens": len(c), "waiting_max": d1["depth_max"],
+        "handoff_transferred": d2["moved"][0]["transferred"],
+        "handoff_s": d2["moved"][1], "handoff_tokens_per_s":
+            d2["tokens_per_s"],
+        "launches": counts, "launches_handoff": counts2}
+    log(f"slice[i] front door: 7 streams as engine.run's, rid {cancel_rid} "
+        f"cancelled after {len(c)} tokens (blocks released), waiting queue "
+        f"<= {d1['depth_max']}; {d1['tokens_per_s']:.1f} tokens/s through "
+        f"the door against {med['off']:.1f} in run(); handoff under open "
+        f"streams moved {d2['moved'][0]['transferred']} in "
+        f"{d2['moved'][1]:.3f} s, streams as the uninterrupted run's")
+    return out
+
+
+def streams_of(done):
+    return {r.rid: list(r.out_tokens) for r in done}
 
 
 def iter_tensors(tree):
@@ -3093,6 +3722,10 @@ def main(argv=None) -> int:
             "tokens_per_s", "ttft_mean_s", "ttft_p50_s")}
         sampled = phase("slice_h", lambda: sampled_slice(
             torch, np, dev, args, args.rehearse, greedy_f, greedy_b))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        durable = phase("slice_i", lambda: durable_slice(
+            torch, np, dev, args, args.rehearse))
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3103,6 +3736,7 @@ def main(argv=None) -> int:
     report["prefix_cache"] = prefix
     report["new_archs"] = archs
     report["sampled"] = sampled
+    report["durable"] = durable
     # launches on the main paths: the 16-bit attention rows from (b), where
     # the GRAU datapath runs fused in the attention kernels' epilogue; the
     # 4-bit attention rows and matmul_wq from (c); the GRAU unit and
@@ -3136,6 +3770,13 @@ def main(argv=None) -> int:
         # slice (h): every served run, each counted from 0 just before it
         rows[name]["launches_slice_h"] = sum(
             c[name] for c in sampled["launches"].values())
+        # slice (i): every served run, each counted from 0 just before it
+        rows[name]["launches_slice_i"] = sum(
+            c[name] for c in durable["launches"].values())
+    # slice (i)'s handoff to wq4 + kv4: matmul_wq and the 4-bit pools
+    for name in ("matmul_wq", "paged_attention_kv4", "paged_prefill_kv4"):
+        rows[name]["launches_slice_i"] = durable["launches"][
+            "handoff_wq4_kv4"][name]
     kernel_rows = [grau_row] + [rows[n] for n in (
         "paged_attention", "paged_prefill", "paged_attention_kv4",
         "paged_prefill_kv4", "matmul_wq", "matmul_grau", "flash_attention")]

@@ -1,6 +1,7 @@
 """Serving launcher for the PyTorch port: continuous batching over the paged
-KV pool with the CUDA kernels, the radix prefix cache and preemption,
-printing the engine's metrics as JSON.
+KV pool with the CUDA kernels, the radix prefix cache and preemption, a
+write-ahead request journal with crash recovery, printing the engine's
+metrics as JSON.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
@@ -23,11 +24,20 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --temperature 0.8 --top-k 40 --top-p 0.9 --deadline-ms 60000 \
       --trace-out build/trace.jsonl --metrics-port 0
+  # durable serving: a write-ahead journal and a snapshot at exit; after a
+  # kill -9, --resume (same flags, --seed above all) finishes every
+  # in-flight request with exactly the tokens an uninterrupted run gives
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --max-new 200 --journal build/serve.journal \
+      --snapshot-dir build/serve-snap
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --max-new 200 --journal build/serve.journal --resume
 
 Archs: llama3.2-3b, gemma-7b, glm4-9b, qwen1.5-32b (configs/archs.py).
-The journal, snapshots and the mesh are not ported yet. A first SIGINT or
-SIGTERM drains (in-flight streams finish, queued requests wait), a second
-stops at once.
+The mesh is not ported yet. A first SIGINT or SIGTERM drains (in-flight
+streams finish, queued requests wait in the journal and the final
+snapshot), a second stops at once; either way the snapshot is written and
+the engine closed.
 
 Weights are random, drawn from --seed on the device (the published weight
 files are not in the repository). At startup it prints the analytic KV and
@@ -38,6 +48,7 @@ torch versions.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import signal
 import time
@@ -143,6 +154,12 @@ def main(argv=None) -> None:
                     help="0 = greedy")
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--alternate-greedy", action="store_true",
+                    help="even rids decode greedy, odd rids sample with "
+                         "--temperature / --top-k / --top-p")
+    ap.add_argument("--eos-id", type=int, default=1,
+                    help="end-of-sequence token; -1 turns EOS off, so every "
+                         "stream runs its whole budget")
     ap.add_argument("--no-telemetry", action="store_true",
                     help="disable the metrics registry and lifecycle traces "
                          "(on by default; the streams are the same)")
@@ -156,8 +173,22 @@ def main(argv=None) -> None:
     ap.add_argument("--audit-interval", type=int, default=None,
                     help="run the engine's invariant audit every N ticks "
                          "(default: on demand only)")
+    ap.add_argument("--journal", default=None,
+                    help="write-ahead request journal (JSONL of submits, "
+                         "delivered tokens and retirements); after a crash "
+                         "--resume replays it")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="write a final engine snapshot (config and live "
+                         "request records) here on exit, also after a "
+                         "signal")
+    ap.add_argument("--resume", action="store_true",
+                    help="recover the live requests of --journal instead "
+                         "of submitting new ones (the flags, --seed above "
+                         "all, must match the killed run)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.resume and not args.journal:
+        ap.error("--resume requires --journal")
     telemetry = not args.no_telemetry
     if args.metrics_port is not None and not telemetry:
         ap.error("--metrics-port requires telemetry (drop --no-telemetry)")
@@ -171,6 +202,7 @@ def main(argv=None) -> None:
     from repro_torch.models.config import GRAUConfig
     from repro_torch.nn.common import build_lm_grau
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    from repro_torch.serve.journal import RequestJournal
     from repro_torch.serve.sampling import SamplingParams
 
     device = lm.resolve_device(args.device)
@@ -191,8 +223,21 @@ def main(argv=None) -> None:
         preempt_after_ticks=args.preempt_after_ticks,
         kv_bits=args.kv_bits, weight_bits=args.weight_bits,
         telemetry=telemetry, audit_interval=args.audit_interval,
-        seed=args.seed)
-    engine = ServeEngine(cfg, params, ecfg, device=device)
+        eos_id=args.eos_id, seed=args.seed)
+    if args.resume:
+        # crash recovery: every request live at the kill resumes with
+        # exactly its undelivered suffix
+        engine = ServeEngine.recover(cfg, params, args.journal, ecfg=ecfg,
+                                     device=device)
+        print(f"resumed {len(engine.scheduler.waiting)} live requests "
+              f"from {args.journal}")
+    else:
+        if args.journal:
+            ecfg = dataclasses.replace(
+                ecfg, journal=RequestJournal(args.journal))
+        engine = ServeEngine(cfg, params, ecfg, device=device)
+        # the launcher hands the writer over: close() closes it
+        engine._owns_journal = args.journal is not None
     if args.metrics_port is not None:
         # engine-owned endpoint: engine.close() (the finally below) stops
         # the socket and joins its thread however the launcher exits
@@ -206,12 +251,15 @@ def main(argv=None) -> None:
     shared = rng.integers(2, cfg.vocab_size, size=args.shared_prefix)
     sampling = SamplingParams(temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p)
-    reqs = [Request(rid=i, prompt=np.concatenate(
+    reqs = ([] if args.resume else
+            [Request(rid=i, prompt=np.concatenate(
                 [shared, rng.integers(2, cfg.vocab_size,
                                       size=int(rng.integers(lo, hi)))]),
-                    max_new_tokens=args.max_new, sampling=sampling,
-                    deadline_ms=args.deadline_ms)
-            for i in range(args.requests)]
+                     max_new_tokens=args.max_new,
+                     sampling=(SamplingParams() if args.alternate_greedy
+                               and i % 2 == 0 else sampling),
+                     deadline_ms=args.deadline_ms)
+             for i in range(args.requests)])
 
     signals = {"count": 0}
 
@@ -262,6 +310,10 @@ def main(argv=None) -> None:
         if args.trace_out:
             n = engine.export_trace(args.trace_out)
             print(f"wrote {n} trace events to {args.trace_out}")
+        if args.snapshot_dir:
+            path = engine.snapshot(args.snapshot_dir)
+            print(f"snapshot: {path} ({len(engine.scheduler.waiting)} "
+                  "undelivered requests captured)")
     finally:
         engine.close()
 

@@ -63,12 +63,30 @@ scrubbed, reason "numeric_error"); a tick watchdog; health states; an
 ownership audit that reclaims leaked block references and pins. A failing
 chunk or an injected step fault costs its own request, never the engine.
 
-Left out of this slice (ROADMAP A6, A8, A10): the journal, snapshots and
-recovery, the mesh and the dense backend.
+Durability (`journal`, serve/journal.py): a write-ahead JSONL ledger of
+what clients were promised — each submit before the scheduler sees it,
+each token at drain before the token sink, each retirement. `recover()`
+replays it into a fresh engine after a crash and resumes every live request
+by replay (the prompt's chunked prefill, then the delivered tokens fed back
+through decode ticks: the uninterrupted run's kernel calls again, see
+_readmit), so every stream finishes with exactly the tokens an
+uninterrupted run gives, on the card too. The
+record schema is the JAX package's, so either package recovers the other's
+journal. `snapshot()` / `restore()` carry the engine config and the live
+request records (never the KV pool) through ckpt/checkpoint.py, whose
+shard is this port's own format (a torch.save file; the reference writes
+msgpack, which the port does not read): a snapshot is read back by the
+package that wrote it. `handoff()` moves every live request to another
+engine (the same or another configuration) with the journal, passing
+through the HANDOFF health state; serve/frontdoor.py drives the engine
+from asyncio through the token and retire sinks.
+
+Left out of this slice (ROADMAP A8, A10): the mesh and the dense backend.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from collections import Counter, deque
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -82,6 +100,7 @@ from repro_torch.nn.attention import AttnQuant, PagedState
 from repro_torch.quant import weights as wq_lib
 from repro_torch.quant.policy import PrecisionPolicy
 from repro_torch.serve import faults as faults_lib
+from repro_torch.serve import journal as journal_lib
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve import prng
 from repro_torch.serve import sampling as samp_lib
@@ -93,13 +112,15 @@ from repro_torch.serve.scheduler import RequestState, Scheduler
 
 # Engine health states. HEALTHY serves normally; DEGRADED keeps in-flight
 # streams running (watchdog trip, contained untargeted fault) and recovers;
-# DRAINING is terminal — no new admissions (begin_draining, close()).
-# Exported as the serve_health gauge (0/1/2; the reference's 3, handoff,
-# comes with live handoff) and on /healthz (200 only when healthy).
+# DRAINING is terminal — no new admissions (begin_draining, close()); HANDOFF
+# is the transient state while live requests move to another engine, ending
+# in DRAINING. Exported as the serve_health gauge (0/1/2/3) and on /healthz
+# (200 only when healthy).
 HEALTHY = "healthy"
 DEGRADED = "degraded"
 DRAINING = "draining"
-_HEALTH_CODE = {HEALTHY: 0, DEGRADED: 1, DRAINING: 2}
+HANDOFF = "handoff"
+_HEALTH_CODE = {HEALTHY: 0, DEGRADED: 1, DRAINING: 2, HANDOFF: 3}
 # the reference's jitted engine functions: the port launches none, so each
 # reports 0 in serve_jit_traces_total and metrics()["compiles_by_fn"]
 _JIT_FNS = ("decode", "prefill", "reset_slot", "prefill_chunk", "cow_copy",
@@ -168,11 +189,50 @@ class EngineConfig:
     # the engine recovers to HEALTHY
     faults: Optional[Any] = None  # serve/faults.FaultPlan (tests and chaos
     # runs); None keeps every injection site a single None check
+    journal: Optional[Any] = None  # serve/journal.RequestJournal: the
+    # write-ahead ledger of submits, drained tokens and retirements; the
+    # engine appends an epoch header at construction, and recover() replays
+    # the file after a crash
     audit_interval: Optional[int] = None  # run audit() every N ticks
     telemetry: bool = True        # metrics registry + lifecycle traces +
     # tick-phase timing, host-side only: streams are the same either way
     trace_capacity: int = 8192    # lifecycle-trace ring-buffer bound
     seed: int = 0                 # base PRNG key of sampled decoding
+
+
+# EngineConfig fields that hold live objects (or a policy built from them)
+# and cannot go through a JSON snapshot: snapshot() lists the non-None ones
+# under "non_serializable", and restore() takes them back through
+# `overrides`
+_ECFG_SKIP = ("faults", "journal", "attn_grau", "precision")
+
+
+def _ecfg_to_dict(ecfg: EngineConfig) -> Tuple[Dict[str, Any], List[str]]:
+    """(JSON-safe field dict, names of the skipped non-serializable
+    fields)."""
+    d: Dict[str, Any] = {}
+    skipped: List[str] = []
+    for f in dataclasses.fields(EngineConfig):
+        v = getattr(ecfg, f.name)
+        if f.name in _ECFG_SKIP:
+            if v is not None:
+                skipped.append(f.name)
+            continue
+        d[f.name] = list(v) if isinstance(v, tuple) else v
+    return d, skipped
+
+
+def _ecfg_from_dict(d: Dict[str, Any],
+                    overrides: Optional[Dict[str, Any]] = None
+                    ) -> EngineConfig:
+    """EngineConfig from this port's _ecfg_to_dict (the reference's dict has
+    other fields: `backend`, `prefill_buckets`)."""
+    kw = dict(d)
+    if kw.get("decode_buckets") is not None:
+        kw["decode_buckets"] = tuple(kw["decode_buckets"])
+    if overrides:
+        kw.update(overrides)
+    return EngineConfig(**kw)
 
 
 class _SlotState(NamedTuple):
@@ -194,6 +254,8 @@ class _TickRecord(NamedTuple):
     out: torch.Tensor        # (3, slots) int64 on the device: the sampled
     # tokens, the fused EOS/max-token flags and the finite-logits flags, so
     # the drain brings all three to the host in its one copy
+    forced: Tuple[int, ...] = ()  # slots replaying a delivered token this
+    # tick (see _readmit): their output was delivered before, not again
 
 
 class ServeEngine:
@@ -343,11 +405,19 @@ class ServeEngine:
         self.scheduler = Scheduler(ecfg.policy, ecfg.max_prefills_per_tick,
                                    prefill_token_budget=budget,
                                    metrics=self._tel)
-        # per delivered token hook (rid, token), called at drain time (host
-        # code); None = no-op
+        # front-door hooks, called at drain time (host code): per delivered
+        # token (rid, token) and per retirement (rid, reason); None = no-op
         self.token_sink: Optional[Callable[[int, int], None]] = None
+        self.retire_sink: Optional[Callable[[int, str], None]] = None
         self._metrics_server: Optional[Any] = None
         self.faults: Optional[faults_lib.FaultPlan] = ecfg.faults
+        # the write-ahead journal: appends happen only where the engine runs
+        # host code already (submit, drain, retire)
+        self.journal = ecfg.journal
+        self._owns_journal = False   # recover() builds and owns its writer
+        if self.journal is not None:
+            # one epoch header per engine attach: replay counts restarts
+            self.journal.begin_epoch({"reason": "attach"})
         if ecfg.audit_interval is not None and ecfg.audit_interval < 1:
             raise ValueError("audit_interval must be >= 1, got "
                              f"{ecfg.audit_interval}")
@@ -422,15 +492,19 @@ class ServeEngine:
 
     # --- device steps -----------------------------------------------------
 
-    def _decode_tick(self, width: int) -> torch.Tensor:
+    def _decode_tick(self, width: int,
+                     force: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Fused decode step + sampling + termination, all on the device.
         Inactive slots decode masked garbage (their writes land in the null
         block) and their state is held frozen by `active`. The bucket is a
         column slice of the one table, whose row stride sizes the kernel's
         sequence parts, so a slot's output does not depend on the bucket
-        `width`. Returns the (3, slots) record: tokens, done flags and the
-        per-slot finite-logits flags (an inactive slot's garbage is exempt;
-        its output is dropped at drain anyway)."""
+        `width`. `force` (slots,) holds, for a slot replaying its delivered
+        tokens, the token to output and feed next (-1 elsewhere): its
+        sampled token is dropped and cannot end it. Returns the (3, slots)
+        record: tokens, done flags and the per-slot finite-logits flags (an
+        inactive slot's garbage is exempt; its output is dropped at drain
+        anyway)."""
         st = self._state
         paged = PagedState(self._table_dev[:, :width], st.lengths)
         logits, _ = lm.decode_step(self.params, self.cfg, st.last_tok,
@@ -449,7 +523,12 @@ class ServeEngine:
         ok = ~st.active | torch.isfinite(last).all(dim=-1)
         act_i = st.active.to(torch.int32)
         remaining = st.remaining - act_i
-        done = st.active & ((nxt == self.ecfg.eos_id) | (remaining <= 0))
+        eos = nxt == self.ecfg.eos_id
+        if force is not None:
+            forced = force >= 0
+            nxt = torch.where(forced, force, nxt)
+            eos &= ~forced
+        done = st.active & (eos | (remaining <= 0))
         self._state = _SlotState(
             last_tok=torch.where(st.active[:, None], nxt[:, None],
                                  st.last_tok),
@@ -503,6 +582,15 @@ class ServeEngine:
             self._has_deadlines = True
         req.out_tokens = rs.out_tokens          # live alias
         self._requests[req.rid] = req
+        if self.journal is not None:
+            # write-ahead: the submission is recorded before the engine acts
+            # on it, so a crash after this line recovers the request
+            self.journal.record_submit(
+                req.rid, rs.prompt, rs.max_new_tokens,
+                sampling={"temperature": req.sampling.temperature,
+                          "top_k": req.sampling.top_k,
+                          "top_p": req.sampling.top_p},
+                deadline_ms=req.deadline_ms)
         self.scheduler.submit(rs, self.stats["ticks"], time.perf_counter())
         self.trace.record(req.rid, "submit", prompt_len=plen,
                           max_new_tokens=int(req.max_new_tokens))
@@ -528,7 +616,7 @@ class ServeEngine:
 
     @property
     def health(self) -> str:
-        """Current health state: HEALTHY / DEGRADED / DRAINING."""
+        """Current health state: HEALTHY / DEGRADED / DRAINING / HANDOFF."""
         return self._health
 
     def _set_health(self, state: str, reason: str) -> None:
@@ -557,7 +645,9 @@ class ServeEngine:
 
     def begin_draining(self, reason: str = "drain") -> None:
         """Stop admitting new work: slotted requests run to completion,
-        waiting requests stay queued. DRAINING is terminal."""
+        waiting requests stay queued (for a final snapshot). DRAINING is
+        terminal: the launcher's signal path and a handoff's source end
+        there."""
         self._set_health(DRAINING, reason)
 
     def _fault(self, site: str, rid: Optional[int] = None,
@@ -830,10 +920,11 @@ class ServeEngine:
         st.remaining[slot] = int(rs.max_new_tokens)
         st.active[slot] = True
         st.sample_seed[slot] = int(rs.rid) & 0x7FFFFFFF
-        # draws already made for this request: 0 on a fresh admission,
+        # draws already made for this request: 0 on a fresh admission or a
+        # replaying readmission (its replayed ticks take steps 0..k-1),
         # len(out_tokens) when resuming after preemption — the stream
         # continues with exactly the keys it would have used
-        st.sample_step[slot] = len(rs.out_tokens)
+        st.sample_step[slot] = len(rs.out_tokens) - rs.replay
         self.trace.record(rs.rid, "activate", slot=slot, context_tokens=ctx)
 
     def _run_chunk(self, rs: RequestState) -> None:
@@ -966,7 +1057,11 @@ class ServeEngine:
                      and self._fault("radix_pin_leak", rid=rs.rid)
                      is not None)
         self._free_slot(slot, rs, leak_blocks, leak_pins)
+        if self.journal is not None:
+            self.journal.record_retire(rs.rid, reason)
         self._finished_unpolled.append(rs)
+        if self.retire_sink is not None:
+            self.retire_sink(rs.rid, reason)
 
     def _retire_unslotted(self, rs: RequestState, reason: str, now: float,
                           tick: int) -> None:
@@ -977,7 +1072,11 @@ class ServeEngine:
         self.trace.record(rs.rid, "finish", reason=reason,
                           tokens=len(rs.out_tokens), decode_s=0.0,
                           tpot_s=0.0)
+        if self.journal is not None:
+            self.journal.record_retire(rs.rid, reason)
         self._finished_unpolled.append(rs)
+        if self.retire_sink is not None:
+            self.retire_sink(rs.rid, reason)
 
     # --- preemption -------------------------------------------------------
 
@@ -1005,6 +1104,7 @@ class ServeEngine:
                 [rs.prompt, np.asarray(new, np.int32)])
             rs.max_new_tokens -= len(new)
             rs.folded_tokens = len(rs.out_tokens)
+            rs.replay = 0           # a replay cut short: folded instead
         self.scheduler.preempt(rs, self.stats["ticks"])
 
     def _release_slot_resources(self, slot: int, rs: RequestState) -> None:
@@ -1088,6 +1188,307 @@ class ServeEngine:
         self._drain()
         return self._retire_anywhere(rid, "cancelled")
 
+    # --- durability: snapshot / restore / recovery / handoff ---------------
+
+    def _live_records(self) -> List[dict]:
+        """Every live request (waiting or slotted, mid-prefill included) as
+        a durable record (RequestState.to_record: the original submission
+        and the delivered stream, folds undone), in arrival order: what
+        snapshot() writes and handoff() moves."""
+        recs = [rs.to_record() for rs in self.scheduler.waiting]
+        recs += [rs.to_record() for rs in self.slot_req if rs is not None]
+        recs.sort(key=lambda r: r["arrival_seq"])
+        return recs
+
+    def _validate_readmit(self, records: List[dict]) -> None:
+        """Check that every record could be admitted on this engine without
+        touching any state: no live rid (nor a duplicate within the batch),
+        and prompt + original budget within max_seq. handoff() runs it on
+        the target before the source releases anything, so a refused
+        handoff leaves the source serving."""
+        seen = set()
+        for rec in records:
+            rid = int(rec["rid"])
+            if rid in self._requests or rid in seen:
+                raise ValueError(f"readmit of live rid {rid}")
+            seen.add(rid)
+            plen = len(rec["prompt"])
+            budget = int(rec["max_new_tokens"])
+            if plen + budget > self.ecfg.max_seq:
+                raise ValueError(
+                    f"rid {rid}: prompt ({plen}) + max_new_tokens "
+                    f"({budget}) exceeds this engine's max_seq "
+                    f"({self.ecfg.max_seq})")
+
+    def _readmit(self, records: List[dict],
+                 journal_known_rids=frozenset()) -> int:
+        """Re-admit durable request records through the normal queue: each
+        becomes a waiting RequestState with its original prompt and budget
+        and its delivered tokens on out_tokens, to be replayed: after the
+        prompt's chunked prefill, the first decode ticks feed the delivered
+        tokens back one a tick (their sampled outputs dropped, sample_step
+        from 0), and new tokens follow. The replay makes the uninterrupted
+        run's kernel calls again — prefill chunks on the same grid, decode
+        ticks of the same shape, whose rows do not depend on the other
+        slots — so a resumed stream is the uninterrupted one's bits on the
+        card too. (The reference folds the delivered tokens into the
+        prompt, as preemption does here, and recomputes them by prefill:
+        the same tokens on the CPU, but on the card a 32-row prefill chunk
+        and an 8-row decode tick round bf16 sums apart, and a resumed
+        stream can leave the uninterrupted one.) Replay costs one decode
+        tick a delivered token, batched with the other slots; the fold, a
+        chunk per 32.
+
+        Records whose rid is not in `journal_known_rids` are written to the
+        attached journal (submit, then every delivered token), so a fresh
+        journal is a whole ledger; rids the journal already holds live
+        (recovery reopens the same file, a handoff moves it) are not
+        written again — a second submit for a live rid is corruption.
+
+        A record whose budget is spent or whose last delivered token is EOS
+        lost its retire record with the journal's tail: it retires at once
+        (repairing the journal). A deadline carries over as the residual
+        budget (deadline_ms less deadline_elapsed_ms); one already spent
+        retires with reason "deadline". Returns the records processed."""
+        self._validate_readmit(records)
+        now = time.perf_counter()
+        tick = self.stats["ticks"]
+        n = 0
+        for rec in sorted(records, key=lambda r: r.get("arrival_seq", 0)):
+            rid = int(rec["rid"])
+            prompt = np.asarray(rec["prompt"], np.int32)
+            budget = int(rec["max_new_tokens"])
+            delivered = [int(t) for t in rec.get("delivered") or ()]
+            sd = rec.get("sampling") or {}
+            sp = SamplingParams(
+                temperature=float(sd.get("temperature", 0.0)),
+                top_k=int(sd.get("top_k", 0)),
+                top_p=float(sd.get("top_p", 1.0)))
+            deadline_ms = rec.get("deadline_ms")
+            elapsed_ms = rec.get("deadline_elapsed_ms")
+            if deadline_ms is not None and elapsed_ms:
+                # time spent before the snapshot, handoff or crash (downtime
+                # included) stays charged
+                deadline_ms = float(deadline_ms) - float(elapsed_ms)
+            if self.journal is not None and rid not in journal_known_rids:
+                self.journal.record_submit(rid, prompt, budget,
+                                           sampling=dict(sd) or None,
+                                           deadline_ms=deadline_ms)
+                for tok in delivered:
+                    self.journal.record_token(rid, tok)
+            rs = RequestState(rid=rid, prompt=prompt,
+                              max_new_tokens=budget, sampling=sp,
+                              deadline_ms=deadline_ms)
+            rs.out_tokens.extend(delivered)
+            rs.replay = len(delivered)
+            remaining = budget - len(delivered)
+            req = Request(rid=rid, prompt=prompt, max_new_tokens=budget,
+                          sampling=sp, deadline_ms=deadline_ms)
+            req.out_tokens = rs.out_tokens          # live alias
+            if deadline_ms is not None:
+                self._has_deadlines = True
+            self._requests[rid] = req
+            self.scheduler.submit(rs, tick, now)
+            self.trace.record(rid, "submit", prompt_len=len(prompt),
+                              max_new_tokens=budget)
+            self.trace.record(rid, "restore",
+                              delivered_tokens=len(delivered))
+            if self._tel is not None:
+                self._tel.restored_requests.inc()
+            n += 1
+            if remaining <= 0 or (delivered
+                                  and delivered[-1] == self.ecfg.eos_id):
+                # its retirement was lost with the journal's tail
+                reason = ("eos" if delivered
+                          and delivered[-1] == self.ecfg.eos_id
+                          else "max_tokens")
+                self.scheduler.waiting.remove(rs)
+                self._retire_unslotted(rs, reason, now, tick)
+                continue
+            if deadline_ms is not None and deadline_ms <= 0:
+                # the residual ran out while the request was down or in
+                # transit: the reason _enforce_deadlines would give, without
+                # a prefill first
+                self.scheduler.waiting.remove(rs)
+                self._retire_unslotted(rs, "deadline", now, tick)
+                continue
+            self.trace.record(rid, "queued",
+                              queue_depth=len(self.scheduler.waiting))
+        return n
+
+    def snapshot(self, ckpt_dir, step: Optional[int] = None,
+                 keep: int = 3):
+        """Write a snapshot through ckpt/checkpoint.py (a staged directory
+        committed by its MANIFEST.json): the EngineConfig, every live
+        request record and the radix cache's pin summary, as a JSON payload
+        stored in a uint8 tensor. The KV pool is not written: restore
+        re-admits every request through chunked prefill, which recomputes
+        it. Returns the committed checkpoint path; `step` defaults to the
+        engine tick."""
+        from repro_torch.ckpt import checkpoint as ckpt
+        self._drain()
+        if self.journal is not None:
+            self.journal.sync()
+        records = self._live_records()
+        ecfg_dict, skipped = _ecfg_to_dict(self.ecfg)
+        payload = {
+            "format": 1,
+            "tick": self.stats["ticks"],
+            "engine_config": ecfg_dict,
+            "non_serializable": skipped,
+            "requests": records,
+            "radix": (self.radix.pin_summary()
+                      if self.radix is not None else None),
+        }
+        blob = torch.frombuffer(bytearray(json.dumps(payload).encode()),
+                                dtype=torch.uint8)
+        path = ckpt.save(ckpt_dir,
+                         self.stats["ticks"] if step is None else int(step),
+                         {"snapshot": blob}, keep=keep,
+                         extra={"kind": "serve_snapshot",
+                                "tick": self.stats["ticks"],
+                                "live_requests": len(records)})
+        if self._tel is not None:
+            self._tel.snapshots.inc()
+        return path
+
+    @staticmethod
+    def _load_snapshot(ckpt_dir, step: Optional[int]) -> dict:
+        from repro_torch.ckpt import checkpoint as ckpt
+        if step is None:
+            step = ckpt.latest_step(ckpt_dir)
+            if step is None:
+                raise ValueError(f"no committed snapshot under {ckpt_dir}")
+        blob = ckpt.load_flat(ckpt_dir, int(step))["snapshot"]
+        return json.loads(blob.numpy().tobytes().decode())
+
+    @classmethod
+    def restore(cls, cfg: ModelConfig, params, ckpt_dir, *,
+                step: Optional[int] = None,
+                dtype: Optional[torch.dtype] = None, device=None,
+                overrides: Optional[Dict[str, Any]] = None,
+                journal=None) -> "ServeEngine":
+        """A fresh engine from a snapshot() checkpoint, with every captured
+        request re-admitted. `overrides` patches EngineConfig fields (among
+        them the non-serializable ones the snapshot could not carry: a
+        GRAU-epilogue engine restores with {"attn_grau": ...}); `journal`
+        attaches a write-ahead journal. The seed round-trips as a plain
+        field, so sampled streams resume on the same keys."""
+        payload = cls._load_snapshot(ckpt_dir, step)
+        ecfg = _ecfg_from_dict(payload["engine_config"], overrides)
+        if journal is not None:
+            ecfg = dataclasses.replace(ecfg, journal=journal)
+        eng = cls(cfg, params, ecfg, dtype=dtype, device=device)
+        known = frozenset()
+        if journal is not None:
+            # resuming onto an existing journal: rids already live in it
+            # are not journaled again
+            known = frozenset(journal_lib.replay(journal.path).live.keys())
+        eng._readmit(payload["requests"], journal_known_rids=known)
+        return eng
+
+    @classmethod
+    def recover(cls, cfg: ModelConfig, params, journal_path, *,
+                ecfg: Optional[EngineConfig] = None, snapshot_dir=None,
+                snapshot_step: Optional[int] = None,
+                dtype: Optional[torch.dtype] = None, device=None,
+                overrides: Optional[Dict[str, Any]] = None,
+                fsync_every: int = 16) -> "ServeEngine":
+        """Crash recovery: replay the journal, build a fresh engine and
+        resume every request that was live at the kill, each with exactly
+        its undelivered suffix (only drain-delivered tokens were journaled;
+        the replay recomputes the rest).
+
+        The config comes from `ecfg` or from a snapshot under
+        `snapshot_dir`; either must keep the killed engine's seed. The same
+        file is reopened for appending under a new epoch header, so one
+        journal spans every crash / recover cycle and replay stays
+        idempotent. The recovered engine owns the writer (close() closes
+        it)."""
+        state = journal_lib.replay(journal_path)
+        if ecfg is None:
+            if snapshot_dir is None:
+                raise ValueError("recover() needs ecfg or snapshot_dir "
+                                 "for the engine config")
+            payload = cls._load_snapshot(snapshot_dir, snapshot_step)
+            ecfg = _ecfg_from_dict(payload["engine_config"], overrides)
+        jr = journal_lib.RequestJournal(journal_path,
+                                        fsync_every=fsync_every)
+        eng = cls(cfg, params, dataclasses.replace(ecfg, journal=jr),
+                  dtype=dtype, device=device)
+        eng._owns_journal = True
+        now_wall = time.time()
+        records = [{"rid": lr.rid, "prompt": lr.prompt,
+                    "max_new_tokens": lr.max_new_tokens,
+                    "sampling": lr.sampling, "deadline_ms": lr.deadline_ms,
+                    # wall time since the journaled submit: the deadline
+                    # keeps running through the outage
+                    "deadline_elapsed_ms": (
+                        max(0.0, (now_wall - lr.submit_wall_time_s) * 1e3)
+                        if (lr.deadline_ms is not None
+                            and lr.submit_wall_time_s is not None)
+                        else None),
+                    "delivered": lr.delivered, "arrival_seq": i}
+                   for i, lr in enumerate(state.live.values())]
+        eng._readmit(records,
+                     journal_known_rids=frozenset(state.live.keys()))
+        return eng
+
+    def handoff(self, target: "ServeEngine") -> Dict[str, Any]:
+        """Live handoff: drain, take every live request, release this
+        engine's pool holds and re-admit the requests on `target`, which
+        may run another configuration (kv_bits, weight_bits, slots, pool
+        size). Streams go on under the same rids, by replay (_readmit) —
+        hence eos_id and seed must match (the seed is folded into every
+        sampling key). Every record is validated on the target before this
+        engine releases anything, so a refused handoff raises with the
+        source untouched and serving.
+
+        The source passes through HANDOFF (the gauge's 3; /healthz answers
+        503) and ends DRAINING. If it holds the journal and the target has
+        none, the journal moves with the requests under a handoff epoch."""
+        if target is self:
+            raise ValueError("handoff target must be a different engine")
+        if target._health == DRAINING:
+            raise ValueError("handoff target is draining/closed")
+        if int(target.ecfg.eos_id) != int(self.ecfg.eos_id):
+            raise ValueError("handoff target must keep eos_id")
+        if int(target.ecfg.seed) != int(self.ecfg.seed):
+            raise ValueError("handoff target must keep seed: sampled "
+                             "resume folds it into every per-request key")
+        self._drain()
+        records = self._live_records()
+        target._validate_readmit(records)
+        self._set_health(HANDOFF, "handoff")
+        for slot, rs in enumerate(self.slot_req):
+            if rs is None:
+                continue
+            if slot in self._prefilling:
+                self._prefilling.remove(slot)
+            self._release_slot_resources(slot, rs)
+        self.scheduler.waiting.clear()
+        for rec in records:
+            # closes the span here; the target opens a fresh one
+            self.trace.record(rec["rid"], "handoff",
+                              tokens_generated=len(rec["delivered"]))
+            self._requests.pop(rec["rid"], None)
+        known = frozenset()
+        if self.journal is not None and target.journal is None:
+            target.journal = self.journal
+            target._owns_journal = self._owns_journal
+            self.journal = None
+            self._owns_journal = False
+            target.journal.begin_epoch({"reason": "handoff"})
+            known = frozenset(rec["rid"] for rec in records)
+        target._readmit(records, journal_known_rids=known)
+        if self._tel is not None:
+            self._tel.handoffs.inc()
+        self._set_health(DRAINING, "handoff_complete")
+        self._publish_gauges()
+        return {"transferred": len(records),
+                "source_tick": self.stats["ticks"],
+                "target_tick": target.stats["ticks"]}
+
     # --- decode tick ------------------------------------------------------
 
     def _decode_bucket(self, active: List[int]) -> int:
@@ -1112,7 +1513,8 @@ class ServeEngine:
         if (self.faults is not None
                 and self._fault("process_crash") is not None):
             # simulated process death at a tick boundary: escapes every
-            # containment layer by design (recovery is not ported yet)
+            # containment layer by design (recovery is journal replay in a
+            # fresh engine, ServeEngine.recover, not an except path here)
             raise faults_lib.ProcessCrash(self.stats["ticks"])
         if self._has_deadlines:
             self._enforce_deadlines()
@@ -1174,9 +1576,19 @@ class ServeEngine:
             t.phase_schedule.observe(t1 - t0)
         if not active:
             return 0
-        out = self._decode_tick(self._decode_bucket(active))
+        forced = tuple(s for s in active if self.slot_req[s].replay)
+        force = None
+        if forced:
+            # readmitted slots feed their delivered tokens back, one a tick
+            f = np.full(self.ecfg.slots, -1, np.int64)
+            for s in forced:
+                rs = self.slot_req[s]
+                f[s] = rs.out_tokens[len(rs.out_tokens) - rs.replay]
+                rs.replay -= 1
+            force = self._h2d(f)
+        out = self._decode_tick(self._decode_bucket(active), force)
         self._pending.append(_TickRecord(self.stats["ticks"], tuple(active),
-                                         out))
+                                         out, forced))
         self._host_len[active] += 1
         self.stats["ticks"] += 1
         if t is not None:
@@ -1234,6 +1646,8 @@ class ServeEngine:
                     # ghost tick: the slot finished at an earlier (buffered)
                     # tick; its masked decode output is dropped
                     continue
+                if slot in rec.forced and oks[slot]:
+                    continue        # a replayed token, delivered before
                 if (not oks[slot]
                         or (self.faults is not None
                             and self._fault("nan_logits", rid=rs.rid,
@@ -1242,6 +1656,12 @@ class ServeEngine:
                     continue
                 tok = int(toks[slot])
                 rs.out_tokens.append(tok)
+                if self.journal is not None:
+                    # write-ahead: the token is recorded before any client
+                    # can see it, and tokens still in the pending device
+                    # buffer never are, so recovery neither drops a token a
+                    # client saw nor replays one it did not
+                    self.journal.record_token(rs.rid, tok)
                 if self.token_sink is not None:
                     try:
                         if (self.faults is not None
@@ -1437,14 +1857,19 @@ class ServeEngine:
         return self._metrics_server
 
     def close(self) -> None:
-        """Enter DRAINING, deliver pending ticks and stop the owned metrics
-        endpoint. Idempotent; the endpoint is stopped even when the final
-        drain raises. The engine stays readable (metrics(), export_trace())
-        afterwards."""
+        """Enter DRAINING, deliver pending ticks, sync the journal (closing
+        it if the engine owns it) and stop the owned metrics endpoint.
+        Idempotent; the journal and the endpoint are released even when the
+        final drain raises. The engine stays readable (metrics(),
+        export_trace()) afterwards."""
         try:
             self._set_health(DRAINING, "close")
             self._drain()
         finally:
+            if self.journal is not None:
+                self.journal.sync()
+                if self._owns_journal:
+                    self.journal.close()
             server, self._metrics_server = self._metrics_server, None
             if server is not None:
                 server.stop()

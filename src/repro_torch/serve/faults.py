@@ -29,7 +29,8 @@ site                      models
 ``process_crash``         the serving process dying at a tick boundary
                           (raises :class:`ProcessCrash`, which deliberately
                           escapes every containment layer — recovery is
-                          journal replay in a new engine, not an except)
+                          journal replay in a new engine,
+                          ``ServeEngine.recover``, not an except)
 ========================  ====================================================
 """
 
@@ -68,8 +69,9 @@ class ProcessCrash(RuntimeError):
     Deliberately NOT an :class:`InjectedFault`: the engine's step-level
     containment (and the front door's tick-loop containment) must let it
     propagate — a crashed process cannot handle its own crash.  Tests and
-    benches abandon the engine when this escapes (recovering a fresh one
-    from a journal is not ported yet: this site only raises)."""
+    benches abandon the engine when this escapes, without ``close()``, and
+    ``ServeEngine.recover`` replays its journal into a fresh engine that
+    finishes every live stream bit for bit."""
 
     def __init__(self, tick: Optional[int] = None):
         super().__init__(f"injected process crash at tick {tick}")

@@ -63,6 +63,9 @@ class RequestState:
     # generated tokens already folded into `prompt` by past preemptions
     # (out_tokens itself is never truncated: it aliases the user's Request)
     folded_tokens: int = 0
+    # delivered tokens of a readmitted request (recovery, restore, handoff)
+    # still to feed back through decode ticks before new ones are drawn
+    replay: int = 0
     # chunked-prefill state machine: next grid position to compute, the
     # context target, and the grid chunks still to run; prefix-cache
     # accounting rides along
@@ -84,6 +87,36 @@ class RequestState:
     @property
     def prompt_len(self) -> int:
         return int(len(self.prompt))
+
+    def to_record(self) -> dict:
+        """The client-visible request state as a durable record (engine
+        snapshots, live handoff): the original submission plus the
+        delivered stream. A preemption may have folded delivered tokens into
+        `prompt` and shrunk `max_new_tokens`; the record undoes the fold, so
+        it holds what a fresh engine re-admits (and equals what journal
+        replay reconstructs). Slot and pool state (blocks, pins, prefill
+        cursors) is left out: recovery recomputes it."""
+        orig_prompt = (self.prompt[:len(self.prompt) - self.folded_tokens]
+                       if self.folded_tokens else self.prompt)
+        return {
+            "rid": int(self.rid),
+            "prompt": [int(t) for t in orig_prompt],
+            # the fold decrements the budget as tokens move into the prompt
+            "max_new_tokens": int(self.max_new_tokens + self.folded_tokens),
+            "sampling": {
+                "temperature": float(self.sampling.temperature),
+                "top_k": int(self.sampling.top_k),
+                "top_p": float(self.sampling.top_p),
+            },
+            "deadline_ms": self.deadline_ms,
+            # deadline time already spent: restore and handoff re-admit with
+            # the residual budget, so the clock never restarts
+            "deadline_elapsed_ms": (
+                (time.perf_counter() - self.submit_time) * 1e3
+                if self.deadline_ms is not None else None),
+            "delivered": [int(t) for t in self.out_tokens],
+            "arrival_seq": int(self.arrival_seq),
+        }
 
     def wait_age(self, tick: int) -> int:
         """Ticks waited since the last queue entry (submit, or the latest

@@ -1,9 +1,10 @@
 """chip_smoke.py, the port's check on a CUDA card: it refuses to run (exit 2)
 without one, and its phases — the kernels, serving slices (a)-(c), the
 paper's flow (d), training (e), the prefix cache, preemption and cancel (f),
-the glm4 / qwen archs (g) and sampled decoding, telemetry and fault
-containment (h) — hold together end to end in a CPU rehearsal
-at smoke size (plain kernel versions, no timings; exit 1 by design)."""
+the glm4 / qwen archs (g), sampled decoding, telemetry and fault
+containment (h) and durable serving (i) — hold together end to end in a
+CPU rehearsal at smoke size (plain kernel versions, no timings; exit 1 by
+design)."""
 import importlib.util
 import json
 from pathlib import Path
@@ -144,11 +145,34 @@ def test_cpu_rehearsal_runs_every_phase(capsys, tmp_path):
     assert nan["victim_reason"] == "numeric_error" and nan["other_identical"]
     assert nan["scrubbed_zero"] and nan["fresh_reused_blocks"] > 0
     assert all("launches_slice_h" in k for k in kernels[1:3])
+    assert tele["order"] == "off, on, off, on"
+    assert [len(v) for v in tele["tokens_per_s"].values()] == [2, 2]
+    # slice (i): the journal off / on interleaved, three crashes recovered,
+    # the launcher's SIGKILL and --resume, snapshot / restore, two
+    # handoffs and the front door (every stream gate is in the script)
+    d = report["durable"]
+    assert d["journal"]["order"] == "off, on, off, on"
+    assert d["journal"]["records"] > 8 * 32 and d["journal"]["fsyncs"] > 0
+    crashes = d["crashes"]
+    assert [c["config_from"] for c in crashes] == ["ecfg", "snapshot",
+                                                   "ecfg"]
+    assert crashes[0]["slots_mid_prefill"] >= 1
+    assert crashes[1]["slots_mid_decode"] >= 3
+    assert crashes[2]["kill_tick"] == d["journal"]["ticks"] - 1
+    assert all(c["prefill_tokens_recomputed"] > 0 for c in crashes)
+    assert d["launcher"]["live_at_kill"] >= 1
+    assert 0 < d["snapshot"]["bytes"] < 64_000
+    assert d["snapshot"]["restored"] == 8
+    assert {k: v["transferred"] for k, v in d["handoff"].items()} == {
+        "handoff_same": 8, "handoff_wq4_kv4": 8}
+    assert d["frontdoor"]["waiting_max"] <= 2
+    assert 4 <= d["frontdoor"]["cancelled_tokens"] < 32
+    assert all("launches_slice_i" in k for k in kernels[1:6])
     assert set(report["phase_s"]) >= {"grau", "paged_attention", "matmul_wq",
                                       "matmul_grau", "flash_attention",
                                       "slices_abc", "slice_d", "slice_e",
                                       "paged_groups", "slice_f", "slice_g",
-                                      "slice_h"}
+                                      "slice_h", "slice_i"}
     assert '"ok"' not in out.out
 
 

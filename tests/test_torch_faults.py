@@ -162,7 +162,8 @@ def test_fault_plan_matches_reference():
 
 
 def test_process_crash_escapes_containment(small_lm):
-    """process_crash raises out of step() (recovery is a later slice)."""
+    """process_crash raises out of step() (recovery from the journal is
+    tests/test_torch_recovery.py's)."""
     eng = _engine(small_lm, "port", arm=[("process_crash", {})],
                   slots=1, max_seq=64, page_size=8)
     eng.submit(make_requests(teng, 1)[0])

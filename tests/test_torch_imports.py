@@ -44,7 +44,8 @@ def test_port_files_exist():
                  "train/optim.py", "train/loop.py", "ckpt/checkpoint.py",
                  "launch/steps.py", "launch/train.py",
                  "launch/train_lm_grau.py", "serve/prng.py",
-                 "serve/telemetry.py", "serve/trace.py", "serve/faults.py"):
+                 "serve/telemetry.py", "serve/trace.py", "serve/faults.py",
+                 "serve/journal.py", "serve/frontdoor.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
 
