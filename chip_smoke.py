@@ -5,8 +5,10 @@
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi); build every CUDA kernel
-     of the port from src/repro_torch/csrc (one nvcc per source, in
-     parallel) and print the build seconds and the ptxas report;
+     of the port from src/repro_torch/csrc (one nvcc per build unit, all in
+     parallel: a source, or one of paged_attention.cu's six units) and
+     print the build seconds, each unit's own nvcc seconds and the ptxas
+     report;
   2. kernels: each wrapper runs on the card at the main path's shapes and is
      held against its plain torch version on the same inputs — the GRAU unit
      bit-exact; paged decode / chunked prefill on 16-, 8- and 4-bit KV
@@ -26,10 +28,13 @@ Phases (any failure exits non-zero):
      (dense GQA attention forward) against its plain version (o and lse) at
      slice (e)'s shape causal and not, in f32, at every head_dim of the
      reference's archs (16, 48, 64, 192, 256 beside 128) on both bf16
-     kernels, on a ragged length and after a prefix, and its backward
+     kernels, on a ragged length, after a prefix and at LLaVA's training
+     length 4672 (576 + 4096) over (32, 8) heads, and its backward
      against autograd; then the bf16 decode and prefill at glm4-9b's GQA
-     group of 16 (32 heads over 2) and qwen1.5-32b's group of 1 (40 over
-     40) on 16- and 4-bit pools with the fused epilogue (the same checks and
+     group of 16 (32 heads over 2), qwen1.5-32b's group of 1 (40 over
+     40), llama4-maverick's group of 5 (40 over 8: a prefill chunk's 160
+     rows a KV head fill 1 1/4 row groups) and llava's group of 4 (32 over
+     8) on 16- and 4-bit pools with the fused epilogue (the same checks and
      float64 gates), a decode tick whose outputs must be the same bits in a
      quarter-capacity bucket and in the whole table, a prefill over table
      blocks shared with another slot's row, and copy_pool_block
@@ -113,6 +118,21 @@ Phases (any failure exits non-zero):
      under open streams, every stream as (1)'s. Every stream gate is exact:
      a readmitted request replays its delivered tokens through decode
      ticks, the uninterrupted run's kernel calls.
+     Then (j), in (b)'s setup: llama4-maverick-400b-a17b at full width (128
+     experts of d_ff 8192, top-1, a shared expert; 40/8 heads, a GQA group
+     of 5), cut to 2 of its 48 layers (one dense + MoE period: one MoE
+     layer's experts take 32.2 GB in bf16), served through the kernels and
+     the gather path — the tokens routed to another expert by the two paths
+     at the first prefill chunk and the first decode tick, each flip
+     explained by the paths' router scores or the slice fails, the first
+     decode logits held on the rows with no flip — then a "train"-mode
+     lm_loss forward at 1 x 2048 through the flash kernel and the plain
+     scan (the capacity factor's dropped slots, the aux loss); (2)
+     llava-next-mistral-7b at full size served through both paths (text
+     only); (3) LLaVA GRAU-QAT training at full width cut to 16 of 32
+     layers (f32 AdamW moments: all 32 take ~87 GB) on make_lm_batch_for's
+     4096 tokens after the 576-patch stub: loss and gradients through the
+     flash kernel against the plain scan on batch 0, then 4 steps.
      Launch counters are zeroed before and read after each run.
 Each phase prints its seconds. The last two lines are the kernels JSON and
 the result line.
@@ -156,7 +176,8 @@ F32_TOL = 2e-5      # f32: the same sums in another order (FMA contraction)
 BF16_RTOL, BF16_ATOL = 2 ** -7, 1e-6
 # relative L2, first decode logits, kernel path vs gather path
 SLICE_TOL = {"float": 2e-2, "grau": 5e-2, "wq4_kv4_grau": 5e-2,
-             "glm4_grau": 5e-2, "qwen_grau": 5e-2}
+             "glm4_grau": 5e-2, "qwen_grau": 5e-2, "llama4_grau": 5e-2,
+             "llava_grau": 5e-2}
 # flash kernel vs its plain version, element by element (o, lse): the
 # reference tests' tolerances for o (f32 3e-5, bf16 2e-2); lse is the same
 # f32 scores and sums in another order (bf16: a fast exp as well)
@@ -1113,12 +1134,16 @@ def flash_cases(torch, timed):
                 ("d48 bf16", 1, 777, 777, 8, 8, 48, bf, False, 0),
                 ("d192 bf16", 1, 1000, 1000, 16, 16, 192, bf, True, 0),
                 ("d192 q_offset", 1, 200, 900, 16, 16, 192, bf, True, 700),
-                ("d48 f32", 1, 300, 300, 8, 8, 48, f32, True, 0)]
+                ("d48 f32", 1, 300, 300, 8, 8, 48, f32, True, 0),
+                # slice (j)'s LLaVA training: 576 patches + 4096 tokens (not
+                # a multiple of 128) at its (32, 8) heads
+                ("llava 4672 bf16", 1, 4672, 4672, 32, 8, 128, bf, True, 0)]
     return [("train bf16 causal", 1, 128, 128, 4, 2, 32, bf, True, 0),
             ("f32 causal", 2, 64, 64, 4, 2, 32, f32, True, 0),
             ("d256 f32", 1, 64, 64, 2, 2, 256, f32, False, 0),
             ("ragged 100", 1, 100, 100, 4, 2, 32, f32, True, 0),
-            ("q_offset 70", 1, 30, 100, 4, 2, 32, f32, True, 70)]
+            ("q_offset 70", 1, 30, 100, 4, 2, 32, f32, True, 70),
+            ("llava 146", 1, 146, 146, 4, 2, 32, f32, True, 0)]
 
 
 def check_flash(torch, np, dev, shapes, rng, timed):
@@ -1309,11 +1334,14 @@ def serve(torch, np, dev, cfg, params, ecfg_kw, reqs_fn):
 
 
 def first_decode_logits(torch, np, dev, cfg, params, attn_quant, prompts,
-                        max_seq, bs, chunk, policy=None, gather_params=None):
+                        max_seq, bs, chunk, policy=None, gather_params=None,
+                        routes=None):
     """Prefill every prompt through the kernels into fresh pools (quantized
     per `policy`), then run the first decode step once through each path on
     its own copy of the pools: the kernels with `params`, and the gather
-    path with `gather_params` (default: the same tree)."""
+    path with `gather_params` (default: the same tree). With `routes` (a
+    dict), each path's decode step runs under a RouteLog kept there by
+    path name."""
     from repro_torch.models import lm
     from repro_torch.nn.attention import PagedState
     from repro_torch.serve import kv_cache as kvc
@@ -1356,8 +1384,12 @@ def first_decode_logits(torch, np, dev, cfg, params, attn_quant, prompts,
         own = tuple(tuple(type(c)(*[t.clone() if torch.is_tensor(t) else t
                                     for t in c]) for c in grp)
                     for grp in caches)
-        logits, _ = lm.decode_step(tree, cfg, last, own, paged=st, act=act,
-                                   paged_impl=impl, attn_quant=attn_quant)
+        with RouteLog() as rl:
+            logits, _ = lm.decode_step(tree, cfg, last, own, paged=st,
+                                       act=act, paged_impl=impl,
+                                       attn_quant=attn_quant)
+        if routes is not None:
+            routes[impl] = rl.calls
         out[impl] = logits[:, -1].float()
         del own
     del caches
@@ -1497,16 +1529,21 @@ def slice_phase(torch, np, dev, args, rehearse):
 # ---------------------------------------------------------------------------
 
 def group_shapes(shapes, timed):
-    """(label, shapes) of glm4-9b's GQA group of 16 (32 heads over 2) and
-    qwen1.5-32b's group of 1 (40 over 40), head_dim 128, at the main path's
-    slots, page, chunk and max_len (smaller head counts in a rehearsal)."""
-    heads = ((32, 2), (40, 40)) if timed else ((16, 1), (4, 4))
+    """(label, shapes) of glm4-9b's GQA group of 16 (32 heads over 2),
+    qwen1.5-32b's group of 1 (40 over 40), llama4-maverick's group of 5 (40
+    over 8: a 32-row prefill chunk has 160 query rows a KV head, one whole
+    128-row group and one a quarter filled) and llava-next-mistral-7b's
+    group of 4 (32 over 8), head_dim 128, at the main path's slots, page,
+    chunk and max_len (smaller head counts in a rehearsal)."""
+    heads = (((32, 2), (40, 40), (40, 8), (32, 8)) if timed else
+             ((16, 1), (4, 4), (10, 2), (8, 2)))
     return [(f"g{h // kvh}", dict(shapes, h=h, kvh=kvh)) for h, kvh in heads]
 
 
 def check_paged_groups(torch, np, dev, shapes, rng, timed):
-    """Decode and prefill, bf16 q split over several parts, at GQA groups 16
-    and 1 on 16- and 4-bit pools with the fused GRAU epilogue (the checks
+    """Decode and prefill, bf16 q split over several parts, at GQA groups
+    16, 1, 5 and 4 on 16- and 4-bit pools with the fused GRAU epilogue (the
+    checks
     and float64 gates of decode_parts_case / prefill_parts_case); a prefill
     chunk over table blocks shared with another slot's row; and
     copy_pool_block byte-exact on 16-, 8- and 4-bit pools."""
@@ -1955,11 +1992,9 @@ def new_archs_slice(torch, np, dev, args, rehearse):
     path, the first decode logits of the two within the GRAU slice's
     tolerance."""
     from repro_torch.configs.archs import get_config
-    from repro_torch.models import lm
     from repro_torch.models.config import GRAUConfig, dense_groups
     from repro_torch.nn.attention import AttnQuant
     from repro_torch.nn.common import build_lm_grau
-    from repro_torch.serve.engine import Request
 
     attn = build_lm_grau("identity")
     aq = AttnQuant(attn.spec.to(dev), attn.s_in, attn.s_out)
@@ -1978,35 +2013,436 @@ def new_archs_slice(torch, np, dev, args, rehearse):
                    "weights of all 64 take ~70 GB, leaving no room for the "
                    "pools and activations on one 80 GB card")
             cfg = cfg.replace(groups=dense_groups(QWEN_LAYERS))
-        t0 = time.perf_counter()
-        params = lm.init_lm(cfg, seed=args.seed, dtype=dtype, device=dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        nparams = sum(t.numel() for t in iter_tensors(params))
-        log(f"init_lm {cfg.name} (d_model {cfg.d_model}, {cfg.num_layers} "
-            f"layers, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
-            f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-            f"untied head, qkv_bias {cfg.qkv_bias}; {nparams / 1e9:.2f} B "
-            f"parameters) {dtype}: {time.perf_counter() - t0:.1f} s"
-            + (f"; depth cut to {cut}" if cut else ""))
-        reqs_fn = lambda: make_requests(  # noqa: E731
-            np, Request, cfg.vocab_size, 8, lo, hi, 32, args.seed)
-        res, streams = serve(torch, np, dev, cfg, params, ecfg, reqs_fn)
-        need_kernels(res["launches"], label, rehearse)
-        gres, gstreams = serve(torch, np, dev, cfg, params,
-                               {**ecfg, "paged_impl": "gather"}, reqs_fn)
-        res["gather_tokens_per_s"] = gres["tokens_per_s"]
-        res["greedy_identical_share"] = compare_streams(streams, gstreams)
-        lk, lg = first_decode_logits(torch, np, dev, cfg, params, aq,
-                                     [r.prompt for r in reqs_fn()], max_seq,
-                                     16, 32)
-        res.update(arch=cfg.name, layers=cfg.num_layers,
-                   params_b=nparams / 1e9, depth_cut=cut)
-        out[label] = check_logits(torch, label, res, lk, lg)
-        del params, lk, lg
+        out[label] = serve_arch(torch, np, dev, args, cfg, label, ecfg, aq,
+                                (lo, hi), max_seq, dtype, rehearse, cut)
+    return out
+
+
+def init_logged(torch, dev, args, cfg, dtype, cut=None):
+    """init_lm from --seed, its shape and parameter count printed (and the
+    depth cut, if any): (params, billions of parameters)."""
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=args.seed, dtype=dtype, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in iter_tensors(params)) / 1e9
+    moe = (f", {cfg.moe.num_experts} experts of d_ff {cfg.moe.d_ff} "
+           f"top-{cfg.moe.top_k} + {cfg.moe.num_shared} shared"
+           if cfg.moe else "")
+    log(f"init_lm {cfg.name} (d_model {cfg.d_model}, {cfg.num_layers} "
+        f"layers, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}{moe}, vocab {cfg.vocab_size}, "
+        f"tied head {cfg.tie_embeddings}, qkv_bias {cfg.qkv_bias}; "
+        f"{nparams:.2f} B parameters) {dtype}: "
+        f"{time.perf_counter() - t0:.1f} s"
+        + (f"; depth cut to {cut}" if cut else ""))
+    return params, nparams
+
+
+def serve_both_paths(torch, np, dev, cfg, params, ecfg, reqs_fn, label,
+                     rehearse):
+    """The requests through the kernels (both attention kernels must launch,
+    with the fused epilogue) and through the gather path: the kernel run's
+    results with the gather path's tokens/s and the greedy identical
+    share."""
+    res, streams = serve(torch, np, dev, cfg, params, ecfg, reqs_fn)
+    need_kernels(res["launches"], label, rehearse)
+    gres, gstreams = serve(torch, np, dev, cfg, params,
+                           {**ecfg, "paged_impl": "gather"}, reqs_fn)
+    res["gather_tokens_per_s"] = gres["tokens_per_s"]
+    res["greedy_identical_share"] = compare_streams(streams, gstreams)
+    return res
+
+
+def serve_arch(torch, np, dev, args, cfg, label, ecfg, aq, lens, max_seq,
+               dtype, rehearse, cut=None):
+    """An arch in (b)'s setup: 8 requests of `lens` prompt tokens through
+    both paths (serve_both_paths), the first decode logits of the two
+    within SLICE_TOL[label]; the weights are freed before it returns."""
+    from repro_torch.serve.engine import Request
+    params, nparams = init_logged(torch, dev, args, cfg, dtype, cut)
+    reqs_fn = lambda: make_requests(  # noqa: E731
+        np, Request, cfg.vocab_size, 8, *lens, 32, args.seed)
+    res = serve_both_paths(torch, np, dev, cfg, params, ecfg, reqs_fn, label,
+                           rehearse)
+    lk, lg = first_decode_logits(torch, np, dev, cfg, params, aq,
+                                 [r.prompt for r in reqs_fn()], max_seq, 16,
+                                 32)
+    res.update(arch=cfg.name, layers=cfg.num_layers, params_b=nparams,
+               depth_cut=cut)
+    res = check_logits(torch, label, res, lk, lg)
+    del params, lk, lg
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# slice (j): Mixture-of-Experts (llama4-maverick) and LLaVA's vision prefix
+# ---------------------------------------------------------------------------
+
+# llama4-maverick runs one period of its 48 layers, a dense layer then an
+# MoE layer: one MoE layer's 128 experts alone take 32.2 GB in bf16, all 48
+# layers ~801 GB, two periods 70.6 GB, which leaves too little of an 80 GB
+# card for init transients, pools and MoE activations
+LLAMA4_LAYERS = 2
+# LLaVA trains at 16 of its 32 layers: bf16 weights and gradients and f32
+# AdamW moments take 12 bytes a parameter, ~87 GB at all 32 (7.24 B), ~45
+# GB at 16 (3.75 B)
+LLAVA_TRAIN_LAYERS = 16
+LLAVA_TRAIN_STEPS = 4
+MOE_TRAIN_SEQ = 2048    # the train-mode forward: c = int(1.25 x 2048 / 128)
+
+
+class RouteLog:
+    """While active, records each MoE layer's router scores (f32) and top-k
+    expert choices, on the host, in call order (it wraps nn/moe.route,
+    which apply_moe calls once a layer)."""
+
+    def __enter__(self):
+        from repro_torch.nn import moe
+        self.calls, self._route = [], moe.route
+
+        def route(params, xt, cfg):
+            out = self._route(params, xt, cfg)
+            self.calls.append((out[0].detach().float().cpu(),
+                               out[1].detach().cpu()))
+            return out
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.nn import moe
+        moe.route = self._route
+
+
+def route_flips(kernel, plain, label):
+    """Tokens routed to another expert by the kernel path than by the plain
+    (gather or scan) path, per MoE layer. A flip is explained when the two
+    paths' scores on the two experts involved differ, together, by at
+    least the plain path's margin between them (and not by nothing); an
+    unexplained flip fails. Also returns the largest score difference over
+    the tokens that did not flip (the paths' noise) and each flip's
+    margin."""
+    out = []
+    need(len(kernel) == len(plain), f"{label}: {len(kernel)} vs "
+         f"{len(plain)} MoE layers recorded")
+    for li, ((sk, ik), (sp, ip)) in enumerate(zip(kernel, plain)):
+        rows = (ik != ip).any(-1)
+        flips = []
+        for i in rows.nonzero()[:, 0].tolist():
+            j = int((ik[i] != ip[i]).nonzero()[0, 0])
+            ea, eb = int(ik[i, j]), int(ip[i, j])
+            margin = float(sp[i, eb] - sp[i, ea])
+            moved = (abs(float(sk[i, ea] - sp[i, ea]))
+                     + abs(float(sk[i, eb] - sp[i, eb])))
+            need(0 < moved and margin <= moved,
+                 f"{label} MoE layer {li}: token {i} went to expert {ea} "
+                 f"(kernel) and {eb} (plain), plain margin {margin:.3g}, "
+                 f"scores moved by {moved:.3g}: unexplained")
+            flips.append({"token": i, "kernel": ea, "plain": eb,
+                          "margin": margin, "scores_moved": moved})
+        quiet = ~rows
+        band = (float((sk[quiet] - sp[quiet]).abs().max())
+                if bool(quiet.any()) else 0.0)
+        out.append({"tokens": int(ik.shape[0]), "flips": len(flips),
+                    "flipped": flips, "score_diff_max_unflipped": band})
+    log(f"{label}: expert flips kernel vs plain per MoE layer: "
+        f"{[r['flips'] for r in out]} of {[r['tokens'] for r in out]} "
+        f"tokens; each explained by its scores; score noise (unflipped) "
+        f"{[round(r['score_diff_max_unflipped'], 9) for r in out]}")
+    return out
+
+
+def first_chunk_routes(torch, np, dev, cfg, params, aq, prompt, bs, chunk):
+    """The first prefill chunk of `prompt` through each path, each into its
+    own fresh pools, with the MoE routes recorded: {path: RouteLog.calls}."""
+    from repro_torch.models import lm
+    from repro_torch.nn.attention import PagedState
+    from repro_torch.serve import kv_cache as kvc
+    act = lm.make_act(cfg, dev)
+    cols = chunk // bs
+    ctx = len(prompt) - 1
+    toks = np.zeros((1, chunk), np.int64)
+    n = min(ctx, chunk)
+    toks[0, :n] = prompt[:n]
+    toks = torch.from_numpy(toks).to(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    st = PagedState(torch.arange(1, cols + 1, **i32)[None],
+                    torch.tensor([0], **i32), torch.tensor([ctx], **i32))
+    out = {}
+    for impl in ("kernel", "gather"):
+        caches = kvc.init_paged_caches(cfg, cols + 1, bs,
+                                       dtype=lm.compute_dtype(params),
+                                       device=dev)
+        with RouteLog() as rl:
+            lm.prefill_step(params, cfg, toks, caches, paged=st, act=act,
+                            paged_impl=impl, attn_quant=aq,
+                            want_logits=False)
+        out[impl] = rl.calls
+        del caches
+    return out
+
+
+def moe_train_forward(torch, np, dev, cfg, params, seed, seq):
+    """One "train"-mode lm_loss forward under no_grad at batch 1 x `seq`
+    (capacity factor on: tokens may drop) through the flash kernel and
+    through the plain scan, and apply_lm's aux loss of each: the dropped
+    (token, k) slots per MoE layer, the losses (held together within
+    TRAIN_LOSS_TOL when no routing flipped) and the expert flips."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import lm
+    from repro_torch.nn import moe
+    batch = TokenPipeline(cfg.vocab_size, seq, 1, seed=seed,
+                          device=str(dev)).batch(0)
+    chunk = min(1024, seq)
+    c = moe.capacity_for(cfg.moe, seq)
+    out, routes = {"capacity": c}, {}
+    for impl in ("kernel", "plain"):
+        with torch.no_grad():
+            with RouteLog() as rl:
+                loss = float(lm.lm_loss(params, cfg, batch, q_chunk=chunk,
+                                        kv_chunk=chunk, attn_impl=impl))
+            aux = float(lm.apply_lm(params, cfg, batch["tokens"],
+                                    q_chunk=chunk, kv_chunk=chunk,
+                                    attn_impl=impl)[2])
+        routes[impl] = rl.calls
+        dropped = [int((moe.queue_positions(ti, cfg.moe.num_experts) >= c)
+                       .sum()) for _, ti in rl.calls]
+        out[impl] = {"loss": loss, "aux_loss": aux, "dropped_slots": dropped,
+                     "slots": seq * cfg.moe.top_k,
+                     "experts_used": [int(ti.unique().numel())
+                                      for _, ti in rl.calls]}
+        need(np.isfinite(loss) and np.isfinite(aux),
+             f"llama4 train forward ({impl}): loss {loss}, aux {aux}")
+    out["routes"] = route_flips(routes["kernel"], routes["plain"],
+                                "llama4 train forward")
+    rel = abs(out["kernel"]["loss"] - out["plain"]["loss"]) / abs(
+        out["plain"]["loss"])
+    out["loss_rel"] = rel
+    if all(r["flips"] == 0 for r in out["routes"]):
+        need(rel <= TRAIN_LOSS_TOL, f"llama4 train forward: loss through "
+             f"the kernel vs plain rel {rel:.3g} > {TRAIN_LOSS_TOL} with no "
+             "routing flipped")
+    log("slice[llama4 train forward]: " + json.dumps(
+        {k: v for k, v in out.items() if k != "routes"}))
+    return out
+
+
+def llama4_serve(torch, np, dev, args, rehearse, ecfg, aq, lo, hi, max_seq,
+                 dtype):
+    """llama4-maverick at full width, LLAMA4_LAYERS of its 48 layers: the
+    8 requests through the kernels and the gather path (greedy share,
+    tokens/s), the expert flips at the first prefill chunk and the first
+    decode tick (each explained, or the slice fails), the first decode
+    logits held to the GRAU slice's tolerance on the rows with no flip, and
+    the train-mode forward."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models.config import GRAUConfig, moe_groups
+    from repro_torch.serve.engine import Request
+    cfg = get_config("llama4-maverick-400b-a17b", smoke=rehearse).replace(
+        grau=GRAUConfig())
+    cut = None
+    if not rehearse:
+        cut = (f"{LLAMA4_LAYERS} of {cfg.num_layers} layers (one dense + "
+               "MoE period): one MoE layer's experts take 32.2 GB in bf16, "
+               "all 48 layers ~801 GB")
+        cfg = cfg.replace(groups=moe_groups(LLAMA4_LAYERS, 0, 2))
+    label = "llama4_grau"
+    params, nparams = init_logged(torch, dev, args, cfg, dtype, cut)
+    reqs_fn = lambda: make_requests(  # noqa: E731
+        np, Request, cfg.vocab_size, 8, lo, hi, 32, args.seed)
+    res = serve_both_paths(torch, np, dev, cfg, params, ecfg, reqs_fn, label,
+                           rehearse)
+    prompts = [r.prompt for r in reqs_fn()]
+    chunk_routes = first_chunk_routes(torch, np, dev, cfg, params, aq,
+                                      prompts[0], 16, 32)
+    res["flips_first_chunk"] = route_flips(
+        chunk_routes["kernel"], chunk_routes["gather"], "llama4 first chunk")
+    routes = {}
+    lk, lg = first_decode_logits(torch, np, dev, cfg, params, aq, prompts,
+                                 max_seq, 16, 32, routes=routes)
+    tick = route_flips(routes["kernel"], routes["gather"],
+                       "llama4 first decode tick")
+    res["flips_first_tick"] = tick
+    flipped = sorted({f["token"] for layer in tick for f in layer["flipped"]})
+    keep = [i for i in range(lk.shape[0]) if i not in flipped]
+    res["logit_rows_held"] = keep
+    res["flipped_rows_rel_l2"] = {
+        i: float((lk[i] - lg[i]).norm() / lg[i].norm()) for i in flipped}
+    res.update(arch=cfg.name, layers=cfg.num_layers, params_b=nparams,
+               depth_cut=cut)
+    need(len(keep) > 0, f"{label}: every row's routing flipped")
+    res = check_logits(torch, label, res, lk[keep], lg[keep])
+    del lk, lg
+    seq = 64 if rehearse else MOE_TRAIN_SEQ
+    res["train_forward"] = moe_train_forward(torch, np, dev, cfg, params,
+                                             args.seed, seq)
+    del params
+    return res
+
+
+def llava_train(torch, np, dev, args, rehearse):
+    """LLaVA GRAU-QAT training (as slice (e): GRAU apot 6 x 8, bf16 weights,
+    f32 AdamW moments, remat "full") at full width and LLAVA_TRAIN_LAYERS
+    layers, on make_lm_batch_for's train_4k batches (4096 tokens, batch 1,
+    after the 576-patch stub): loss and gradients through the flash kernel
+    against the plain scan on batch 0, then LLAVA_TRAIN_STEPS steps through
+    launch/steps.make_train_step and train/loop.run with the flash
+    kernel's launches counted."""
+    from repro_torch import kernels
+    from repro_torch.configs.archs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import make_lm_batch_for
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.config import GRAUConfig, dense_groups
+    from repro_torch.nn.common import tree_flatten
+    from repro_torch.train import optim
+    from repro_torch.train.loop import LoopConfig, run
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    grau = GRAUConfig(mode="apot", segments=6, num_exponents=8)
+    cfg = get_config("llava-next-mistral-7b", smoke=rehearse).replace(
+        grau=grau)
+    cut = None
+    if not rehearse:
+        cut = (f"{LLAVA_TRAIN_LAYERS} of {cfg.num_layers} layers: bf16 "
+               "weights and gradients and f32 AdamW moments take ~87 GB at "
+               "all 32")
+        cfg = cfg.replace(groups=dense_groups(LLAVA_TRAIN_LAYERS))
+    dtype = torch.float32 if rehearse else torch.bfloat16
+    shape = ShapeSpec("train_4k_per_chip", 64 if rehearse else 4096,
+                      2 if rehearse else 1, "train")
+    seq = shape.seq_len + cfg.vision.num_patches
+    chunk = min(1024, seq)
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=args.seed, dtype=dtype, device=dev)
+    nparams = sum(t.numel() for t in iter_tensors(params))
+
+    def batch_fn(step):
+        return make_lm_batch_for(cfg, shape, step, seed=args.seed,
+                                 device=str(dev), dtype=dtype)
+    batch0 = batch_fn(0)
+    sync()
+    out = {"config": cfg.name, "layers": cfg.num_layers, "depth_cut": cut,
+           "params_b": nparams / 1e9, "tokens": shape.seq_len,
+           "patches": cfg.vision.num_patches, "seq": seq,
+           "batch": shape.global_batch, "init_s": time.perf_counter() - t0}
+    res = {}
+    for impl in ("kernel", "plain"):
+        fn = steps.make_loss_and_grads(cfg, remat="full", q_chunk=chunk,
+                                       kv_chunk=chunk, attn_impl=impl)
+        res[impl] = fn(params, batch0)
+        sync()
+    (lk, gk), (lp, gp) = res["kernel"], res["plain"]
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    grad_rel = {path: rel_l2(a, b) for (path, a), (_, b)
+                in zip(tree_flatten(gk), tree_flatten(gp))}
+    del res, gk, gp
+    worst = max(grad_rel, key=grad_rel.get)
+    out["kernel_vs_plain"] = {
+        "loss_kernel": float(lk), "loss_plain": float(lp),
+        "loss_rel": loss_rel, "grad_rel_l2_max": grad_rel[worst],
+        "grad_rel_l2_max_leaf": worst,
+        "grad_rel_l2_median": float(np.median(list(grad_rel.values())))}
+    log(f"llava train[kernel vs plain]: {json.dumps(out['kernel_vs_plain'])}")
+    need(np.isfinite(float(lk)) and loss_rel <= TRAIN_LOSS_TOL,
+         f"llava train: loss through the kernel {float(lk)} vs plain "
+         f"{float(lp)}: rel {loss_rel:.3g} > {TRAIN_LOSS_TOL}")
+    need(grad_rel[worst] <= TRAIN_GRAD_TOL,
+         f"llava train: gradient {worst} rel L2 {grad_rel[worst]:.3g} > "
+         f"{TRAIN_GRAD_TOL}")
+    if cuda:
+        torch.cuda.empty_cache()
+    opt_cfg = optim.AdamWConfig(peak_lr=3e-3, warmup_steps=2,
+                                total_steps=LLAVA_TRAIN_STEPS)
+    train_step = steps.make_train_step(cfg, opt_cfg, remat="full",
+                                       q_chunk=chunk, kv_chunk=chunk)
+    opt_state = optim.init_opt_state(params)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    try:
+        params, opt_state, hist = run(
+            train_step=train_step, params=params, opt_state=opt_state,
+            batch_fn=batch_fn, loop=LoopConfig(
+                total_steps=LLAVA_TRAIN_STEPS, log_every=1),
+            log=lambda m: log(f"llava train: {m}"))
+    except FloatingPointError as e:
+        raise SmokeError(f"llava train: {e}") from e
+    sync()
+    launches = kernels.launch_counts()
+    want = 2 * cfg.num_layers * LLAVA_TRAIN_STEPS
+    need(rehearse or launches["flash_attention"] == want,
+         f"llava train: flash_attention launched "
+         f"{launches['flash_attention']} times, want {want}")
+    need(all(np.isfinite(hist["losses"])), f"llava train: losses "
+         f"{hist['losses']}")
+    step_s = float(np.median(hist["times"]))
+    out["train"] = {
+        "losses": hist["losses"], "step_s": hist["times"],
+        "median_step_s": step_s, "tokens_per_s": seq * shape.global_batch
+        / step_s,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if cuda else None),
+        "flash_launches": launches["flash_attention"],
+        "flash_launches_want": want, "card": args.card}
+    log(f"llava train[{LLAVA_TRAIN_STEPS} steps]: {json.dumps(out['train'])}")
+    del params, opt_state, train_step
+    return out
+
+
+def moe_llava_slice(torch, np, dev, args, rehearse):
+    """Slice (j), in slice (b)'s setup (GRAU MLP, fused GRAU attention
+    epilogue, bf16, 8 slots, max_seq 2048, page 16, chunk 32) and its 8
+    requests: (1) llama4-maverick (llama4_serve), (2) llava-next-mistral-7b
+    at full size served through the kernels and the gather path, the first
+    decode logits within the GRAU slice's tolerance, (3) LLaVA trained
+    (llava_train). Each part's seconds are printed."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models.config import GRAUConfig
+    from repro_torch.nn.attention import AttnQuant
+    from repro_torch.nn.common import build_lm_grau
+
+    attn = build_lm_grau("identity")
+    aq = AttnQuant(attn.spec.to(dev), attn.s_in, attn.s_out)
+    dtype = torch.float32 if rehearse else torch.bfloat16
+    max_seq = 256 if rehearse else 2048
+    lo, hi = (8, 100) if rehearse else (64, 1024)
+    ecfg = dict(slots=8, max_seq=max_seq, page_size=16, seed=args.seed,
+                attn_grau=attn)
+    out, seconds = {}, {}
+
+    def free():
         if dev.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out["llama4_grau"] = llama4_serve(torch, np, dev, args, rehearse, ecfg,
+                                      aq, lo, hi, max_seq, dtype)
+    free()
+    seconds["llama4"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg = get_config("llava-next-mistral-7b", smoke=rehearse).replace(
+        grau=GRAUConfig())
+    out["llava_grau"] = serve_arch(torch, np, dev, args, cfg, "llava_grau",
+                                   ecfg, aq, (lo, hi), max_seq, dtype,
+                                   rehearse)
+    seconds["llava_serve"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["llava_train"] = llava_train(torch, np, dev, args, rehearse)
+    free()
+    seconds["llava_train"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    log(f"slice (j) seconds: {json.dumps(seconds)}")
     return out
 
 
@@ -3639,9 +4075,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         took = kbuild.build()
         report["build_s"] = time.perf_counter() - t0
+        report["build_units_s"] = took
         report["phase_s"] = {"build": report["build_s"]}
-        log(f"kernel build: {report['build_s']:.1f} s "
-            f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
+        log(f"kernel build: {report['build_s']:.1f} s, {len(took)} nvcc "
+            "units at once; each unit's own seconds: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+                took.items(), key=lambda kv: -kv[1])))
         report["ptxas"] = {}
         for name in kbuild.SOURCES:
             rows = ptxas_summary(kbuild.ptxas_report(name))
@@ -3726,6 +4165,10 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         durable = phase("slice_i", lambda: durable_slice(
             torch, np, dev, args, args.rehearse))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        moe_llava = phase("slice_j", lambda: moe_llava_slice(
+            torch, np, dev, args, args.rehearse))
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3737,6 +4180,7 @@ def main(argv=None) -> int:
     report["new_archs"] = archs
     report["sampled"] = sampled
     report["durable"] = durable
+    report["moe_llava"] = moe_llava
     # launches on the main paths: the 16-bit attention rows from (b), where
     # the GRAU datapath runs fused in the attention kernels' epilogue; the
     # 4-bit attention rows and matmul_wq from (c); the GRAU unit and
@@ -3773,6 +4217,14 @@ def main(argv=None) -> int:
         # slice (i): every served run, each counted from 0 just before it
         rows[name]["launches_slice_i"] = sum(
             c[name] for c in durable["launches"].values())
+    # slice (j): llama4 and llava served through the kernels, each run's
+    # counts zeroed just before it; flash from LLaVA's training steps
+    for name in ("paged_attention", "paged_prefill"):
+        rows[name]["launches_slice_j"] = {
+            k: moe_llava[k]["launches"][name] for k in ("llama4_grau",
+                                                         "llava_grau")}
+    rows["flash_attention"]["launches_slice_j"] = moe_llava["llava_train"][
+        "train"]["flash_launches"]
     # slice (i)'s handoff to wq4 + kv4: matmul_wq and the 4-bit pools
     for name in ("matmul_wq", "paged_attention_kv4", "paged_prefill_kv4"):
         rows[name]["launches_slice_i"] = durable["launches"][

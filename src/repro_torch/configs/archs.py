@@ -2,7 +2,9 @@
 with the JAX package's values (configs/archs.py there)."""
 from __future__ import annotations
 
-from repro_torch.models.config import ModelConfig, dense_groups
+from repro_torch.models.config import (ModelConfig, VisionStub, dense_groups,
+                                       moe_groups)
+from repro_torch.nn.moe import MoEConfig
 
 
 # ---------------------------------------------------------------------------
@@ -101,11 +103,66 @@ def qwen_smoke() -> ModelConfig:
     )
 
 
+# ---------------------------------------------------------------------------
+# [vlm] llava-next-mistral-7b — anyres tiling stubbed to patch embeddings
+# ---------------------------------------------------------------------------
+
+def llava_next_mistral_7b() -> ModelConfig:
+    return ModelConfig(
+        name="llava-next-mistral-7b",
+        d_model=4096, num_heads=32, num_kv_heads=8, head_dim=128,
+        d_ff=14336, vocab_size=32000,
+        groups=dense_groups(32),
+        activation="silu",
+        vision=VisionStub(num_patches=576),
+    )
+
+
+def llava_smoke() -> ModelConfig:
+    return ModelConfig(
+        name="llava-smoke",
+        d_model=128, num_heads=4, num_kv_heads=2, head_dim=32,
+        d_ff=256, vocab_size=512,
+        groups=dense_groups(2),
+        activation="silu",
+        vision=VisionStub(num_patches=16),
+    )
+
+
+# ---------------------------------------------------------------------------
+# [moe] llama4-maverick-400b-a17b — 128e top-1, MoE every other layer,
+# shared expert; dense interleave d_ff = 2 x expert d_ff
+# ---------------------------------------------------------------------------
+
+def llama4_maverick_400b() -> ModelConfig:
+    return ModelConfig(
+        name="llama4-maverick-400b-a17b",
+        d_model=5120, num_heads=40, num_kv_heads=8, head_dim=128,
+        d_ff=16384, vocab_size=202048,
+        groups=moe_groups(48, first_dense=0, period_moe=2),
+        activation="silu",
+        moe=MoEConfig(num_experts=128, top_k=1, d_ff=8192, num_shared=1),
+    )
+
+
+def llama4_smoke() -> ModelConfig:
+    return ModelConfig(
+        name="llama4-smoke",
+        d_model=128, num_heads=4, num_kv_heads=2, head_dim=32,
+        d_ff=512, vocab_size=512,
+        groups=moe_groups(2, first_dense=0, period_moe=2),
+        activation="silu",
+        moe=MoEConfig(num_experts=4, top_k=1, d_ff=256, num_shared=1),
+    )
+
+
 ARCHS = {
     "gemma-7b": (gemma_7b, gemma_smoke),
     "llama3.2-3b": (llama3_2_3b, llama3_smoke),
     "glm4-9b": (glm4_9b, glm4_smoke),
     "qwen1.5-32b": (qwen1_5_32b, qwen_smoke),
+    "llava-next-mistral-7b": (llava_next_mistral_7b, llava_smoke),
+    "llama4-maverick-400b-a17b": (llama4_maverick_400b, llama4_smoke),
 }
 
 

@@ -59,7 +59,19 @@
 
 #include "grau_datapath.cuh"
 
-namespace {
+// Build units: kernels/build.py compiles this file as KERNEL_SHARDS units
+// and links them into one library. Unit KERNEL_SHARD defines the launchers
+// of the (pool kind, head dim) pairs it owns (end of this namespace), and
+// unit 0 also the entry points; compiled alone, the file is one unit that
+// holds everything. The namespace is named, not anonymous, so that a
+// launcher defined in one unit links from another.
+#ifndef KERNEL_SHARDS
+#define KERNEL_SHARDS 1
+#define KERNEL_SHARD 0
+#endif
+#define IN_UNIT(u) ((u) % KERNEL_SHARDS == KERNEL_SHARD)
+
+namespace paged_attention_cu {
 
 constexpr int kThreads = 128;
 constexpr int kRowTile = 16;
@@ -396,16 +408,56 @@ int launch(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// One (pool kind, head dim) pair's launcher: declared in every unit and
+// defined in the one unit that owns the pair, so its two kernels compile
+// there only.
+template <int KIND, int D>
+int launch_pair(const Args& a);
+
+#define DECLARE_PAIR(K, D) template <> int launch_pair<K, D>(const Args& a);
+#define DEFINE_PAIR(K, D) \
+  template <> int launch_pair<K, D>(const Args& a) { return launch<K, D>(a); }
+#define EACH_D(X, K) X(K, 16) X(K, 32) X(K, 48) X(K, 64) X(K, 128) X(K, 192) \
+  X(K, 256)
+EACH_D(DECLARE_PAIR, kPoolF32)
+EACH_D(DECLARE_PAIR, kPoolQ8)
+EACH_D(DECLARE_PAIR, kPoolQ4)
+
+// Six units: each pool kind's head dims {256, 64, 48} and {192, 128, 32,
+// 16}, about even if a kernel's compile time grows with its head dim.
+#if IN_UNIT(0)
+DEFINE_PAIR(kPoolF32, 256) DEFINE_PAIR(kPoolF32, 64) DEFINE_PAIR(kPoolF32, 48)
+#endif
+#if IN_UNIT(1)
+DEFINE_PAIR(kPoolQ8, 256) DEFINE_PAIR(kPoolQ8, 64) DEFINE_PAIR(kPoolQ8, 48)
+#endif
+#if IN_UNIT(2)
+DEFINE_PAIR(kPoolQ4, 256) DEFINE_PAIR(kPoolQ4, 64) DEFINE_PAIR(kPoolQ4, 48)
+#endif
+#if IN_UNIT(3)
+DEFINE_PAIR(kPoolF32, 192) DEFINE_PAIR(kPoolF32, 128)
+DEFINE_PAIR(kPoolF32, 32) DEFINE_PAIR(kPoolF32, 16)
+#endif
+#if IN_UNIT(4)
+DEFINE_PAIR(kPoolQ8, 192) DEFINE_PAIR(kPoolQ8, 128)
+DEFINE_PAIR(kPoolQ8, 32) DEFINE_PAIR(kPoolQ8, 16)
+#endif
+#if IN_UNIT(5)
+DEFINE_PAIR(kPoolQ4, 192) DEFINE_PAIR(kPoolQ4, 128)
+DEFINE_PAIR(kPoolQ4, 32) DEFINE_PAIR(kPoolQ4, 16)
+#endif
+
+#if KERNEL_SHARD == 0
 template <int KIND>
 int dispatch_d(int d, const Args& a) {
   switch (d) {
-    case 16: return launch<KIND, 16>(a);
-    case 32: return launch<KIND, 32>(a);
-    case 48: return launch<KIND, 48>(a);
-    case 64: return launch<KIND, 64>(a);
-    case 128: return launch<KIND, 128>(a);
-    case 192: return launch<KIND, 192>(a);
-    case 256: return launch<KIND, 256>(a);
+    case 16: return launch_pair<KIND, 16>(a);
+    case 32: return launch_pair<KIND, 32>(a);
+    case 48: return launch_pair<KIND, 48>(a);
+    case 64: return launch_pair<KIND, 64>(a);
+    case 128: return launch_pair<KIND, 128>(a);
+    case 192: return launch_pair<KIND, 192>(a);
+    case 256: return launch_pair<KIND, 256>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -426,8 +478,15 @@ int dispatch(Args a, int dtype, int d, int kv_bits, const void* regs,
   if (kv_bits == 4) return dispatch_d<kPoolQ4>(d, a);
   return (int)cudaErrorInvalidValue;
 }
+#endif  // KERNEL_SHARD == 0
 
-}  // namespace
+}  // namespace paged_attention_cu
+
+#if KERNEL_SHARD == 0
+using paged_attention_cu::Args;
+using paged_attention_cu::Epilogue;
+using paged_attention_cu::Pools;
+using paged_attention_cu::dispatch;
 
 // dtype: 0 = f32 (q, and the pools at kv_bits 16); bf16 q is
 // paged_prefill.cu's, and dtype 1 is refused. kv_bits 8 / 4:
@@ -466,3 +525,4 @@ extern "C" int paged_prefill_launch(
   return dispatch(a, dtype, d, kv_bits, regs, num_exponents, qmin, qmax,
                   inv_s);
 }
+#endif  // KERNEL_SHARD == 0

@@ -109,11 +109,23 @@ class TokenPipeline:
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
-def make_lm_batch_for(cfg, shape, step: int, *, seed: int = 0,
-                      device=None) -> Dict[str, torch.Tensor]:
-    """A train batch for an arch config at a ShapeSpec. The reference adds
-    encoder-frame and patch-embedding stubs for Whisper and LLaVA; those
-    architectures (and their config fields) are not ported, so the batch
-    is text only."""
-    return TokenPipeline(cfg.vocab_size, shape.seq_len, shape.global_batch,
-                         seed=seed, device=device).batch(step)
+def make_lm_batch_for(cfg, shape, step: int, *, seed: int = 0, device=None,
+                      dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """A train batch for an arch config at a ShapeSpec: the TokenPipeline's
+    tokens and labels, and for a vision config (LLaVA) the patch-embedding
+    stub `patch_embeds` = 0.02 * normal, (global_batch, num_patches,
+    d_model) in `dtype`, drawn from its own generator seeded from (seed + 7,
+    step) on the batch's device, as the reference keys it (not
+    jax.random.normal's bits). The encoder-frame stub of Whisper is not
+    ported (ROADMAP A9)."""
+    batch = TokenPipeline(cfg.vocab_size, shape.seq_len, shape.global_batch,
+                          seed=seed, device=device).batch(step)
+    vision = cfg.vision
+    if vision is not None:
+        dev = batch["tokens"].device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(batch_seed(seed + 7, step))
+        z = torch.randn((shape.global_batch, vision.num_patches, cfg.d_model),
+                        generator=gen, device=dev)
+        batch["patch_embeds"] = (0.02 * z).to(dtype)
+    return batch

@@ -33,7 +33,9 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --max-new 200 --journal build/serve.journal --resume
 
-Archs: llama3.2-3b, gemma-7b, glm4-9b, qwen1.5-32b (configs/archs.py).
+Archs: llama3.2-3b, gemma-7b, glm4-9b, qwen1.5-32b, llava-next-mistral-7b
+(served text-only, as the reference's engine) and llama4-maverick-400b-a17b
+(MoE at full capacity: serving drops no token) (configs/archs.py).
 The mesh is not ported yet. A first SIGINT or SIGTERM drains (in-flight
 streams finish, queued requests wait in the journal and the final
 snapshot), a second stops at once; either way the snapshot is written and

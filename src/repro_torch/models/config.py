@@ -1,9 +1,11 @@
-"""ModelConfig for the ported architectures (dense GQA decoders).
+"""ModelConfig for the ported architectures: GQA decoders with dense or
+Mixture-of-Experts MLPs, and LLaVA's vision-stub prefix.
 
 The port's own frozen dataclasses, with the JAX package's field names and
-values: embedding -> repeated groups of decoder layers (each group a
-*period* of LayerSpecs repeated `repeats` times) -> final norm -> LM head.
-MoE, MLA, SSM, encoder and vision fields arrive with those layer kinds.
+values: [vision-stub patch embeddings +] embedding -> repeated groups of
+decoder layers (each group a *period* of LayerSpecs repeated `repeats`
+times) -> final norm -> LM head. MLA, SSM and encoder fields arrive with
+those layer kinds (ROADMAP A8-A9).
 """
 from __future__ import annotations
 
@@ -11,6 +13,12 @@ import dataclasses
 from typing import Optional, Tuple
 
 from repro_torch.nn.blocks import LayerSpec
+from repro_torch.nn.moe import MoEConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionStub:
+    num_patches: int = 576        # anyres base tile for llava-next
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +48,8 @@ class ModelConfig:
     norm_eps: float = 1e-6
     rope_theta: float = 1e4
     tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
+    vision: Optional[VisionStub] = None
     grau: Optional[GRAUConfig] = None
 
     @property
@@ -52,3 +62,22 @@ class ModelConfig:
 
 def dense_groups(n_layers: int):
     return (((LayerSpec(kind="attn", mlp="dense"),), n_layers),)
+
+
+def moe_groups(n_layers: int, first_dense: int = 0, period_moe: int = 1):
+    """MoE stack: optional leading dense layers, then MoE every `period_moe`
+    (the last layer of each period)."""
+    groups = []
+    if first_dense:
+        groups.append(((LayerSpec("attn", "dense"),), first_dense))
+    rest = n_layers - first_dense
+    if period_moe == 1:
+        groups.append(((LayerSpec("attn", "moe"),), rest))
+    else:
+        period = tuple(
+            LayerSpec("attn", "moe" if (i % period_moe) == period_moe - 1
+                      else "dense")
+            for i in range(period_moe))
+        assert rest % period_moe == 0
+        groups.append((period, rest // period_moe))
+    return tuple(groups)

@@ -1,5 +1,6 @@
-"""LM assembly for the dense GQA decoders: init, the training forward and
-loss, paged prefill chunks and paged decode steps.
+"""LM assembly for the GQA decoders (dense or Mixture-of-Experts MLPs, an
+optional vision-stub prefix): init, the training forward and loss, paged
+prefill chunks and paged decode steps.
 
 Parameters: {"embed", "ln_f_w" (+"ln_f_b"), ["head"], "group{i}": [per
 repeat {"l{j}": layer params}]} — the JAX package's tree with each group's
@@ -102,36 +103,46 @@ def _check_remat(remat: Optional[str]) -> None:
 def _hidden(params, cfg: ModelConfig, tokens, *, mode, caches, positions,
             act, paged: Optional[PagedState], paged_impl, attn_quant,
             remat: Optional[str] = None, q_chunk: int = 1024,
-            kv_chunk: int = 1024, attn_impl: str = "kernel"):
-    """Embed (a packed table dequantizes only the gathered rows) -> layers
-    (pools updated in place) -> final norm. The rope tables are built once
-    and shared by every layer. In "train" mode (no caches), with
-    remat="full" each repeat's body runs under activation checkpointing
-    (torch.utils.checkpoint, non-reentrant): only its input is kept and the
-    body runs again in the backward pass, as the reference's _run_group
-    wraps it in jax.checkpoint."""
+            kv_chunk: int = 1024, attn_impl: str = "kernel",
+            patch_embeds=None):
+    """Embed (a packed table dequantizes only the gathered rows; LLaVA's
+    `patch_embeds` (b, patches, d) go before the tokens, cast to their
+    dtype) -> layers (pools updated in place) -> final norm. Returns (x,
+    aux): aux is the MoE layers' router losses summed, or 0.0 when no layer
+    has one. The rope tables are built once and shared by every layer. In
+    "train" mode (no caches), with remat="full" each repeat's body runs
+    under activation checkpointing (torch.utils.checkpoint, non-reentrant):
+    only its input is kept and the body runs again in the backward pass, as
+    the reference's _run_group wraps it in jax.checkpoint."""
     x = wq_lib.take_rows(params["embed"], tokens).to(compute_dtype(params))
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     kw = dict(rope=rope, act=act, mode=mode, paged=paged,
               paged_impl=paged_impl, attn_quant=attn_quant, q_chunk=q_chunk,
               kv_chunk=kv_chunk, attn_impl=attn_impl)
+    aux = 0.0
     for gi, (period, repeats) in enumerate(cfg.groups):
         group = params[f"group{gi}"]
         for r in range(repeats):
             if mode == "train":
                 def body(h, layer=group[r], period=period):
+                    total = 0.0
                     for li, spec in enumerate(period):
-                        h, _ = blocks.apply_layer(layer[f"l{li}"], h, spec,
-                                                  cfg, **kw)
-                    return h
-                x = (checkpoint(body, x, use_reentrant=False)
-                     if remat == "full" else body(x))
+                        h, _, a = blocks.apply_layer(layer[f"l{li}"], h,
+                                                     spec, cfg, **kw)
+                        total = total + a
+                    return h, total
+                x, a = (checkpoint(body, x, use_reentrant=False)
+                        if remat == "full" else body(x))
+                aux = aux + a
                 continue
             for li, spec in enumerate(period):
-                x, _ = blocks.apply_layer(
+                x, _, a = blocks.apply_layer(
                     group[r][f"l{li}"], x, spec, cfg,
                     cache=cache_slice(caches[gi][li], r), **kw)
-    return blocks.apply_norm(params, "ln_f", x, cfg.norm, cfg.norm_eps)
+                aux = aux + a
+    return blocks.apply_norm(params, "ln_f", x, cfg.norm, cfg.norm_eps), aux
 
 
 def _head(params, cfg: ModelConfig, x):
@@ -146,24 +157,30 @@ def apply_lm(params, cfg: ModelConfig, tokens, *, mode: str = "train",
              caches=None, positions=None, paged: Optional[PagedState] = None,
              act=None, paged_impl: str = "kernel", attn_quant=None,
              remat: Optional[str] = None, q_chunk: int = 1024,
-             kv_chunk: int = 1024, attn_impl: str = "kernel"):
-    """Returns (logits, caches): the training forward over the whole
-    sequence (mode="train", no caches, positions [0, s)), or a paged
-    "decode" step or "prefill" chunk (the pools in `caches` updated in
-    place). `remat` (None | "full") and `attn_impl` ("kernel" | "plain":
-    the flash kernel on the card, or the plain scan) apply to "train"."""
+             kv_chunk: int = 1024, attn_impl: str = "kernel",
+             patch_embeds=None):
+    """Returns (logits, caches, aux_loss): the training forward over the
+    whole sequence (mode="train", no caches, positions [0, s) over the
+    patch prefix and the tokens), or a paged "decode" step or "prefill"
+    chunk (the pools in `caches` updated in place). aux_loss is the MoE
+    router losses' sum (0.0 for a dense model). `remat` (None | "full") and
+    `attn_impl` ("kernel" | "plain": the flash kernel on the card, or the
+    plain scan) apply to "train"."""
     _check_remat(remat)
     act = act or make_act(cfg, tokens.device)
     if mode == "train":
         if caches is not None or paged is not None:
             raise ValueError("mode='train' runs without caches")
         if positions is None:
-            positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _hidden(params, cfg, tokens, mode=mode, caches=caches,
-                positions=positions, act=act, paged=paged,
-                paged_impl=paged_impl, attn_quant=attn_quant, remat=remat,
-                q_chunk=q_chunk, kv_chunk=kv_chunk, attn_impl=attn_impl)
-    return _head(params, cfg, x), caches
+            s = tokens.shape[1] + (0 if patch_embeds is None
+                                   else patch_embeds.shape[1])
+            positions = torch.arange(s, device=tokens.device)
+    x, aux = _hidden(params, cfg, tokens, mode=mode, caches=caches,
+                     positions=positions, act=act, paged=paged,
+                     paged_impl=paged_impl, attn_quant=attn_quant,
+                     remat=remat, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                     attn_impl=attn_impl, patch_embeds=patch_embeds)
+    return _head(params, cfg, x), caches, aux
 
 
 def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
@@ -171,19 +188,21 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             remat: Optional[str] = None,
             attn_impl: str = "kernel") -> torch.Tensor:
     """Next-token cross-entropy over batch["tokens"] / batch["labels"]
-    (b, s): log-softmax in f32, labels < 0 masked out, the mean over the
-    rest. (The reference adds the MoE load-balancing loss; a dense model
-    has none.) Only the f32 log-probabilities are kept for the backward,
-    not a second f32 copy of the logits."""
-    logits, _ = apply_lm(params, cfg, batch["tokens"], mode="train", act=act,
-                         q_chunk=q_chunk, kv_chunk=kv_chunk, remat=remat,
-                         attn_impl=attn_impl)
+    (b, s), plus the MoE router's load-balancing loss: log-softmax in f32
+    over the last labels.shape[1] positions (a vision prefix,
+    batch["patch_embeds"], carries no labels), labels < 0 masked out, the
+    mean over the rest. Only the f32 log-probabilities are kept for the
+    backward, not a second f32 copy of the logits."""
+    logits, _, aux = apply_lm(params, cfg, batch["tokens"], mode="train",
+                              act=act, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                              remat=remat, attn_impl=attn_impl,
+                              patch_embeds=batch.get("patch_embeds"))
     labels = batch["labels"]
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(logits[:, -labels.shape[1]:].float(), dim=-1)
     del logits
     mask = (labels >= 0).to(torch.float32)
     ll = torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
-    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0) + aux
 
 
 def decode_step(params, cfg: ModelConfig, tokens, caches, *,
@@ -191,11 +210,15 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, *,
                 attn_quant=None):
     """One serving step: tokens (b, 1) + pools -> (logits (b, 1, vocab),
     pools). Per-slot positions come from `paged.length`;
-    `paged.block_table` may be bucket-sliced to the live-block count."""
+    `paged.block_table` may be bucket-sliced to the live-block count. An
+    MoE layer runs at full capacity (no token dropped); its router loss is
+    not returned."""
     positions = paged.length[:, None]
-    return apply_lm(params, cfg, tokens, mode="decode", caches=caches,
-                    positions=positions, paged=paged, act=act,
-                    paged_impl=paged_impl, attn_quant=attn_quant)
+    logits, caches, _ = apply_lm(params, cfg, tokens, mode="decode",
+                                 caches=caches, positions=positions,
+                                 paged=paged, act=act, paged_impl=paged_impl,
+                                 attn_quant=attn_quant)
+    return logits, caches
 
 
 def prefill_step(params, cfg: ModelConfig, tokens, caches, *,
@@ -212,9 +235,9 @@ def prefill_step(params, cfg: ModelConfig, tokens, caches, *,
     positions = (paged.length[:, None].long()
                  + torch.arange(s, device=tokens.device)[None])
     act = act or make_act(cfg, tokens.device)
-    x = _hidden(params, cfg, tokens, mode="prefill", caches=caches,
-                positions=positions, act=act, paged=paged,
-                paged_impl=paged_impl, attn_quant=attn_quant)
+    x, _ = _hidden(params, cfg, tokens, mode="prefill", caches=caches,
+                   positions=positions, act=act, paged=paged,
+                   paged_impl=paged_impl, attn_quant=attn_quant)
     if not want_logits:
         return None, caches
     return _head(params, cfg, x[:, -1]), caches

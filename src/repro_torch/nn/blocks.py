@@ -1,20 +1,21 @@
-"""Decoder-layer assembly for dense GQA layers: full-sequence (training) or
-paged attention + gated MLP.
+"""Decoder-layer assembly for GQA layers: full-sequence (training) or
+paged attention, then a gated MLP or a Mixture-of-Experts.
 
-A layer is described by a LayerSpec(kind, mlp). This slice of the port
-serves kind="attn" with mlp="dense" (the dense GQA decoders); MoE, Mamba-2
-and MLA layers are still to be ported (ROADMAP A9).
+A layer is described by a LayerSpec(kind, mlp). The port serves kind="attn"
+with mlp="dense" or "moe"; Mamba-2, MLA and cross-attention layers are
+still to be ported (ROADMAP A9).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn.attention import AnyPagedKVCache, PagedState
 from repro_torch.nn.common import init_param, layernorm, rmsnorm
+from repro_torch.nn.moe import apply_moe, init_moe
 from repro_torch.nn.rope import rotate
 from repro_torch.quant import weights as wq_lib
 
@@ -22,7 +23,7 @@ from repro_torch.quant import weights as wq_lib
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     kind: str = "attn"        # "attn" ("mamba" still to port)
-    mlp: str = "dense"        # "dense" ("moe" / "none" still to port)
+    mlp: str = "dense"        # "dense" | "moe" ("none" still to port)
     cross_attn: bool = False  # whisper decoder (still to port)
 
 
@@ -189,15 +190,21 @@ def init_layer(spec: LayerSpec, cfg, gen: torch.Generator, *, device,
     init_norm(p, "ln1", cfg.d_model, cfg.norm, device=device, dtype=dtype)
     p["attn"] = init_attention(cfg, gen, device=device, dtype=dtype)
     init_norm(p, "ln2", cfg.d_model, cfg.norm, device=device, dtype=dtype)
-    p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.gated_mlp, gen,
-                        device=device, dtype=dtype)
+    if spec.mlp == "moe":
+        p["moe"] = init_moe(cfg.d_model, cfg.moe, gen, device=device,
+                            dtype=dtype)
+    else:
+        p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.gated_mlp, gen,
+                            device=device, dtype=dtype)
     return p
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.kind != "attn" or spec.mlp != "dense" or spec.cross_attn:
+    if (spec.kind != "attn" or spec.mlp not in ("dense", "moe")
+            or spec.cross_attn):
         raise NotImplementedError(
-            f"{spec}: only dense attention layers are ported (ROADMAP A9)")
+            f"{spec}: only attention layers with a dense or MoE MLP are "
+            "ported (Mamba-2, mlp='none' and cross-attention: ROADMAP A9)")
 
 
 def apply_layer(
@@ -206,11 +213,12 @@ def apply_layer(
     paged: Optional[PagedState] = None, paged_impl: str = "kernel",
     attn_quant=None, q_chunk: int = 1024, kv_chunk: int = 1024,
     attn_impl: str = "kernel",
-) -> Tuple[torch.Tensor, Optional[AnyPagedKVCache]]:
-    """One dense decoder layer in "train" mode (the full sequence, no
-    cache), "decode" or paged "prefill" mode, with the (cos, sin) rope
-    tables of its positions. Returns (x, cache); the pool is updated in
-    place."""
+) -> Tuple[torch.Tensor, Optional[AnyPagedKVCache], Any]:
+    """One decoder layer in "train" mode (the full sequence, no cache),
+    "decode" or paged "prefill" mode, with the (cos, sin) rope tables of
+    its positions. Returns (x, cache, aux_loss); the pool is updated in
+    place, and aux_loss is the MoE router's load-balancing loss (an f32
+    scalar), or 0.0 for a dense layer (no device work)."""
     _check_spec(spec)
     h = apply_norm(params, "ln1", x, cfg.norm, cfg.norm_eps)
     if mode == "train":
@@ -231,4 +239,11 @@ def apply_layer(
                                   "is not ported (ROADMAP)")
     x = x + a
     h = apply_norm(params, "ln2", x, cfg.norm, cfg.norm_eps)
-    return x + apply_mlp(params["mlp"], h, act, cfg.gated_mlp), cache
+    if spec.mlp == "moe":
+        # serving never drops a token: capacity-factor drops are a training
+        # discipline, and in decode they would couple co-batched slots (one
+        # slot's routing could evict another's token)
+        cap = None if mode == "train" else h.shape[0] * h.shape[1]
+        m, aux = apply_moe(params["moe"], h, cfg.moe, act, capacity=cap)
+        return x + m, cache, aux
+    return x + apply_mlp(params["mlp"], h, act, cfg.gated_mlp), cache, 0.0

@@ -2,7 +2,8 @@
 without one, and its phases — the kernels, serving slices (a)-(c), the
 paper's flow (d), training (e), the prefix cache, preemption and cancel (f),
 the glm4 / qwen archs (g), sampled decoding, telemetry and fault
-containment (h) and durable serving (i) — hold together end to end in a
+containment (h), durable serving (i) and MoE / LLaVA (j) — hold together
+end to end in a
 CPU rehearsal at smoke size (plain kernel versions, no timings; exit 1 by
 design)."""
 import importlib.util
@@ -92,7 +93,9 @@ def test_cpu_rehearsal_runs_every_phase(capsys, tmp_path):
     # copy-on-write block copy
     groups = report["paged_groups"]
     assert {k for k in groups if k.startswith("g")} == {
-        "g16_kv16", "g16_kv4", "g1_kv16", "g1_kv4"}
+        "g16_kv16", "g16_kv4", "g1_kv16", "g1_kv4", "g5_kv16", "g5_kv4",
+        "g4_kv16", "g4_kv4"}
+    assert groups["g5_kv4"]["h"] // groups["g5_kv4"]["kvh"] == 5
     assert groups["g16_kv4"]["h"] // groups["g16_kv4"]["kvh"] == 16
     assert groups["g1_kv16"]["h"] == groups["g1_kv16"]["kvh"]
     assert groups["decode_bucket"]["capacity_planned"] == {
@@ -168,11 +171,35 @@ def test_cpu_rehearsal_runs_every_phase(capsys, tmp_path):
     assert d["frontdoor"]["waiting_max"] <= 2
     assert 4 <= d["frontdoor"]["cancelled_tokens"] < 32
     assert all("launches_slice_i" in k for k in kernels[1:6])
+    # slice (j): llama4 (MoE) served on both paths with every expert flip
+    # explained (gated in the script; none on the CPU), its train-mode
+    # forward with the capacity factor's drops, llava served and trained
+    j = report["moe_llava"]
+    l4 = j["llama4_grau"]
+    assert l4["requests"] == 8 and l4["greedy_identical_share"] == 1.0
+    assert l4["first_step_logits_rel_l2"] < 1e-5
+    assert [r["flips"] for r in l4["flips_first_chunk"]
+            + l4["flips_first_tick"]] == [0, 0]
+    assert l4["logit_rows_held"] == list(range(8))
+    tf = l4["train_forward"]
+    assert tf["capacity"] == int(1.25 * 64 / 4) and tf["loss_rel"] == 0.0
+    assert tf["kernel"]["dropped_slots"] == tf["plain"]["dropped_slots"]
+    assert 0 < tf["kernel"]["dropped_slots"][0] < 64
+    assert tf["kernel"]["aux_loss"] > 0
+    lv = j["llava_grau"]
+    assert lv["requests"] == 8 and lv["greedy_identical_share"] == 1.0
+    lt = j["llava_train"]
+    assert lt["seq"] == 64 + 16 and lt["kernel_vs_plain"]["loss_rel"] == 0.0
+    assert len(lt["train"]["losses"]) == 4
+    assert lt["train"]["flash_launches_want"] == 2 * 2 * 4
+    assert set(j["seconds"]) == {"llama4", "llava_serve", "llava_train"}
+    assert all("launches_slice_j" in k for k in kernels[1:3])
+    assert "launches_slice_j" in kernels[-1]
     assert set(report["phase_s"]) >= {"grau", "paged_attention", "matmul_wq",
                                       "matmul_grau", "flash_attention",
                                       "slices_abc", "slice_d", "slice_e",
                                       "paged_groups", "slice_f", "slice_g",
-                                      "slice_h", "slice_i"}
+                                      "slice_h", "slice_i", "slice_j"}
     assert '"ok"' not in out.out
 
 

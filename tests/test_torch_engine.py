@@ -69,6 +69,36 @@ def test_engine_greedy_streams_match_reference(grau):
     assert te.stats["prefill_tokens"] == sum(n - 1 for n in (5, 20, 12, 35))
 
 
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
+                                  "llava-next-mistral-7b"])
+@pytest.mark.parametrize("grau", [False, True])
+def test_engine_greedy_streams_match_reference_moe_and_llava(arch, grau):
+    """llama4-smoke (an MoE layer served at full capacity, top-1 of 4
+    experts and a shared one) and llava-smoke (served text-only, as the
+    reference's engine): the port's engine and the reference's give the
+    same greedy streams, float and with GRAU (MLP, experts and the fused
+    attention epilogue)."""
+    jcfg, tcfg = jget_config(arch, smoke=True), tget_config(arch, smoke=True)
+    jattn = tattn = None
+    if grau:
+        jcfg, tcfg = jcfg.replace(grau=JGRAUConfig()), tcfg.replace(
+            grau=TGRAUConfig())
+        jattn, tattn = jbuild_lm_grau("identity"), build_lm_grau("identity")
+    jparams, _ = jlm.init_lm(jcfg, jax.random.PRNGKey(1), dtype=jnp.float32)
+    tparams = from_reference(jparams, tcfg, device="cpu")
+    kw = dict(slots=2, max_seq=64, page_size=8, prefill_chunk=16)
+    je = jeng.ServeEngine(jcfg, jparams, jeng.EngineConfig(
+        paged_impl="gather", attn_grau=jattn, telemetry=False, **kw))
+    te = teng.ServeEngine(tcfg, tparams, teng.EngineConfig(
+        attn_grau=tattn, **kw), device="cpu")
+    want = {r.rid: list(r.out_tokens)
+            for r in je.run(_requests(jeng, jcfg.vocab_size))}
+    got = {r.rid: list(r.out_tokens)
+           for r in te.run(_requests(teng, tcfg.vocab_size))}
+    assert got == want
+    assert te.allocator.free_blocks == te.allocator.num_blocks - 1
+
+
 def test_engine_requires_a_device_choice_and_greedy_sampling():
     tcfg = tget_config("llama3.2-3b", smoke=True)
     from repro_torch.models import lm as tlm

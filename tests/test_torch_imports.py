@@ -45,7 +45,7 @@ def test_port_files_exist():
                  "launch/steps.py", "launch/train.py",
                  "launch/train_lm_grau.py", "serve/prng.py",
                  "serve/telemetry.py", "serve/trace.py", "serve/faults.py",
-                 "serve/journal.py", "serve/frontdoor.py"):
+                 "serve/journal.py", "serve/frontdoor.py", "nn/moe.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
 
@@ -162,3 +162,31 @@ def test_kernels_build_for_hopper_from_repo_sources():
         assert (kbuild.CSRC / f"{name}.cu").exists()
     assert (kbuild.CSRC / "grau_datapath.cuh").exists()
     assert kbuild.BUILD_DIR.relative_to(ROOT).as_posix() == "build/kernels"
+
+
+def test_sharded_source_defines_each_launcher_in_one_unit():
+    """paged_attention.cu builds as kbuild.SHARDS units: every (pool kind,
+    head dim) pair is declared for all units and defined in exactly one
+    `#if IN_UNIT(u)` block, u covering 0 .. n - 1, and the entry points sit
+    in unit 0 only (a pair defined nowhere or twice fails only at the
+    card's link)."""
+    import re
+
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.paged_attention import HEAD_DIMS
+    assert kbuild.SHARDS == {"paged_attention": 6}
+    text = (kbuild.CSRC / "paged_attention.cu").read_text()
+    owner = {}
+    for unit, body in re.findall(r"#if IN_UNIT\((\d+)\)\n(.*?)#endif", text,
+                                 re.S):
+        for kind, d in re.findall(r"DEFINE_PAIR\((\w+), (\d+)\)", body):
+            assert (kind, int(d)) not in owner, (kind, d)
+            owner[(kind, int(d))] = int(unit)
+    kinds = ("kPoolF32", "kPoolQ8", "kPoolQ4")
+    assert set(owner) == {(k, d) for k in kinds for d in HEAD_DIMS}
+    assert sorted(set(owner.values())) == list(range(6))
+    for k in kinds:
+        assert f"EACH_D(DECLARE_PAIR, {k})" in text
+    entry = text.index('extern "C" int paged_decode_launch')
+    assert text.rfind("#if KERNEL_SHARD == 0", 0, entry) > text.rfind(
+        "#endif", 0, entry)

@@ -667,7 +667,10 @@ FLASH_CASES = [(2, 256, 256, 4, 4, 32, True, 0),
                (1, 129, 250, 2, 1, 192, False, 0),
                (1, 60, 300, 4, 4, 192, True, 240),
                (1, 1000, 1000, 6, 3, 64, False, 0),
-               (1, 200, 600, 4, 2, 128, True, 400)]
+               (1, 200, 600, 4, 2, 128, True, 400),
+               # LLaVA's training length: 576 patches + 4096 tokens, not a
+               # multiple of 128, at its (32, 8) heads
+               (1, 4672, 4672, 32, 8, 128, True, 0)]
 
 
 def _flash_inputs(rng, b, s_q, s_kv, h, kvh, d, dev, dtype):
@@ -850,6 +853,23 @@ def test_paged_bf16_group_16_and_1_match_plain(cuda, h, kvh, bits):
     GRAU epilogue bit-exact on the kernel's f32 output and within one code
     of the plain version's, and the decode's f32 output within twice the
     plain version's distance from a float64 attention."""
+    _paged_group_case(cuda, h, kvh, bits)
+
+
+@pytest.mark.parametrize("h,kvh", [(40, 8), (32, 8)], ids=["g5", "g4"])
+@pytest.mark.parametrize("bits", [16, 4])
+def test_paged_bf16_group_5_and_4_match_plain(cuda, h, kvh, bits):
+    """llama4-maverick's GQA group of 5 (40 heads over 8) and
+    llava-next-mistral-7b's group of 4 (32 over 8), as the group 16 / 1
+    case: a 32-row prefill chunk at group 5 has 160 query rows a KV head,
+    one whole 128-row group and one filled a quarter."""
+    from repro_torch.kernels import paged_attention as pa
+    if h // kvh == 5:
+        assert 32 * h // kvh == 160 and 160 % pa.GROUP_ROWS == 32
+    _paged_group_case(cuda, h, kvh, bits)
+
+
+def _paged_group_case(cuda, h, kvh, bits):
     from functools import partial
 
     from repro_torch.kernels import paged_attention as pa

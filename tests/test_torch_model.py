@@ -27,8 +27,12 @@ from repro_torch.serve import kv_cache as tkvc  # noqa: E402
 
 BS, CHUNK, BLOCKS_PER_SLOT = 8, 16, 8
 # glm4: a GQA group of 4 at smoke size (16 at full size), head_dim 16, an
-# untied head; qwen: MHA with QKV bias and an untied head
-ARCHS = ["llama3.2-3b", "gemma-7b", "glm4-9b", "qwen1.5-32b"]
+# untied head; qwen: MHA with QKV bias and an untied head; llava: served
+# text-only; llama4: an MoE layer (full capacity when serving) after a
+# dense one, a shared expert
+ARCHS = ["llama3.2-3b", "gemma-7b", "glm4-9b", "qwen1.5-32b",
+         "llava-next-mistral-7b", "llama4-maverick-400b-a17b"]
+NEW_ARCHS = ["llava-next-mistral-7b", "llama4-maverick-400b-a17b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -225,3 +229,130 @@ def test_engine_streams_match_reference_new_archs(arch):
         assert got == want
         assert (te.metrics()["cached_prefix_tokens"]
                 == je.metrics()["cached_prefix_tokens"] > 0)
+
+
+def _fields(cfg):
+    """Every field of a config, nested dataclasses (MoEConfig, VisionStub,
+    LayerSpec in the groups) as plain values."""
+    import dataclasses
+    return {f.name: (dataclasses.asdict(v) if dataclasses.is_dataclass(v)
+                     else v)
+            for f in dataclasses.fields(cfg)
+            for v in (getattr(cfg, f.name),)
+            if f.name != "groups"} | {"groups": [
+                ([dataclasses.asdict(spec) for spec in period], reps)
+                for period, reps in cfg.groups]}
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_configs_match_reference_field_for_field(arch):
+    """llava-next-mistral-7b, llava-smoke, llama4-maverick-400b-a17b and
+    llama4-smoke: every field the port has equals the reference's (moe,
+    vision and the layer specs of each group included); the reference's
+    extra fields (MLA, SSM, encoder, padding) are unset."""
+    for smoke in (False, True):
+        j, t = _fields(jget_config(arch, smoke=smoke)), _fields(
+            tget_config(arch, smoke=smoke))
+        for name, v in t.items():
+            assert j[name] == v, (arch, smoke, name)
+        assert all(j[name] in (None, False) for name in set(j) - set(t)), (
+            arch, smoke, set(j) - set(t))
+
+
+def test_layer_specs_moe_accepted_the_rest_still_raise():
+    from repro_torch.models.config import moe_groups
+    from repro_torch.nn import blocks
+    gen = torch.Generator().manual_seed(0)
+    cfg = tget_config("llama4-maverick-400b-a17b", smoke=True)
+    p = blocks.init_layer(blocks.LayerSpec("attn", "moe"), cfg, gen,
+                          device="cpu", dtype=torch.float32)
+    assert "moe" in p and "mlp" not in p
+    for spec in (blocks.LayerSpec("mamba", "dense"),
+                 blocks.LayerSpec("attn", "none"),
+                 blocks.LayerSpec("attn", "dense", cross_attn=True)):
+        with pytest.raises(NotImplementedError, match="A9"):
+            blocks.init_layer(spec, cfg, gen, device="cpu",
+                              dtype=torch.float32)
+    from repro.models.config import moe_groups as jmoe_groups
+
+    def plain(groups):
+        return [([(s.kind, s.mlp, s.cross_attn) for s in period], reps)
+                for period, reps in groups]
+    for args in ((48, 0, 2), (61, 3, 1), (8, 2, 2)):
+        assert plain(moe_groups(*args)) == plain(jmoe_groups(*args)), args
+
+
+def _vision_batch(jcfg, seed=0):
+    """The reference's own batch (make_lm_batch_for: tokens, labels and,
+    for LLaVA, its patch_embeds) at (2, 24) in f32, as numpy."""
+    from repro.configs.shapes import ShapeSpec
+    from repro.data.pipeline import make_lm_batch_for
+    b = make_lm_batch_for(jcfg, ShapeSpec("t", 24, 2, "train"), 0, seed=seed,
+                          dtype=jnp.float32)
+    return {k: np.array(v) for k, v in b.items()}
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("grau", [False, True])
+def test_forward_aux_loss_and_grads_match_reference(arch, grau):
+    """The training forward (logits and the router's aux loss), lm_loss
+    (the vision prefix carries no labels; + aux) and its gradient through
+    autograd against the reference's jax.value_and_grad: loss within 1e-5
+    relative, every gradient leaf within a relative L2 of 1e-4 (1e-3 with
+    GRAU, whose rounding steps move an activation by s_out)."""
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.nn.common import tree_flatten
+    jcfg, tcfg = _configs(arch, grau)
+    jparams, _ = jlm.init_lm(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    tparams = from_reference(jparams, tcfg, device="cpu")
+    batch = _vision_batch(jcfg)
+    assert ("patch_embeds" in batch) == (jcfg.vision is not None)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    jlogits, _, jaux = jlm.apply_lm(jparams, jcfg, jb["tokens"],
+                                    patch_embeds=jb.get("patch_embeds"),
+                                    q_chunk=8, kv_chunk=8)
+    tlogits, _, taux = tlm.apply_lm(tparams, tcfg, tb["tokens"],
+                                    patch_embeds=tb.get("patch_embeds"),
+                                    q_chunk=8, kv_chunk=8)
+    tol = 1e-3 if grau else 1e-4
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
+                               rtol=tol, atol=tol)
+    assert abs(float(taux) - float(jaux)) <= 1e-6
+    if jcfg.moe is not None:
+        assert float(jaux) > 0
+    jloss, jgrads = jax.value_and_grad(lambda p: jlm.lm_loss(
+        p, jcfg, jb, q_chunk=8, kv_chunk=8))(jparams)
+    tloss, tgrads = tsteps.make_loss_and_grads(
+        tcfg, remat="full", q_chunk=8, kv_chunk=8)(tparams, tb)
+    assert abs(float(tloss) - float(jloss)) <= 1e-5 * abs(float(jloss))
+    want = dict(tree_flatten(from_reference(jgrads, tcfg, device="cpu")))
+    got = dict(tree_flatten(tgrads))
+    assert got.keys() == want.keys()
+    for path, g in got.items():
+        w = want[path].numpy().astype(np.float64)
+        err = np.linalg.norm(g.numpy() - w) / max(np.linalg.norm(w), 1e-30)
+        assert err <= tol, (path, err)
+
+
+def test_from_reference_carries_the_moe_subtree():
+    """llama4-smoke: the reference's stacked MoE leaves (repeats, E, ...)
+    unroll into one (E, ...) tree per repeat, leaf for leaf, and the
+    port's own init_lm has the same layout."""
+    jcfg, tcfg = _configs("llama4-maverick-400b-a17b", False)
+    jparams, _ = jlm.init_lm(jcfg, jax.random.PRNGKey(3), dtype=jnp.float32)
+    conv = from_reference(jparams, tcfg, device="cpu")
+    jmoe = jparams["group0"]["l1"]["moe"]
+    for r in range(len(conv["group0"])):
+        moe = conv["group0"][r]["l1"]["moe"]
+        assert set(moe) == set(jmoe)
+        for k, v in moe.items():
+            np.testing.assert_array_equal(v.numpy(), np.asarray(jmoe[k])[r])
+        assert "mlp" in conv["group0"][r]["l0"]
+    mine = tlm.init_lm(tcfg, seed=0, dtype=torch.float32, device="cpu")
+    shapes = lambda t: {k: shapes(v) for k, v in t.items()} if isinstance(  # noqa: E731
+        t, dict) else [shapes(v) for v in t] if isinstance(t, list) else (
+        tuple(t.shape))
+    assert shapes(mine) == shapes(conv)
+    w = mine["group0"][0]["l1"]["moe"]["w_gate"]
+    assert float(w.abs().max()) <= 2 / np.sqrt(tcfg.moe.num_experts) + 1e-6

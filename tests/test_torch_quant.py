@@ -257,6 +257,51 @@ def test_pack_params_per_repeat_matches_reference_bytes(bits):
 
 
 @pytest.mark.parametrize("bits", [8, 4])
+def test_pack_params_llama4_leaves_moe_float_matches_reference_bytes(bits):
+    """llama4-smoke (a dense layer, then an MoE layer with a shared
+    expert, an untied head): the reference packs no MoE subtree, and
+    neither does the port; every other leaf's bytes (the dense layer's MLP,
+    both layers' attention, the embedding and the head) are the
+    reference's, and so is the tree's byte count."""
+    arch = "llama4-maverick-400b-a17b"
+    jcfg, tcfg = jget_config(arch, smoke=True), tget_config(arch, smoke=True)
+    jparams, _ = jlm.init_lm(jcfg, jax.random.PRNGKey(2), dtype=jnp.float32)
+    pol_j, pol_t = jpol.weight_policy(bits), tpol.weight_policy(bits)
+    jpacked = jwq.pack_params(jparams, jcfg, pol_j)
+    mine = twq.pack_params(from_reference(jparams, tcfg, device="cpu"), tcfg,
+                           pol_t)
+    theirs = from_reference(jpacked, tcfg, device="cpu")
+
+    def flat(tree):
+        out = dict(_flat_leaves({k: v for k, v in tree.items()
+                                 if not k.startswith("group")}))
+        for r, rep in enumerate(tree["group0"]):
+            out.update(_flat_leaves(rep, f"group0.{r}"))
+        return out
+    got, want = flat(mine), flat(theirs)
+    assert got.keys() == want.keys()
+    packed = []
+    for name, w in want.items():
+        g = got[name]
+        assert type(g) is type(w), name
+        if isinstance(w, twq.QuantWeight):
+            packed.append(name)
+            assert (g.bits, g.caxis, g.kdim, g.tile) == (
+                w.bits, w.caxis, w.kdim, w.tile), name
+            assert torch.equal(g.q, w.q) and torch.equal(g.e, w.e), name
+        else:
+            assert torch.equal(g, w), name
+    moe = [n for n in got if ".moe." in n]
+    assert len(moe) == 7 and not set(moe) & set(packed)
+    assert {n.rsplit(".", 1)[-1] for n in packed if ".mlp." in n} == {
+        "w_gate", "w_up", "w_down"}
+    # 4 attention projections x 2 layers, the dense MLP, embed and head
+    assert len(packed) == 8 + 3 + 2
+    assert (twq.packed_param_bytes(mine)
+            == jwq.packed_param_bytes(jpacked))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("shape,caxis", [((64, 24), -2), ((48, 40), -1),
                                          ((1024, 16), -2),
                                          ((32, 3, 16), -3), ((4, 16, 32), -2)])

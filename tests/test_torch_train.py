@@ -367,3 +367,83 @@ def test_launchers_run_a_few_steps(tmp_path, capsys):
     l_float, l_grau = train_lm_grau.main(["--steps", "3", "--device", "cpu"])
     assert np.isfinite(l_float) and np.isfinite(l_grau)
     assert "GRAU-QAT degradation" in capsys.readouterr().out
+
+
+def _ref_batch(jcfg, step, b=2, s=24):
+    """The reference's make_lm_batch_for batch (tokens, labels and, for
+    LLaVA, its patch_embeds) in f32, as numpy."""
+    from repro.configs.shapes import ShapeSpec
+    from repro.data.pipeline import make_lm_batch_for
+    out = make_lm_batch_for(jcfg, ShapeSpec("t", s, b, "train"), step,
+                            dtype=jnp.float32)
+    return {k: np.array(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
+                                  "llava-next-mistral-7b"])
+def test_train_step_trajectory_moe_and_llava_match_reference(arch):
+    """Two steps of make_train_step on the reference's batches: llama4-smoke
+    (its loss carries the router's aux loss, capacity-factor drops on) and
+    llava-smoke (the reference's patch-embedding stub before the tokens,
+    no labels on it); the losses within 1e-4 relative of the reference's,
+    and the parameters after the two steps within a relative L2 of 1e-3."""
+    jcfg, tcfg = _configs(arch, False)
+    kw = dict(peak_lr=3e-3, warmup_steps=1, total_steps=2)
+    jp, _ = jlm.init_lm(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    tp = from_reference(jp, tcfg, device="cpu")
+    jstep = jax.jit(jsteps.make_train_step(
+        jcfg, joptim.AdamWConfig(**kw), remat=None, q_chunk=8, kv_chunk=8))
+    tstep = tsteps.make_train_step(tcfg, toptim.AdamWConfig(**kw),
+                                   remat="full", q_chunk=8, kv_chunk=8)
+    js, ts = joptim.init_opt_state(jp), toptim.init_opt_state(tp)
+    for i in range(2):
+        batch = _ref_batch(jcfg, i)
+        assert ("patch_embeds" in batch) == (arch.startswith("llava"))
+        jp, js, jm = jstep(jp, js, _j(batch))
+        tp, ts, tm = tstep(tp, ts, _t(batch))
+        want = float(jm["loss"])
+        assert abs(float(tm["loss"]) - want) <= 1e-4 * abs(want), i
+    want = dict(tree_flatten(from_reference(jp, tcfg, device="cpu")))
+    for path, leaf in tree_flatten(tp):
+        assert _rel_l2(leaf.numpy(), want[path].numpy()) <= 1e-3, path
+
+
+def test_llava_batch_stub_microbatches_and_launcher(capsys):
+    """make_lm_batch_for's patch-embedding stub: (batch, patches, d_model)
+    in the asked dtype, 0.02 * normal, a pure function of (seed, step); the
+    microbatch split carries it (two microbatches give one's loss and
+    update); the launcher trains llava-smoke with it."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import make_lm_batch_for
+    from repro_torch.launch import train
+    cfg = tget_config("llava-next-mistral-7b", smoke=True)
+    shape = ShapeSpec("t", 16, 4, "train")
+    b0 = make_lm_batch_for(cfg, shape, 0, device="cpu", dtype=torch.float32)
+    assert b0["patch_embeds"].shape == (4, cfg.vision.num_patches,
+                                        cfg.d_model)
+    assert b0["patch_embeds"].dtype == torch.float32
+    assert abs(float(b0["patch_embeds"].std()) - 0.02) < 0.002
+    again = make_lm_batch_for(cfg, shape, 0, device="cpu",
+                              dtype=torch.float32)
+    assert all(torch.equal(b0[k], again[k]) for k in b0)
+    b1 = make_lm_batch_for(cfg, shape, 1, device="cpu")
+    assert b1["patch_embeds"].dtype == torch.bfloat16
+    assert not torch.equal(b1["patch_embeds"].float(), b0["patch_embeds"])
+    assert "patch_embeds" not in make_lm_batch_for(
+        tget_config("llama3.2-3b", smoke=True), shape, 0, device="cpu")
+    params = tlm.init_lm(cfg, seed=0, dtype=torch.float32, device="cpu")
+    opt = toptim.AdamWConfig(peak_lr=3e-3, warmup_steps=1, total_steps=3)
+    out = []
+    for mb in (1, 2):
+        p = tree_map(torch.clone, params)
+        step = tsteps.make_train_step(cfg, opt, remat=None, q_chunk=CHUNK,
+                                      kv_chunk=CHUNK, microbatches=mb)
+        p, _, m = step(p, toptim.init_opt_state(p), b0)
+        out.append((float(m["loss"]), p))
+    assert abs(out[0][0] - out[1][0]) <= 1e-5 * abs(out[0][0])
+    for (path, a), (_, b) in zip(tree_flatten(out[0][1]),
+                                 tree_flatten(out[1][1])):
+        assert _rel_l2(a.numpy(), b.numpy()) <= 1e-5, path
+    train.main(["--arch", "llava-next-mistral-7b", "--smoke", "--device",
+                "cpu", "--steps", "2", "--seq-len", "16", "--batch", "2"])
+    assert "final loss" in capsys.readouterr().out
