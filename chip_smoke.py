@@ -30,7 +30,11 @@ Phases (any failure exits non-zero):
      reference's archs (16, 48, 64, 192, 256 beside 128) on both bf16
      kernels, on a ragged length, after a prefix and at LLaVA's training
      length 4672 (576 + 4096) over (32, 8) heads, and its backward
-     against autograd; then the bf16 decode and prefill at glm4-9b's GQA
+     against autograd; flash at slice (k)'s shapes (MLA prefill at
+     head_dim 192 over 128 heads, Whisper's encoder over 1,500 frames,
+     cross-attention in prefill and in decode, jamba's exact-length
+     prefill) in bf16 against its plain version and in f32 against a
+     float64 attention, timed beside SDPA; then the bf16 decode and prefill at glm4-9b's GQA
      group of 16 (32 heads over 2), qwen1.5-32b's group of 1 (40 over
      40), llama4-maverick's group of 5 (40 over 8: a prefill chunk's 160
      rows a KV head fill 1 1/4 row groups) and llava's group of 4 (32 over
@@ -133,6 +137,21 @@ Phases (any failure exits non-zero):
      layers (f32 AdamW moments: all 32 take ~87 GB) on make_lm_batch_for's
      4096 tokens after the 576-patch stub: loss and gradients through the
      flash kernel against the plain scan on batch 0, then 4 steps.
+     Then (k), the dense-cache backend in (b)'s setup (GRAU MLP, EOS off,
+     8 slots; no attention epilogue), each model freed before the next:
+     llama3.2-3b with paged=False (its greedy share against the paged
+     engine printed), mamba2-1.3b at full size (exact-length prefill, most
+     contexts through the padded ragged tail; f32 gates: prefill then one
+     decode step against the train forward, the tail against the
+     per-token recurrence on 1,000 tokens), deepseek-v3 at full width cut
+     to 5 of 61 layers (MLA through flash at head_dim 192), jamba at full
+     width cut to 16 of 32 layers, whisper-medium at full size (1,500
+     stub frames a request, max_seq 448); each prints tokens/s, TTFT,
+     peak memory and weight bytes, must launch flash if it has attention,
+     and holds prefill_step through the flash kernel against the plain
+     scan (last-position and first-decode logits, rel L2 0.05; an MoE
+     arch's expert flips printed and explained, its gate with the kernel
+     path's routes pinned).
      Launch counters are zeroed before and read after each run.
 Each phase prints its seconds. The last two lines are the kernels JSON and
 the result line.
@@ -1278,6 +1297,101 @@ def time_flash(torch, dev, shape):
                             "d) copies"}
 
 
+# The flash kernel at slice (k)'s new shapes, (label, b, s_q, s_kv, h, kvh,
+# d, causal): deepseek-v3's MLA prefill at head_dim 192 (v padded), 128
+# heads in groups of 1, a 1024-token bucket; Whisper's bidirectional encoder
+# over 1,500 frames (not a multiple of the key tile) at 16 heads of 64; its
+# cross-attention in prefill (the 448-token top bucket against 1,500
+# frames) and in decode (8 slots, one query row against 1,500 keys: 1 of a
+# 64-row tile); jamba's attention layer in an exact-length prefill
+FLASH_DENSE = [("mla prefill d192", 1, 1024, 1024, 128, 128, 192, True),
+               ("whisper encoder", 1, 1500, 1500, 16, 16, 64, False),
+               ("cross prefill", 1, 448, 1500, 16, 16, 64, False),
+               ("cross decode", 8, 1, 1500, 16, 16, 64, False),
+               ("jamba prefill", 1, 999, 999, 32, 8, 128, True)]
+FLASH_DENSE_SMOKE = [("mla prefill d48", 1, 64, 64, 4, 4, 48, True),
+                     ("whisper encoder", 1, 100, 100, 4, 4, 32, False),
+                     ("cross prefill", 1, 32, 100, 4, 4, 32, False),
+                     ("cross decode", 8, 1, 100, 4, 4, 32, False)]
+
+
+def check_flash_dense(torch, np, dev, timed):
+    """The flash kernel at slice (k)'s shapes (FLASH_DENSE): in bf16 (the
+    served dtype) against flash_attention_plain, o and lse, under
+    check_flash's rules (FLASH_TOL and the bf16 bound); in f32 against a
+    float64 attention (f64_gate: within F32_TOL, and within F64_REL x the
+    plain version's own distance + F64_FLOOR); then timed (graph replay)
+    beside the plain version, F.scaled_dot_product_attention (enable_gqa)
+    on (b, h, s, d) copies and the bound: q, k, v read and o, lse written
+    once, against 4 b h s_q s_kv d operations (halved when causal) over the
+    bf16 tensor-core peak."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_plain
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    rows = []
+    for label, b, sq, skv, h, kvh, d, causal in (
+            FLASH_DENSE if timed else FLASH_DENSE_SMOKE):
+        q = torch.randn((b, sq, h, d), device=dev)
+        k, v = (torch.randn((b, skv, kvh, d), device=dev) for _ in range(2))
+        row = {"label": label, "shape": [b, sq, skv, h, kvh, d],
+               "causal": causal, "kernel": fa.kernel_for(torch.bfloat16, d)}
+        # f32 against float64
+        o32, _ = fa.flash_attention(q, k, v, causal=causal)
+        p32, _ = flash_attention_plain(q, k, v, causal=causal)
+        o64, _ = flash_attention_plain(q.double(), k.double(), v.double(),
+                                       causal=causal)
+        sync()
+        vs64 = {n: float(((x.double() - o64).abs() / (1 + o64.abs())).max())
+                for n, x in (("kernel", o32), ("plain", p32))}
+        f64_gate(f"flash {label} f32", vs64)
+        row["f32_vs_f64"] = vs64
+        del o32, p32, o64
+        # bf16 against the plain version
+        qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+        o, lse = fa.flash_attention(qb, kb, vb, causal=causal)
+        sync()
+        want, want_lse = flash_attention_plain(qb, kb, vb, causal=causal)
+        tol, ltol = FLASH_TOL["bfloat16"]
+        need(torch.isfinite(o.float()).all() and torch.isfinite(lse).all(),
+             f"flash {label}: bad output")
+        ok, err = close(o, want, tol, tol)
+        need(ok, f"flash {label}: o off by {err:.3g} > {tol} (1 + |want|)")
+        ok, lerr = close(lse, want_lse, ltol, ltol)
+        need(ok, f"flash {label}: lse off by {lerr:.3g} > {ltol}")
+        ratio, late = flash_bf16_bound(torch, qb, kb, vb, o, want, causal, 0)
+        need(ratio <= 1.0, f"flash {label}: o off by {ratio:.3g} x the bf16 "
+             "bound")
+        row.update(max_abs_err=err, lse_err=lerr, bf16_bound_ratio=ratio)
+        if timed:
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qb, kb, vb))
+
+            def lib(qt=qt, kt=kt, vt=vt, causal=causal):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+            ok, lib_err = close(lib().transpose(1, 2), o, 2e-2, 2e-2)
+            need(ok, f"flash {label}: the SDPA yardstick computes another "
+                 f"function (off by {lib_err:.3g})")
+            nbytes = 2 * (2 * qb.numel() + 2 * kb.numel()) + 4 * b * h * sq
+            ops = 4 * b * h * sq * skv * d / (2 if causal else 1)
+            t_bound, by = bound(nbytes, ops, "bf16")
+            kern = lambda qb=qb, kb=kb, vb=vb, causal=causal: (  # noqa: E731
+                fa.flash_attention(qb, kb, vb, causal=causal))
+            row.update(
+                ms=graph_ms(torch, kern, calls=10, replays=5),
+                plain_ms=device_ms(torch, lambda: flash_attention_plain(
+                    qb, kb, vb, causal=causal), 5, 1),
+                bound_ms=t_bound, bound_by=by,
+                library_ms=graph_ms(torch, lib, calls=10, replays=5))
+            del qt, kt, vt
+        log(f"flash[k] {json.dumps(row)}")
+        rows.append(row)
+        del q, k, v, qb, kb, vb, o, lse, want, want_lse
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the slice
 # ---------------------------------------------------------------------------
@@ -1289,11 +1403,21 @@ def make_requests(np, Request, vocab, n, lo, hi, max_new, seed):
                     max_new_tokens=max_new) for i in range(n)]
 
 
-def serve(torch, np, dev, cfg, params, ecfg_kw, reqs_fn):
+def serve(torch, np, dev, cfg, params, ecfg_kw, reqs_fn, warm_prefill=True):
+    """Serve reqs_fn()'s requests after the engine's warmup and report the
+    timed window's numbers. warm_prefill=True warms every prefill bucket /
+    chunk width; "requests" instead runs the same prompts once, one new
+    token each, before the window, so exactly the buckets they use are
+    warm."""
+    import dataclasses
     from repro_torch import kernels
     from repro_torch.serve.engine import EngineConfig, ServeEngine
     eng = ServeEngine(cfg, params, EngineConfig(**ecfg_kw), device=dev)
-    eng.warmup()
+    eng.warmup(prefill=warm_prefill is True)
+    if warm_prefill == "requests":
+        eng.run([dataclasses.replace(r, rid=r.rid + 10 ** 6,
+                                     max_new_tokens=1) for r in reqs_fn()])
+    base = dict(eng.stats)
     reqs = reqs_fn()
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -1307,20 +1431,24 @@ def serve(torch, np, dev, cfg, params, ecfg_kw, reqs_fn):
     counts = kernels.launch_counts()
     m = eng.metrics()
     need(len(done) == len(reqs), f"served {len(done)} of {len(reqs)}")
-    ttft = sorted(r.ttft for r in eng.scheduler.finished)
+    rids = {r.rid for r in reqs}
+    ttft = sorted(rs.ttft for rs in eng.scheduler.finished if rs.rid in rids)
+    stats = {k: eng.stats[k] - base[k] for k in
+             ("decode_tokens", "prefill_tokens", "ticks", "chunks")}
     out = {
         "requests": len(done),
-        "decode_tokens": eng.stats["decode_tokens"],
-        "prefill_tokens": eng.stats["prefill_tokens"],
-        "ticks": eng.stats["ticks"], "chunks": eng.stats["chunks"],
+        "decode_tokens": stats["decode_tokens"],
+        "prefill_tokens": stats["prefill_tokens"],
+        "ticks": stats["ticks"], "chunks": stats["chunks"],
         "wall_s": wall,
-        "tokens_per_s": eng.stats["decode_tokens"] / wall,
+        "tokens_per_s": stats["decode_tokens"] / wall,
         "ttft_mean_s": float(np.mean(ttft)),
         "ttft_p50_s": float(np.median(ttft)),
         "ttft_max_s": float(ttft[-1]),
         "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                         if dev.type == "cuda" else None),
-        "weight_bits": m["weight_bits"], "kv_bits": m["kv_bits"],
+        "backend": m["backend"],
+        "weight_bits": m["weight_bits"], "kv_bits": m.get("kv_bits"),
         "weight_bytes": m["weight_bytes"],
         "launches": counts,
     }
@@ -2099,17 +2227,45 @@ MOE_TRAIN_SEQ = 2048    # the train-mode forward: c = int(1.25 x 2048 / 128)
 class RouteLog:
     """While active, records each MoE layer's router scores (f32) and top-k
     expert choices, on the host, in call order (it wraps nn/moe.route,
-    which apply_moe calls once a layer)."""
+    which apply_moe calls once a layer), and the choices' normalized
+    weights (`weights`, for RoutePin)."""
 
     def __enter__(self):
         from repro_torch.nn import moe
-        self.calls, self._route = [], moe.route
+        self.calls, self.weights, self._route = [], [], moe.route
 
         def route(params, xt, cfg):
             out = self._route(params, xt, cfg)
             self.calls.append((out[0].detach().float().cpu(),
                                out[1].detach().cpu()))
+            self.weights.append(out[2].detach().cpu())
             return out
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.nn import moe
+        moe.route = self._route
+
+
+class RoutePin:
+    """While active, each MoE layer takes the expert choices and weights a
+    RouteLog recorded on another run, in call order (its own scores are
+    computed and dropped): two paths then differ only in their hidden
+    states, not in which experts they ran."""
+
+    def __init__(self, log):
+        self._next = iter([(i, w) for (_, i), w in zip(log.calls,
+                                                       log.weights)])
+
+    def __enter__(self):
+        from repro_torch.nn import moe
+        self._route = moe.route
+
+        def route(params, xt, cfg):
+            scores = self._route(params, xt, cfg)[0]
+            topi, topw = next(self._next)
+            return scores, topi.to(xt.device), topw.to(xt.device)
         moe.route = route
         return self
 
@@ -2443,6 +2599,308 @@ def moe_llava_slice(torch, np, dev, args, rehearse):
     seconds["llava_train"] = time.perf_counter() - t0
     out["seconds"] = seconds
     log(f"slice (j) seconds: {json.dumps(seconds)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# slice (k): the dense-cache backend — llama3.2-3b on it, mamba2, deepseek-v3
+# (MLA, MoE), jamba (Mamba + attention + MoE) and whisper (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+# deepseek-v3 runs 5 of its 61 layers, its 3 dense layers and 2 MoE layers:
+# one MoE layer holds 256 experts x 3 x 7168 x 2048 = 11.3 B parameters
+# (22.5 GB in bf16), a dense layer 0.58 B, the embedding and the untied head
+# 1.85 B: five layers come to 26.6 B (53 GB), six to 76 GB
+DEEPSEEK_LAYERS = 5
+# jamba runs 16 of its 32 layers, two of its four 8-layer periods: a period
+# (7 Mamba layers, 1 attention layer, 4 MoE layers of 16 experts of d_ff
+# 14336 at 2.8 B each) is 12.7 B; two and the embedding and head 26.0 B (52
+# GB), all four 104 GB
+JAMBA_LAYERS = 16
+DENSE_TOL = 5e-2        # relative L2, prefill_step's last-position and the
+# first decode step's logits, attn_impl "kernel" vs "plain" (as (j))
+GREEDY_TOKENS = 32      # the greedy share printed after each pair of paths
+# mamba2's gates, in f32 on the card: exact-length prefill of s - 1 tokens
+# then one decode step against the train forward's last logits, and D3's
+# ragged tail against the per-token decode_mamba2 recurrence on one
+# 1,000-token prompt (one block), each as relative L2. Measured first in f32
+# on the CPU at full width: the decode step 7.4e-6 / 9.5e-6 / 1.1e-5 at 4 /
+# 12 / 24 layers on 1,000 tokens (the prefill 4.0e-7), the tail's rows
+# 2.7e-6 and its state 3.6e-6
+MAMBA_GATE_REL = 1e-4
+MAMBA_GATE_LEN = 1000
+WHISPER_MAX_SEQ = 448   # the published decoder context (n_text_ctx)
+
+
+def dense_requests(np, Request, cfg, n, lo, hi, max_new, seed):
+    """make_requests' requests, and for an encoder-decoder arch each with
+    its own stub frames (0.02 * normal, (num_frames, d_model) f32, from the
+    seed)."""
+    reqs = make_requests(np, Request, cfg.vocab_size, n, lo, hi, max_new,
+                         seed)
+    if cfg.encoder is not None:
+        rng = np.random.default_rng(seed + 1)
+        for r in reqs:
+            r.encoder_frames = (0.02 * rng.standard_normal(
+                (cfg.encoder.num_frames, cfg.d_model))).astype(np.float32)
+    return reqs
+
+
+def has_attention(cfg):
+    return any(spec.kind == "attn" for period, _ in cfg.groups
+               for spec in period)
+
+
+def prefill_paths(torch, np, dev, cfg, params, reqs, max_seq, label):
+    """For each request, lm.prefill_step (bucket-padded, or at exact length
+    with SSM layers) with attn_impl "kernel" and "plain", each into its own
+    fresh dense caches, then GREEDY_TOKENS decode steps from each: the
+    last-position and first-decode logits held within DENSE_TOL (relative
+    L2), the greedy share printed. On an MoE arch each path runs under a
+    RouteLog: the expert flips are printed, each explained by its router
+    scores (route_flips), and the gate holds the kernel path against the
+    plain one run again with the kernel path's routes pinned (RoutePin):
+    at random weights a flip moves the logits far more than the attention
+    paths' rounding does (PERF.md §6), and pinned, the two differ by the
+    attention alone; the unpinned distances are printed."""
+    from repro_torch.models import lm
+    from repro_torch.serve import kv_cache as kvc
+    act = lm.make_act(cfg, dev)
+    bucketed = all(spec.kind != "mamba" for period, _ in cfg.groups
+                   for spec in period)
+    buckets = kvc.default_buckets(max_seq)
+    out = []
+    for r in reqs:
+        ctx = len(r.prompt) - 1
+        n = kvc.bucket_for(max(ctx, 1), buckets) if bucketed else ctx
+        toks = np.zeros((1, n), np.int64)
+        toks[0, :ctx] = r.prompt[:ctx]
+        toks = torch.from_numpy(toks).to(dev)
+        frames = (None if r.encoder_frames is None else
+                  torch.from_numpy(r.encoder_frames[None]).to(dev))
+        tok = torch.tensor([[int(r.prompt[-1])]], device=dev)
+
+        def run(impl, pin=None, greedy_tokens=GREEDY_TOKENS):
+            caches = lm.init_caches(cfg, 1, max_seq,
+                                    dtype=lm.compute_dtype(params),
+                                    device=dev)
+            with (RoutePin(pin[0]) if pin else RouteLog()) as rp:
+                last, caches = lm.prefill_step(
+                    params, cfg, toks, caches,
+                    true_length=torch.tensor([ctx], device=dev), act=act,
+                    encoder_frames=frames, attn_impl=impl)
+            with (RoutePin(pin[1]) if pin else RouteLog()) as rd:
+                logits, _ = lm.decode_step(params, cfg, tok, caches, act=act)
+            first, greedy = logits[:, -1].float(), []
+            for _ in range(greedy_tokens):
+                greedy.append(int(torch.argmax(logits[0, -1])))
+                logits, _ = lm.decode_step(
+                    params, cfg, torch.tensor([[greedy[-1]]], device=dev),
+                    caches, act=act)
+            del caches
+            return last.float(), first, greedy, rp, rd
+
+        lk, fk, gk, rpk, rdk = run("kernel")
+        lp, fp, gp, rpp, rdp = run("plain")
+        need(torch.isfinite(lk).all() and torch.isfinite(fk).all(),
+             f"{label}: non-finite logits")
+        row = {"ctx": ctx, "prefill_rows": n,
+               "prefill_logits_rel_l2": rel_l2(lk, lp),
+               "first_decode_logits_rel_l2": rel_l2(fk, fp),
+               "greedy_identical_share": sum(
+                   a == b for a, b in zip(gk, gp)) / GREEDY_TOKENS}
+        held = {"prefill": row["prefill_logits_rel_l2"],
+                "decode": row["first_decode_logits_rel_l2"]}
+        if cfg.moe is not None:
+            fl_p = route_flips(rpk.calls, rpp.calls,
+                               f"{label} prefill ctx {ctx}")
+            fl_d = route_flips(rdk.calls, rdp.calls,
+                               f"{label} first decode ctx {ctx}")
+            row["flips_prefill"] = [
+                {"flips": x["flips"], "at_real_tokens": sum(
+                    f["token"] < ctx for f in x["flipped"])} for x in fl_p]
+            row["flips_first_decode"] = [x["flips"] for x in fl_d]
+            ln, fn, _, _, _ = run("plain", pin=(rpk, rdk), greedy_tokens=0)
+            held = {"prefill": rel_l2(lk, ln), "decode": rel_l2(fk, fn)}
+            row["pinned"] = held
+        for what, rel in held.items():
+            need(rel <= DENSE_TOL, f"{label} ctx {ctx}: {what} logits "
+                 f"kernel vs plain rel L2 {rel:.3g} > {DENSE_TOL}")
+        out.append(row)
+        log(f"{label} kernel vs plain, ctx {ctx}: {json.dumps(row)}")
+    return out
+
+
+def dense_serve(torch, np, dev, args, cfg, label, ecfg, lens, rehearse,
+                cut=None, warm_prefill=True, paged_share=False):
+    """One arch on the dense backend in (b)'s setup (GRAU MLP activation,
+    EOS off, 8 slots): 8 requests of `lens` prompt tokens and 32 new
+    through ServeEngine(paged=False), each phase's numbers printed; the
+    flash kernel must launch on an arch with attention (and not on one
+    without); with `paged_share`, the same requests through the paged
+    engine for the greedy identical share; then prefill_paths on the first
+    two prompts. The weights are freed before it returns."""
+    from repro_torch.serve.engine import Request
+    params, nparams = init_logged(torch, dev, args, cfg,
+                                  torch.float32 if rehearse
+                                  else torch.bfloat16, cut)
+    reqs_fn = lambda: dense_requests(  # noqa: E731
+        np, Request, cfg, 8, *lens, 32, args.seed)
+    res, streams = serve(torch, np, dev, cfg, params, ecfg, reqs_fn,
+                         warm_prefill=warm_prefill)
+    need(res["backend"] == "dense", f"{label}: served on {res['backend']}")
+    flash = res["launches"]["flash_attention"]
+    attn = has_attention(cfg)
+    need(rehearse or (flash > 0) == attn,
+         f"{label}: {flash} flash_attention launches on an arch "
+         f"{'with' if attn else 'without'} attention")
+    if paged_share:
+        pres, pstreams = serve(torch, np, dev, cfg, params,
+                               {**ecfg, "paged": True, "page_size": 16},
+                               reqs_fn)
+        res["paged_tokens_per_s"] = pres["tokens_per_s"]
+        res["paged_greedy_identical_share"] = compare_streams(streams,
+                                                              pstreams)
+    if attn:
+        res["kernel_vs_plain"] = prefill_paths(
+            torch, np, dev, cfg, params, reqs_fn()[:2], ecfg["max_seq"],
+            label)
+    res.update(arch=cfg.name, layers=cfg.num_layers, params_b=nparams,
+               depth_cut=cut, flash_launches=flash)
+    log(f"slice[{label}]: " + json.dumps(res))
+    return res, params
+
+
+def mamba_gates(torch, np, dev, cfg, params, rehearse):
+    """mamba2's two gates in f32 (the served weights cast): exact-length
+    prefill of s - 1 tokens then one decode step against the train
+    forward, and D3's ragged tail (s = 1,000 is not a multiple of chunk
+    256) against the per-token decode_mamba2 recurrence over one block,
+    each within MAMBA_GATE_REL."""
+    from repro_torch.models import lm
+    from repro_torch.nn import mamba2
+    from repro_torch.nn.common import tree_map
+    p32 = tree_map(lambda t: t.float(), params)
+    s = 100 if rehearse else MAMBA_GATE_LEN
+    need(s % cfg.ssm.chunk != 0 and s > cfg.ssm.chunk,
+         "the gate's length must take D3's ragged tail")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    toks = torch.randint(2, cfg.vocab_size, (1, s), generator=gen,
+                         device=dev)
+    full, _, _ = lm.apply_lm(p32, cfg, toks)
+    caches = lm.init_caches(cfg, 1, s, dtype=torch.float32, device=dev)
+    last, caches = lm.prefill_step(p32, cfg, toks[:, :-1], caches,
+                                   true_length=torch.tensor([s - 1],
+                                                            device=dev))
+    step, _ = lm.decode_step(p32, cfg, toks[:, -1:], caches)
+    out = {"len": s, "prefill_rel_l2": rel_l2(last, full[:, -2]),
+           "decode_rel_l2": rel_l2(step[:, 0], full[:, -1])}
+    del full, caches
+    blk, ssm = p32["group0"][0]["l0"]["mamba"], cfg.ssm
+    x = torch.randn((1, s, cfg.d_model), generator=gen, device=dev)
+    y, st = mamba2.apply_mamba2(blk, x, cfg.d_model, ssm)
+    conv_dim = ssm.d_inner(cfg.d_model) + 2 * ssm.n_groups * ssm.d_state
+    state = mamba2.SSMState(
+        torch.zeros((1, ssm.conv_width - 1, conv_dim), device=dev),
+        torch.zeros((1, ssm.n_heads(cfg.d_model), ssm.head_dim,
+                     ssm.d_state), device=dev))
+    rows = []
+    for i in range(s):
+        o, state = mamba2.decode_mamba2(blk, x[:, i:i + 1], cfg.d_model, ssm,
+                                        state)
+        rows.append(o)
+    out.update(tail_rows_rel_l2=rel_l2(y, torch.cat(rows, 1)),
+               tail_state_rel_l2=rel_l2(st.ssm, state.ssm))
+    del p32
+    for k in ("prefill_rel_l2", "decode_rel_l2", "tail_rows_rel_l2",
+              "tail_state_rel_l2"):
+        need(out[k] <= MAMBA_GATE_REL, f"mamba2 gate {k}: {out[k]:.3g} > "
+             f"{MAMBA_GATE_REL}")
+    log("slice[mamba2 gates]: " + json.dumps(out))
+    return out
+
+
+def dense_slice(torch, np, dev, args, rehearse):
+    """Slice (k), the dense-cache backend in (b)'s setup (bf16 weights from
+    --seed, the GRAU apot MLP activation, EOS off, 8 slots; no attention
+    epilogue: the reference allows it only on the paged backend), each arch
+    freed before the next: (1) llama3.2-3b at full size with paged=False on
+    (b)'s 8 requests (64-1,024 prompt tokens, 32 new, max_seq 2,048), its
+    greedy share against the paged engine; (2) mamba2-1.3b at full size on
+    the same lengths (exact-length prefill: most take D3's tail) and its
+    f32 gates; (3) deepseek-v3 at full width, DEEPSEEK_LAYERS of 61 layers
+    (MLA prefill through flash at head_dim 192, the absorbed decode); (4)
+    jamba at full width, JAMBA_LAYERS of 32; (5) whisper-medium at full
+    size, 1,500 stub frames a request, 16-384 prompt tokens, max_seq 448.
+    Each attention arch holds prefill_step through the flash kernel against
+    the plain scan (prefill_paths)."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models.config import GRAUConfig, jamba_groups, moe_groups
+    max_seq = 256 if rehearse else 2048
+    lens = (8, 100) if rehearse else (64, 1024)
+    ecfg = dict(slots=8, max_seq=max_seq, eos_id=-1, seed=args.seed,
+                paged=False)
+    out, seconds = {}, {}
+
+    def grau(arch):
+        return get_config(arch, smoke=rehearse).replace(grau=GRAUConfig())
+
+    def run(key, fn):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        seconds[key] = time.perf_counter() - t0
+
+    def simple(key, cfg, cut=None, **kw):
+        res, params = dense_serve(torch, np, dev, args, cfg, key,
+                                  kw.pop("ecfg", ecfg), kw.pop("lens", lens),
+                                  rehearse, cut=cut, **kw)
+        del params
+        return res
+
+    run("llama3_dense", lambda: simple("llama3_dense", grau("llama3.2-3b"),
+                                       paged_share=True))
+
+    def mamba():
+        cfg = grau("mamba2-1.3b")
+        res, params = dense_serve(torch, np, dev, args, cfg, "mamba2", ecfg,
+                                  lens, rehearse)
+        res["gates"] = mamba_gates(torch, np, dev, cfg, params, rehearse)
+        del params
+        return res
+    run("mamba2", mamba)
+
+    cfg = grau("deepseek-v3-671b")
+    cut = None
+    if not rehearse:
+        cut = (f"{DEEPSEEK_LAYERS} of {cfg.num_layers} layers (3 dense + 2 "
+               "MoE): one MoE layer's 256 experts take 22.5 GB in bf16; 5 "
+               "layers 26.6 B parameters (53 GB), 6 would be 76 GB")
+        cfg = cfg.replace(groups=moe_groups(DEEPSEEK_LAYERS, first_dense=3))
+    # the requests' own buckets are warmed, not the ladder: its 2,048-token
+    # bucket would route 2,048 tokens through 256 experts at full capacity
+    # (~20 GB of dispatch buffers beside 53 GB of weights)
+    run("deepseek", lambda: simple("deepseek", cfg, cut,
+                                   warm_prefill="requests"))
+
+    cfg = grau("jamba-v0.1-52b")
+    cut = None
+    if not rehearse:
+        cut = (f"{JAMBA_LAYERS} of {cfg.num_layers} layers (2 of 4 periods "
+               "of 7 Mamba + 1 attention layers, MoE every other): 26.0 B "
+               "parameters (52 GB), all 32 would be 104 GB")
+        cfg = cfg.replace(groups=jamba_groups(JAMBA_LAYERS))
+    run("jamba", lambda: simple("jamba", cfg, cut))
+
+    wmax = 128 if rehearse else WHISPER_MAX_SEQ
+    run("whisper", lambda: simple(
+        "whisper", grau("whisper-medium"), ecfg={**ecfg, "max_seq": wmax},
+        lens=(8, 60) if rehearse else (16, 384)))
+    out["seconds"] = seconds
+    log(f"slice (k) seconds: {json.dumps(seconds)}")
     return out
 
 
@@ -4141,6 +4599,8 @@ def main(argv=None) -> int:
             torch, np, dev, shapes, rng, timed))
         rows["flash_attention"] = phase("flash_attention", lambda: check_flash(
             torch, np, dev, shapes, rng, timed))
+        flash_k = phase("flash_slice_k", lambda: check_flash_dense(
+            torch, np, dev, timed))
         slice_res = phase("slices_abc", lambda: slice_phase(
             torch, np, dev, args, args.rehearse))
         paper = phase("slice_d", lambda: paper_flow(torch, np, dev, args,
@@ -4169,6 +4629,10 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         moe_llava = phase("slice_j", lambda: moe_llava_slice(
             torch, np, dev, args, args.rehearse))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        dense = phase("slice_k", lambda: dense_slice(
+            torch, np, dev, args, args.rehearse))
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4181,6 +4645,7 @@ def main(argv=None) -> int:
     report["sampled"] = sampled
     report["durable"] = durable
     report["moe_llava"] = moe_llava
+    report["dense"] = dense
     # launches on the main paths: the 16-bit attention rows from (b), where
     # the GRAU datapath runs fused in the attention kernels' epilogue; the
     # 4-bit attention rows and matmul_wq from (c); the GRAU unit and
@@ -4225,6 +4690,12 @@ def main(argv=None) -> int:
                                                          "llava_grau")}
     rows["flash_attention"]["launches_slice_j"] = moe_llava["llava_train"][
         "train"]["flash_launches"]
+    # slice (k): every dense-backend arch's served run, counted from 0 just
+    # before it (mamba2 has no attention: 0), and the kernel at (k)'s shapes
+    rows["flash_attention"]["launches_slice_k"] = {
+        k: dense[k]["flash_launches"] for k in (
+            "llama3_dense", "mamba2", "deepseek", "jamba", "whisper")}
+    rows["flash_attention"]["shapes_slice_k"] = flash_k
     # slice (i)'s handoff to wq4 + kv4: matmul_wq and the 4-bit pools
     for name in ("matmul_wq", "paged_attention_kv4", "paged_prefill_kv4"):
         rows[name]["launches_slice_i"] = durable["launches"][

@@ -105,9 +105,13 @@ def _pwl_tables(spec: GRAUSpec, device):
 
 
 def _pwl(x: torch.Tensor, spec: GRAUSpec):
-    """One segment lookup, one PWL pass: (segment slopes, unclamped y)."""
+    """One segment lookup, one PWL pass: (segment slopes, unclamped y). The
+    segment is the count of breakpoints below x (ascending), found by
+    binary search: no (x, breakpoints) comparison tensor is built, which
+    at an MoE layer's full-capacity (experts, tokens, d_ff) buffer would
+    take tens of GB."""
     bps, slopes, biases = _pwl_tables(spec, x.device)
-    seg = (x[..., None] > bps.to(x.dtype)).sum(-1)
+    seg = torch.bucketize(x, bps.to(x.dtype), out_int32=True)
     slope = slopes[seg]
     return slope, slope * x + biases[seg]
 

@@ -190,6 +190,8 @@ def _wq_tensor_bytes(k: int, out: int, bits: int, tile_k: int) -> tuple:
     (tile, out-channel) with the same largest-divisor tile rule."""
     if bits == 16:
         return 4.0 * k * out, 0.0
+    if k == 0:
+        return 0.0, 0.0     # an absent tensor (mamba2's d_ff = 0 MLP)
     t = k if k <= tile_k else math.gcd(k, tile_k)
     return k * out * bits / 8, (k // t) * out
 

@@ -112,20 +112,24 @@ class TokenPipeline:
 def make_lm_batch_for(cfg, shape, step: int, *, seed: int = 0, device=None,
                       dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
     """A train batch for an arch config at a ShapeSpec: the TokenPipeline's
-    tokens and labels, and for a vision config (LLaVA) the patch-embedding
-    stub `patch_embeds` = 0.02 * normal, (global_batch, num_patches,
-    d_model) in `dtype`, drawn from its own generator seeded from (seed + 7,
-    step) on the batch's device, as the reference keys it (not
-    jax.random.normal's bits). The encoder-frame stub of Whisper is not
-    ported (ROADMAP A9)."""
+    tokens and labels, plus the modality stubs, each 0.02 * normal in
+    `dtype` from its own generator seeded from (seed + 7, step) on the
+    batch's device, as the reference keys them (not jax.random.normal's
+    bits): for Whisper `encoder_frames` (global_batch, num_frames,
+    d_model), for a vision config (LLaVA) `patch_embeds` (global_batch,
+    num_patches, d_model)."""
     batch = TokenPipeline(cfg.vocab_size, shape.seq_len, shape.global_batch,
                           seed=seed, device=device).batch(step)
-    vision = cfg.vision
-    if vision is not None:
-        dev = batch["tokens"].device
+    dev = batch["tokens"].device
+    stubs = []
+    if cfg.encoder is not None:
+        stubs.append(("encoder_frames", cfg.encoder.num_frames))
+    if cfg.vision is not None:
+        stubs.append(("patch_embeds", cfg.vision.num_patches))
+    for key, n in stubs:
         gen = torch.Generator(device=dev)
         gen.manual_seed(batch_seed(seed + 7, step))
-        z = torch.randn((shape.global_batch, vision.num_patches, cfg.d_model),
-                        generator=gen, device=dev)
-        batch["patch_embeds"] = (0.02 * z).to(dtype)
+        z = torch.randn((shape.global_batch, n, cfg.d_model), generator=gen,
+                        device=dev)
+        batch[key] = (0.02 * z).to(dtype)
     return batch

@@ -1,7 +1,7 @@
 """Serving launcher for the PyTorch port: continuous batching over the paged
-KV pool with the CUDA kernels, the radix prefix cache and preemption, a
-write-ahead request journal with crash recovery, printing the engine's
-metrics as JSON.
+KV pool with the CUDA kernels, the radix prefix cache and preemption, or
+over the dense caches (SSM, MLA and enc-dec archs), a write-ahead request
+journal with crash recovery, printing the engine's metrics as JSON.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
@@ -19,6 +19,11 @@ Examples:
       --preempt-after-ticks 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
       --smoke --device cpu            # also --arch qwen1.5-32b
+  # the dense backend: mamba2 / jamba (exact-length prefill), deepseek's
+  # MLA, whisper (each request gets zero encoder frames); --backend auto
+  # picks it for these archs, --backend dense forces it for the others
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+      --smoke --device cpu --backend dense
   # sampled decoding, a per-request deadline, the lifecycle trace as JSONL
   # and a Prometheus /metrics endpoint while it runs
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
@@ -33,9 +38,11 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --max-new 200 --journal build/serve.journal --resume
 
-Archs: llama3.2-3b, gemma-7b, glm4-9b, qwen1.5-32b, llava-next-mistral-7b
-(served text-only, as the reference's engine) and llama4-maverick-400b-a17b
-(MoE at full capacity: serving drops no token) (configs/archs.py).
+Archs: the ten of configs/archs.py — llama3.2-3b, gemma-7b, glm4-9b,
+qwen1.5-32b, llava-next-mistral-7b (served text-only, as the reference's
+engine), llama4-maverick-400b-a17b (MoE at full capacity: serving drops no
+token) on either backend, and mamba2-1.3b, jamba-v0.1-52b,
+deepseek-v3-671b and whisper-medium on the dense one.
 The mesh is not ported yet. A first SIGINT or SIGTERM drains (in-flight
 streams finish, queued requests wait in the journal and the final
 snapshot), a second stops at once; either way the snapshot is written and
@@ -114,6 +121,11 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, nargs=2, default=(4, 12),
                     metavar=("LO", "HI"),
                     help="prompt lengths drawn uniformly from [LO, HI)")
+    ap.add_argument("--backend", choices=["auto", "paged", "dense"],
+                    default="auto",
+                    help="KV storage: paged pools (plain GQA decoders) or "
+                         "the dense caches; auto picks paged where the "
+                         "arch allows it")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-blocks", type=int, default=None)
     ap.add_argument("--prefill-chunk", type=int, default=None)
@@ -214,7 +226,9 @@ def main(argv=None) -> None:
     params = lm.init_lm(cfg, seed=args.seed, dtype=getattr(torch, args.dtype),
                         device=device)
     ecfg = EngineConfig(
-        slots=args.slots, max_seq=args.max_seq, page_size=args.page_size,
+        slots=args.slots, max_seq=args.max_seq,
+        paged=None if args.backend == "auto" else args.backend == "paged",
+        page_size=args.page_size,
         num_blocks=args.num_blocks, paged_impl=args.paged_impl,
         attn_grau=(build_lm_grau(args.attn_grau) if args.attn_grau
                    else None),
@@ -226,11 +240,19 @@ def main(argv=None) -> None:
         kv_bits=args.kv_bits, weight_bits=args.weight_bits,
         telemetry=telemetry, audit_interval=args.audit_interval,
         eos_id=args.eos_id, seed=args.seed)
+    # Whisper's audio frontend is a stub: every request gets zero frames
+    enc = (np.zeros((cfg.encoder.num_frames, cfg.d_model), np.float32)
+           if cfg.encoder is not None else None)
     if args.resume:
         # crash recovery: every request live at the kill resumes with
-        # exactly its undelivered suffix
+        # exactly its undelivered suffix (the journal holds no frames: the
+        # resumed requests get the same zero frames)
+        frames = None
+        if enc is not None:
+            from repro_torch.serve.journal import replay
+            frames = {rid: enc for rid in replay(args.journal).live}
         engine = ServeEngine.recover(cfg, params, args.journal, ecfg=ecfg,
-                                     device=device)
+                                     device=device, encoder_frames=frames)
         print(f"resumed {len(engine.scheduler.waiting)} live requests "
               f"from {args.journal}")
     else:
@@ -260,7 +282,7 @@ def main(argv=None) -> None:
                      max_new_tokens=args.max_new,
                      sampling=(SamplingParams() if args.alternate_greedy
                                and i % 2 == 0 else sampling),
-                     deadline_ms=args.deadline_ms)
+                     encoder_frames=enc, deadline_ms=args.deadline_ms)
              for i in range(args.requests)])
 
     signals = {"count": 0}

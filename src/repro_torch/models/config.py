@@ -1,19 +1,27 @@
-"""ModelConfig for the ported architectures: GQA decoders with dense or
-Mixture-of-Experts MLPs, and LLaVA's vision-stub prefix.
+"""ModelConfig for all ten architectures: GQA or MLA decoders with dense or
+Mixture-of-Experts MLPs, Mamba-2 (SSD) and hybrid stacks, Whisper's
+encoder-decoder and LLaVA's vision-stub prefix.
 
 The port's own frozen dataclasses, with the JAX package's field names and
 values: [vision-stub patch embeddings +] embedding -> repeated groups of
 decoder layers (each group a *period* of LayerSpecs repeated `repeats`
-times) -> final norm -> LM head. MLA, SSM and encoder fields arrive with
-those layer kinds (ROADMAP A8-A9).
+times) -> final norm -> LM head, plus an optional encoder stack whose output
+the decoder's cross-attention layers read.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
-from repro_torch.nn.blocks import LayerSpec
+from repro_torch.nn.blocks import LayerSpec, MLAConfig
+from repro_torch.nn.mamba2 import SSMConfig
 from repro_torch.nn.moe import MoEConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    num_layers: int
+    num_frames: int = 1500        # whisper stub frontend output length
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +57,13 @@ class ModelConfig:
     rope_theta: float = 1e4
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    encoder: Optional[EncoderConfig] = None
     vision: Optional[VisionStub] = None
     grau: Optional[GRAUConfig] = None
+    # a sub-quadratic decode path exists (latent MLA cache, SSM state)
+    supports_long_context: bool = False
 
     @property
     def num_layers(self) -> int:
@@ -60,8 +73,11 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-def dense_groups(n_layers: int):
-    return (((LayerSpec(kind="attn", mlp="dense"),), n_layers),)
+def dense_groups(n_layers: int, cross_attn: bool = False):
+    return ((
+        (LayerSpec(kind="attn", mlp="dense", cross_attn=cross_attn),),
+        n_layers,
+    ),)
 
 
 def moe_groups(n_layers: int, first_dense: int = 0, period_moe: int = 1):
@@ -81,3 +97,18 @@ def moe_groups(n_layers: int, first_dense: int = 0, period_moe: int = 1):
         assert rest % period_moe == 0
         groups.append((period, rest // period_moe))
     return tuple(groups)
+
+
+def jamba_groups(n_layers: int, period_len: int = 8, attn_at: int = 4):
+    """Jamba: one attention layer per `period_len` (1:7), MoE every other
+    layer."""
+    period = tuple(
+        LayerSpec(kind="attn" if i == attn_at else "mamba",
+                  mlp="moe" if i % 2 == 1 else "dense")
+        for i in range(period_len))
+    assert n_layers % period_len == 0
+    return ((period, n_layers // period_len),)
+
+
+def ssm_groups(n_layers: int):
+    return (((LayerSpec(kind="mamba", mlp="none"),), n_layers),)

@@ -11,8 +11,11 @@ Packed trees carry over too: a reference QuantWeight leaf (anything with
 `q`, `e`, `bits`, `caxis`, `kdim`, `tile`) becomes the port's, payload and
 exponents converted and the static fields kept, and `pools_from_reference`
 converts a reference pool tree, float or quantized (`k_exp`, `v_exp`,
-`bits`), leaf by leaf. `opt_state_from_reference` carries an AdamW state
-(train/optim.py) across, and `vision_from_reference` the SFC/CNV
+`bits`), leaf by leaf, and `caches_from_reference` a dense cache tree
+(KVCache, MLACache, SSMState, CrossKV and cross-attention pairs). An
+enc-dec model's encoder layers, stacked in the reference, become a list.
+`opt_state_from_reference` carries an AdamW state (train/optim.py)
+across, and `vision_from_reference` the SFC/CNV
 parameters of models/vision.py. Every converter places its tensors on the
 device given, or on CUDA (models/lm.resolve_device).
 """
@@ -24,7 +27,9 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.nn.attention import PagedKVCache, QuantPagedKVCache
+from repro_torch.nn.attention import (CrossKV, KVCache, MLACache,
+                                      PagedKVCache, QuantPagedKVCache)
+from repro_torch.nn.mamba2 import SSMState
 from repro_torch.quant.weights import QuantWeight
 
 _QW_FIELDS = ("q", "e", "bits", "caxis", "kdim", "tile")
@@ -65,14 +70,21 @@ def _unstack(ref_tree: Dict[str, Any], repeats: Dict[str, int], device):
     def leaf(a):
         return _tensor(a, device)
 
+    def per_repeat(tree, n):
+        return [_tree(tree, lambda a, r=r: leaf(np.asarray(a)[r]))
+                for r in range(n)]
+
     out: Dict[str, Any] = {}
     for name, val in ref_tree.items():
-        if not name.startswith("group"):
+        if name == "encoder":
+            # the encoder's layers are stacked on a leading axis as well
+            n = np.shape(val["layers"]["ln1_w"])[0]
+            out[name] = {k: (per_repeat(v, n) if k == "layers"
+                             else _tree(v, leaf)) for k, v in val.items()}
+        elif not name.startswith("group"):
             out[name] = _tree(val, leaf)
     for name, n in repeats.items():
-        out[name] = [_tree(ref_tree[name],
-                           lambda a, r=r: leaf(np.asarray(a)[r]))
-                     for r in range(n)]
+        out[name] = per_repeat(ref_tree[name], n)
     return out
 
 
@@ -110,6 +122,28 @@ def pools_from_reference(ref_caches, *, device=None):
                 bits=int(c.bits))
         return PagedKVCache(_tensor(c.k, device), _tensor(c.v, device))
     return tuple(tuple(pool(c) for c in group) for group in ref_caches)
+
+
+def caches_from_reference(ref_caches, *, device=None):
+    """Port a reference dense cache tree (a tuple per group of per-layer
+    leaves stacked over repeats: KVCache, MLACache, SSMState, CrossKV, or
+    a cross-attention layer's (self cache, CrossKV) pair) onto `device`
+    (default: CUDA, see models/lm.resolve_device)."""
+    from repro_torch.models.lm import resolve_device
+    device = resolve_device(device)
+
+    def leaf(c):
+        t = lambda a: _tensor(a, device)                    # noqa: E731
+        if hasattr(c, "ckv"):
+            return MLACache(t(c.ckv), t(c.k_rope), t(c.length))
+        if hasattr(c, "conv"):
+            return SSMState(t(c.conv), t(c.ssm))
+        if hasattr(c, "length"):
+            return KVCache(t(c.k), t(c.v), t(c.length))
+        if hasattr(c, "k"):
+            return CrossKV(t(c.k), t(c.v))
+        return tuple(leaf(x) for x in c)
+    return tuple(tuple(leaf(c) for c in group) for group in ref_caches)
 
 
 def vision_from_reference(params: Dict[str, Any], cfg, *,

@@ -1,13 +1,18 @@
-"""LM assembly for the GQA decoders (dense or Mixture-of-Experts MLPs, an
-optional vision-stub prefix): init, the training forward and loss, paged
-prefill chunks and paged decode steps.
+"""LM assembly for every arch family (GQA or MLA decoders with dense or
+Mixture-of-Experts MLPs, Mamba-2 and hybrid stacks, Whisper's
+encoder-decoder, an optional vision-stub prefix): init, the training forward
+and loss, the dense caches, dense prefill and decode, paged prefill chunks
+and paged decode steps.
 
-Parameters: {"embed", "ln_f_w" (+"ln_f_b"), ["head"], "group{i}": [per
-repeat {"l{j}": layer params}]} — the JAX package's tree with each group's
-stacked `stack` axis unrolled into a list (models/convert.py maps one to the
-other); a leaf may be a packed quant/weights.QuantWeight. Caches: a tuple
-per group of per-period-layer PagedKVCache or QuantPagedKVCache pools, each
-with a leading repeats axis, exactly the JAX package's pool tree.
+Parameters: {"embed", "ln_f_w" (+"ln_f_b"), ["head"], ["encoder": {"layers":
+[per-layer params], "ln_enc_w" (+"ln_enc_b")}], "group{i}": [per repeat
+{"l{j}": layer params}]} — the JAX package's tree with each stacked axis
+unrolled into a list (models/convert.py maps one to the other); a leaf may
+be a packed quant/weights.QuantWeight. Caches: a tuple per group of
+per-period-layer leaves, each with a leading repeats axis, exactly the JAX
+package's tree — PagedKVCache or QuantPagedKVCache pools (the paged
+backend), or dense KVCache / MLACache / SSMState leaves, a cross-attention
+layer's a (self cache, CrossKV) pair (init_caches).
 """
 from __future__ import annotations
 
@@ -18,8 +23,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import blocks
-from repro_torch.nn.attention import PagedState, cache_slice
+from repro_torch.nn.attention import (CrossKV, KVCache, MLACache, PagedState,
+                                      cache_slice)
 from repro_torch.nn.common import act_fn, init_param
+from repro_torch.nn.mamba2 import SSMState
 from repro_torch.nn.rope import rope_tables
 from repro_torch.quant import weights as wq_lib
 
@@ -56,6 +63,12 @@ def init_lm(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     if not cfg.tie_embeddings:
         params["head"] = init_param((cfg.d_model, cfg.vocab_size), gen, **kw)
     blocks.init_norm(params, "ln_f", cfg.d_model, cfg.norm, **kw)
+    if cfg.encoder is not None:
+        spec = blocks.LayerSpec(kind="attn", mlp="dense")
+        enc = {"layers": [blocks.init_layer(spec, cfg, gen, **kw)
+                          for _ in range(cfg.encoder.num_layers)]}
+        blocks.init_norm(enc, "ln_enc", cfg.d_model, cfg.norm, **kw)
+        params["encoder"] = enc
     for gi, (period, repeats) in enumerate(cfg.groups):
         params[f"group{gi}"] = [
             {f"l{li}": blocks.init_layer(spec, cfg, gen, **kw)
@@ -76,6 +89,96 @@ def make_act(cfg: ModelConfig, device):
                          num_exponents=g.num_exponents, mode=g.mode,
                          out_bits=g.out_bits,
                          bias_mode=g.bias_mode).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Dense caches
+# ---------------------------------------------------------------------------
+
+def _layer_cache(spec, cfg: ModelConfig, lead: Tuple[int, ...], max_seq: int,
+                 length: int, dtype, device):
+    """One period-layer's dense cache, each tensor with leading dims
+    `lead` (repeats, batch): an SSM state, an MLA latent cache or a
+    KVCache."""
+    kw = dict(dtype=dtype, device=device)
+    lengths = torch.full(lead, length, dtype=torch.int32, device=device)
+    if spec.kind == "mamba":
+        s = cfg.ssm
+        conv_dim = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
+        return SSMState(
+            conv=torch.zeros(lead + (s.conv_width - 1, conv_dim), **kw),
+            ssm=torch.zeros(lead + (s.n_heads(cfg.d_model), s.head_dim,
+                                    s.d_state),
+                            dtype=torch.float32, device=device))
+    if cfg.mla is not None:
+        m = cfg.mla
+        return MLACache(
+            ckv=torch.zeros(lead + (max_seq, m.kv_lora_rank), **kw),
+            k_rope=torch.zeros(lead + (max_seq, m.qk_rope_dim), **kw),
+            length=lengths)
+    shape = lead + (max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, **kw), v=torch.zeros(shape, **kw),
+                   length=lengths)
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *,
+                length: int = 0, dtype=torch.bfloat16, device=None,
+                policy=None):
+    """The dense cache tree on `device` (default: CUDA, see
+    resolve_device): a tuple per group of per-period-layer leaves stacked
+    over repeats; cross-attention layers carry (self cache, CrossKV) pairs.
+    Dense caches hold float KV only (SSM state is recurrent and MLA latents
+    are already compressed: neither pages, so neither quantizes): a policy
+    that quantizes any layer's KV is rejected, as in the reference."""
+    if policy is not None and policy.kv_quantized:
+        raise ValueError(
+            f"{cfg.name}: dense caches cannot hold quantized KV "
+            "(kv_bits < 16); use the paged backend "
+            "(serve/kv_cache.init_paged_caches) with this policy")
+    device = resolve_device(device)
+    caches = []
+    for period, repeats in cfg.groups:
+        lead = (repeats, batch)
+        per_layer = []
+        for spec in period:
+            c = _layer_cache(spec, cfg, lead, max_seq, length, dtype, device)
+            if spec.cross_attn:
+                shape = lead + (cfg.encoder.num_frames, cfg.num_kv_heads,
+                                cfg.head_dim)
+                c = (c, CrossKV(
+                    k=torch.zeros(shape, dtype=dtype, device=device),
+                    v=torch.zeros(shape, dtype=dtype, device=device)))
+            per_layer.append(c)
+        caches.append(tuple(per_layer))
+    return tuple(caches)
+
+
+def dense_leaves(caches):
+    """Every dense cache leaf of the tree (pairs flattened)."""
+    for group in caches:
+        for c in group:
+            yield from (c if isinstance(c, tuple)
+                        and not hasattr(c, "_fields") else (c,))
+
+
+def set_cache_lengths(caches, lengths: torch.Tensor):
+    """Override (in place) the valid-prefix `length` of every seq-indexed
+    cache leaf: after bucket-padded prefill only `lengths` (b,) positions
+    a row hold real tokens."""
+    for c in dense_leaves(caches):
+        if isinstance(c, (KVCache, MLACache)):
+            c.length.copy_(lengths.to(c.length.dtype).expand_as(c.length))
+    return caches
+
+
+def _cache_positions(caches, batch: int, device) -> torch.Tensor:
+    """Each row's decode position (b, 1): the `length` of the first
+    seq-indexed cache (every layer's is the same), or zeros for a model
+    with none (an SSM stack has no rope)."""
+    for c in dense_leaves(caches):
+        if isinstance(c, (KVCache, MLACache)):
+            return c.length[0][:, None].long().clone()
+    return torch.zeros((batch, 1), dtype=torch.long, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -100,27 +203,34 @@ def _check_remat(remat: Optional[str]) -> None:
         raise ValueError(f"unknown remat {remat!r}: None or 'full'")
 
 
+def _rope_dim(cfg: ModelConfig) -> int:
+    """The rotated width: MLA's rope part, else the whole head."""
+    return cfg.mla.qk_rope_dim if cfg.mla is not None else cfg.head_dim
+
+
 def _hidden(params, cfg: ModelConfig, tokens, *, mode, caches, positions,
             act, paged: Optional[PagedState], paged_impl, attn_quant,
             remat: Optional[str] = None, q_chunk: int = 1024,
             kv_chunk: int = 1024, attn_impl: str = "kernel",
-            patch_embeds=None):
+            patch_embeds=None, encoder_out=None):
     """Embed (a packed table dequantizes only the gathered rows; LLaVA's
     `patch_embeds` (b, patches, d) go before the tokens, cast to their
-    dtype) -> layers (pools updated in place) -> final norm. Returns (x,
-    aux): aux is the MoE layers' router losses summed, or 0.0 when no layer
-    has one. The rope tables are built once and shared by every layer. In
-    "train" mode (no caches), with remat="full" each repeat's body runs
-    under activation checkpointing (torch.utils.checkpoint, non-reentrant):
-    only its input is kept and the body runs again in the backward pass, as
-    the reference's _run_group wraps it in jax.checkpoint."""
+    dtype) -> layers (caches updated in place; cross-attention layers read
+    `encoder_out`) -> final norm. Returns (x, aux): aux is the MoE layers'
+    router losses summed, or 0.0 when no layer has one. The rope tables are
+    built once and shared by every layer. In "train" mode (no caches), with
+    remat="full" each repeat's body runs under activation checkpointing
+    (torch.utils.checkpoint, non-reentrant): only its input is kept and the
+    body runs again in the backward pass, as the reference's _run_group
+    wraps it in jax.checkpoint."""
     x = wq_lib.take_rows(params["embed"], tokens).to(compute_dtype(params))
     if patch_embeds is not None:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
-    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    rope = rope_tables(positions, _rope_dim(cfg), cfg.rope_theta)
     kw = dict(rope=rope, act=act, mode=mode, paged=paged,
               paged_impl=paged_impl, attn_quant=attn_quant, q_chunk=q_chunk,
-              kv_chunk=kv_chunk, attn_impl=attn_impl)
+              kv_chunk=kv_chunk, attn_impl=attn_impl,
+              encoder_out=encoder_out)
     aux = 0.0
     for gi, (period, repeats) in enumerate(cfg.groups):
         group = params[f"group{gi}"]
@@ -145,6 +255,29 @@ def _hidden(params, cfg: ModelConfig, tokens, *, mode, caches, positions,
     return blocks.apply_norm(params, "ln_f", x, cfg.norm, cfg.norm_eps), aux
 
 
+def run_encoder(params, cfg: ModelConfig, frames, *, act=None,
+                q_chunk: int = 1024, kv_chunk: int = 1024,
+                attn_impl: str = "kernel") -> torch.Tensor:
+    """Whisper's encoder stack over the stub frames (b, frames, d), cast to
+    the model's activation dtype: bidirectional self-attention (rope at
+    positions [0, frames), no causal mask: the flash kernel on the card)
+    and a dense MLP a layer, then the final encoder norm."""
+    act = act or make_act(cfg, frames.device)
+    enc = params["encoder"]
+    e = frames.to(compute_dtype(params))
+    rope = rope_tables(torch.arange(e.shape[1], device=e.device),
+                       cfg.head_dim, cfg.rope_theta)
+    for layer in enc["layers"]:
+        hn = blocks.apply_norm(layer, "ln1", e, cfg.norm, cfg.norm_eps)
+        a, _ = blocks.apply_attention(layer["attn"], hn, cfg, rope=rope,
+                                      causal=False, q_chunk=q_chunk,
+                                      kv_chunk=kv_chunk, attn_impl=attn_impl)
+        e = e + a
+        hn = blocks.apply_norm(layer, "ln2", e, cfg.norm, cfg.norm_eps)
+        e = e + blocks.apply_mlp(layer["mlp"], hn, act, cfg.gated_mlp)
+    return blocks.apply_norm(enc, "ln_enc", e, cfg.norm, cfg.norm_eps)
+
+
 def _head(params, cfg: ModelConfig, x):
     """Logits: tied through the embedding, or an untied head; packed tables
     dequantize through wq_lib.dense (in x's dtype), as in the reference."""
@@ -153,17 +286,32 @@ def _head(params, cfg: ModelConfig, x):
     return x @ wq_lib.dense(params["head"], x.dtype)
 
 
+def _encoder_out(params, cfg: ModelConfig, encoder_frames, encoder_out, *,
+                 act, q_chunk, kv_chunk, attn_impl):
+    """The encoder's output for an enc-dec model: given, or run over
+    `encoder_frames`; None for a decoder-only model."""
+    if cfg.encoder is None or encoder_out is not None:
+        return encoder_out
+    if encoder_frames is None:
+        raise ValueError(f"{cfg.name}: an enc-dec forward needs "
+                         "encoder_frames (or encoder_out)")
+    return run_encoder(params, cfg, encoder_frames, act=act, q_chunk=q_chunk,
+                       kv_chunk=kv_chunk, attn_impl=attn_impl)
+
+
 def apply_lm(params, cfg: ModelConfig, tokens, *, mode: str = "train",
              caches=None, positions=None, paged: Optional[PagedState] = None,
              act=None, paged_impl: str = "kernel", attn_quant=None,
              remat: Optional[str] = None, q_chunk: int = 1024,
              kv_chunk: int = 1024, attn_impl: str = "kernel",
-             patch_embeds=None):
+             patch_embeds=None, encoder_frames=None, encoder_out=None):
     """Returns (logits, caches, aux_loss): the training forward over the
     whole sequence (mode="train", no caches, positions [0, s) over the
-    patch prefix and the tokens), or a paged "decode" step or "prefill"
-    chunk (the pools in `caches` updated in place). aux_loss is the MoE
-    router losses' sum (0.0 for a dense model). `remat` (None | "full") and
+    patch prefix and the tokens), or a "decode" step or "prefill" pass
+    (the caches updated in place). An enc-dec model runs its encoder over
+    `encoder_frames` unless `encoder_out` is given, or unless it decodes
+    from caches (the cross K/V are cached). aux_loss is the MoE router
+    losses' sum (0.0 for a dense model). `remat` (None | "full") and
     `attn_impl` ("kernel" | "plain": the flash kernel on the card, or the
     plain scan) apply to "train"."""
     _check_remat(remat)
@@ -175,11 +323,16 @@ def apply_lm(params, cfg: ModelConfig, tokens, *, mode: str = "train",
             s = tokens.shape[1] + (0 if patch_embeds is None
                                    else patch_embeds.shape[1])
             positions = torch.arange(s, device=tokens.device)
+    if not (mode == "decode" and caches is not None):
+        encoder_out = _encoder_out(params, cfg, encoder_frames, encoder_out,
+                                   act=act, q_chunk=q_chunk,
+                                   kv_chunk=kv_chunk, attn_impl=attn_impl)
     x, aux = _hidden(params, cfg, tokens, mode=mode, caches=caches,
                      positions=positions, act=act, paged=paged,
                      paged_impl=paged_impl, attn_quant=attn_quant,
                      remat=remat, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                     attn_impl=attn_impl, patch_embeds=patch_embeds)
+                     attn_impl=attn_impl, patch_embeds=patch_embeds,
+                     encoder_out=encoder_out)
     return _head(params, cfg, x), caches, aux
 
 
@@ -190,13 +343,15 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     """Next-token cross-entropy over batch["tokens"] / batch["labels"]
     (b, s), plus the MoE router's load-balancing loss: log-softmax in f32
     over the last labels.shape[1] positions (a vision prefix,
-    batch["patch_embeds"], carries no labels), labels < 0 masked out, the
-    mean over the rest. Only the f32 log-probabilities are kept for the
-    backward, not a second f32 copy of the logits."""
+    batch["patch_embeds"], carries no labels; Whisper's encoder reads
+    batch["encoder_frames"]), labels < 0 masked out, the mean over the
+    rest. Only the f32 log-probabilities are kept for the backward, not a
+    second f32 copy of the logits."""
     logits, _, aux = apply_lm(params, cfg, batch["tokens"], mode="train",
                               act=act, q_chunk=q_chunk, kv_chunk=kv_chunk,
                               remat=remat, attn_impl=attn_impl,
-                              patch_embeds=batch.get("patch_embeds"))
+                              patch_embeds=batch.get("patch_embeds"),
+                              encoder_frames=batch.get("encoder_frames"))
     labels = batch["labels"]
     logp = torch.log_softmax(logits[:, -labels.shape[1]:].float(), dim=-1)
     del logits
@@ -206,14 +361,20 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 
 
 def decode_step(params, cfg: ModelConfig, tokens, caches, *,
-                paged: PagedState, act=None, paged_impl: str = "kernel",
-                attn_quant=None):
-    """One serving step: tokens (b, 1) + pools -> (logits (b, 1, vocab),
-    pools). Per-slot positions come from `paged.length`;
-    `paged.block_table` may be bucket-sliced to the live-block count. An
-    MoE layer runs at full capacity (no token dropped); its router loss is
-    not returned."""
-    positions = paged.length[:, None]
+                paged: Optional[PagedState] = None, act=None,
+                paged_impl: str = "kernel", attn_quant=None):
+    """One serving step: tokens (b, 1) + caches -> (logits (b, 1, vocab),
+    caches), the caches updated in place. With `paged`, the caches are the
+    paged pools, per-slot positions come from `paged.length` and
+    `paged.block_table` may be bucket-sliced to the live-block count;
+    without it they are the dense caches and each row's position is its
+    cache `length`. A cross-attention layer reads its cached K/V. An MoE
+    layer runs at full capacity (no token dropped); its router loss is not
+    returned."""
+    if paged is not None:
+        positions = paged.length[:, None]
+    else:
+        positions = _cache_positions(caches, tokens.shape[0], tokens.device)
     logits, caches, _ = apply_lm(params, cfg, tokens, mode="decode",
                                  caches=caches, positions=positions,
                                  paged=paged, act=act, paged_impl=paged_impl,
@@ -222,22 +383,54 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, *,
 
 
 def prefill_step(params, cfg: ModelConfig, tokens, caches, *,
-                 paged: PagedState, act=None, paged_impl: str = "kernel",
-                 attn_quant=None, want_logits: bool = True
+                 paged: Optional[PagedState] = None, true_length=None,
+                 act=None, encoder_frames=None, paged_impl: str = "kernel",
+                 attn_quant=None, want_logits: bool = True,
+                 q_chunk: int = 1024, kv_chunk: int = 1024,
+                 attn_impl: str = "kernel"
                  ) -> Tuple[Optional[torch.Tensor], Any]:
-    """One chunk of the chunked-prefill state machine: tokens (b, C) at
-    absolute positions paged.length + [0, C), written through the (bucket-
-    sliced) table and attending the already-resident prefix blocks plus the
-    chunk. Returns (logits at the chunk's last position (b, vocab), pools);
-    with want_logits=False the head is skipped and logits is None (the
-    engine discards them)."""
+    """Prompt ingestion. Returns (logits (b, vocab), caches), the caches
+    filled in place; with want_logits=False the head is skipped and logits
+    is None.
+
+    With `paged`: one chunk of the chunked-prefill state machine, tokens
+    (b, C) at absolute positions paged.length + [0, C), written through
+    the (bucket-sliced) table and attending the already-resident prefix
+    blocks plus the chunk; the logits are the chunk's last position's.
+
+    Without it: the whole prompt into dense caches, tokens (b, s) at
+    positions [0, s), right-padded to a bucket length; `true_length` (b,)
+    marks the real prefix (padding is causally downstream of every real
+    token, and the cache lengths are set to it so decode masks the rest)
+    and the logits are the last real position's. An enc-dec model runs its
+    encoder over `encoder_frames` and fills the cross K/V. Bucket padding
+    is sound only for attention caches: recurrent (SSM) state absorbs
+    padded tokens, so SSM-bearing archs are prefilled at exact length (the
+    engine does so). `attn_impl` picks the flash kernel ("kernel", on the
+    card) or the plain scan ("plain") for the dense path's attention."""
     b, s = tokens.shape
-    positions = (paged.length[:, None].long()
-                 + torch.arange(s, device=tokens.device)[None])
     act = act or make_act(cfg, tokens.device)
+    if paged is not None:
+        positions = (paged.length[:, None].long()
+                     + torch.arange(s, device=tokens.device)[None])
+        x, _ = _hidden(params, cfg, tokens, mode="prefill", caches=caches,
+                       positions=positions, act=act, paged=paged,
+                       paged_impl=paged_impl, attn_quant=attn_quant)
+        if not want_logits:
+            return None, caches
+        return _head(params, cfg, x[:, -1]), caches
+    encoder_out = _encoder_out(params, cfg, encoder_frames, None, act=act,
+                               q_chunk=q_chunk, kv_chunk=kv_chunk,
+                               attn_impl=attn_impl)
     x, _ = _hidden(params, cfg, tokens, mode="prefill", caches=caches,
-                   positions=positions, act=act, paged=paged,
-                   paged_impl=paged_impl, attn_quant=attn_quant)
-    if not want_logits:
-        return None, caches
-    return _head(params, cfg, x[:, -1]), caches
+                   positions=torch.arange(s, device=tokens.device), act=act,
+                   paged=None, paged_impl=paged_impl, attn_quant=None,
+                   q_chunk=q_chunk, kv_chunk=kv_chunk, attn_impl=attn_impl,
+                   encoder_out=encoder_out)
+    if true_length is None:
+        last = x[:, -1]
+    else:
+        idx = torch.clamp(true_length.long() - 1, 0, s - 1)
+        last = x[torch.arange(b, device=x.device), idx]
+        set_cache_lengths(caches, true_length)
+    return (_head(params, cfg, last) if want_logits else None), caches

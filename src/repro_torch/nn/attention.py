@@ -1,13 +1,15 @@
-"""Attention: chunked (flash-style) training attention over the full
-sequence, and attention over the paged KV pool — write paths, the gathered
-dense view, and decode / chunked-prefill attention through either the CUDA
-kernels ("kernel") or the gathered view ("gather"), over float pools
-(PagedKVCache) or packed 8/4-bit pools with power-of-two block exponents
+"""Attention: chunked (flash-style) training / prefill attention over the
+full sequence; the dense (slots, max_seq) caches — KVCache, MLA's latent
+MLACache and the cross-attention CrossKV — with one-token decode over them;
+and attention over the paged KV pool — write paths, the gathered dense view,
+and decode / chunked-prefill attention through either the CUDA kernels
+("kernel") or the gathered view ("gather"), over float pools (PagedKVCache)
+or packed 8/4-bit pools with power-of-two block exponents
 (QuantPagedKVCache, quant/kv.py).
 
-Unlike the JAX package, whose arrays are immutable, the pool writes here
-update the pool tensors in place (the pools are the largest tensors the
-server holds, and a functional update would copy a whole layer's pool per
+Unlike the JAX package, whose arrays are immutable, the cache writes here
+update the cache tensors in place (the caches are the largest tensors the
+server holds, and a functional update would copy a whole layer's buffer per
 token); the functions still return the cache so call sites read the same.
 """
 from __future__ import annotations
@@ -115,6 +117,64 @@ class KVCache(NamedTuple):
     length: torch.Tensor     # (batch,) int32 — filled prefix length
 
 
+class CrossKV(NamedTuple):
+    """Cached cross-attention K/V (enc-dec): computed once at admission from
+    the encoder output, read by every decode step."""
+    k: torch.Tensor          # (batch, frames, kv_heads, head_dim)
+    v: torch.Tensor
+
+
+class MLACache(NamedTuple):
+    ckv: torch.Tensor        # (batch, max_seq, kv_lora_rank) latent
+    k_rope: torch.Tensor     # (batch, max_seq, rope_dim) shared rope key
+    length: torch.Tensor     # (batch,) int32
+
+
+def write_position(bufs, news, length: torch.Tensor) -> None:
+    """Write one position per row in place: buf[i, length[i]] = new[i] for
+    each (buf (b, max_seq, ...), new (b, ...)) pair. The index is clamped to
+    max_seq - 1, as the reference's dynamic_update_slice clamps it (a
+    retired slot's length may run past the buffer; its writes are
+    garbage no reader attends)."""
+    rows = torch.arange(length.shape[0], device=length.device)
+    idx = torch.clamp(length.long(), max=bufs[0].shape[1] - 1)
+    for buf, new in zip(bufs, news):
+        buf[rows, idx] = new.to(buf.dtype)
+
+
+def update_cache(cache: KVCache, k_new: torch.Tensor,
+                 v_new: torch.Tensor) -> KVCache:
+    """Append one position per sequence at index `length` (decode step),
+    in place: k_new / v_new (b, 1, kvh, hd); length += 1 for every row."""
+    write_position((cache.k, cache.v), (k_new[:, 0], v_new[:, 0]),
+                   cache.length)
+    cache.length.add_(1)
+    return cache
+
+
+def mla_decode_attention(
+    q_nope_abs: torch.Tensor,   # (b, 1, h, kv_lora_rank): q_nope @ W_uk
+    q_rope: torch.Tensor,       # (b, 1, h, rope_dim)
+    cache: MLACache,
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Absorbed-form MLA decode, attending in the latent space: score =
+    q_nope_abs . ckv + q_rope . k_rope, value = the weighted ckv (the
+    caller applies the per-head value up-projection). Returns (b, 1, h,
+    kv_lora_rank) in q_nope_abs's dtype."""
+    ckv = cache.ckv.float()
+    logits = (torch.einsum("bhd,bsd->bhs", q_nope_abs[:, 0].float(), ckv)
+              + torch.einsum("bhr,bsr->bhs", q_rope[:, 0].float(),
+                             cache.k_rope.float())) * scale
+    pos = torch.arange(cache.ckv.shape[1], device=ckv.device)
+    valid = pos[None] < cache.length[:, None]
+    logits = torch.where(valid[:, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhs,bsd->bhd", p, ckv)
+    return o[:, None].to(q_nope_abs.dtype)
+
+
 def decode_attention(
     q: torch.Tensor,                  # (b, 1, h, d)
     cache: KVCache,
@@ -165,12 +225,16 @@ class QuantPagedKVCache(NamedTuple):
 AnyPagedKVCache = Union[PagedKVCache, QuantPagedKVCache]
 
 
-def cache_slice(pool: AnyPagedKVCache, r: int) -> AnyPagedKVCache:
-    """One repeat's pools (views) out of a leaf stacked over repeats."""
-    if isinstance(pool, QuantPagedKVCache):
-        return QuantPagedKVCache(pool.k[r], pool.v[r], pool.k_exp[r],
-                                 pool.v_exp[r], bits=pool.bits)
-    return PagedKVCache(pool.k[r], pool.v[r])
+def cache_slice(cache, r: int):
+    """One repeat's cache (views) out of a leaf stacked over repeats: a
+    paged pool, a dense cache (KVCache, MLACache, CrossKV, an SSM state) or
+    a cross-attention layer's (self cache, CrossKV) pair."""
+    if isinstance(cache, QuantPagedKVCache):
+        return QuantPagedKVCache(cache.k[r], cache.v[r], cache.k_exp[r],
+                                 cache.v_exp[r], bits=cache.bits)
+    if hasattr(cache, "_fields"):
+        return type(cache)(*(t[r] for t in cache))
+    return tuple(cache_slice(c, r) for c in cache)
 
 
 def _kernel_pools(cache: AnyPagedKVCache) -> dict:

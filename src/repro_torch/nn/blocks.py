@@ -1,30 +1,46 @@
-"""Decoder-layer assembly for GQA layers: full-sequence (training) or
-paged attention, then a gated MLP or a Mixture-of-Experts.
+"""Decoder-layer assembly: attention (GQA or MLA) or a Mamba-2 block, an
+optional cross-attention over the encoder's output (Whisper's decoder), then
+a gated MLP, a Mixture-of-Experts or no MLP.
 
-A layer is described by a LayerSpec(kind, mlp). The port serves kind="attn"
-with mlp="dense" or "moe"; Mamba-2, MLA and cross-attention layers are
-still to be ported (ROADMAP A9).
+A layer is described by a LayerSpec(kind, mlp, cross_attn): kind in
+{"attn", "mamba"}, mlp in {"dense", "moe", "none"}. Heterogeneous stacks
+(jamba 1:7, deepseek 3-dense-then-MoE) are repeated *periods* of LayerSpecs
+(models/lm.py). Each layer runs in "train" mode (the full sequence, no
+cache), "prefill" (the full prompt into a dense cache, or one chunk into the
+paged pool) or "decode" (one token over a dense cache or the paged pool).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.nn import attention as attn_lib
-from repro_torch.nn.attention import AnyPagedKVCache, PagedState
+from repro_torch.nn.attention import (AnyPagedKVCache, CrossKV, KVCache,
+                                      MLACache, PagedState)
 from repro_torch.nn.common import init_param, layernorm, rmsnorm
+from repro_torch.nn.mamba2 import apply_mamba2, decode_mamba2, init_mamba2
 from repro_torch.nn.moe import apply_moe, init_moe
 from repro_torch.nn.rope import rotate
 from repro_torch.quant import weights as wq_lib
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    kind: str = "attn"        # "attn" ("mamba" still to port)
-    mlp: str = "dense"        # "dense" | "moe" ("none" still to port)
-    cross_attn: bool = False  # whisper decoder (still to port)
+    kind: str = "attn"        # "attn" | "mamba"
+    mlp: str = "dense"        # "dense" | "moe" | "none"
+    cross_attn: bool = False  # whisper decoder
 
 
 # ---------------------------------------------------------------------------
@@ -100,33 +116,60 @@ def _rope_qk(q, k, rope):
     return q.contiguous(), k
 
 
-def apply_attention(params, x, cfg, *, rope, causal: bool = True,
-                    q_chunk: int = 1024, kv_chunk: int = 1024,
-                    attn_impl: str = "kernel") -> torch.Tensor:
-    """Training path (full sequence, no cache): x (b, s, d) -> (b, s, d).
-    `rope` holds the (cos, sin) tables at positions [0, s); attention is
+def apply_attention(params, x, cfg, *, rope,
+                    cache: Union[KVCache, CrossKV, None] = None,
+                    kv_source: Optional[torch.Tensor] = None,
+                    causal: bool = True, q_chunk: int = 1024,
+                    kv_chunk: int = 1024, attn_impl: str = "kernel"
+                    ) -> Tuple[torch.Tensor, Any]:
+    """Training / dense-prefill path over the full sequence: x (b, s, d) ->
+    ((b, s, d), cache). `rope` holds the (cos, sin) tables at positions [0,
+    s); with `kv_source` (cross-attention) k and v come from it, without
+    rope and without the causal mask. Attention is
     nn/attention.chunked_attention (the flash kernel on the card with
-    attn_impl="kernel", the plain scan with "plain")."""
-    q, k, v = _qkv(params, x, cfg)
-    q, k = _rope_qk(q, k, rope)
-    o = attn_lib.chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
-                                   kv_chunk=kv_chunk, impl=attn_impl)
-    return _out(o, params["wo"])
+    attn_impl="kernel", the plain scan with "plain"). With `cache`
+    (prefill) the k and v are written at positions [0, s) in place and a
+    KVCache's length set to s; a CrossKV takes the projected encoder K/V
+    whole (with the bias where a config sets qkv_bias, which no registered
+    enc-dec arch does; the reference's cross cache leaves it out)."""
+    src = x if kv_source is None else kv_source
+    q, k, v = (_proj(x, params["wq"]), _proj(src, params["wk"]),
+               _proj(src, params["wv"]))
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    if kv_source is None:
+        q, k = _rope_qk(q, k, rope)
+    o = attn_lib.chunked_attention(
+        q, k, v, causal=causal and kv_source is None, q_chunk=q_chunk,
+        kv_chunk=kv_chunk, impl=attn_impl)
+    if cache is not None:
+        s = k.shape[1]
+        cache.k[:, :s] = k.to(cache.k.dtype)
+        cache.v[:, :s] = v.to(cache.v.dtype)
+        if isinstance(cache, KVCache):
+            cache.length.fill_(s)
+    return _out(o, params["wo"]), cache
 
 
 def decode_attention_block(
-    params, x, cfg, *, rope, cache: AnyPagedKVCache, paged: PagedState,
+    params, x, cfg, *, rope, cache, paged: Optional[PagedState] = None,
     paged_impl: str = "kernel", attn_quant=None,
-) -> Tuple[torch.Tensor, AnyPagedKVCache]:
-    """One-token decode through the paged pool. x: (b, 1, d); `rope` holds
-    the (cos, sin) tables at positions paged.length (nn/rope.rope_tables).
+) -> Tuple[torch.Tensor, Any]:
+    """One-token decode. x: (b, 1, d); `rope` holds the (cos, sin) tables
+    at each row's position (nn/rope.rope_tables).
 
-    The new position is written through the block table, then attention
-    runs over the mapped blocks via the CUDA decode kernel
-    (paged_impl="kernel") or the gathered dense view ("gather");
-    `attn_quant` fuses the GRAU output epilogue on either path."""
+    With `paged`, `cache` is a paged pool: the new position is written
+    through the block table, then attention runs over the mapped blocks via
+    the CUDA decode kernel (paged_impl="kernel") or the gathered dense view
+    ("gather"); `attn_quant` fuses the GRAU output epilogue on either path.
+    Without it, `cache` is a dense KVCache: the position is written at each
+    row's `length` (in place, length += 1) and attention runs over the
+    whole buffer masked beyond it (the reference's plain decode)."""
     q, k, v = _qkv(params, x, cfg)
     q, k = _rope_qk(q, k, rope)
+    if paged is None:
+        cache = attn_lib.update_cache(cache, k, v)
+        return _out(attn_lib.decode_attention(q, cache), params["wo"]), cache
     cache = attn_lib.paged_update(cache, k, v, paged)
     o = attn_lib.paged_decode_attention(q, cache, paged, impl=paged_impl,
                                         quant=attn_quant)
@@ -149,6 +192,95 @@ def paged_prefill_attention_block(
     cache = attn_lib.paged_prefill_update(cache, k, v, paged)
     o = attn_lib.paged_prefill_attention(q, cache, paged, impl=paged_impl,
                                          quant=attn_quant)
+    return _out(o, params["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (deepseek-v3)
+# ---------------------------------------------------------------------------
+
+def init_mla(cfg, gen: torch.Generator, *, device, dtype) -> dict:
+    d, h = cfg.d_model, cfg.num_heads
+    m: MLAConfig = cfg.mla
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    kw = dict(device=device, dtype=dtype)
+    return {
+        "wq_a": init_param((d, m.q_lora_rank), gen, **kw),
+        "q_norm_w": init_param((m.q_lora_rank,), None, init="zeros", **kw),
+        "wq_b": init_param((m.q_lora_rank, h, qk_dim), gen, **kw),
+        "wkv_a": init_param((d, m.kv_lora_rank + m.qk_rope_dim), gen, **kw),
+        "kv_norm_w": init_param((m.kv_lora_rank,), None, init="zeros", **kw),
+        "wk_b": init_param((m.kv_lora_rank, h, m.qk_nope_dim), gen, **kw),
+        "wv_b": init_param((m.kv_lora_rank, h, m.v_head_dim), gen, **kw),
+        "wo": init_param((h, m.v_head_dim, d), gen, **kw),
+    }
+
+
+def _mla_q(params, x, m: MLAConfig, rope):
+    """(q_nope, rotated q_rope), each (b, s, h, ·)."""
+    ql = rmsnorm(x @ params["wq_a"], params["q_norm_w"])
+    q_nope, q_rope = _proj(ql, params["wq_b"]).split(
+        [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    return q_nope, rotate(q_rope, *rope)
+
+
+def _mla_scale(m: MLAConfig) -> float:
+    return (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+
+
+def apply_mla(params, x, cfg, *, rope, cache: Optional[MLACache] = None,
+              q_chunk: int = 1024, kv_chunk: int = 1024,
+              attn_impl: str = "kernel"
+              ) -> Tuple[torch.Tensor, Optional[MLACache]]:
+    """Training / prefill MLA in the expanded form: per-head K and V from
+    the latent, v zero-padded to q's head_dim (nope + rope) so the shared
+    chunked_attention (the flash kernel on the card) runs it, then cut
+    back. `rope` holds the tables at the rope width (qk_rope_dim). With
+    `cache` the latent and the rope key are written at [0, s) in place."""
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_rope = _mla_q(params, x, m, rope)
+    ckv, k_rope = (x @ params["wkv_a"]).split(
+        [m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+    ckv = rmsnorm(ckv, params["kv_norm_w"])
+    k_rope = rotate(k_rope[:, :, None, :], *rope)                 # (b,s,1,r)
+    k = torch.cat([_proj(ckv, params["wk_b"]),
+                   k_rope.expand(b, s, h, m.qk_rope_dim)], dim=-1)
+    v = _proj(ckv, params["wv_b"])
+    o = attn_lib.chunked_attention(
+        torch.cat([q_nope, q_rope], dim=-1), k,
+        F.pad(v, (0, k.shape[-1] - v.shape[-1])), causal=True,
+        q_chunk=q_chunk, kv_chunk=kv_chunk, scale=_mla_scale(m),
+        impl=attn_impl)
+    out = _out(o[..., :m.v_head_dim], params["wo"])
+    if cache is not None:
+        cache.ckv[:, :s] = ckv.to(cache.ckv.dtype)
+        cache.k_rope[:, :s] = k_rope[:, :, 0].to(cache.k_rope.dtype)
+        cache.length.fill_(s)
+    return out, cache
+
+
+def decode_mla(params, x, cfg, *, rope, cache: MLACache
+               ) -> Tuple[torch.Tensor, MLACache]:
+    """Absorbed-form one-token MLA decode over the latent cache: the new
+    latent and rope key are written at each row's `length` (in place,
+    length += 1), W_uk is absorbed into the query, attention runs in the
+    latent space and W_uv up-projects its output. `rope` holds the tables
+    at each row's position."""
+    m: MLAConfig = cfg.mla
+    q_nope, q_rope = _mla_q(params, x, m, rope)
+    ckv_new, k_rope_new = (x[:, 0] @ params["wkv_a"]).split(
+        [m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+    ckv_new = rmsnorm(ckv_new, params["kv_norm_w"])
+    k_rope_new = rotate(k_rope_new[:, None, None, :], *rope)[:, 0, 0]
+    attn_lib.write_position((cache.ckv, cache.k_rope), (ckv_new, k_rope_new),
+                            cache.length)
+    cache.length.add_(1)
+    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, params["wk_b"])
+    o_lat = attn_lib.mla_decode_attention(q_abs, q_rope, cache,
+                                          scale=_mla_scale(m))
+    o = torch.einsum("bshr,rhk->bshk", o_lat, params["wv_b"])
     return _out(o, params["wo"]), cache
 
 
@@ -185,59 +317,121 @@ def apply_mlp(params, x, act: Callable, gated: bool = True):
 
 def init_layer(spec: LayerSpec, cfg, gen: torch.Generator, *, device,
                dtype) -> dict:
-    _check_spec(spec)
+    """One layer's parameters, the reference's tree: ln1 and "attn" (GQA
+    or MLA) or "mamba"; with cross-attention ln_x and "xattn"; unless mlp
+    is "none", ln2 and "mlp" or "moe"."""
+    if spec.kind not in ("attn", "mamba") or spec.mlp not in ("dense", "moe",
+                                                               "none"):
+        raise ValueError(f"unknown layer spec {spec}")
+    kw = dict(device=device, dtype=dtype)
     p: dict = {}
-    init_norm(p, "ln1", cfg.d_model, cfg.norm, device=device, dtype=dtype)
-    p["attn"] = init_attention(cfg, gen, device=device, dtype=dtype)
-    init_norm(p, "ln2", cfg.d_model, cfg.norm, device=device, dtype=dtype)
-    if spec.mlp == "moe":
-        p["moe"] = init_moe(cfg.d_model, cfg.moe, gen, device=device,
-                            dtype=dtype)
+    init_norm(p, "ln1", cfg.d_model, cfg.norm, **kw)
+    if spec.kind == "attn":
+        p["attn"] = (init_mla if cfg.mla is not None
+                     else init_attention)(cfg, gen, **kw)
     else:
-        p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.gated_mlp, gen,
-                            device=device, dtype=dtype)
+        p["mamba"] = init_mamba2(cfg.d_model, cfg.ssm, gen, **kw)
+    if spec.cross_attn:
+        init_norm(p, "ln_x", cfg.d_model, cfg.norm, **kw)
+        p["xattn"] = init_attention(cfg, gen, **kw)
+    if spec.mlp != "none":
+        init_norm(p, "ln2", cfg.d_model, cfg.norm, **kw)
+        if spec.mlp == "moe":
+            p["moe"] = init_moe(cfg.d_model, cfg.moe, gen, **kw)
+        else:
+            p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.gated_mlp, gen,
+                                **kw)
     return p
 
 
-def _check_spec(spec: LayerSpec) -> None:
-    if (spec.kind != "attn" or spec.mlp not in ("dense", "moe")
-            or spec.cross_attn):
-        raise NotImplementedError(
-            f"{spec}: only attention layers with a dense or MoE MLP are "
-            "ported (Mamba-2, mlp='none' and cross-attention: ROADMAP A9)")
+def _self_mixer(params, h, spec: LayerSpec, cfg, *, rope, cache, mode,
+                paged, paged_impl, attn_quant, q_chunk, kv_chunk, attn_impl):
+    """The layer's attention or Mamba-2 block: (out, cache)."""
+    if spec.kind == "mamba":
+        p = params["mamba"]
+        if mode == "decode":
+            return decode_mamba2(p, h, cfg.d_model, cfg.ssm, cache)
+        a, state = apply_mamba2(p, h, cfg.d_model, cfg.ssm)
+        if mode != "prefill":
+            return a, None
+        cache.conv.copy_(state.conv)
+        cache.ssm.copy_(state.ssm)
+        return a, cache
+    p = params["attn"]
+    if mode == "decode":
+        if cfg.mla is not None:
+            return decode_mla(p, h, cfg, rope=rope, cache=cache)
+        return decode_attention_block(p, h, cfg, rope=rope, cache=cache,
+                                      paged=paged, paged_impl=paged_impl,
+                                      attn_quant=attn_quant)
+    if mode == "prefill" and paged is not None:
+        return paged_prefill_attention_block(
+            p, h, cfg, rope=rope, cache=cache, paged=paged,
+            paged_impl=paged_impl, attn_quant=attn_quant)
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"unknown mode {mode!r}")
+    want = cache if mode == "prefill" else None
+    kw = dict(rope=rope, cache=want, q_chunk=q_chunk, kv_chunk=kv_chunk,
+              attn_impl=attn_impl)
+    if cfg.mla is not None:
+        return apply_mla(p, h, cfg, **kw)
+    return apply_attention(p, h, cfg, **kw)
+
+
+def _cross_attention(params, h, cfg, *, encoder_out, cross, mode, q_chunk,
+                     kv_chunk, attn_impl):
+    """Cross-attention over the encoder's output: decode reads the cached
+    K/V (only the query projection runs a token); train and prefill
+    project the encoder output, and prefill also fills the cache."""
+    if mode == "decode" and cross is not None:
+        q = _proj(h, params["wq"])
+        o = attn_lib.chunked_attention(q, cross.k, cross.v, causal=False,
+                                       q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                       impl=attn_impl)
+        return _out(o, params["wo"])
+    if encoder_out is None:
+        raise ValueError("a cross-attention layer needs encoder_out")
+    a, _ = apply_attention(params, h, cfg, rope=None, cache=cross,
+                           kv_source=encoder_out, causal=False,
+                           q_chunk=q_chunk, kv_chunk=kv_chunk,
+                           attn_impl=attn_impl)
+    return a
 
 
 def apply_layer(
     params, x, spec: LayerSpec, cfg, *, rope, act: Callable,
-    cache: Optional[AnyPagedKVCache] = None, mode: str = "train",
-    paged: Optional[PagedState] = None, paged_impl: str = "kernel",
-    attn_quant=None, q_chunk: int = 1024, kv_chunk: int = 1024,
-    attn_impl: str = "kernel",
-) -> Tuple[torch.Tensor, Optional[AnyPagedKVCache], Any]:
-    """One decoder layer in "train" mode (the full sequence, no cache),
-    "decode" or paged "prefill" mode, with the (cos, sin) rope tables of
-    its positions. Returns (x, cache, aux_loss); the pool is updated in
-    place, and aux_loss is the MoE router's load-balancing loss (an f32
-    scalar), or 0.0 for a dense layer (no device work)."""
-    _check_spec(spec)
+    cache: Any = None, encoder_out: Optional[torch.Tensor] = None,
+    mode: str = "train", paged: Optional[PagedState] = None,
+    paged_impl: str = "kernel", attn_quant=None, q_chunk: int = 1024,
+    kv_chunk: int = 1024, attn_impl: str = "kernel",
+) -> Tuple[torch.Tensor, Any, Any]:
+    """One layer in "train" mode (the full sequence, no cache), "prefill"
+    (a dense cache filled from the whole prompt, or one paged chunk) or
+    "decode" (dense or paged), with the (cos, sin) rope tables of its
+    positions. A cross-attention layer's cache is the pair (self cache,
+    CrossKV): prefill fills both, decode reads the cross K/V. Caches are
+    updated in place. Returns (x, cache, aux_loss): aux_loss is the MoE
+    router's load-balancing loss (an f32 scalar), or 0.0 (no device
+    work)."""
+    cross = None
+    if spec.cross_attn and cache is not None:
+        cache, cross = cache
     h = apply_norm(params, "ln1", x, cfg.norm, cfg.norm_eps)
-    if mode == "train":
-        a = apply_attention(params["attn"], h, cfg, rope=rope,
-                            q_chunk=q_chunk, kv_chunk=kv_chunk,
-                            attn_impl=attn_impl)
-    elif mode == "decode":
-        a, cache = decode_attention_block(params["attn"], h, cfg, rope=rope,
-                                          cache=cache, paged=paged,
-                                          paged_impl=paged_impl,
-                                          attn_quant=attn_quant)
-    elif mode == "prefill":
-        a, cache = paged_prefill_attention_block(
-            params["attn"], h, cfg, rope=rope, cache=cache,
-            paged=paged, paged_impl=paged_impl, attn_quant=attn_quant)
-    else:
-        raise NotImplementedError(f"mode {mode!r}: the dense-cache prefill "
-                                  "is not ported (ROADMAP)")
+    a, cache = _self_mixer(params, h, spec, cfg, rope=rope, cache=cache,
+                           mode=mode, paged=paged, paged_impl=paged_impl,
+                           attn_quant=attn_quant, q_chunk=q_chunk,
+                           kv_chunk=kv_chunk, attn_impl=attn_impl)
     x = x + a
+    if spec.cross_attn:
+        h = apply_norm(params, "ln_x", x, cfg.norm, cfg.norm_eps)
+        x = x + _cross_attention(params["xattn"], h, cfg,
+                                 encoder_out=encoder_out, cross=cross,
+                                 mode=mode, q_chunk=q_chunk,
+                                 kv_chunk=kv_chunk, attn_impl=attn_impl)
+        if cross is not None:
+            cache = (cache, cross)
+    if spec.mlp == "none":
+        return x, cache, 0.0
     h = apply_norm(params, "ln2", x, cfg.norm, cfg.norm_eps)
     if spec.mlp == "moe":
         # serving never drops a token: capacity-factor drops are a training

@@ -229,9 +229,13 @@ def pack_params(params: dict, cfg, policy, tile_k: int = WQ_TILE_K) -> dict:
                 if bits == 16:
                     continue
                 layer = dict(rep[f"l{li}"])
-                if spec.kind == "attn" and "attn" in layer:
+                if (spec.kind == "attn" and cfg.mla is None
+                        and "attn" in layer):
                     layer["attn"] = _pack_subtree(layer["attn"], _ATTN_AXES,
                                                   bits, tile_k)
+                if spec.cross_attn and "xattn" in layer:
+                    layer["xattn"] = _pack_subtree(layer["xattn"],
+                                                   _ATTN_AXES, bits, tile_k)
                 if "mlp" in layer:
                     layer["mlp"] = _pack_subtree(layer["mlp"], _MLP_AXES,
                                                  bits, tile_k)

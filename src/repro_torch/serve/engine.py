@@ -1,7 +1,22 @@
-"""Continuous-batching serving engine over the paged KV pool: chunked prefill
-on the absolute grid, the radix prefix cache, preemption and cancel, decode
-block buckets, on-device termination and deferred drains — the paged path
-of the JAX package's serve/engine.py.
+"""Continuous-batching serving engine: the paged KV pool with chunked prefill
+on the absolute grid, the radix prefix cache, preemption and cancel and
+decode block buckets, or the dense backend; on-device termination and
+deferred drains — the JAX package's serve/engine.py without the mesh.
+
+Backends (`paged`: None picks the paged one wherever the arch allows it):
+  * paged: block-pool storage with slot -> block-table indirection, the
+    CUDA paged-attention kernels; plain GQA/MHA decoders only.
+  * dense (SSM, MLA and enc-dec archs, or paged=False): the (slots,
+    max_seq) caches of models/lm.init_caches, SSM state and cross-attention
+    K/V. Admission runs one prefill of the whole prompt into a fresh (1,
+    bucket) cache — bucket-padded (`prefill_buckets`), or at exact length
+    when the arch has SSM layers, whose recurrent state would absorb the
+    padding — and inserts it as the slot's row; an enc-dec request's
+    encoder runs there, once, over its `encoder_frames`. Decode runs over
+    the dense caches (attention through the flash kernel only where the
+    reference's is a chunked attention: prefill, the encoder and
+    cross-attention). The paged-only machinery (blocks, the prefix cache,
+    preemption, the audit's block accounting, the pool gauges) is off.
 
 Request lifecycle: `submit()` enqueues; each `step()` admits waiting
 requests into free slots (reserving their blocks, or preempting later
@@ -81,7 +96,7 @@ engine (the same or another configuration) with the journal, passing
 through the HANDOFF health state; serve/frontdoor.py drives the engine
 from asyncio through the token and retire sinks.
 
-Left out of this slice (ROADMAP A8, A10): the mesh and the dense backend.
+Left out (ROADMAP A10): the mesh.
 """
 from __future__ import annotations
 
@@ -96,7 +111,9 @@ import torch
 
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
-from repro_torch.nn.attention import AttnQuant, PagedState
+from repro_torch.nn.attention import AttnQuant, KVCache, MLACache, PagedState
+from repro_torch.nn.common import tree_flatten
+from repro_torch.nn.mamba2 import SSMState
 from repro_torch.quant import weights as wq_lib
 from repro_torch.quant.policy import PrecisionPolicy
 from repro_torch.serve import faults as faults_lib
@@ -135,6 +152,7 @@ class Request:
     prompt: np.ndarray            # (len,) int
     max_new_tokens: int = 32
     sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
+    encoder_frames: Optional[np.ndarray] = None   # (frames, d_model), enc-dec
     out_tokens: Optional[List[int]] = None
     deadline_ms: Optional[float] = None   # wall-clock budget from submit();
     # an expired request retires with reason "deadline" at the next tick
@@ -146,8 +164,11 @@ class EngineConfig:
     slots: int = 8                # decode batch size
     max_seq: int = 512            # per-slot prompt+generation capacity
     eos_id: int = 1
+    paged: Optional[bool] = None  # None = auto (paged where the arch allows)
     page_size: int = 16           # tokens per KV block
     num_blocks: Optional[int] = None   # pool size; None = no oversubscription
+    prefill_buckets: Optional[Tuple[int, ...]] = None   # dense backend's
+    # prompt buckets; None = power-of-two ladder up to max_seq
     decode_buckets: Optional[Tuple[int, ...]] = None  # live-block ladder;
     # None = power-of-two ladder up to blocks_per_slot
     paged_impl: Optional[str] = None   # None | "kernel": the CUDA kernels
@@ -225,11 +246,11 @@ def _ecfg_to_dict(ecfg: EngineConfig) -> Tuple[Dict[str, Any], List[str]]:
 def _ecfg_from_dict(d: Dict[str, Any],
                     overrides: Optional[Dict[str, Any]] = None
                     ) -> EngineConfig:
-    """EngineConfig from this port's _ecfg_to_dict (the reference's dict has
-    other fields: `backend`, `prefill_buckets`)."""
+    """EngineConfig from this port's _ecfg_to_dict."""
     kw = dict(d)
-    if kw.get("decode_buckets") is not None:
-        kw["decode_buckets"] = tuple(kw["decode_buckets"])
+    for k in ("prefill_buckets", "decode_buckets"):
+        if kw.get(k) is not None:
+            kw[k] = tuple(kw[k])
     if overrides:
         kw.update(overrides)
     return EngineConfig(**kw)
@@ -268,10 +289,25 @@ class ServeEngine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"engine device is {self.device}")
-        if not kvc.paged_supported(cfg):
-            raise ValueError(f"{cfg.name}: paged KV cache unsupported")
+        paged_ok = kvc.paged_supported(cfg)
+        self.paged = paged_ok if ecfg.paged is None else bool(ecfg.paged)
+        if self.paged and not paged_ok:
+            raise ValueError(f"{cfg.name}: paged KV cache unsupported "
+                             "(SSM/MLA/enc-dec arch); use paged=False")
+        # recurrent SSM state absorbs padding: such archs prefill at exact
+        # prompt length, the others in buckets
+        self.bucketed = not any(spec.kind == "mamba"
+                                for period, _ in cfg.groups
+                                for spec in period)
         if ecfg.paged_impl not in (None, "kernel", "gather"):
             raise ValueError(f"unknown paged_impl {ecfg.paged_impl!r}")
+        if not self.paged:
+            for on, what in ((ecfg.paged_impl is not None, "paged_impl"),
+                             (ecfg.attn_grau is not None,
+                              "attn_grau epilogue"),
+                             (ecfg.prefix_cache, "prefix_cache")):
+                if on:
+                    raise ValueError(f"{what} requires the paged backend")
         # telemetry first, so every component below can publish into it;
         # all of it is host-side bookkeeping
         self._requests: Dict[int, Request] = {}   # live, by rid (the
@@ -311,6 +347,9 @@ class ServeEngine:
                           and self.precision.kv_quantized)
         self._wq = (self.precision is not None
                     and self.precision.weights_quantized)
+        if self._kv_quant and not self.paged:
+            raise ValueError("quantized KV (kv_bits < 16) requires the paged "
+                             "backend: dense/SSM/MLA caches stay float")
         self.dtype = dtype or lm.compute_dtype(params)
         if self._wq:
             # packed once here (int4 evenness validated eagerly); leaves that
@@ -326,58 +365,24 @@ class ServeEngine:
                                          s_in=float(g.s_in),
                                          s_out=float(g.s_out))
 
-        bs = ecfg.page_size
-        self.blocks_per_slot = kvc.blocks_for(ecfg.max_seq, bs)
-        num_blocks = (ecfg.num_blocks if ecfg.num_blocks is not None else
-                      kvc.pool_blocks(ecfg.slots, ecfg.max_seq, bs))
-        self.allocator = kvc.BlockAllocator(num_blocks)
-        self.radix = (RadixCache(self.allocator, bs) if ecfg.prefix_cache
-                      else None)
-        self.caches = kvc.init_paged_caches(cfg, num_blocks, bs,
-                                            dtype=self.dtype,
-                                            device=self.device,
-                                            policy=self.precision)
-        if ecfg.prefill_chunk is None:
-            self.prefill_chunk = max(32, bs)
-            self.prefill_chunk -= self.prefill_chunk % bs
+        budget = None
+        if self.paged:
+            # paged prefill is chunked: `prefill_buckets` is not read
+            budget = self._init_paged(cfg, ecfg)
         else:
-            self.prefill_chunk = int(ecfg.prefill_chunk)
-        if self.prefill_chunk < bs or self.prefill_chunk % bs:
-            raise ValueError(f"prefill_chunk={self.prefill_chunk} must be a "
-                             f"positive multiple of page_size={bs}")
-        budget = (ecfg.prefill_token_budget
-                  if ecfg.prefill_token_budget is not None
-                  else self.prefill_chunk)
-        if budget < self.prefill_chunk:
-            raise ValueError(
-                f"prefill_token_budget={budget} below one chunk "
-                f"({self.prefill_chunk}): admitted prompts could never "
-                "finish prefilling")
-        # the table carries chunk-grid spill columns past blocks_per_slot
-        # (always NULL): the last grid chunk of a near-max_seq prompt may
-        # cover positions past the slot's reservation, and those writes
-        # must land in trash
-        self._chunk_cols = self.blocks_per_slot + self.prefill_chunk // bs
-        self.chunk_buckets = kvc.decode_block_buckets(self._chunk_cols)
-        self.chunk_widths = tuple(sorted({
-            kvc.chunk_table_width(p0, self.prefill_chunk, bs,
-                                  self.chunk_buckets)
-            for p0 in range(0, ecfg.max_seq - 1, self.prefill_chunk)}))
-        self.block_table = np.zeros((ecfg.slots, self._chunk_cols), np.int32)
-        # device mirror of the decode-visible table, updated only when a row
-        # changes (activation, retirement), never per tick
-        self._table_dev = torch.zeros((ecfg.slots, self._chunk_cols),
-                                      dtype=torch.int32, device=self.device)
-        if ecfg.decode_buckets is not None:
-            self.decode_buckets = tuple(sorted(set(ecfg.decode_buckets)))
-            if (self.decode_buckets[0] < 1
-                    or self.decode_buckets[-1] != self.blocks_per_slot):
+            self.allocator = self.radix = None
+            self.caches = lm.init_caches(cfg, ecfg.slots, ecfg.max_seq,
+                                         dtype=self.dtype, device=self.device)
+            self.decode_buckets = ()
+            self.buckets = (tuple(sorted(ecfg.prefill_buckets))
+                            if ecfg.prefill_buckets is not None
+                            else kvc.default_buckets(ecfg.max_seq,
+                                                     multiple=1))
+            if self.bucketed and max(self.buckets) < ecfg.max_seq - 1:
+                # any admissible context (<= max_seq - 1 tokens) must fit
                 raise ValueError(
-                    f"decode_buckets {self.decode_buckets} must be >= 1 "
-                    f"and end at blocks_per_slot={self.blocks_per_slot}")
-        else:
-            self.decode_buckets = kvc.decode_block_buckets(
-                self.blocks_per_slot)
+                    f"largest prefill bucket {max(self.buckets)} does not "
+                    f"cover max_seq - 1 = {ecfg.max_seq - 1}")
 
         self.slot_req: List[Optional[RequestState]] = [None] * ecfg.slots
         self._host_len = np.zeros(ecfg.slots, np.int32)  # conservative shadow
@@ -442,28 +447,90 @@ class ServeEngine:
         self._finished_unpolled: List[RequestState] = []
         wbits = sorted(set(wq_lib.weight_bits_by_layer(
             cfg, self.precision).values()))
-        kbits = sorted({b for grp in kvc.kv_bits_by_layer(cfg, self.precision)
-                        for b in grp})
         self._static_metrics: Dict[str, Any] = {
-            "backend": "paged",
+            "backend": "paged" if self.paged else "dense",
             "telemetry": self.telemetry_enabled,
             "weight_bits": wbits[0] if len(wbits) == 1 else wbits,
             "weights_quantized": self._wq,
             "weight_bytes": wq_lib.packed_param_bytes(self.params),
-            "paged_impl": self.paged_impl,
             "device": str(self.device),
-            "kv_bits": kbits[0] if len(kbits) == 1 else kbits,
-            "kv_quantized": self._kv_quant,
-            "decode_buckets": list(self.decode_buckets),
-            "total_blocks": self.allocator.num_blocks,
-            "prefill_chunk": self.prefill_chunk,
-            "prefill_token_budget": budget,
-            "prefix_cache": self.radix is not None,
         }
+        if self.paged:
+            kbits = sorted({b for grp in kvc.kv_bits_by_layer(
+                cfg, self.precision) for b in grp})
+            self._static_metrics.update({
+                "paged_impl": self.paged_impl,
+                "kv_bits": kbits[0] if len(kbits) == 1 else kbits,
+                "kv_quantized": self._kv_quant,
+                "decode_buckets": list(self.decode_buckets),
+                "total_blocks": self.allocator.num_blocks,
+                "prefill_chunk": self.prefill_chunk,
+                "prefill_token_budget": budget,
+                "prefix_cache": self.radix is not None,
+            })
         if self._tel is not None:
-            self._tel.pool_blocks_total.set(self.allocator.num_blocks)
+            if self.paged:
+                self._tel.pool_blocks_total.set(self.allocator.num_blocks)
             self._tel.health.set(_HEALTH_CODE[self._health])
         self._publish_gauges()
+
+    def _init_paged(self, cfg: ModelConfig, ecfg: EngineConfig) -> int:
+        """The paged backend's pool, allocator, prefix cache, chunk grid,
+        block table and decode buckets; returns the prefill token
+        budget."""
+        bs = ecfg.page_size
+        self.blocks_per_slot = kvc.blocks_for(ecfg.max_seq, bs)
+        num_blocks = (ecfg.num_blocks if ecfg.num_blocks is not None else
+                      kvc.pool_blocks(ecfg.slots, ecfg.max_seq, bs))
+        self.allocator = kvc.BlockAllocator(num_blocks)
+        self.radix = (RadixCache(self.allocator, bs) if ecfg.prefix_cache
+                      else None)
+        self.caches = kvc.init_paged_caches(cfg, num_blocks, bs,
+                                            dtype=self.dtype,
+                                            device=self.device,
+                                            policy=self.precision)
+        if ecfg.prefill_chunk is None:
+            self.prefill_chunk = max(32, bs)
+            self.prefill_chunk -= self.prefill_chunk % bs
+        else:
+            self.prefill_chunk = int(ecfg.prefill_chunk)
+        if self.prefill_chunk < bs or self.prefill_chunk % bs:
+            raise ValueError(f"prefill_chunk={self.prefill_chunk} must be a "
+                             f"positive multiple of page_size={bs}")
+        budget = (ecfg.prefill_token_budget
+                  if ecfg.prefill_token_budget is not None
+                  else self.prefill_chunk)
+        if budget < self.prefill_chunk:
+            raise ValueError(
+                f"prefill_token_budget={budget} below one chunk "
+                f"({self.prefill_chunk}): admitted prompts could never "
+                "finish prefilling")
+        # the table carries chunk-grid spill columns past blocks_per_slot
+        # (always NULL): the last grid chunk of a near-max_seq prompt may
+        # cover positions past the slot's reservation, and those writes
+        # must land in trash
+        self._chunk_cols = self.blocks_per_slot + self.prefill_chunk // bs
+        self.chunk_buckets = kvc.decode_block_buckets(self._chunk_cols)
+        self.chunk_widths = tuple(sorted({
+            kvc.chunk_table_width(p0, self.prefill_chunk, bs,
+                                  self.chunk_buckets)
+            for p0 in range(0, ecfg.max_seq - 1, self.prefill_chunk)}))
+        self.block_table = np.zeros((ecfg.slots, self._chunk_cols), np.int32)
+        # device mirror of the decode-visible table, updated only when a row
+        # changes (activation, retirement), never per tick
+        self._table_dev = torch.zeros((ecfg.slots, self._chunk_cols),
+                                      dtype=torch.int32, device=self.device)
+        if ecfg.decode_buckets is not None:
+            self.decode_buckets = tuple(sorted(set(ecfg.decode_buckets)))
+            if (self.decode_buckets[0] < 1
+                    or self.decode_buckets[-1] != self.blocks_per_slot):
+                raise ValueError(
+                    f"decode_buckets {self.decode_buckets} must be >= 1 "
+                    f"and end at blocks_per_slot={self.blocks_per_slot}")
+        else:
+            self.decode_buckets = kvc.decode_block_buckets(
+                self.blocks_per_slot)
+        return budget
 
     # --- host -> device ---------------------------------------------------
 
@@ -492,21 +559,24 @@ class ServeEngine:
 
     # --- device steps -----------------------------------------------------
 
-    def _decode_tick(self, width: int,
+    def _decode_tick(self, width: Optional[int],
                      force: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Fused decode step + sampling + termination, all on the device.
         Inactive slots decode masked garbage (their writes land in the null
-        block) and their state is held frozen by `active`. The bucket is a
-        column slice of the one table, whose row stride sizes the kernel's
-        sequence parts, so a slot's output does not depend on the bucket
-        `width`. `force` (slots,) holds, for a slot replaying its delivered
-        tokens, the token to output and feed next (-1 elsewhere): its
-        sampled token is dropped and cannot end it. Returns the (3, slots)
+        block, or in their own dense rows past every live position) and
+        their state is held frozen by `active`. On the paged backend the
+        bucket is a column slice of the one table, whose row stride sizes
+        the kernel's sequence parts, so a slot's output does not depend on
+        the bucket `width` (None on the dense backend). `force` (slots,)
+        holds, for a slot replaying its delivered tokens, the token to
+        output and feed next (-1 elsewhere): its sampled token is dropped
+        and cannot end it. Returns the (3, slots)
         record: tokens, done flags and the per-slot finite-logits flags (an
         inactive slot's garbage is exempt; its output is dropped at drain
         anyway)."""
         st = self._state
-        paged = PagedState(self._table_dev[:, :width], st.lengths)
+        paged = (PagedState(self._table_dev[:, :width], st.lengths)
+                 if self.paged else None)
         logits, _ = lm.decode_step(self.params, self.cfg, st.last_tok,
                                    self.caches, paged=paged, act=self._act,
                                    paged_impl=self.paged_impl,
@@ -553,6 +623,35 @@ class ServeEngine:
                         paged=st, act=self._act, paged_impl=self.paged_impl,
                         attn_quant=self._attn_quant, want_logits=False)
 
+    def _prefill_dense(self, toks: np.ndarray, true_len: int, slot: int,
+                       frames: Optional[np.ndarray]) -> None:
+        """One admitted prompt on the dense backend: prefill_step on a
+        fresh (1, len) cache, then the filled cache inserted as the slot's
+        row of every leaf (positions past it keep stale values, masked by
+        the lengths)."""
+        small = lm.init_caches(self.cfg, 1, toks.shape[1], dtype=self.dtype,
+                               device=self.device)
+        lm.prefill_step(
+            self.params, self.cfg, self._h2d(toks), small,
+            true_length=self._h2d(np.array([true_len], np.int32)),
+            act=self._act, want_logits=False,
+            encoder_frames=(None if frames is None else
+                            self._h2d(frames[None].astype(np.float32))))
+        for (_, big), (_, new) in zip(tree_flatten(self.caches),
+                                      tree_flatten(small)):
+            big[(slice(None), slot) + tuple(
+                slice(0, n) for n in new.shape[2:])].copy_(new[:, 0])
+
+    def _reset_slot(self, slot: int) -> None:
+        """Zero one slot's recurrent state and cache lengths (an empty
+        context on the exact-length SSM path)."""
+        for c in lm.dense_leaves(self.caches):
+            if isinstance(c, (KVCache, MLACache)):
+                c.length[:, slot] = 0
+            elif isinstance(c, SSMState):
+                c.conv[:, slot] = 0
+                c.ssm[:, slot] = 0
+
     # --- submission / results -------------------------------------------
 
     def submit(self, req: Request) -> int:
@@ -565,9 +664,12 @@ class ServeEngine:
             raise ValueError(
                 f"prompt ({plen}) + max_new_tokens ({req.max_new_tokens}) "
                 f"exceeds max_seq ({self.ecfg.max_seq})")
-        need = kvc.blocks_for(plen + req.max_new_tokens, self.ecfg.page_size)
-        if need > self.allocator.num_blocks - 1:
+        if self.paged and (kvc.blocks_for(plen + req.max_new_tokens,
+                                          self.ecfg.page_size)
+                           > self.allocator.num_blocks - 1):
             raise ValueError("request exceeds total KV pool capacity")
+        if self.cfg.encoder is not None and req.encoder_frames is None:
+            raise ValueError("enc-dec arch requires encoder_frames")
         if req.rid in self._requests:
             raise ValueError(f"duplicate rid {req.rid}")
         if req.deadline_ms is not None and req.deadline_ms <= 0:
@@ -577,6 +679,7 @@ class ServeEngine:
                           prompt=np.asarray(req.prompt, np.int32),
                           max_new_tokens=int(req.max_new_tokens),
                           sampling=req.sampling,
+                          encoder_frames=req.encoder_frames,
                           deadline_ms=req.deadline_ms)
         if req.deadline_ms is not None:
             self._has_deadlines = True
@@ -729,6 +832,8 @@ class ServeEngine:
             "reclaimed_pins": 0, "mismatches": [],
             "leaked_before": 0, "leaked_after": 0,
         }
+        if not self.paged:
+            return report
         alloc = self.allocator
         expected: Counter = Counter()
         pin_owners: Counter = Counter()
@@ -817,6 +922,8 @@ class ServeEngine:
         return out
 
     def _can_admit(self, rs: RequestState) -> bool:
+        if not self.paged:
+            return True
         need = self._blocks_needed(rs)
         if self.radix is None:
             return self.allocator.can_alloc(need)
@@ -836,6 +943,9 @@ class ServeEngine:
         decode writes keep landing in trash."""
         slot = self.slot_req.index(None)
         ctx = rs.prompt_len - 1       # prompt[-1] is fed by the first decode
+        if not self.paged:
+            self._admit_dense(slot, rs, ctx)
+            return True
         total = self._blocks_needed(rs)
         if (self.faults is not None
                 and self._fault("alloc_exhausted", rid=rs.rid)):
@@ -905,12 +1015,41 @@ class ServeEngine:
             self._prefilling.append(slot)
         return True
 
+    def _admit_dense(self, slot: int, rs: RequestState, ctx: int) -> None:
+        """Dense backend: one prefill of the whole context at admission
+        (bucketed, or at exact length for recurrent SSM state), then
+        activation at once."""
+        if self.bucketed:
+            toks = np.zeros((1, kvc.bucket_for(max(ctx, 1), self.buckets)),
+                            np.int32)
+            toks[0, :ctx] = rs.prompt[:ctx]
+            self._prefill_dense(toks, ctx, slot, rs.encoder_frames)
+        elif ctx == 0:
+            self._reset_slot(slot)
+        else:
+            # exact length: padding would corrupt the recurrent SSM state
+            self._prefill_dense(rs.prompt[None, :ctx].astype(np.int32), ctx,
+                                slot, None)
+        self.stats["prefill_tokens"] += ctx
+        rs.computed_prefill_tokens = ctx
+        rs.prefill_pos = rs.prefill_ctx = ctx
+        rs.slot = slot
+        self.slot_req[slot] = rs
+        self.trace.record(rs.rid, "admit", slot=slot,
+                          cached_prefix_tokens=0, suffix_tokens=ctx,
+                          blocks_reserved=0)
+        if self._tel is not None:
+            self._tel.requests_admitted.inc()
+            self._tel.prefill_computed.inc(ctx)
+        self._activate(slot, rs)
+
     def _activate(self, slot: int, rs: RequestState) -> None:
         """Prefill complete: make the slot decode-visible (install its table
         row, arm the device slot state — also a ghost-active slot's, left by
         a preemption, cancel or undrained finish)."""
         ctx = rs.prefill_ctx
-        self._set_table_row(slot, rs.table_row)
+        if self.paged:
+            self._set_table_row(slot, rs.table_row)
         self._host_len[slot] = ctx
         self._samp[slot] = rs.sampling
         self._pack_sampler()
@@ -1029,6 +1168,8 @@ class ServeEngine:
         cleared all the same, and audit() must find the leak."""
         self.slot_req[slot] = None
         self._host_len[slot] = 0
+        if not self.paged:
+            return
         if not leak_blocks:
             self.allocator.free(rs.blocks)
         rs.blocks = []
@@ -1051,9 +1192,10 @@ class ServeEngine:
         self.trace.record(rs.rid, "finish", reason=reason,
                           tokens=len(rs.out_tokens), decode_s=decode_s,
                           tpot_s=rs.tpot or 0.0)
-        leak_blocks = (self.faults is not None
+        # the leak sites model a paged release path that forgets its cleanup
+        leak_blocks = (self.paged and self.faults is not None
                        and self._fault("block_leak", rid=rs.rid) is not None)
-        leak_pins = (self.faults is not None
+        leak_pins = (self.paged and self.faults is not None
                      and self._fault("radix_pin_leak", rid=rs.rid)
                      is not None)
         self._free_slot(slot, rs, leak_blocks, leak_pins)
@@ -1200,7 +1342,8 @@ class ServeEngine:
         recs.sort(key=lambda r: r["arrival_seq"])
         return recs
 
-    def _validate_readmit(self, records: List[dict]) -> None:
+    def _validate_readmit(self, records: List[dict],
+                          encoder_frames=None) -> None:
         """Check that every record could be admitted on this engine without
         touching any state: no live rid (nor a duplicate within the batch),
         and prompt + original budget within max_seq. handoff() runs it on
@@ -1212,6 +1355,10 @@ class ServeEngine:
             if rid in self._requests or rid in seen:
                 raise ValueError(f"readmit of live rid {rid}")
             seen.add(rid)
+            if self.cfg.encoder is not None and (
+                    encoder_frames is None or rid not in encoder_frames):
+                raise ValueError(f"rid {rid}: an enc-dec readmission needs "
+                                 "its encoder_frames (records carry none)")
             plen = len(rec["prompt"])
             budget = int(rec["max_new_tokens"])
             if plen + budget > self.ecfg.max_seq:
@@ -1221,7 +1368,8 @@ class ServeEngine:
                     f"({self.ecfg.max_seq})")
 
     def _readmit(self, records: List[dict],
-                 journal_known_rids=frozenset()) -> int:
+                 journal_known_rids=frozenset(),
+                 encoder_frames=None) -> int:
         """Re-admit durable request records through the normal queue: each
         becomes a waiting RequestState with its original prompt and budget
         and its delivered tokens on out_tokens, to be replayed: after the
@@ -1249,8 +1397,11 @@ class ServeEngine:
         lost its retire record with the journal's tail: it retires at once
         (repairing the journal). A deadline carries over as the residual
         budget (deadline_ms less deadline_elapsed_ms); one already spent
-        retires with reason "deadline". Returns the records processed."""
-        self._validate_readmit(records)
+        retires with reason "deadline". An enc-dec model's records carry no
+        frames (a journal does not hold them): `encoder_frames` maps each
+        rid to its (frames, d_model) array. Returns the records
+        processed."""
+        self._validate_readmit(records, encoder_frames)
         now = time.perf_counter()
         tick = self.stats["ticks"]
         n = 0
@@ -1276,14 +1427,17 @@ class ServeEngine:
                                            deadline_ms=deadline_ms)
                 for tok in delivered:
                     self.journal.record_token(rid, tok)
+            frames = (None if encoder_frames is None
+                      else encoder_frames.get(rid))
             rs = RequestState(rid=rid, prompt=prompt,
                               max_new_tokens=budget, sampling=sp,
-                              deadline_ms=deadline_ms)
+                              encoder_frames=frames, deadline_ms=deadline_ms)
             rs.out_tokens.extend(delivered)
             rs.replay = len(delivered)
             remaining = budget - len(delivered)
             req = Request(rid=rid, prompt=prompt, max_new_tokens=budget,
-                          sampling=sp, deadline_ms=deadline_ms)
+                          sampling=sp, encoder_frames=frames,
+                          deadline_ms=deadline_ms)
             req.out_tokens = rs.out_tokens          # live alias
             if deadline_ms is not None:
                 self._has_deadlines = True
@@ -1367,12 +1521,13 @@ class ServeEngine:
                 step: Optional[int] = None,
                 dtype: Optional[torch.dtype] = None, device=None,
                 overrides: Optional[Dict[str, Any]] = None,
-                journal=None) -> "ServeEngine":
+                journal=None, encoder_frames=None) -> "ServeEngine":
         """A fresh engine from a snapshot() checkpoint, with every captured
         request re-admitted. `overrides` patches EngineConfig fields (among
         them the non-serializable ones the snapshot could not carry: a
         GRAU-epilogue engine restores with {"attn_grau": ...}); `journal`
-        attaches a write-ahead journal. The seed round-trips as a plain
+        attaches a write-ahead journal; `encoder_frames` ({rid: frames})
+        supplies an enc-dec model's frames. The seed round-trips as a plain
         field, so sampled streams resume on the same keys."""
         payload = cls._load_snapshot(ckpt_dir, step)
         ecfg = _ecfg_from_dict(payload["engine_config"], overrides)
@@ -1384,7 +1539,8 @@ class ServeEngine:
             # resuming onto an existing journal: rids already live in it
             # are not journaled again
             known = frozenset(journal_lib.replay(journal.path).live.keys())
-        eng._readmit(payload["requests"], journal_known_rids=known)
+        eng._readmit(payload["requests"], journal_known_rids=known,
+                     encoder_frames=encoder_frames)
         return eng
 
     @classmethod
@@ -1393,7 +1549,8 @@ class ServeEngine:
                 snapshot_step: Optional[int] = None,
                 dtype: Optional[torch.dtype] = None, device=None,
                 overrides: Optional[Dict[str, Any]] = None,
-                fsync_every: int = 16) -> "ServeEngine":
+                fsync_every: int = 16,
+                encoder_frames=None) -> "ServeEngine":
         """Crash recovery: replay the journal, build a fresh engine and
         resume every request that was live at the kill, each with exactly
         its undelivered suffix (only drain-delivered tokens were journaled;
@@ -1404,7 +1561,8 @@ class ServeEngine:
         file is reopened for appending under a new epoch header, so one
         journal spans every crash / recover cycle and replay stays
         idempotent. The recovered engine owns the writer (close() closes
-        it)."""
+        it). An enc-dec model needs `encoder_frames` ({rid: frames}): the
+        journal does not hold them."""
         state = journal_lib.replay(journal_path)
         if ecfg is None:
             if snapshot_dir is None:
@@ -1431,7 +1589,8 @@ class ServeEngine:
                     "delivered": lr.delivered, "arrival_seq": i}
                    for i, lr in enumerate(state.live.values())]
         eng._readmit(records,
-                     journal_known_rids=frozenset(state.live.keys()))
+                     journal_known_rids=frozenset(state.live.keys()),
+                     encoder_frames=encoder_frames)
         return eng
 
     def handoff(self, target: "ServeEngine") -> Dict[str, Any]:
@@ -1458,7 +1617,10 @@ class ServeEngine:
                              "resume folds it into every per-request key")
         self._drain()
         records = self._live_records()
-        target._validate_readmit(records)
+        frames = {rs.rid: rs.encoder_frames
+                  for rs in list(self.scheduler.waiting) + self.slot_req
+                  if rs is not None and rs.encoder_frames is not None}
+        target._validate_readmit(records, frames)
         self._set_health(HANDOFF, "handoff")
         for slot, rs in enumerate(self.slot_req):
             if rs is None:
@@ -1480,7 +1642,9 @@ class ServeEngine:
             self._owns_journal = False
             target.journal.begin_epoch({"reason": "handoff"})
             known = frozenset(rec["rid"] for rec in records)
-        target._readmit(records, journal_known_rids=known)
+        # (a decoder-only model's requests carry no frames to pass on)
+        target._readmit(records, journal_known_rids=known,
+                        **({"encoder_frames": frames} if frames else {}))
         if self._tel is not None:
             self._tel.handoffs.inc()
         self._set_health(DRAINING, "handoff_complete")
@@ -1554,7 +1718,7 @@ class ServeEngine:
             if t is not None:
                 t0 = time.perf_counter()   # the drain timed itself
             free = self.slot_req.count(None)
-            if free and self.ecfg.preemption:
+            if free and self.paged and self.ecfg.preemption:
                 # head blocked on blocks (not slots): evict last-admitted
                 # decode slots so it admits instead of stalling the queue
                 if self._maybe_preempt():
@@ -1586,7 +1750,8 @@ class ServeEngine:
                 f[s] = rs.out_tokens[len(rs.out_tokens) - rs.replay]
                 rs.replay -= 1
             force = self._h2d(f)
-        out = self._decode_tick(self._decode_bucket(active), force)
+        out = self._decode_tick(
+            self._decode_bucket(active) if self.paged else None, force)
         self._pending.append(_TickRecord(self.stats["ticks"], tuple(active),
                                          out, forced))
         self._host_len[active] += 1
@@ -1703,6 +1868,8 @@ class ServeEngine:
         if t is None:
             return
         t.slots_active.set(sum(r is not None for r in self.slot_req))
+        if not self.paged:
+            return
         alloc = self.allocator
         t.pool_blocks_free.set(alloc.free_blocks)
         t.pool_blocks_live.set(alloc.live_blocks)
@@ -1756,7 +1923,13 @@ class ServeEngine:
         exclusively owned blocks (refcount 1: the ones only its prefill and
         decode wrote) are scrubbed before _retire frees them — recycled
         bytes are still read before masking, and NaN survives a `0 *` mask.
-        Shared blocks were read-only for it and stay as they are."""
+        Shared blocks were read-only for it and stay as they are. On the
+        dense backend the slot's rows of every cache leaf are zeroed, for
+        the same reason: a later request's prefill rewrites only its own
+        prefix of them (the reference scrubs nothing there)."""
+        if not self.paged:
+            for _, leaf in tree_flatten(self.caches):
+                leaf[:, slot] = 0
         for b in rs.blocks:
             if self.allocator.refcount(b) == 1:
                 kvc.scrub_pool_block(self.caches, b)
@@ -1764,21 +1937,33 @@ class ServeEngine:
 
     # --- warmup / driver ----------------------------------------------------
 
-    def warmup(self) -> int:
-        """Run one decode tick per decode bucket and one prefill chunk per
-        reachable chunk-table width on idle slots (every write lands in the
-        null block), so the kernels are built and loaded and the libraries
-        initialised before the first request. Returns the calls made."""
+    def warmup(self, prefill: bool = True) -> int:
+        """Run one decode tick per decode bucket (one on the dense backend)
+        and, with `prefill`, one prefill chunk per reachable chunk-table
+        width (paged; every write lands in the null block) or one prefill
+        per bucket into slot 0's row (dense, bucketed; the row is
+        overwritten at its first admission) on idle slots, so the kernels
+        are built and loaded and the libraries initialised before the first
+        request. Returns the calls made."""
         assert all(r is None for r in self.slot_req) and not self._pending, \
             "warmup() requires an idle engine"
         calls = 0
-        for nb in self.decode_buckets:
+        for nb in (self.decode_buckets if self.paged else (None,)):
             self._decode_tick(nb)
             calls += 1
-        toks = np.zeros((1, self.prefill_chunk), np.int32)
-        for w in self.chunk_widths:
-            self._chunk(toks, np.full((1, w), kvc.NULL_BLOCK, np.int32), 0, 0)
-            calls += 1
+        if prefill and self.paged:
+            toks = np.zeros((1, self.prefill_chunk), np.int32)
+            for w in self.chunk_widths:
+                self._chunk(toks, np.full((1, w), kvc.NULL_BLOCK, np.int32),
+                            0, 0)
+                calls += 1
+        elif prefill and self.bucketed:
+            enc = self.cfg.encoder
+            frames = (None if enc is None else
+                      np.zeros((enc.num_frames, self.cfg.d_model), np.float32))
+            for b in self.buckets:
+                self._prefill_dense(np.zeros((1, b), np.int32), 1, 0, frames)
+                calls += 1
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return calls
@@ -1821,7 +2006,8 @@ class ServeEngine:
         m["prefix_hit_rate"] = cached / max(
             cached + self.stats["prefill_tokens"], 1)
         m["evictions"] = self.radix.evictions if self.radix else 0
-        m["free_blocks"] = self.allocator.free_blocks
+        if self.paged:
+            m["free_blocks"] = self.allocator.free_blocks
         if self.radix is not None:
             m["prefix_cache_nodes"] = self.radix.num_nodes()
             m["prefix_cache_hits"] = self.radix.hits

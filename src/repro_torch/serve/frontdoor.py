@@ -152,6 +152,7 @@ class FrontDoor:
 
     async def submit(self, prompt, max_new_tokens: int = 32,
                      sampling: Optional[SamplingParams] = None,
+                     encoder_frames=None,
                      rid: Optional[int] = None) -> TokenStream:
         """Enqueue one request; returns its TokenStream immediately (tokens
         arrive as the engine generates them). Awaits under backpressure
@@ -175,7 +176,8 @@ class FrontDoor:
                 rid = next(self._rids)
         req = Request(rid=rid, prompt=np.asarray(prompt, np.int32),
                       max_new_tokens=int(max_new_tokens),
-                      sampling=sampling or SamplingParams())
+                      sampling=sampling or SamplingParams(),
+                      encoder_frames=encoder_frames)
         self.engine.submit(req)
         stream = TokenStream(rid, self, req.out_tokens)
         self._streams[rid] = stream

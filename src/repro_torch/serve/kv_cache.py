@@ -183,7 +183,11 @@ class BlockAllocator:
 # ---------------------------------------------------------------------------
 
 def paged_supported(cfg: ModelConfig) -> bool:
-    """Paged serving covers plain GQA/MHA decoders."""
+    """Paged serving covers plain GQA/MHA decoders. Recurrent state (SSM)
+    has no seq axis to page; MLA latent and cross-attention caches keep the
+    dense backend."""
+    if cfg.mla is not None or cfg.encoder is not None:
+        return False
     return all(spec.kind == "attn" and not spec.cross_attn
                for period, _ in cfg.groups for spec in period)
 

@@ -37,6 +37,7 @@ class RequestState:
     prompt: np.ndarray
     max_new_tokens: int
     sampling: SamplingParams = SamplingParams()
+    encoder_frames: Optional[np.ndarray] = None   # (frames, d), enc-dec
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     # lifecycle marks (ticks are engine decode steps; times are perf_counter)
     submit_tick: int = -1

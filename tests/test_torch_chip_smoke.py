@@ -2,7 +2,8 @@
 without one, and its phases — the kernels, serving slices (a)-(c), the
 paper's flow (d), training (e), the prefix cache, preemption and cancel (f),
 the glm4 / qwen archs (g), sampled decoding, telemetry and fault
-containment (h), durable serving (i) and MoE / LLaVA (j) — hold together
+containment (h), durable serving (i), MoE / LLaVA (j) and the dense
+backend (k) — hold together
 end to end in a
 CPU rehearsal at smoke size (plain kernel versions, no timings; exit 1 by
 design)."""
@@ -199,7 +200,32 @@ def test_cpu_rehearsal_runs_every_phase(capsys, tmp_path):
                                       "matmul_grau", "flash_attention",
                                       "slices_abc", "slice_d", "slice_e",
                                       "paged_groups", "slice_f", "slice_g",
-                                      "slice_h", "slice_i", "slice_j"}
+                                      "slice_h", "slice_i", "slice_j",
+                                      "flash_slice_k", "slice_k"}
+    # slice (k): every dense-backend arch served on the dense backend; the
+    # attention archs' prefill through both attention paths (the plain
+    # scan on the CPU: the same logits), an MoE arch's also with its routes
+    # pinned; mamba2's f32 gates; flash at (k)'s shapes
+    k = report["dense"]
+    archs = ("llama3_dense", "mamba2", "deepseek", "jamba", "whisper")
+    assert set(k["seconds"]) == set(archs)
+    for label in archs:
+        res = k[label]
+        assert res["backend"] == "dense" and res["requests"] == 8
+        assert res["chunks"] == 0 and res["decode_tokens"] == 8 * 32
+        rows = res.get("kernel_vs_plain", [])
+        assert len(rows) == (0 if label == "mamba2" else 2)
+        for row in rows:
+            assert row["prefill_logits_rel_l2"] == 0.0
+            assert row["greedy_identical_share"] == 1.0
+            assert ("pinned" in row) == (label in ("deepseek", "jamba"))
+    assert k["llama3_dense"]["paged_greedy_identical_share"] == 1.0
+    assert max(v for key, v in k["mamba2"]["gates"].items()
+               if key != "len") < 1e-4
+    assert kernels[-1]["launches_slice_k"] == dict.fromkeys(archs, 0)
+    assert [r["label"] for r in kernels[-1]["shapes_slice_k"]] == [
+        "mla prefill d48", "whisper encoder", "cross prefill",
+        "cross decode"]
     assert '"ok"' not in out.out
 
 

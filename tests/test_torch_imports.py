@@ -45,7 +45,9 @@ def test_port_files_exist():
                  "launch/steps.py", "launch/train.py",
                  "launch/train_lm_grau.py", "serve/prng.py",
                  "serve/telemetry.py", "serve/trace.py", "serve/faults.py",
-                 "serve/journal.py", "serve/frontdoor.py", "nn/moe.py"):
+                 "serve/journal.py", "serve/frontdoor.py", "nn/moe.py",
+                 "nn/mamba2.py", "nn/blocks.py", "models/config.py",
+                 "configs/archs.py", "serve/kv_cache.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
 

@@ -670,7 +670,15 @@ FLASH_CASES = [(2, 256, 256, 4, 4, 32, True, 0),
                (1, 200, 600, 4, 2, 128, True, 400),
                # LLaVA's training length: 576 patches + 4096 tokens, not a
                # multiple of 128, at its (32, 8) heads
-               (1, 4672, 4672, 32, 8, 128, True, 0)]
+               (1, 4672, 4672, 32, 8, 128, True, 0),
+               # the dense backend's shapes: MLA prefill (128 heads in
+               # groups of 1 at head_dim 192), Whisper's bidirectional
+               # encoder over 1,500 frames, cross-attention in prefill and
+               # in decode (one query row against 1,500 keys)
+               (1, 512, 512, 128, 128, 192, True, 0),
+               (1, 1500, 1500, 16, 16, 64, False, 0),
+               (1, 448, 1500, 16, 16, 64, False, 0),
+               (8, 1, 1500, 16, 16, 64, False, 0)]
 
 
 def _flash_inputs(rng, b, s_q, s_kv, h, kvh, d, dev, dtype):
