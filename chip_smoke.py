@@ -152,6 +152,21 @@ Phases (any failure exits non-zero):
      scan (last-position and first-decode logits, rel L2 0.05; an MoE
      arch's expert flips printed and explained, its gate with the kernel
      path's routes pinned).
+     Then (l), tensor-parallel serving of full-width, full-depth
+     llama3.2-3b in (b)'s setup: (1) a (1, 1) mesh over nccl in this
+     process, whose streams and first-decode logits must be the unsharded
+     engine's bits; (2) a (1, 2) mesh over gloo, two rank processes on the
+     one card (nccl refuses two ranks on a device; each keeps the full
+     tree on the host and builds its shard on the card a layer at a
+     time), in (b)'s setup, and in (c)'s (each rank's packed bytes slices
+     of the unsharded packed tree) and on the dense backend through flash
+     with the 2 of (b)'s requests with the shortest prompts: each served
+     engine's first-decode logits (the 3 shortest prompts) within rel L2
+     0.05 of the unsharded engine's, the greedy share, and each rank's
+     weight bytes, peak memory and tokens/s printed. Before the slices, phase
+     mesh_kernels launches the bf16 decode and prefill (16- and 4-bit
+     pools, with the epilogue) and flash at a rank's heads (12 of 24 over
+     4 of 8 KV heads): the full launch's bits head for head, timed.
      Launch counters are zeroed before and read after each run.
 Each phase prints its seconds. The last two lines are the kernels JSON and
 the result line.
@@ -787,7 +802,7 @@ def sm_count(torch, dev):
 
 
 def paged_timing_case(torch, np, dev, name, s, group, rng, kv_bits,
-                      bucket=None):
+                      bucket=None, plan_kvh=None):
     """The main path's shape in bf16: a decode tick at the widest bucket (8
     slots, ragged up to max_len) or, with `bucket`, at the table sliced to
     that many blocks (its row stride kept, as the engine slices it; every
@@ -797,7 +812,9 @@ def paged_timing_case(torch, np, dev, name, s, group, rng, kv_bits,
     live pools at kv_bits. Decode gets copies of its pools (and exponent
     planes) whose live bytes together exceed L2_SPAN_BYTES, so that a call
     cycling through them reads device memory, as a served tick's 28
-    layers of pools do; the prefill's one case."""
+    layers of pools do; the prefill's one case. `plan_kvh`: the KV heads
+    the kernel plans its parts for (a mesh rank's launch: the unsharded
+    count)."""
     from functools import partial
 
     from repro_torch.kernels import paged_attention as pa
@@ -840,7 +857,8 @@ def paged_timing_case(torch, np, dev, name, s, group, rng, kv_bits,
         lib = sdpa_yardstick(torch, qp, kd, vd, tab, None, group, rows_end)
         kern, plain = pa.paged_prefill_attention, pa.paged_prefill_plain
         calls = [((qp, k, v, tab, start), kv)]
-    return ([partial(kern, *a, **kw) for a, kw in calls],
+    plan = {} if plan_kvh is None else {"plan_kvh": plan_kvh}
+    return ([partial(kern, *a, **kw, **plan) for a, kw in calls],
             partial(plain, *calls[0][0], **calls[0][1]), nbytes, flops, lib)
 
 
@@ -854,19 +872,22 @@ def paged_parts(torch, dev, name, s, group, width):
                           sm_count(torch, dev))[0]
 
 
-def time_paged(torch, np, dev, name, s, group, rng, kv_bits=16):
+def time_paged(torch, np, dev, name, s, group, rng, kv_bits=16,
+               plan_kvh=None):
     """The kernel (CUDA-graph replay, and eager) over paged_timing_case's
     calls, its plain version and the library call, with the bound;
-    `parts`: the kernel's sequence parts; `pool_copies`: the decode's pool
-    sets cycled through."""
+    `parts`: the kernel's sequence parts (planned for `plan_kvh` KV heads
+    when given); `pool_copies`: the decode's pool sets cycled through."""
     kerns, plain, nbytes, flops, lib = paged_timing_case(
-        torch, np, dev, name, s, group, rng, kv_bits)
+        torch, np, dev, name, s, group, rng, kv_bits, plan_kvh=plan_kvh)
     width = (-(-(s["max_len"] // 2) // s["bs"]) if name == "paged_prefill"
              else s["max_len"] // s["bs"])
     t_bound, by = bound(nbytes, flops, "bf16")
     return {"ms": graph_ms(torch, cycling(kerns)),
             "eager_ms": device_ms(torch, cycling(kerns)),
-            "parts": paged_parts(torch, dev, name, s, group, width),
+            "parts": paged_parts(torch, dev, name,
+                                 dict(s, kvh=plan_kvh or s["kvh"]),
+                                 group, width),
             "pool_copies": len(kerns),
             "plain_ms": device_ms(torch, plain, 5, 1),
             "bound_ms": t_bound, "bound_by": by,
@@ -1403,17 +1424,24 @@ def make_requests(np, Request, vocab, n, lo, hi, max_new, seed):
                     max_new_tokens=max_new) for i in range(n)]
 
 
-def serve(torch, np, dev, cfg, params, ecfg_kw, reqs_fn, warm_prefill=True):
+def serve(torch, np, dev, cfg, params, ecfg_kw, reqs_fn, warm_prefill=True,
+          mesh=None, after=None):
     """Serve reqs_fn()'s requests after the engine's warmup and report the
     timed window's numbers. warm_prefill=True warms every prefill bucket /
     chunk width; "requests" instead runs the same prompts once, one new
     token each, before the window, so exactly the buckets they use are
-    warm."""
+    warm. With `mesh` the engine serves this rank's shard of `params` (on
+    the card or on the host). `after(engine)`, run once the window is read,
+    returns a dict added to the report."""
     import dataclasses
     from repro_torch import kernels
     from repro_torch.serve.engine import EngineConfig, ServeEngine
-    eng = ServeEngine(cfg, params, EngineConfig(**ecfg_kw), device=dev)
+    eng = ServeEngine(cfg, params, EngineConfig(**ecfg_kw), device=dev,
+                      mesh=mesh)
     eng.warmup(prefill=warm_prefill is True)
+    # the peak through the engine's construction and warmup
+    build_peak = (torch.cuda.max_memory_allocated() / 1e9
+                  if dev.type == "cuda" else None)
     if warm_prefill == "requests":
         eng.run([dataclasses.replace(r, rid=r.rid + 10 ** 6,
                                      max_new_tokens=1) for r in reqs_fn()])
@@ -1447,6 +1475,7 @@ def serve(torch, np, dev, cfg, params, ecfg_kw, reqs_fn, warm_prefill=True):
         "ttft_max_s": float(ttft[-1]),
         "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                         if dev.type == "cuda" else None),
+        "peak_mem_gb_build": build_peak,
         "backend": m["backend"],
         "weight_bits": m["weight_bits"], "kv_bits": m.get("kv_bits"),
         "weight_bytes": m["weight_bytes"],
@@ -1457,29 +1486,42 @@ def serve(torch, np, dev, cfg, params, ecfg_kw, reqs_fn, warm_prefill=True):
         need(len(r.out_tokens) >= 1, f"rid {r.rid}: no tokens")
         need(all(0 <= t < cfg.vocab_size for t in r.out_tokens),
              f"rid {r.rid}: token out of range")
+    if after is not None:
+        out.update(after(eng))
     del eng
     return out, streams
 
 
 def first_decode_logits(torch, np, dev, cfg, params, attn_quant, prompts,
                         max_seq, bs, chunk, policy=None, gather_params=None,
-                        routes=None):
+                        routes=None, mesh=None, paths=("kernel", "gather")):
     """Prefill every prompt through the kernels into fresh pools (quantized
     per `policy`), then run the first decode step once through each path on
     its own copy of the pools: the kernels with `params`, and the gather
     path with `gather_params` (default: the same tree). With `routes` (a
     dict), each path's decode step runs under a RouteLog kept there by
-    path name."""
+    path name. With `mesh`, `params` is this rank's shard (cfg padded as
+    the engine pads it), the pools hold its KV heads and every call runs
+    under the mesh; the result is the {path: logits} of `paths`."""
+    import contextlib
+
     from repro_torch.models import lm
+    from repro_torch.nn import shard_ctx
     from repro_torch.nn.attention import PagedState
     from repro_torch.serve import kv_cache as kvc
+    kvh = None
+    sharded = contextlib.nullcontext
+    if mesh is not None:
+        from repro_torch.serve import sharding
+        kvh = sharding.local_heads(cfg, shard_ctx.model_size(mesh))[1]
+        sharded = lambda: shard_ctx.use(mesh, cfg.kv_heads_phys)  # noqa: E731
     act = lm.make_act(cfg, dev)
     bps = kvc.blocks_for(max_seq, bs)
     cols = bps + chunk // bs
     slots = len(prompts)
     caches = kvc.init_paged_caches(cfg, slots * bps + 1, bs,
                                    dtype=lm.compute_dtype(params), device=dev,
-                                   policy=policy)
+                                   policy=policy, kv_heads=kvh)
     table = np.zeros((slots, cols), np.int32)
     for s in range(slots):
         table[s, :bps] = 1 + s * bps + np.arange(bps)
@@ -1495,9 +1537,11 @@ def first_decode_logits(torch, np, dev, cfg, params, attn_quant, prompts,
             st = PagedState(torch.tensor(table[s:s + 1, :w], **i32),
                             torch.tensor([p0], **i32),
                             torch.tensor([ctx], **i32))
-            lm.prefill_step(params, cfg, torch.from_numpy(toks).to(dev),
-                            caches, paged=st, act=act, paged_impl="kernel",
-                            attn_quant=attn_quant, want_logits=False)
+            with sharded():
+                lm.prefill_step(params, cfg, torch.from_numpy(toks).to(dev),
+                                caches, paged=st, act=act,
+                                paged_impl="kernel", attn_quant=attn_quant,
+                                want_logits=False)
     lengths = np.array([len(p) - 1 for p in prompts], np.int32)
     w = kvc.bucket_for(kvc.blocks_for(int(lengths.max()) + 1, bs),
                        kvc.decode_block_buckets(bps))
@@ -1505,14 +1549,14 @@ def first_decode_logits(torch, np, dev, cfg, params, attn_quant, prompts,
     st = PagedState(torch.tensor(table[:, :w], **i32),
                     torch.tensor(lengths, **i32))
     out = {}
-    for impl, tree in (("kernel", params),
-                       ("gather", gather_params or params)):
+    for impl in paths:
+        tree = params if impl == "kernel" else (gather_params or params)
         # the decode write is in place (and, on quantized pools, may raise a
         # block's exponent): each path writes its own copy
         own = tuple(tuple(type(c)(*[t.clone() if torch.is_tensor(t) else t
                                     for t in c]) for c in grp)
                     for grp in caches)
-        with RouteLog() as rl:
+        with RouteLog() as rl, sharded():
             logits, _ = lm.decode_step(tree, cfg, last, own, paged=st,
                                        act=act, paged_impl=impl,
                                        attn_quant=attn_quant)
@@ -1521,6 +1565,8 @@ def first_decode_logits(torch, np, dev, cfg, params, attn_quant, prompts,
         out[impl] = logits[:, -1].float()
         del own
     del caches
+    if mesh is not None or paths != ("kernel", "gather"):
+        return out
     return out["kernel"], out["gather"]
 
 
@@ -1601,6 +1647,8 @@ def slice_phase(torch, np, dev, args, rehearse):
                                      aq if "attn_grau" in extra else None,
                                      prompts, max_seq, 16, 32)
         results[label] = check_logits(torch, label, res, lk, lg)
+        # slice (l) holds its meshes' streams against these
+        results[label]["streams"] = streams
     if args.profile:
         for label, c, extra in (("float", cfg, {}),
                                 ("grau", gcfg, {"attn_grau": attn})):
@@ -1644,6 +1692,7 @@ def slice_phase(torch, np, dev, args, rehearse):
                                  gather_params=plain)
     del plain
     results[label] = check_logits(torch, label, res, lk, lg)
+    results[label]["streams"] = streams
     if args.profile:
         results[f"profile_{label}"] = profile_serve(
             torch, dev, gcfg, packed, qcfg, reqs_fn,
@@ -4375,6 +4424,469 @@ def profile_train(torch, dev, train_step, params, opt_state, batch_fn,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 2c and slice (l): tensor-parallel serving over a (1, 2) mesh
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2          # slice (l)'s model axis: two ranks on the one card
+MESH_TOL = 5e-2         # relative L2 of first-decode logits, mesh vs one
+# rank (slice (k)'s gate: the ranks' partial products round apart)
+MESH_JOIN_S = 600.0     # the spawned ranks' join deadline (seconds)
+MESH_LOGIT_PROMPTS = 3  # first-decode logits on (b)'s 3 shortest prompts:
+# a gloo collective between two processes on the card takes milliseconds
+# (58 a forward), so a chunked prefill of all 8 (96 chunks) would cost
+# tens of seconds a setup
+MESH_SHORT_REQUESTS = 2  # (c)'s setup and the dense backend on the mesh
+# serve the 2 of (b)'s requests with the shortest prompts (the same cost)
+
+
+def logit_prompts(prompts):
+    """The MESH_LOGIT_PROMPTS shortest prompts, in request order."""
+    keep = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))
+    return [prompts[i] for i in sorted(keep[:MESH_LOGIT_PROMPTS])]
+
+
+def check_rank_shapes(torch, np, dev, shapes, rng, timed, rehearse):
+    """The bf16 decode and prefill kernels (16- and 4-bit pools, bf16 out
+    and with the GRAU epilogue) and flash at slice (l)'s per-rank heads:
+    llama3.2-3b's heads [r*12, (r+1)*12) over KV heads [r*4, (r+1)*4) of a
+    2-rank mesh, against the full 24 / 8-head launch on the same inputs.
+    Each rank's paged launch plans its sequence parts for the full 8 KV
+    heads, as the engine does under a mesh (shard_ctx.plan_kv_heads), and
+    must give the full launch's bits head for head; the launch planned for
+    its own 4 KV heads is printed beside it (its parts differ, so its sums
+    may round apart). Flash must give the same bits too. Each rank shape is
+    then timed beside its plain version, SDPA and the bound."""
+    from functools import partial
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.nn.common import build_lm_grau
+
+    g = build_lm_grau("identity")
+    s, m = shapes, MESH_RANKS
+    h, kvh = s["h"], s["kvh"]
+    hl, kl = h // m, kvh // m
+    srank = dict(s, h=hl, kvh=kl)
+    epis = (("bf16", {}), ("grau", {"spec": g.spec, "s_in": g.s_in}))
+    rows = {}
+    for kv_bits in (16, 4):
+        for name in ("paged_attention", "paged_prefill"):
+            (q, k, v, table, lengths), kv = paged_case(
+                torch, np, dev, torch.bfloat16, s, rng, kv_bits)
+            if name == "paged_attention":
+                kern, hax, args = pa.paged_attention, 1, (q, table, lengths)
+            else:
+                C = s["chunk"]
+                starts = torch.tensor([0, C, s["max_len"] // 2,
+                                       s["max_len"] - C], dtype=torch.int32,
+                                      device=dev)
+                qp = torch.randn((4, C, h, s["d"]), device=dev).to(
+                    torch.bfloat16)
+                kern, hax = pa.paged_prefill_attention, 2
+                args = (qp, table[1:5].contiguous(), starts)
+            full = {ep: kern(args[0], k, v, *args[1:], **kv, **e)
+                    for ep, e in epis}
+            same, own_plan = True, 0.0
+            for r in range(m):
+                qr = args[0].narrow(hax, r * hl, hl).contiguous()
+                kr, vr = (x.narrow(2, r * kl, kl).contiguous()
+                          for x in (k, v))
+                kvr = {key: (x.narrow(1, r * kl, kl).contiguous()
+                             if torch.is_tensor(x) else x)
+                       for key, x in kv.items()}
+                for ep, e in epis:
+                    want = full[ep].narrow(hax, r * hl, hl)
+                    got = kern(qr, kr, vr, *args[1:], **kvr, **e,
+                               plan_kvh=kvh)
+                    same &= torch.equal(got, want)
+                    alone = kern(qr, kr, vr, *args[1:], **kvr, **e)
+                    own_plan = max(own_plan, float(
+                        (alone.float() - want.float()).abs().max()))
+            suffix = "" if kv_bits == 16 else f"_kv{kv_bits}"
+            label = f"{name}{suffix} at {hl} / {kl} heads"
+            # the CPU's plain versions make no such promise
+            need(rehearse or same, f"{label}: a rank's launch is not the "
+                 "full launch's bits head for head")
+            log(f"{label}: the rank launches (planned for {kvh} KV heads) "
+                f"give the full launch's bits head for head: {same}; "
+                f"planned for their own {kl}: max |diff| {own_plan:.3g}")
+            row = {"name": f"{name}{suffix}_rank", "route": "cuda",
+                   "source": "src/repro_torch/csrc/paged_prefill.cu",
+                   "replaces": ("src/repro/kernels/paged_attention.py:189"
+                                if name == "paged_attention" else
+                                "src/repro/kernels/paged_attention.py:401"),
+                   "kv_bits": kv_bits, "heads": [hl, kl],
+                   "max_abs_err": 0.0 if same else None,
+                   "same_bits_as_full_launch": same,
+                   "own_plan_max_abs_diff": own_plan}
+            if timed:
+                row.update(time_paged(torch, np, dev, name, srank, hl // kl,
+                                      rng, kv_bits, plan_kvh=kvh))
+                log(f"timed: {json.dumps(row)}")
+            rows[row["name"]] = row
+    # flash: the dense backend's prefill at the rank's heads
+    b, sq = 1, (1024 if timed else 64)
+    q = torch.randn((b, sq, h, s["d"]), device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, sq, kvh, s["d"]), device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    o, lse = fa.flash_attention(q, k, v, causal=True)
+    same = True
+    for r in range(m):
+        orr, lr = fa.flash_attention(
+            q[:, :, r * hl:(r + 1) * hl].contiguous(),
+            k[:, :, r * kl:(r + 1) * kl].contiguous(),
+            v[:, :, r * kl:(r + 1) * kl].contiguous(), causal=True)
+        same &= (torch.equal(orr, o[:, :, r * hl:(r + 1) * hl])
+                 and torch.equal(lr, lse[:, r * hl:(r + 1) * hl]))
+    need(rehearse or same, f"flash at {hl} / {kl} heads: a rank's launch is "
+         "not the full launch's bits head for head")
+    log(f"flash causal {sq} x {hl} / {kl} heads: the rank launches give the "
+        f"full launch's bits head for head: {same}")
+    row = {"name": "flash_attention_rank", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:79",
+           "heads": [hl, kl], "max_abs_err": 0.0 if same else None,
+           "same_bits_as_full_launch": same}
+    if timed:
+        row.update(time_flash(torch, dev, (b, sq, hl, kl, s["d"])))
+        log(f"timed: {json.dumps(row)}")
+    rows[row["name"]] = row
+    return rows
+
+
+def dense_first_decode(torch, np, dev, cfg, params, prompts, max_seq,
+                       mesh=None):
+    """Each prompt's context through lm.prefill_step into fresh dense
+    caches (bucket-padded, the flash kernel on the card), then the first
+    decode step: the (prompts, vocab) f32 logits. With `mesh`, `params` is
+    this rank's shard and the caches hold its KV heads."""
+    import contextlib
+
+    from repro_torch.models import lm
+    from repro_torch.nn import shard_ctx
+    from repro_torch.serve import kv_cache as kvc
+    kvh, sharded = None, contextlib.nullcontext
+    if mesh is not None:
+        from repro_torch.serve import sharding
+        kvh = sharding.local_heads(cfg, shard_ctx.model_size(mesh))[1]
+        sharded = lambda: shard_ctx.use(mesh, cfg.kv_heads_phys)  # noqa: E731
+    act = lm.make_act(cfg, dev)
+    buckets = kvc.default_buckets(max_seq)
+    out = []
+    for p in prompts:
+        ctx = len(p) - 1
+        toks = np.zeros((1, kvc.bucket_for(ctx, buckets)), np.int64)
+        toks[0, :ctx] = p[:ctx]
+        caches = lm.init_caches(cfg, 1, max_seq,
+                                dtype=lm.compute_dtype(params), device=dev,
+                                kv_heads=kvh)
+        with sharded():
+            lm.prefill_step(params, cfg, torch.from_numpy(toks).to(dev),
+                            caches, true_length=torch.tensor([ctx],
+                                                             device=dev),
+                            act=act, want_logits=False)
+            logits, _ = lm.decode_step(
+                params, cfg, torch.tensor([[int(p[-1])]], device=dev),
+                caches, act=act)
+        out.append(logits[:, -1].float())
+        del caches
+    return torch.cat(out)
+
+
+def quant_leaves(tree):
+    """The packed leaves of `tree`, dict keys walked in sorted order."""
+    from repro_torch.quant.weights import QuantWeight
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from quant_leaves(tree[key])
+    elif isinstance(tree, list):
+        for x in tree:
+            yield from quant_leaves(x)
+    elif isinstance(tree, QuantWeight):
+        yield tree
+
+
+def plane_digest(torch, t):
+    """sha256 of a tensor's bytes (read on the host)."""
+    import hashlib
+    return hashlib.sha256(t.contiguous().view(-1).view(torch.uint8).cpu()
+                          .numpy().tobytes()).hexdigest()
+
+
+def packed_digests(torch, tree):
+    """[(shape, digest)] of every packed leaf's payload and exponent
+    planes, in quant_leaves order: what a rank returns of its packed
+    shard."""
+    return [(tuple(t.shape), plane_digest(torch, t))
+            for w in quant_leaves(tree) for t in (w.q, w.e)]
+
+
+def packed_slices_match(torch, full, digests, r):
+    """Every packed plane of rank r's shard (its packed_digests) is a
+    contiguous slice of the unsharded packed tree's plane at the rank's
+    offset (a replicated leaf: the whole plane), found from the shapes
+    alone, independently of serve/sharding.py: (planes compared, all
+    equal)."""
+    planes = [t for w in quant_leaves(full) for t in (w.q, w.e)]
+    if len(planes) != len(digests):
+        return len(digests), False
+    ok = 0
+    for tf, (shape, dig) in zip(planes, digests):
+        axes = [i for i in range(tf.dim()) if tf.shape[i] != shape[i]]
+        want = (tf if not axes else tf.narrow(
+            axes[0], r * shape[axes[0]], shape[axes[0]]))
+        ok += (len(axes) <= 1 and tuple(want.shape) == shape
+               and plane_digest(torch, want) == dig)
+    return len(digests), ok == len(digests)
+
+
+def mesh_setups(attn):
+    """Slice (l)'s three setups on the (1, 2) mesh: (label, engine
+    options, requests served). (b)'s setup serves (b)'s 8 requests; (c)'s
+    setup and the dense backend serve the MESH_SHORT_REQUESTS of them with
+    the shortest prompts (gloo's collectives set the time: see
+    MESH_LOGIT_PROMPTS)."""
+    return (("grau", {"attn_grau": attn}, 8),
+            ("wq4_kv4_grau", {"attn_grau": attn, "weight_bits": 4,
+                              "kv_bits": 4}, MESH_SHORT_REQUESTS),
+            ("dense", {"paged": False}, MESH_SHORT_REQUESTS))
+
+
+def mesh_requests(np, Request, vocab, lo, hi, seed, n):
+    """A function making (b)'s 8 requests, or the n with the shortest
+    prompts of them (in rid order)."""
+    def make():
+        reqs = make_requests(np, Request, vocab, 8, lo, hi, 32, seed)
+        keep = sorted(range(len(reqs)), key=lambda i: len(reqs[i].prompt))
+        return [reqs[i] for i in sorted(keep[:n])]
+    return make
+
+
+def slice_l_rank(rank, seed, rehearse, card):
+    """One rank of slice (l)'s (1, 2) gloo mesh on the card. The full tree
+    is drawn once on the card and kept on the host (lm.init_lm's store),
+    and each setup's engine builds its shard from it a layer at a time
+    (sharding.shard_params), so the card never holds the whole tree. Each
+    setup (mesh_setups) is served from 0 launches; then the served
+    engine's own params give the first-decode logits (rank 0 returns them)
+    and, in (c)'s setup, the digests of its packed planes. Also returned:
+    tokens/s, weight bytes and peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.config import GRAUConfig
+    from repro_torch.nn.attention import AttnQuant
+    from repro_torch.nn.common import build_lm_grau
+    from repro_torch.quant.policy import PrecisionPolicy
+    from repro_torch.serve.engine import Request
+
+    dev = (torch.device("cpu") if rehearse else
+           torch.device("cuda", torch.cuda.current_device()))
+    mesh = make_serve_mesh(1, MESH_RANKS, device=dev, backend="gloo")
+    cfg = get_config("llama3.2-3b", smoke=rehearse)
+    gcfg = cfg.replace(grau=GRAUConfig())
+    dtype = torch.float32 if rehearse else torch.bfloat16
+    host = lm.init_lm(cfg, seed=seed, dtype=dtype, device=dev, store="cpu")
+    max_seq = 256 if rehearse else 2048
+    lo, hi = (8, 100) if rehearse else (64, 1024)
+    prompts = logit_prompts([r.prompt for r in mesh_requests(
+        np, Request, cfg.vocab_size, lo, hi, seed, 8)()])
+    attn = build_lm_grau("identity")
+    aq = AttnQuant(attn.spec.to(dev), attn.s_in, attn.s_out)
+    ecfg = dict(slots=8, max_seq=max_seq, page_size=16, seed=seed)
+    policy = PrecisionPolicy(kv_default_bits=4, weight_default_bits=4)
+    out = {}
+    for label, kw, n in mesh_setups(attn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+        def after(eng, label=label):
+            got = {}
+            if label == "wq4_kv4_grau":
+                got["packed_digests"] = packed_digests(torch, eng.params)
+            if label == "dense":
+                lk = dense_first_decode(torch, np, dev, eng.cfg, eng.params,
+                                        prompts, max_seq, mesh=mesh)
+            else:
+                lk = first_decode_logits(
+                    torch, np, dev, eng.cfg, eng.params, aq, prompts,
+                    max_seq, 16, 32, policy=policy if label != "grau"
+                    else None, mesh=mesh, paths=("kernel",))["kernel"]
+            if rank == 0:
+                got["first_decode_logits"] = lk.cpu()
+            return got
+        res, streams = serve(
+            torch, np, dev, gcfg, host, {**ecfg, **kw}, mesh_requests(
+                np, Request, cfg.vocab_size, lo, hi, seed, n), mesh=mesh,
+            after=after)
+        res.update(streams=streams, rank=rank, card=card)
+        out[label] = res
+    return out
+
+
+def mesh_slice(torch, np, dev, args, rehearse, base):
+    """Slice (l): full-width, full-depth llama3.2-3b in bf16 (weights from
+    --seed) served tensor-parallel in (b)'s setup. (1) A (1, 1) mesh over
+    nccl (gloo in the CPU rehearsal) in this process: streams and the
+    first-decode logits (from the served engine's params) the unsharded
+    engine's bits. (2) A (1, 2) mesh over gloo, two rank processes on the
+    one card, spawned after torch.cuda.empty_cache() (slice_l_rank): (b)'s
+    setup, (c)'s setup (int4 weights and KV; each rank's packed bytes
+    slices of the unsharded packed tree) and the dense backend through
+    flash (mesh_setups), each served engine's first-decode logits (on the
+    shortest prompts, logit_prompts) within MESH_TOL (relative L2) of the
+    unsharded engine's, the greedy share against the unsharded streams
+    printed; each rank's weight bytes, peak memory and tokens/s printed.
+    `base`: slice_phase's results (the unsharded (b) and (c) streams)."""
+    import dataclasses
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.config import GRAUConfig
+    from repro_torch.nn.attention import AttnQuant
+    from repro_torch.nn.common import build_lm_grau, tree_map
+    from repro_torch.quant import weights as wq
+    from repro_torch.quant.policy import PrecisionPolicy
+    from repro_torch.serve.engine import Request
+
+    cfg = get_config("llama3.2-3b", smoke=rehearse)
+    gcfg = cfg.replace(grau=GRAUConfig())
+    params, nparams = init_logged(torch, dev, args, cfg, torch.float32
+                                  if rehearse else torch.bfloat16)
+    max_seq = 256 if rehearse else 2048
+    lo, hi = (8, 100) if rehearse else (64, 1024)
+    reqs_fn = mesh_requests(np, Request, cfg.vocab_size, lo, hi, args.seed,
+                            8)
+    short_fn = mesh_requests(np, Request, cfg.vocab_size, lo, hi, args.seed,
+                             MESH_SHORT_REQUESTS)
+    prompts = logit_prompts([r.prompt for r in reqs_fn()])
+    attn = build_lm_grau("identity")
+    aq = AttnQuant(attn.spec.to(dev), attn.s_in, attn.s_out)
+    ecfg = dict(slots=8, max_seq=max_seq, page_size=16, seed=args.seed)
+    policy = PrecisionPolicy(kv_default_bits=4, weight_default_bits=4)
+    out = {"params_b": nparams,
+           "logit_prompt_lengths": [len(p) for p in prompts],
+           "short_request_rids": [r.rid for r in short_fn()]}
+    # the unsharded first-decode logits of the three setups, and the
+    # dense backend's streams (slice (k) serves it with EOS off)
+    want = {"grau": first_decode_logits(
+        torch, np, dev, gcfg, params, aq, prompts, max_seq, 16, 32,
+        paths=("kernel",))["kernel"]}
+    packed = wq.pack_params(params, gcfg, policy)
+    want["wq4_kv4_grau"] = first_decode_logits(
+        torch, np, dev, gcfg, packed, aq, prompts, max_seq, 16, 32,
+        policy=policy, paths=("kernel",))["kernel"]
+    # kept on the host for the ranks' packed-bytes check
+    packed = tree_map(lambda w: dataclasses.replace(
+        w, q=w.q.cpu(), e=w.e.cpu()) if isinstance(w, wq.QuantWeight)
+        else w.cpu(), packed)
+    want["dense"] = dense_first_decode(torch, np, dev, gcfg, params, prompts,
+                                       max_seq)
+    dres, dstreams = serve(torch, np, dev, gcfg, params,
+                           dict(slots=8, max_seq=max_seq, seed=args.seed,
+                                paged=False), short_fn)
+    one = {"grau": base["grau"]["streams"],
+           "wq4_kv4_grau": base["wq4_kv4_grau"]["streams"],
+           "dense": dstreams}
+    out["unsharded_dense_short_tokens_per_s"] = dres["tokens_per_s"]
+
+    # (1) a one-rank mesh over nccl: the unsharded bits (its collectives
+    # are sums of one term: none is issued)
+    backend = "gloo" if rehearse else "nccl"
+    mesh = mesh_lib.make_serve_mesh(1, 1, device=dev, backend=backend)
+    try:
+        res, streams = serve(
+            torch, np, dev, gcfg, params, {**ecfg, "attn_grau": attn},
+            reqs_fn, mesh=mesh, after=lambda eng: {"lk": first_decode_logits(
+                torch, np, dev, eng.cfg, eng.params, aq, prompts, max_seq,
+                16, 32, mesh=mesh, paths=("kernel",))["kernel"]})
+    finally:
+        mesh_lib.release_mesh()
+    lk = res.pop("lk")
+    need(streams == one["grau"], f"mesh (1, 1) over {backend}: streams are "
+         "not the unsharded engine's")
+    need(torch.equal(lk, want["grau"]), f"mesh (1, 1) over {backend}: "
+         "first-decode logits are not the unsharded engine's bits")
+    la = res["launches"]
+    need(rehearse or (la["paged_attention"] > 0 and la["paged_prefill"] > 0),
+         f"mesh (1, 1): the attention kernels did not launch: {la}")
+    res.update(backend=backend, streams_identical=True,
+               logits_bit_identical=True)
+    log(f"slice[l mesh (1, 1) {backend}]: " + json.dumps(res))
+    out["mesh_1x1"] = res
+    del params
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # (2) two ranks over gloo on the one card, 2 torch threads a rank (the
+    # host's 8 cores shared with gloo's own threads)
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn_ranks(
+        slice_l_rank, MESH_RANKS, args=(args.seed, rehearse, args.card),
+        device=dev, backend="gloo", join_s=MESH_JOIN_S,
+        threads=1 if rehearse else 2)
+    out["mesh_1x2_spawn_s"] = time.perf_counter() - t0
+    out["launches"] = {}
+    for label, _, n in mesh_setups(attn):
+        per = [r[label] for r in ranks]
+        lk = per[0].pop("first_decode_logits").to(dev)
+        rel = rel_l2(lk, want[label])
+        need(bool(torch.isfinite(lk).all()), f"mesh (1, 2) {label}: "
+             "non-finite logits")
+        need(rel <= MESH_TOL, f"mesh (1, 2) {label}: first-decode logits "
+             f"rel L2 {rel:.3g} against the unsharded engine > {MESH_TOL}")
+        need(all(p["streams"] == per[0]["streams"] for p in per),
+             f"mesh (1, 2) {label}: the ranks' streams differ")
+        la = {k: sum(p["launches"][k] for p in per)
+              for k in per[0]["launches"]}
+        if label == "grau":
+            need(rehearse or (la["paged_attention_epilogue"] > 0
+                              and la["paged_prefill_epilogue"] > 0),
+                 f"mesh (1, 2) grau: the fused epilogue did not run: {la}")
+        row = {"requests": n, "first_decode_logits_rel_l2": rel,
+               "greedy_identical_share": compare_streams(
+                   per[0]["streams"], one[label]),
+               "launches": la}
+        if label == "wq4_kv4_grau":
+            checks = [packed_slices_match(torch, packed,
+                                          p.pop("packed_digests"), p["rank"])
+                      for p in per]
+            need(all(ok for _, ok in checks),
+                 "mesh (1, 2) wq4: a rank's packed bytes are not a slice "
+                 "of the unsharded packed tree")
+            need(rehearse or (la["matmul_wq"] > 0
+                              and la["paged_attention_kv4"] > 0
+                              and la["paged_prefill_kv4"] > 0),
+                 f"mesh (1, 2) wq4: matmul_wq / the 4-bit pools did not "
+                 f"run: {la}")
+            row["packed_planes_compared"] = checks[0][0]
+        if label == "dense":
+            need(rehearse or la["flash_attention"] > 0,
+                 f"mesh (1, 2) dense: flash did not launch: {la}")
+        row["ranks"] = [{k: p[k] for k in (
+            "rank", "weight_bytes", "tokens_per_s", "ttft_mean_s",
+            "peak_mem_gb", "peak_mem_gb_build", "wall_s", "decode_tokens",
+            "prefill_tokens", "ticks", "chunks")} for p in per]
+        out["launches"][label] = la
+        for p in row["ranks"]:
+            log(f"mesh (1, 2) {label} rank {p['rank']}: weight bytes "
+                f"{p['weight_bytes'] / 1e9:.3f} GB, tokens/s "
+                f"{p['tokens_per_s']:.1f} ({n} requests), peak memory "
+                f"serving {p['peak_mem_gb']} GB (building its shard from "
+                f"the host tree: {p['peak_mem_gb_build']})")
+        log(f"slice[l mesh (1, 2) {label}]: " + json.dumps(row))
+        out[f"mesh_1x2_{label}"] = row
+    del packed
+    return out
+
+
 def time_kernels_from(torch, np, dev, args):
     """--kernels-from: the graph-replay times of the matmul_wq, decode,
     prefill, flash, matmul_grau and GRAU-unit rows at the main paths'
@@ -4601,6 +5113,8 @@ def main(argv=None) -> int:
             torch, np, dev, shapes, rng, timed))
         flash_k = phase("flash_slice_k", lambda: check_flash_dense(
             torch, np, dev, timed))
+        rank_rows = phase("mesh_kernels", lambda: check_rank_shapes(
+            torch, np, dev, shapes, rng, timed, args.rehearse))
         slice_res = phase("slices_abc", lambda: slice_phase(
             torch, np, dev, args, args.rehearse))
         paper = phase("slice_d", lambda: paper_flow(torch, np, dev, args,
@@ -4633,6 +5147,10 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         dense = phase("slice_k", lambda: dense_slice(
             torch, np, dev, args, args.rehearse))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        mesh = phase("slice_l", lambda: mesh_slice(
+            torch, np, dev, args, args.rehearse, slice_res))
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4646,6 +5164,7 @@ def main(argv=None) -> int:
     report["durable"] = durable
     report["moe_llava"] = moe_llava
     report["dense"] = dense
+    report["mesh"] = mesh
     # launches on the main paths: the 16-bit attention rows from (b), where
     # the GRAU datapath runs fused in the attention kernels' epilogue; the
     # 4-bit attention rows and matmul_wq from (c); the GRAU unit and
@@ -4700,9 +5219,28 @@ def main(argv=None) -> int:
     for name in ("matmul_wq", "paged_attention_kv4", "paged_prefill_kv4"):
         rows[name]["launches_slice_i"] = durable["launches"][
             "handoff_wq4_kv4"][name]
+    # slice (l): the (1, 2) mesh's launches, both ranks, each run counted
+    # from 0 just before it; the rank-shape rows carry them as their own
+    ml = mesh["launches"]
+    for name, setup in (("paged_attention", "grau"),
+                        ("paged_prefill", "grau"),
+                        ("paged_attention_kv4", "wq4_kv4_grau"),
+                        ("paged_prefill_kv4", "wq4_kv4_grau"),
+                        ("flash_attention", "dense")):
+        key = name.replace("_kv4", "") if setup != "wq4_kv4_grau" else name
+        rank_rows[f"{name}_rank"]["launches"] = ml[setup][key]
+        rank_rows[f"{name}_rank"]["launches_slice_l_setup"] = setup
+    rows["matmul_wq"]["launches_slice_l"] = ml["wq4_kv4_grau"]["matmul_wq"]
+    for name in ("paged_attention", "paged_prefill"):
+        rows[name]["launches_slice_l_mesh_1x1"] = mesh["mesh_1x1"][
+            "launches"][name]
     kernel_rows = [grau_row] + [rows[n] for n in (
         "paged_attention", "paged_prefill", "paged_attention_kv4",
         "paged_prefill_kv4", "matmul_wq", "matmul_grau", "flash_attention")]
+    # the rank shapes ride in their kernel's row (the same kernels)
+    for name in ("paged_attention", "paged_prefill", "paged_attention_kv4",
+                 "paged_prefill_kv4", "flash_attention"):
+        rows[name]["rank_shape"] = rank_rows[f"{name}_rank"]
     report["kernels"] = kernel_rows
     # the 8-bit pools are on no served path here: checked and timed, kept
     # in the report only

@@ -319,12 +319,14 @@ def _launch(fn_name, q, k_pool, v_pool, block_table, start, shape_args, *,
 
 
 def _launch_bf16(q, k_pool, v_pool, block_table, start, *, scale, spec,
-                 s_in, out_dtype, k_exp, v_exp, kv_bits):
+                 s_in, out_dtype, k_exp, v_exp, kv_bits, plan_kvh=None):
     """bf16 q: csrc/paged_prefill.cu's tensor-core kernels, decode (q 3-D,
     `start` the lengths) or prefill (q 4-D), with the part plan and the f32
     workspace for the parts' (o, m, l). Decode plans its parts from the
     table's row stride: every bucket sliced from one table cuts a slot's
-    blocks at the same boundaries."""
+    blocks at the same boundaries. Both plan for `plan_kvh` KV heads
+    (default: the pools'), so a tensor-parallel rank launching its share of
+    the heads cuts every head's sequence where the unsharded launch does."""
     if q.data_ptr() % 16:
         q = q.clone()                  # the kernel reads q in 16-byte vectors
     decode = q.dim() == 3
@@ -334,11 +336,12 @@ def _launch_bf16(q, k_pool, v_pool, block_table, start, *, scale, spec,
     width = block_table.shape[1]
     rows = chunk * (h // kvh)
     sms = kbuild.sm_count(q.device)
+    pk = plan_kvh or kvh
     if decode:
         cap = max(width, block_table.stride(0))
-        parts, bpp = decode_plan(b, kvh, width, cap, bs, sms)
+        parts, bpp = decode_plan(b, pk, width, cap, bs, sms)
     else:
-        parts, bpp = prefill_plan(b, kvh, rows, width, bs, sms)
+        parts, bpp = prefill_plan(b, pk, rows, width, bs, sms)
     ws_o = torch.empty((b, kvh, parts, rows, d), dtype=torch.float32,
                        device=q.device)
     ws_ml = torch.empty((b, kvh, parts, rows, 2), dtype=torch.float32,
@@ -371,6 +374,7 @@ def paged_attention(
     v_exp: Optional[torch.Tensor] = None,
     kv_bits: int = 16,
     out_dtype: Optional[torch.dtype] = None,
+    plan_kvh: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash decode over the mapped blocks of each slot.
 
@@ -382,6 +386,8 @@ def paged_attention(
     scale) the GRAU epilogue quantizes the output to the spec's 8-bit bus;
     otherwise the output dtype is `out_dtype` (default: q's). With `kv_bits` 8 or 4 the
     pools are packed int8 with exponent planes `k_exp` / `v_exp`.
+    `plan_kvh`: the KV heads the bf16 kernel sizes its parts for (default:
+    the pools'; a tensor-parallel rank passes the unsharded count).
     """
     if spec is not None and s_in is None:
         raise ValueError("the GRAU epilogue needs s_in")
@@ -400,7 +406,7 @@ def paged_attention(
     if q.dtype == torch.bfloat16:          # the served dtype: tensor cores
         out = _launch_bf16(q, k_pool, v_pool, block_table, lengths,
                            scale=scale, spec=spec, s_in=s_in,
-                           out_dtype=out_dtype, **kw)
+                           out_dtype=out_dtype, plan_kvh=plan_kvh, **kw)
     else:
         out = _launch("paged_decode_launch", q, k_pool, v_pool, block_table,
                       lengths, (slots, h), scale=scale, spec=spec, s_in=s_in,
@@ -423,12 +429,14 @@ def paged_prefill_attention(
     v_exp: Optional[torch.Tensor] = None,
     kv_bits: int = 16,
     out_dtype: Optional[torch.dtype] = None,
+    plan_kvh: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash attention for one prefill chunk over a slot's mapped blocks.
 
     Row r attends pool positions 0..start+r (the already-resident prefix
     plus the chunk's own blocks, which must already be written through the
-    table). Same epilogue, pool and output rules as `paged_attention`.
+    table). Same epilogue, pool, output and `plan_kvh` rules as
+    `paged_attention`.
     """
     if spec is not None and s_in is None:
         raise ValueError("the GRAU epilogue needs s_in")
@@ -447,7 +455,7 @@ def paged_prefill_attention(
     if q.dtype == torch.bfloat16:          # the served dtype: tensor cores
         out = _launch_bf16(q, k_pool, v_pool, block_table, start,
                            scale=scale, spec=spec, s_in=s_in,
-                           out_dtype=out_dtype, **kw)
+                           out_dtype=out_dtype, plan_kvh=plan_kvh, **kw)
     else:
         out = _launch("paged_prefill_launch", q, k_pool, v_pool,
                       block_table, start, (b, chunk, h), scale=scale,

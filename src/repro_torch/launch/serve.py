@@ -37,16 +37,26 @@ Examples:
       --snapshot-dir build/serve-snap
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --max-new 200 --journal build/serve.journal --resume
+  # tensor-parallel over a serving mesh: two rank processes over gloo on
+  # the CPU; on cards nccl with one card a rank, or --dist-backend gloo
+  # when the ranks share one card
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --mesh 1x2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+      --mesh 2 --dist-backend gloo
 
 Archs: the ten of configs/archs.py — llama3.2-3b, gemma-7b, glm4-9b,
 qwen1.5-32b, llava-next-mistral-7b (served text-only, as the reference's
 engine), llama4-maverick-400b-a17b (MoE at full capacity: serving drops no
 token) on either backend, and mamba2-1.3b, jamba-v0.1-52b,
 deepseek-v3-671b and whisper-medium on the dense one.
-The mesh is not ported yet. A first SIGINT or SIGTERM drains (in-flight
-streams finish, queued requests wait in the journal and the final
-snapshot), a second stops at once; either way the snapshot is written and
-the engine closed.
+`--mesh M|DxM` serves tensor-parallel over the model axis (launch/mesh.py):
+M rank processes, each with its shard of the weights and KV heads, rank 0
+printing; the data axis, the dense-cache archs and --snapshot-dir under a
+mesh are ROADMAP A10b. A first SIGINT or SIGTERM drains (in-flight streams
+finish, queued requests wait in the journal and the final snapshot), a
+second stops at once; either way the snapshot is written and the engine
+closed. Under a mesh rank 0's signals decide for every rank.
 
 Weights are random, drawn from --seed on the device (the published weight
 files are not in the repository). At startup it prints the analytic KV and
@@ -199,6 +209,14 @@ def main(argv=None) -> None:
                     help="recover the live requests of --journal instead "
                          "of submitting new ones (the flags, --seed above "
                          "all, must match the killed run)")
+    ap.add_argument("--mesh", default=None, metavar="M|DxM",
+                    help="serve tensor-parallel over a (data, model) mesh of "
+                         "rank processes; data must be 1 (ROADMAP A10b)")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                    default=None,
+                    help="the mesh's collectives: nccl (default on CUDA, one "
+                         "card a rank) or gloo (default on the CPU; on CUDA "
+                         "when ranks share a card)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.resume and not args.journal:
@@ -208,23 +226,63 @@ def main(argv=None) -> None:
         ap.error("--metrics-port requires telemetry (drop --no-telemetry)")
     if args.trace_out is not None and not telemetry:
         ap.error("--trace-out requires telemetry (drop --no-telemetry)")
+    if args.mesh is None:
+        return serve(args)
+    if args.snapshot_dir:
+        ap.error("--snapshot-dir under a mesh is not served yet "
+                 "(ROADMAP A10b)")
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import lm
+    data, model = mesh_lib.parse_mesh_spec(args.mesh)
+    device = lm.resolve_device(args.device)
+    backend = args.dist_backend or mesh_lib.default_backend(device)
+    mesh_lib.check_mesh(data, model, device, backend)
+    if model == 1:
+        try:
+            return serve(args, mesh_lib.make_serve_mesh(
+                data, model, device=device, backend=backend))
+        finally:
+            mesh_lib.release_mesh()
+    mesh_lib.spawn_ranks(_serve_rank, model,
+                         args=(args, model, device, backend), device=device,
+                         backend=backend, join_s=None)
 
+
+def _serve_rank(rank: int, args, model: int, device, backend: str) -> None:
+    from repro_torch.launch import mesh as mesh_lib
+    serve(args, mesh_lib.make_serve_mesh(1, model, device=device,
+                                         backend=backend))
+
+
+def serve(args, mesh=None) -> None:
+    """Serve the launcher's requests, in this process (one rank of `mesh`
+    when given: every rank runs this with the same arguments, and rank 0
+    alone prints)."""
     import torch
 
     from repro_torch.configs.archs import get_config
     from repro_torch.models import lm
     from repro_torch.models.config import GRAUConfig
+    from repro_torch.nn import shard_ctx
     from repro_torch.nn.common import build_lm_grau
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
     from repro_torch.serve.journal import RequestJournal
     from repro_torch.serve.sampling import SamplingParams
 
     device = lm.resolve_device(args.device)
+    rank = shard_ctx.model_rank(mesh)
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    say = print if rank == 0 else (lambda *a, **k: None)
+    telemetry = not args.no_telemetry
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.grau:
         cfg = cfg.replace(grau=GRAUConfig())
+    # under a mesh the tree is drawn on the card and kept on the host: the
+    # engine moves over only this rank's shard, a layer at a time
     params = lm.init_lm(cfg, seed=args.seed, dtype=getattr(torch, args.dtype),
-                        device=device)
+                        device=device, store="cpu" if mesh is not None
+                        else None)
     ecfg = EngineConfig(
         slots=args.slots, max_seq=args.max_seq,
         paged=None if args.backend == "auto" else args.backend == "paged",
@@ -252,23 +310,26 @@ def main(argv=None) -> None:
             from repro_torch.serve.journal import replay
             frames = {rid: enc for rid in replay(args.journal).live}
         engine = ServeEngine.recover(cfg, params, args.journal, ecfg=ecfg,
-                                     device=device, encoder_frames=frames)
-        print(f"resumed {len(engine.scheduler.waiting)} live requests "
-              f"from {args.journal}")
+                                     device=device, encoder_frames=frames,
+                                     mesh=mesh)
+        say(f"resumed {len(engine.scheduler.waiting)} live requests "
+            f"from {args.journal}")
     else:
-        if args.journal:
+        if args.journal and rank == 0:
             ecfg = dataclasses.replace(
                 ecfg, journal=RequestJournal(args.journal))
-        engine = ServeEngine(cfg, params, ecfg, device=device)
+        engine = ServeEngine(cfg, params, ecfg, device=device, mesh=mesh)
         # the launcher hands the writer over: close() closes it
-        engine._owns_journal = args.journal is not None
-    if args.metrics_port is not None:
+        engine._owns_journal = engine.journal is not None
+    del params          # under a mesh the engine keeps only its shard
+    if args.metrics_port is not None and rank == 0:
         # engine-owned endpoint: engine.close() (the finally below) stops
         # the socket and joins its thread however the launcher exits
         server = engine.serve_metrics(args.metrics_port)
         print(f"metrics: http://{server.server_address[0]}:"
               f"{server.server_address[1]}/metrics")
-    print_cost_tables(cfg, args)
+    if rank == 0:
+        print_cost_tables(cfg, args)
     engine.warmup()
     rng = np.random.default_rng(args.seed)
     lo, hi = args.prompt_len
@@ -300,10 +361,12 @@ def main(argv=None) -> None:
         ticks = 0
         while (engine.scheduler.waiting
                or any(r is not None for r in engine.slot_req)):
+            if mesh is not None:
+                signals["count"] = _rank0_count(engine, signals["count"])
             if signals["count"] and engine.health != "draining":
                 engine.begin_draining("signal")
-                print("draining: finishing in-flight streams (signal again "
-                      "to stop now)")
+                say("draining: finishing in-flight streams (signal again "
+                    "to stop now)")
             if signals["count"] > 1 or (
                     signals["count"]
                     and all(r is None for r in engine.slot_req)):
@@ -320,18 +383,18 @@ def main(argv=None) -> None:
             torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
         for r in sorted(done, key=lambda r: r.rid):
-            print(f"rid={r.rid} prompt_len={len(r.prompt)} "
-                  f"tokens={r.out_tokens}")
+            say(f"rid={r.rid} prompt_len={len(r.prompt)} "
+                f"tokens={r.out_tokens}")
         m = engine.metrics()
-        print(f"prefix cache: hit_rate={m['prefix_hit_rate']:.2f} "
-              f"cached_prefix_tokens={m['cached_prefix_tokens']} "
-              f"evictions={m['evictions']}")
-        print(f"preemption: preempted={m['preempted']} "
-              f"hol_skips={m['hol_skips']}")
+        say(f"prefix cache: hit_rate={m['prefix_hit_rate']:.2f} "
+            f"cached_prefix_tokens={m['cached_prefix_tokens']} "
+            f"evictions={m['evictions']}")
+        say(f"preemption: preempted={m['preempted']} "
+            f"hol_skips={m['hol_skips']}")
         m.update(arch=cfg.name, wall_s=wall,
                  tokens_per_s=m["decode_tokens"] / wall if wall > 0 else None)
-        print(json.dumps(m))
-        if args.trace_out:
+        say(json.dumps(m))
+        if args.trace_out and rank == 0:
             n = engine.export_trace(args.trace_out)
             print(f"wrote {n} trace events to {args.trace_out}")
         if args.snapshot_dir:
@@ -340,6 +403,17 @@ def main(argv=None) -> None:
                   "undelivered requests captured)")
     finally:
         engine.close()
+
+
+def _rank0_count(engine, count: int) -> int:
+    """Rank 0's signal count, broadcast over the mesh's host group, so
+    every rank drains or stops at the same tick."""
+    import torch
+    import torch.distributed as dist
+    t = torch.tensor([count], dtype=torch.int64)
+    dist.broadcast(t, src=dist.get_global_rank(engine._host_group, 0),
+                   group=engine._host_group)
+    return int(t[0])
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
-"""The training step (the JAX package's launch/steps.py::make_train_step).
+"""The training step (the JAX package's launch/steps.py::make_train_step)
+and the head padding of tensor-parallel serving (`pad_heads_for`).
 
-The mesh, sharding rules and the other cells' step functions wait for the
-port of launch/mesh.py (ROADMAP). PyTorch runs eagerly: the step is a plain
-function, and its GRAU register file is built once per device, on the host,
-as the reference builds it once outside its trace.
+Training's FSDP x TP mesh and the dry-run's cell builders are not ported
+(ROADMAP A11); serving's mesh is launch/mesh.py. PyTorch runs eagerly: the
+step is a plain function, and its GRAU register file is built once per
+device, on the host, as the reference builds it once outside its trace.
 """
 from __future__ import annotations
 
@@ -15,6 +16,28 @@ from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn.common import tree_flatten, tree_map
 from repro_torch.train import optim
+
+
+def pad_heads_for(cfg: ModelConfig, mesh) -> ModelConfig:
+    """Zero-pad the head counts up to multiples of the model axis (`mesh`: a
+    serving mesh or the axis size), so attention shards by heads; cfg as it
+    is when the heads already divide it (or for MLA).
+
+    The KV heads pad to the next multiple of the axis and the query heads
+    to the arch's GQA group times that, so every real query head keeps its
+    KV head and the pads (zero weights, nn/blocks.init_attention) read only
+    pad KV heads: the padded model computes the unpadded one's function.
+    The reference pads the query heads to the next multiple of the padded
+    KV count instead, which keeps the group only where that multiple is
+    the group times it (llama3-smoke's 4 / 2 heads at 3 ranks, but not
+    glm4-smoke's 8 / 2: ROADMAP C, D5)."""
+    m = mesh if isinstance(mesh, int) else mesh.size(
+        mesh.mesh_dim_names.index("model"))
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    if h % m == 0 or cfg.mla is not None:
+        return cfg
+    kvp = -(-kv // m) * m
+    return cfg.replace(attn_pad=(h // kv * kvp, kvp))
 
 
 def make_loss_and_grads(cfg: ModelConfig, *, remat: Optional[str] = "full",

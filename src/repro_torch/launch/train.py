@@ -13,7 +13,8 @@ Examples:
 rematerialisation, at --seq-len 128 and --batch 8 unless given. Without it
 the full config trains in bf16 with remat "full" at sequence 4096 and batch
 1: the train_4k cell's shape (configs/shapes.py) on one chip of its
-256-chip mesh (the mesh itself is not ported). Weights are random, drawn
+256-chip mesh (training's FSDP x TP mesh is not ported, ROADMAP A11; the
+serving mesh is launch/mesh.py). Weights are random, drawn
 from --seed on the device. The device defaults to CUDA; without a card pass
 --device cpu, which runs the kernels' plain torch versions.
 """

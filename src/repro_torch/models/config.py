@@ -64,6 +64,18 @@ class ModelConfig:
     grau: Optional[GRAUConfig] = None
     # a sub-quadratic decode path exists (latent MLA cache, SSM state)
     supports_long_context: bool = False
+    # zero-padded physical head counts (h_phys, kv_phys), so attention
+    # shards over the model axis (launch/steps.pad_heads_for); the pads are
+    # zero and inert, so the model computes the unpadded arch's function
+    attn_pad: Optional[Tuple[int, int]] = None
+
+    @property
+    def heads_phys(self) -> int:
+        return self.attn_pad[0] if self.attn_pad else self.num_heads
+
+    @property
+    def kv_heads_phys(self) -> int:
+        return self.attn_pad[1] if self.attn_pad else self.num_kv_heads
 
     @property
     def num_layers(self) -> int:

@@ -56,7 +56,9 @@ def _tensor(a, device) -> torch.Tensor:
 def from_reference(ref_params: Dict[str, Any], cfg: ModelConfig, *,
                    device=None) -> Dict[str, Any]:
     """Port parameters from the reference tree onto `device` (default:
-    CUDA, see models/lm.resolve_device); each leaf keeps its dtype."""
+    CUDA, see models/lm.resolve_device); each leaf keeps its dtype. A tree
+    with padded heads (the reference's cfg.replace(attn_pad=...)) carries
+    over as it is, for a port config with the same attn_pad."""
     from repro_torch.models.lm import resolve_device
     device = resolve_device(device)
 

@@ -22,10 +22,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.nn import blocks
+from repro_torch.nn import blocks, shard_ctx
 from repro_torch.nn.attention import (CrossKV, KVCache, MLACache, PagedState,
                                       cache_slice)
-from repro_torch.nn.common import act_fn, init_param
+from repro_torch.nn.common import act_fn, init_param, tree_map
 from repro_torch.nn.mamba2 import SSMState
 from repro_torch.nn.rope import rope_tables
 from repro_torch.quant import weights as wq_lib
@@ -48,33 +48,44 @@ def resolve_device(device=None) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def init_lm(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
-            device=None) -> Dict[str, Any]:
+            device=None, store=None) -> Dict[str, Any]:
     """Random parameters from `seed` with the JAX package's initializers
     (embedding: truncated normal, std 0.02; matrices: fan-in truncated
     normal; norms: zeros for rmsnorm's 1 + w), drawn by a torch.Generator on
-    `device` (default: CUDA, see resolve_device)."""
+    `device` (default: CUDA, see resolve_device). `store`: the device each
+    leaf is kept on once drawn (default: `device`). A rank of a serving
+    mesh draws on its card and keeps the tree on the host (store="cpu"):
+    the values of a draw kept on the card, with one layer at a time on the
+    card, whose engine then moves over only what its shard needs
+    (serve/sharding.shard_params)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     kw = dict(device=device, dtype=dtype)
+
+    def keep(tree):
+        return tree if store is None else tree_map(
+            lambda t: t.to(store), tree)
     params: Dict[str, Any] = {
-        "embed": init_param((cfg.vocab_size, cfg.d_model), gen,
-                            init="normal", scale=0.02, **kw)}
+        "embed": keep(init_param((cfg.vocab_size, cfg.d_model), gen,
+                                 init="normal", scale=0.02, **kw))}
     if not cfg.tie_embeddings:
-        params["head"] = init_param((cfg.d_model, cfg.vocab_size), gen, **kw)
+        params["head"] = keep(init_param((cfg.d_model, cfg.vocab_size), gen,
+                                         **kw))
     blocks.init_norm(params, "ln_f", cfg.d_model, cfg.norm, **kw)
     if cfg.encoder is not None:
         spec = blocks.LayerSpec(kind="attn", mlp="dense")
-        enc = {"layers": [blocks.init_layer(spec, cfg, gen, **kw)
+        enc = {"layers": [keep(blocks.init_layer(spec, cfg, gen, **kw))
                           for _ in range(cfg.encoder.num_layers)]}
         blocks.init_norm(enc, "ln_enc", cfg.d_model, cfg.norm, **kw)
         params["encoder"] = enc
     for gi, (period, repeats) in enumerate(cfg.groups):
         params[f"group{gi}"] = [
-            {f"l{li}": blocks.init_layer(spec, cfg, gen, **kw)
-             for li, spec in enumerate(period)}
+            keep({f"l{li}": blocks.init_layer(spec, cfg, gen, **kw)
+                  for li, spec in enumerate(period)})
             for _ in range(repeats)]
-    return params
+    # the norms (the leaves kept above are already there)
+    return keep(params)
 
 
 def make_act(cfg: ModelConfig, device):
@@ -96,10 +107,10 @@ def make_act(cfg: ModelConfig, device):
 # ---------------------------------------------------------------------------
 
 def _layer_cache(spec, cfg: ModelConfig, lead: Tuple[int, ...], max_seq: int,
-                 length: int, dtype, device):
+                 length: int, dtype, device, kvh: int):
     """One period-layer's dense cache, each tensor with leading dims
     `lead` (repeats, batch): an SSM state, an MLA latent cache or a
-    KVCache."""
+    KVCache of `kvh` heads."""
     kw = dict(dtype=dtype, device=device)
     lengths = torch.full(lead, length, dtype=torch.int32, device=device)
     if spec.kind == "mamba":
@@ -116,17 +127,19 @@ def _layer_cache(spec, cfg: ModelConfig, lead: Tuple[int, ...], max_seq: int,
             ckv=torch.zeros(lead + (max_seq, m.kv_lora_rank), **kw),
             k_rope=torch.zeros(lead + (max_seq, m.qk_rope_dim), **kw),
             length=lengths)
-    shape = lead + (max_seq, cfg.num_kv_heads, cfg.head_dim)
+    shape = lead + (max_seq, kvh, cfg.head_dim)
     return KVCache(k=torch.zeros(shape, **kw), v=torch.zeros(shape, **kw),
                    length=lengths)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *,
                 length: int = 0, dtype=torch.bfloat16, device=None,
-                policy=None):
+                policy=None, kv_heads: Optional[int] = None):
     """The dense cache tree on `device` (default: CUDA, see
     resolve_device): a tuple per group of per-period-layer leaves stacked
     over repeats; cross-attention layers carry (self cache, CrossKV) pairs.
+    Attention caches hold `kv_heads` heads: a serving-mesh rank's local
+    count (serve/sharding.local_heads), by default cfg.kv_heads_phys.
     Dense caches hold float KV only (SSM state is recurrent and MLA latents
     are already compressed: neither pages, so neither quantizes): a policy
     that quantizes any layer's KV is rejected, as in the reference."""
@@ -136,15 +149,16 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *,
             "(kv_bits < 16); use the paged backend "
             "(serve/kv_cache.init_paged_caches) with this policy")
     device = resolve_device(device)
+    kvh = cfg.kv_heads_phys if kv_heads is None else int(kv_heads)
     caches = []
     for period, repeats in cfg.groups:
         lead = (repeats, batch)
         per_layer = []
         for spec in period:
-            c = _layer_cache(spec, cfg, lead, max_seq, length, dtype, device)
+            c = _layer_cache(spec, cfg, lead, max_seq, length, dtype, device,
+                             kvh)
             if spec.cross_attn:
-                shape = lead + (cfg.encoder.num_frames, cfg.num_kv_heads,
-                                cfg.head_dim)
+                shape = lead + (cfg.encoder.num_frames, kvh, cfg.head_dim)
                 c = (c, CrossKV(
                     k=torch.zeros(shape, dtype=dtype, device=device),
                     v=torch.zeros(shape, dtype=dtype, device=device)))
@@ -208,6 +222,23 @@ def _rope_dim(cfg: ModelConfig) -> int:
     return cfg.mla.qk_rope_dim if cfg.mla is not None else cfg.head_dim
 
 
+def _embed(embed, cfg: ModelConfig, tokens):
+    """The embedding lookup (a packed table dequantizes only the gathered
+    rows). Under a serving mesh whose model axis splits the vocabulary,
+    vocab-parallel: each rank looks up the tokens in its own range of rows,
+    zeroes the others, and the ranks' rows are summed (exactly: one
+    nonzero term a token)."""
+    m = shard_ctx.model_size()
+    if m == 1 or not shard_ctx.vocab_splits(cfg.vocab_size, m):
+        return wq_lib.take_rows(embed, tokens)
+    n = cfg.vocab_size // m
+    local = tokens.long() - shard_ctx.model_rank() * n
+    mine = (local >= 0) & (local < n)
+    rows = wq_lib.take_rows(embed, torch.where(mine, local, 0))
+    return shard_ctx.reduce_model(
+        torch.where(mine[..., None], rows, torch.zeros_like(rows)))
+
+
 def _hidden(params, cfg: ModelConfig, tokens, *, mode, caches, positions,
             act, paged: Optional[PagedState], paged_impl, attn_quant,
             remat: Optional[str] = None, q_chunk: int = 1024,
@@ -223,8 +254,11 @@ def _hidden(params, cfg: ModelConfig, tokens, *, mode, caches, positions,
     (torch.utils.checkpoint, non-reentrant): only its input is kept and the
     body runs again in the backward pass, as the reference's _run_group
     wraps it in jax.checkpoint."""
-    x = wq_lib.take_rows(params["embed"], tokens).to(compute_dtype(params))
+    x = _embed(params["embed"], cfg, tokens).to(compute_dtype(params))
     if patch_embeds is not None:
+        if shard_ctx.active_mesh() is not None:
+            raise ValueError(f"{cfg.name}: a vision prefix under a serving "
+                             "mesh is not served yet (ROADMAP A10b)")
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     rope = rope_tables(positions, _rope_dim(cfg), cfg.rope_theta)
     kw = dict(rope=rope, act=act, mode=mode, paged=paged,
@@ -280,10 +314,17 @@ def run_encoder(params, cfg: ModelConfig, frames, *, act=None,
 
 def _head(params, cfg: ModelConfig, x):
     """Logits: tied through the embedding, or an untied head; packed tables
-    dequantize through wq_lib.dense (in x's dtype), as in the reference."""
+    dequantize through wq_lib.dense (in x's dtype), as in the reference.
+    Under a serving mesh that splits the vocabulary each rank computes its
+    shard and the shards are gathered: every rank gets the full logits."""
     if cfg.tie_embeddings:
-        return x @ wq_lib.dense(params["embed"], x.dtype).t()
-    return x @ wq_lib.dense(params["head"], x.dtype)
+        logits = x @ wq_lib.dense(params["embed"], x.dtype).t()
+    else:
+        logits = x @ wq_lib.dense(params["head"], x.dtype)
+    if shard_ctx.active_mesh() is not None and shard_ctx.vocab_splits(
+            cfg.vocab_size, shard_ctx.model_size()):
+        logits = shard_ctx.gather_vocab(logits)
+    return logits
 
 
 def _encoder_out(params, cfg: ModelConfig, encoder_frames, encoder_out, *,

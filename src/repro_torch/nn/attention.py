@@ -18,6 +18,7 @@ from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.nn import shard_ctx
 from repro_torch.quant import kv as kvq
 
 NEG_INF = -1e30
@@ -353,7 +354,7 @@ def paged_decode_attention(
             q[:, 0], cache.k, cache.v, st.block_table, lengths, scale=scale,
             spec=quant.spec if quant is not None else None,
             s_in=quant.s_in if quant is not None else None,
-            **_kernel_pools(cache))
+            plan_kvh=shard_ctx.plan_kv_heads(), **_kernel_pools(cache))
         if quant is not None:
             o = o.float() * quant.s_out
         return o[:, None].to(q.dtype)
@@ -427,7 +428,7 @@ def paged_prefill_attention(
             q, cache.k, cache.v, st.block_table, st.length, scale=scale,
             spec=quant.spec if quant is not None else None,
             s_in=quant.s_in if quant is not None else None,
-            **_kernel_pools(cache))
+            plan_kvh=shard_ctx.plan_kv_heads(), **_kernel_pools(cache))
         if quant is not None:
             o = o.float() * quant.s_out
         return o.to(q.dtype)

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.nn import attention as attn_lib
+from repro_torch.nn import shard_ctx
 from repro_torch.nn.attention import (AnyPagedKVCache, CrossKV, KVCache,
                                       MLACache, PagedState)
 from repro_torch.nn.common import init_param, layernorm, rmsnorm
@@ -70,11 +71,20 @@ def apply_norm(params, name: str, x, kind: str, eps: float):
 # ---------------------------------------------------------------------------
 
 def init_attention(cfg, gen: torch.Generator, *, device, dtype) -> dict:
+    """wq/wk/wv/wo (and the qkv biases) at the physical head counts
+    (cfg.heads_phys / kv_heads_phys); padded heads are zeroed, so the pad
+    is inert (see ModelConfig.attn_pad)."""
     d, hd = cfg.d_model, cfg.head_dim
-    h, kv = cfg.num_heads, cfg.num_kv_heads
+    h, kv = cfg.heads_phys, cfg.kv_heads_phys
     p = {name: init_param(shape, gen, device=device, dtype=dtype)
          for name, shape in (("wq", (d, h, hd)), ("wk", (d, kv, hd)),
                              ("wv", (d, kv, hd)), ("wo", (h, hd, d)))}
+    if cfg.attn_pad is not None:
+        hl, kvl = cfg.num_heads, cfg.num_kv_heads
+        p["wq"][:, hl:] = 0
+        p["wk"][:, kvl:] = 0
+        p["wv"][:, kvl:] = 0
+        p["wo"][hl:] = 0
     if cfg.qkv_bias:
         for name, shape in (("bq", (h, hd)), ("bk", (kv, hd)),
                             ("bv", (kv, hd))):
@@ -93,12 +103,32 @@ def _proj(x, w):
         b, s, w.shape[1], w.shape[2])
 
 
+def _partial(a, w):
+    """A row-parallel product's partial a @ w (a 2-D or 3-D, w 2-D) for
+    reduce_model to sum: in f32 where the model axis has several ranks (on
+    the card through torch.mm's f32 output, so the partials are summed
+    before the one rounding to a's dtype), in a's dtype on one rank (the
+    unsharded product's bits)."""
+    if shard_ctx.model_size() == 1 or a.dtype == torch.float32:
+        return a @ w
+    if a.is_cuda:
+        a2 = a.reshape(-1, a.shape[-1])
+        out = torch.mm(a2, w, out_dtype=torch.float32)
+        return out.reshape(a.shape[:-1] + (w.shape[-1],))
+    return (a @ w).float()
+
+
 def _out(o, wo):
     """einsum("bshk,hkd->bsd") as one matrix product (packed wo through
-    wq_lib.dense)."""
+    wq_lib.dense). Under a serving mesh o holds this rank's heads and wo
+    their rows: the partial products are summed over the model axis."""
     wo = wq_lib.dense(wo, o.dtype)
     b, s, h, k = o.shape
-    return (o.reshape(b * s, h * k) @ wo.reshape(h * k, -1)).reshape(b, s, -1)
+    a, w = o.reshape(b * s, h * k), wo.reshape(h * k, -1)
+    if shard_ctx.active_mesh() is None:
+        return (a @ w).reshape(b, s, -1)
+    return shard_ctx.reduce_model(_partial(a, w)).to(o.dtype).reshape(
+        b, s, -1)
 
 
 def _qkv(params, x, cfg):
@@ -299,16 +329,28 @@ def init_mlp(d_model: int, d_ff: int, gated: bool, gen: torch.Generator, *,
     return p
 
 
-def apply_mlp(params, x, act: Callable, gated: bool = True):
+def apply_mlp(params, x, act: Callable, gated: bool = True,
+              reduce: bool = False):
     """The MLP through wq_lib.matmul: plain `@` on float weights; packed
     2-D weights go to the matmul_wq kernel (its plain version on the
-    CPU)."""
+    CPU). With `reduce` the weights are this rank's d_ff shard under a
+    serving mesh: w_down's partial products are summed over the model
+    axis."""
     if gated:
         h = (act(wq_lib.matmul(x, params["w_gate"]))
              * wq_lib.matmul(x, params["w_up"]))
     else:
         h = act(wq_lib.matmul(x, params["w_up"]))
-    return wq_lib.matmul(h, params["w_down"])
+    if not reduce:
+        return wq_lib.matmul(h, params["w_down"])
+    w = params["w_down"]
+    if isinstance(w, wq_lib.QuantWeight):
+        # matmul_wq's f32 sum on several ranks, so the partials round once
+        part = wq_lib.matmul(h, w, out_dtype=(
+            torch.float32 if shard_ctx.model_size() > 1 else None))
+    else:
+        part = _partial(h, w)
+    return shard_ctx.reduce_model(part).to(h.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -440,4 +482,7 @@ def apply_layer(
         cap = None if mode == "train" else h.shape[0] * h.shape[1]
         m, aux = apply_moe(params["moe"], h, cfg.moe, act, capacity=cap)
         return x + m, cache, aux
-    return x + apply_mlp(params["mlp"], h, act, cfg.gated_mlp), cache, 0.0
+    mlp = params["mlp"]
+    reduce = (shard_ctx.active_mesh() is not None and shard_ctx.mlp_splits(
+        cfg.d_ff, mlp["w_down"], shard_ctx.model_size()))
+    return x + apply_mlp(mlp, h, act, cfg.gated_mlp, reduce), cache, 0.0

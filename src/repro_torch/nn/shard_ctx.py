@@ -1,0 +1,122 @@
+"""The model-axis context: which serving mesh the model code runs under,
+and the two collectives it calls there.
+
+`use(mesh)` makes a launch/mesh.py serving mesh active on this thread (the
+reference's thread-local `shard_ctx.use`); `active_mesh()` reads it. Under
+it the weights and KV storage are this rank's shards (serve/sharding.py),
+and the model code calls:
+
+  * `reduce_model(x)`: the sum of a row-parallel product's partials (the
+    attention's `wo`, the MLP's `w_down`, the vocab-parallel embedding
+    lookup) over the model group, in f32, cast back to x's dtype once;
+  * `gather_vocab(logits)`: the vocabulary shards of the logits
+    concatenated, so every rank holds the full logits and the sampler,
+    the argmax and the finite-logits flag decide alike on every rank.
+
+Both are no-ops without a context and on a one-rank model axis (a (1, 1)
+mesh moves no bytes), and they are the model code's only calls into
+torch.distributed. Under a mesh the paged kernels also plan their
+sequence split for the unsharded KV-head count (`plan_kv_heads`), so each
+head's attention is the unsharded launch's bits. `vocab_splits` /
+`mlp_splits` say whether a tensor is sharded at all; serve/sharding.py
+places the weights by the same rules.
+
+The reference's `constrain` and its activation rules instruct GSPMD's
+partitioner, which torch has no counterpart of: they are not ported
+(ROADMAP C).
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.quant.weights import QuantWeight
+
+_STATE = threading.local()
+
+
+def active_mesh():
+    return getattr(_STATE, "mesh", None)
+
+
+@contextlib.contextmanager
+def use(mesh, plan_kv_heads: Optional[int] = None):
+    """Run the block under `mesh` (None: unsharded). `plan_kv_heads`, the
+    model's unsharded KV-head count, is what the paged kernels size their
+    sequence parts for (plan_kv_heads())."""
+    prev = (getattr(_STATE, "mesh", None), getattr(_STATE, "plan", None))
+    _STATE.mesh, _STATE.plan = mesh, plan_kv_heads
+    try:
+        yield
+    finally:
+        _STATE.mesh, _STATE.plan = prev
+
+
+def plan_kv_heads() -> Optional[int]:
+    """The KV heads the paged kernels plan their sequence parts for under
+    the active mesh (None: the pools' own count). A rank's launch holds a
+    share of the heads; planned for all of them, it cuts each head's
+    sequence where the unsharded launch does, so a head's output is the
+    same bits either way."""
+    return getattr(_STATE, "plan", None)
+
+
+def model_size(mesh=None) -> int:
+    """The model axis' size (1 without a mesh)."""
+    mesh = mesh if mesh is not None else active_mesh()
+    if mesh is None:
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index("model"))
+
+
+def model_rank(mesh=None) -> int:
+    """This rank's index on the model axis (0 without a mesh)."""
+    mesh = mesh if mesh is not None else active_mesh()
+    return 0 if mesh is None else mesh.get_local_rank("model")
+
+
+def vocab_splits(vocab: int, m: int) -> bool:
+    """The vocabulary shards over m ranks in equal contiguous ranges (else
+    it is replicated, as the reference replicates an axis that does not
+    divide its mesh axis)."""
+    return vocab % m == 0
+
+
+def mlp_splits(d_ff: int, w_down: Any, m: int) -> bool:
+    """The MLP shards its d_ff over m ranks: d_ff divides, and a packed
+    w_down (its contraction axis is d_ff) splits on whole k-tiles, so the
+    shard is a slice of the packed planes, never a re-pack. Otherwise the
+    whole MLP is replicated."""
+    if d_ff % m:
+        return False
+    return (not isinstance(w_down, QuantWeight)
+            or (d_ff // m) % w_down.tile == 0)
+
+
+def reduce_model(x: torch.Tensor) -> torch.Tensor:
+    """Sum `x` over the model group (in f32, cast back once); identity
+    without a mesh and on a one-rank model axis (no collective: a sum of
+    one term). Every rank gets the same bits."""
+    mesh = active_mesh()
+    if mesh is None or model_size(mesh) == 1:
+        return x
+    import torch.distributed as dist
+    y = x.to(torch.float32, copy=True)
+    dist.all_reduce(y, group=mesh.get_group("model"))
+    return y.to(x.dtype)
+
+
+def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """Concatenate the model ranks' vocabulary shards of `logits` along the
+    last axis; identity without a mesh and on a one-rank model axis."""
+    mesh = active_mesh()
+    if mesh is None or model_size(mesh) == 1:
+        return logits
+    import torch.distributed as dist
+    logits = logits.contiguous()
+    parts = [torch.empty_like(logits) for _ in range(model_size(mesh))]
+    dist.all_gather(parts, logits, group=mesh.get_group("model"))
+    return torch.cat(parts, dim=-1)

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -140,16 +140,18 @@ def take_rows(w: Any, idx: torch.Tensor) -> torch.Tensor:
     return dense(sub)
 
 
-def matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
+def matmul(x: torch.Tensor, w: Any,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x @ w`` where ``w`` may be packed: a 2-D QuantWeight with
     contraction axis -2 goes to kernels/matmul_wq.matmul_wq (the CUDA kernel
-    for CUDA tensors, its plain version for CPU tensors); any other packed
-    tensor is dequantized through `dense`."""
+    for CUDA tensors, its plain version for CPU tensors; `out_dtype`, by
+    default x's, may ask it for its f32 sum); any other packed tensor is
+    dequantized through `dense`."""
     if not isinstance(w, QuantWeight):
         return x @ w
     if w.q.dim() == 2 and w.caxis == -2:
         from repro_torch.kernels.matmul_wq import matmul_wq
-        return matmul_wq(x, w)
+        return matmul_wq(x, w, out_dtype=out_dtype)
     return x @ dense(w, x.dtype)
 
 

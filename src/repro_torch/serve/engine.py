@@ -1,7 +1,8 @@
 """Continuous-batching serving engine: the paged KV pool with chunked prefill
 on the absolute grid, the radix prefix cache, preemption and cancel and
 decode block buckets, or the dense backend; on-device termination and
-deferred drains — the JAX package's serve/engine.py without the mesh.
+deferred drains; tensor-parallel over a serving mesh — the JAX package's
+serve/engine.py.
 
 Backends (`paged`: None picks the paged one wherever the arch allows it):
   * paged: block-pool storage with slot -> block-table indirection, the
@@ -96,10 +97,25 @@ engine (the same or another configuration) with the journal, passing
 through the HANDOFF health state; serve/frontdoor.py drives the engine
 from asyncio through the token and retire sinks.
 
-Left out (ROADMAP A10): the mesh.
+Mesh (`mesh`, launch/mesh.make_serve_mesh): explicit tensor parallelism
+over the model axis, one engine a rank process. Each rank holds its shard of
+the weights (heads padded first where they do not divide the axis,
+launch/steps.pad_heads_for) and its KV heads of the pools or dense caches
+(serve/sharding.py); the model code sums and gathers across ranks
+(nn/shard_ctx.py), so every rank computes the same full logits, samples the
+same tokens and runs the same scheduler, allocator, radix cache and
+sampler. The clock is the one rank-local input: rank 0 takes the deadline
+and watchdog decisions and broadcasts them each tick as one small integer
+tensor, so every rank issues the same collectives. Only rank 0 writes the
+journal, the trace file and the /metrics endpoint. The CUDA kernels run
+under the mesh on each rank's local heads (the reference refuses its Pallas
+kernel there: ROADMAP C, D4). Left out (ROADMAP A10b): the data axis, MoE /
+MLA / Mamba-2 / cross-attention under a mesh, and snapshot / restore /
+handoff / the front door under one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
@@ -109,8 +125,11 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.steps import pad_heads_for
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.nn import shard_ctx
 from repro_torch.nn.attention import AttnQuant, KVCache, MLACache, PagedState
 from repro_torch.nn.common import tree_flatten
 from repro_torch.nn.mamba2 import SSMState
@@ -121,6 +140,7 @@ from repro_torch.serve import journal as journal_lib
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve import prng
 from repro_torch.serve import sampling as samp_lib
+from repro_torch.serve import sharding
 from repro_torch.serve import telemetry as tel
 from repro_torch.serve import trace as trace_lib
 from repro_torch.serve.radix_cache import RadixCache
@@ -279,16 +299,40 @@ class _TickRecord(NamedTuple):
     # tick (see _readmit): their output was delivered before, not again
 
 
+def _refuse_under_mesh(what: str) -> None:
+    raise ValueError(f"{what} under a serving mesh is not served yet "
+                     "(ROADMAP A10b)")
+
+
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig, *,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 mesh=None):
         """`params` must live on `device` (default: CUDA; see
         lm.resolve_device). `dtype` is the float KV pool dtype (default: the
-        activations', lm.compute_dtype)."""
+        activations', lm.compute_dtype). `mesh` (launch/mesh.make_serve_mesh,
+        in every rank process with the same arguments and traffic) serves
+        the model tensor-parallel: `params` is the full tree, on `device` or
+        on the host, of which this rank keeps its shard; a tree on the host
+        is moved over a layer at a time (sharding.shard_params), so the
+        card never holds it whole."""
         self.device = lm.resolve_device(device)
-        if params["embed"].device.type != self.device.type:
+        held = params["embed"].device.type
+        if held != self.device.type and (mesh is None or held != "cpu"):
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"engine device is {self.device}")
+        self.mesh = mesh
+        self.rank = 0
+        self._kv_heads: Optional[int] = None
+        if mesh is not None:
+            sharding.check_servable(cfg)
+            cfg = pad_heads_for(cfg, mesh)
+            self.rank = shard_ctx.model_rank(mesh)
+            self._kv_heads = sharding.local_heads(
+                cfg, shard_ctx.model_size(mesh))[1]
+            self._host_group = mesh_lib.host_group(mesh)
+        # rank 0 alone writes host outputs (journal, trace file, /metrics)
+        self.is_writer = self.rank == 0
         paged_ok = kvc.paged_supported(cfg)
         self.paged = paged_ok if ecfg.paged is None else bool(ecfg.paged)
         if self.paged and not paged_ok:
@@ -321,9 +365,8 @@ class ServeEngine:
             self.trace = trace_lib.TraceRecorder(ecfg.trace_capacity)
             for fn in _JIT_FNS:
                 self._tel.jit_traces.labels(fn=fn)     # 0: no jit here
-            # unsharded: every mesh axis is size 1
-            self._tel.mesh_devices.set(1.0, axis="data")
-            self._tel.mesh_devices.set(1.0, axis="model")
+            # every mesh axis is size 1 without a mesh
+            sharding.publish_mesh_metrics(self._tel, mesh)
         else:
             self.registry = None
             self._tel = None
@@ -351,10 +394,17 @@ class ServeEngine:
             raise ValueError("quantized KV (kv_bits < 16) requires the paged "
                              "backend: dense/SSM/MLA caches stay float")
         self.dtype = dtype or lm.compute_dtype(params)
-        if self._wq:
-            # packed once here (int4 evenness validated eagerly); leaves that
-            # are already packed are kept as they are
-            params = wq_lib.pack_params(params, cfg, self.precision)
+        # packed once here (int4 evenness validated eagerly); leaves that
+        # are already packed are kept as they are
+        pack = ((lambda t: wq_lib.pack_params(t, cfg, self.precision))
+                if self._wq else None)
+        if mesh is not None:
+            # this rank's shard, padded, packed and sliced a piece at a
+            # time: packed leaves are sliced, never re-packed
+            params = sharding.shard_params(params, cfg, mesh, self.device,
+                                           pack)
+        elif pack is not None:
+            params = pack(params)
         self.cfg, self.params, self.ecfg = cfg, params, ecfg
         self.paged_impl = ecfg.paged_impl or "kernel"
         self._act = lm.make_act(cfg, self.device)
@@ -372,7 +422,8 @@ class ServeEngine:
         else:
             self.allocator = self.radix = None
             self.caches = lm.init_caches(cfg, ecfg.slots, ecfg.max_seq,
-                                         dtype=self.dtype, device=self.device)
+                                         dtype=self.dtype, device=self.device,
+                                         kv_heads=self._kv_heads)
             self.decode_buckets = ()
             self.buckets = (tuple(sorted(ecfg.prefill_buckets))
                             if ecfg.prefill_buckets is not None
@@ -418,7 +469,7 @@ class ServeEngine:
         self.faults: Optional[faults_lib.FaultPlan] = ecfg.faults
         # the write-ahead journal: appends happen only where the engine runs
         # host code already (submit, drain, retire)
-        self.journal = ecfg.journal
+        self.journal = ecfg.journal if self.is_writer else None
         self._owns_journal = False   # recover() builds and owns its writer
         if self.journal is not None:
             # one epoch header per engine attach: replay counts restarts
@@ -455,6 +506,9 @@ class ServeEngine:
             "weight_bytes": wq_lib.packed_param_bytes(self.params),
             "device": str(self.device),
         }
+        if mesh is not None:
+            self._static_metrics.update(mesh=sharding.mesh_summary(mesh),
+                                        rank=self.rank)
         if self.paged:
             kbits = sorted({b for grp in kvc.kv_bits_by_layer(
                 cfg, self.precision) for b in grp})
@@ -488,7 +542,8 @@ class ServeEngine:
         self.caches = kvc.init_paged_caches(cfg, num_blocks, bs,
                                             dtype=self.dtype,
                                             device=self.device,
-                                            policy=self.precision)
+                                            policy=self.precision,
+                                            kv_heads=self._kv_heads)
         if ecfg.prefill_chunk is None:
             self.prefill_chunk = max(32, bs)
             self.prefill_chunk -= self.prefill_chunk % bs
@@ -559,6 +614,13 @@ class ServeEngine:
 
     # --- device steps -----------------------------------------------------
 
+    def _sharded(self):
+        """The model-axis context of this engine's forwards (none without a
+        mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return shard_ctx.use(self.mesh, self.cfg.kv_heads_phys)
+
     def _decode_tick(self, width: Optional[int],
                      force: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Fused decode step + sampling + termination, all on the device.
@@ -577,10 +639,12 @@ class ServeEngine:
         st = self._state
         paged = (PagedState(self._table_dev[:, :width], st.lengths)
                  if self.paged else None)
-        logits, _ = lm.decode_step(self.params, self.cfg, st.last_tok,
-                                   self.caches, paged=paged, act=self._act,
-                                   paged_impl=self.paged_impl,
-                                   attn_quant=self._attn_quant)
+        with self._sharded():
+            logits, _ = lm.decode_step(self.params, self.cfg, st.last_tok,
+                                       self.caches, paged=paged,
+                                       act=self._act,
+                                       paged_impl=self.paged_impl,
+                                       attn_quant=self._attn_quant)
         last = logits[:, -1].float()
         if self._any_sampled:
             # per-slot keys from (request stream id, draws so far): a pure
@@ -619,9 +683,11 @@ class ServeEngine:
         block's exponent."""
         st = PagedState(self._h2d(row), self._h2d(np.array([p0], np.int32)),
                         self._h2d(np.array([ctx], np.int32)))
-        lm.prefill_step(self.params, self.cfg, self._h2d(toks), self.caches,
-                        paged=st, act=self._act, paged_impl=self.paged_impl,
-                        attn_quant=self._attn_quant, want_logits=False)
+        with self._sharded():
+            lm.prefill_step(self.params, self.cfg, self._h2d(toks),
+                            self.caches, paged=st, act=self._act,
+                            paged_impl=self.paged_impl,
+                            attn_quant=self._attn_quant, want_logits=False)
 
     def _prefill_dense(self, toks: np.ndarray, true_len: int, slot: int,
                        frames: Optional[np.ndarray]) -> None:
@@ -630,13 +696,14 @@ class ServeEngine:
         row of every leaf (positions past it keep stale values, masked by
         the lengths)."""
         small = lm.init_caches(self.cfg, 1, toks.shape[1], dtype=self.dtype,
-                               device=self.device)
-        lm.prefill_step(
-            self.params, self.cfg, self._h2d(toks), small,
-            true_length=self._h2d(np.array([true_len], np.int32)),
-            act=self._act, want_logits=False,
-            encoder_frames=(None if frames is None else
-                            self._h2d(frames[None].astype(np.float32))))
+                               device=self.device, kv_heads=self._kv_heads)
+        with self._sharded():
+            lm.prefill_step(
+                self.params, self.cfg, self._h2d(toks), small,
+                true_length=self._h2d(np.array([true_len], np.int32)),
+                act=self._act, want_logits=False,
+                encoder_frames=(None if frames is None else
+                                self._h2d(frames[None].astype(np.float32))))
         for (_, big), (_, new) in zip(tree_flatten(self.caches),
                                       tree_flatten(small)):
             big[(slice(None), slot) + tuple(
@@ -785,22 +852,52 @@ class ServeEngine:
                 return True
         return False
 
-    def _enforce_deadlines(self) -> int:
+    def _live_states(self) -> List[RequestState]:
+        """Every live request, queued then slotted: the same list on every
+        rank of a mesh (the host schedule is the same)."""
+        return (list(self.scheduler.waiting)
+                + [rs for rs in self.slot_req if rs is not None])
+
+    def _expired(self) -> List[bool]:
+        """Per _live_states entry: its deadline has passed (this process's
+        clock)."""
+        now = time.perf_counter()
+        return [rs.deadline_ms is not None
+                and (now - rs.submit_time) * 1e3 >= rs.deadline_ms
+                for rs in self._live_states()]
+
+    def _mesh_sync(self) -> List[RequestState]:
+        """Rank 0's clock-based decisions, broadcast to every rank as one
+        int64 tensor (over the mesh's gloo host group): its health (the
+        watchdog runs on rank 0 alone) and which live requests' deadlines
+        have expired. Every rank adopts them, so no host branch depends on
+        a rank's own clock. Returns the expired requests."""
+        import torch.distributed as dist
+        live = self._live_states()
+        flags = torch.zeros(1 + len(live), dtype=torch.int64)
+        if self.rank == 0:
+            flags[0] = _HEALTH_CODE[self._health]
+            if self._has_deadlines:
+                flags[1:] = torch.tensor(self._expired(), dtype=torch.int64)
+        dist.broadcast(flags, src=dist.get_global_rank(self._host_group, 0),
+                       group=self._host_group)
+        if self.rank != 0:
+            state = {v: k for k, v in _HEALTH_CODE.items()}[int(flags[0])]
+            self._set_health(state, "rank 0")
+        return [rs for rs, f in zip(live, flags[1:].tolist()) if f]
+
+    def _enforce_deadlines(self, hit: Optional[List[RequestState]] = None
+                           ) -> int:
         """Retire every live request whose deadline has expired (reason
-        "deadline") at a tick boundary. Pending ticks are drained first, so
+        "deadline") at a tick boundary: `hit`, rank 0's decision under a
+        mesh, else this process's clock. Pending ticks are drained first, so
         tokens generated before expiry are delivered and a request that
         finished in flight keeps its real reason. Returns retirements."""
-        if not self._has_deadlines:
-            return 0
-
-        def expired(rs: RequestState, now: float) -> bool:
-            return (rs.deadline_ms is not None
-                    and (now - rs.submit_time) * 1e3 >= rs.deadline_ms)
-
-        now = time.perf_counter()
-        hit = [rs for rs in self.scheduler.waiting if expired(rs, now)]
-        hit += [rs for rs in self.slot_req
-                if rs is not None and expired(rs, now)]
+        if hit is None:
+            if not self._has_deadlines:
+                return 0
+            hit = [rs for rs, f in zip(self._live_states(), self._expired())
+                   if f]
         if not hit:
             return 0
         self._drain()
@@ -1478,8 +1575,10 @@ class ServeEngine:
         stored in a uint8 tensor. The KV pool is not written: restore
         re-admits every request through chunked prefill, which recomputes
         it. Returns the committed checkpoint path; `step` defaults to the
-        engine tick."""
+        engine tick. Not under a mesh (ROADMAP A10b)."""
         from repro_torch.ckpt import checkpoint as ckpt
+        if self.mesh is not None:
+            _refuse_under_mesh("snapshot()")
         self._drain()
         if self.journal is not None:
             self.journal.sync()
@@ -1521,14 +1620,18 @@ class ServeEngine:
                 step: Optional[int] = None,
                 dtype: Optional[torch.dtype] = None, device=None,
                 overrides: Optional[Dict[str, Any]] = None,
-                journal=None, encoder_frames=None) -> "ServeEngine":
+                journal=None, encoder_frames=None,
+                mesh=None) -> "ServeEngine":
         """A fresh engine from a snapshot() checkpoint, with every captured
         request re-admitted. `overrides` patches EngineConfig fields (among
         them the non-serializable ones the snapshot could not carry: a
         GRAU-epilogue engine restores with {"attn_grau": ...}); `journal`
         attaches a write-ahead journal; `encoder_frames` ({rid: frames})
         supplies an enc-dec model's frames. The seed round-trips as a plain
-        field, so sampled streams resume on the same keys."""
+        field, so sampled streams resume on the same keys. Not under a mesh
+        (ROADMAP A10b)."""
+        if mesh is not None:
+            _refuse_under_mesh("restore()")
         payload = cls._load_snapshot(ckpt_dir, step)
         ecfg = _ecfg_from_dict(payload["engine_config"], overrides)
         if journal is not None:
@@ -1550,7 +1653,7 @@ class ServeEngine:
                 dtype: Optional[torch.dtype] = None, device=None,
                 overrides: Optional[Dict[str, Any]] = None,
                 fsync_every: int = 16,
-                encoder_frames=None) -> "ServeEngine":
+                encoder_frames=None, mesh=None) -> "ServeEngine":
         """Crash recovery: replay the journal, build a fresh engine and
         resume every request that was live at the kill, each with exactly
         its undelivered suffix (only drain-delivered tokens were journaled;
@@ -1562,7 +1665,9 @@ class ServeEngine:
         journal spans every crash / recover cycle and replay stays
         idempotent. The recovered engine owns the writer (close() closes
         it). An enc-dec model needs `encoder_frames` ({rid: frames}): the
-        journal does not hold them."""
+        journal does not hold them. Under a `mesh` every rank replays the
+        journal and rank 0 alone reopens it for appending; the deadlines'
+        elapsed time is rank 0's clock."""
         state = journal_lib.replay(journal_path)
         if ecfg is None:
             if snapshot_dir is None:
@@ -1570,12 +1675,20 @@ class ServeEngine:
                                  "for the engine config")
             payload = cls._load_snapshot(snapshot_dir, snapshot_step)
             ecfg = _ecfg_from_dict(payload["engine_config"], overrides)
-        jr = journal_lib.RequestJournal(journal_path,
-                                        fsync_every=fsync_every)
+        jr = None
+        if mesh is None or shard_ctx.model_rank(mesh) == 0:
+            jr = journal_lib.RequestJournal(journal_path,
+                                            fsync_every=fsync_every)
         eng = cls(cfg, params, dataclasses.replace(ecfg, journal=jr),
-                  dtype=dtype, device=device)
-        eng._owns_journal = True
+                  dtype=dtype, device=device, mesh=mesh)
+        eng._owns_journal = jr is not None
         now_wall = time.time()
+        if mesh is not None:
+            import torch.distributed as dist
+            t = torch.tensor([now_wall], dtype=torch.float64)
+            dist.broadcast(t, src=dist.get_global_rank(eng._host_group, 0),
+                           group=eng._host_group)
+            now_wall = float(t[0])
         records = [{"rid": lr.rid, "prompt": lr.prompt,
                     "max_new_tokens": lr.max_new_tokens,
                     "sampling": lr.sampling, "deadline_ms": lr.deadline_ms,
@@ -1606,6 +1719,8 @@ class ServeEngine:
         The source passes through HANDOFF (the gauge's 3; /healthz answers
         503) and ends DRAINING. If it holds the journal and the target has
         none, the journal moves with the requests under a handoff epoch."""
+        if self.mesh is not None or target.mesh is not None:
+            _refuse_under_mesh("handoff()")
         if target is self:
             raise ValueError("handoff target must be a different engine")
         if target._health == DRAINING:
@@ -1680,7 +1795,9 @@ class ServeEngine:
             # containment layer by design (recovery is journal replay in a
             # fresh engine, ServeEngine.recover, not an except path here)
             raise faults_lib.ProcessCrash(self.stats["ticks"])
-        if self._has_deadlines:
+        if self.mesh is not None:
+            self._enforce_deadlines(self._mesh_sync())
+        elif self._has_deadlines:
             self._enforce_deadlines()
         try:
             n = self._step_impl()
@@ -1803,7 +1920,9 @@ class ServeEngine:
             now = time.perf_counter()
             step_s = (now - s0) + (copy_s if i == 0 else 0.0)
             sync_s += step_s
-            self._watchdog(step_s)
+            if self.rank == 0:
+                # under a mesh the other ranks adopt rank 0's health
+                self._watchdog(step_s)
             toks, done, oks = arr[i]
             for slot in rec.slots:
                 rs = self.slot_req[slot]
@@ -2024,7 +2143,10 @@ class ServeEngine:
 
     def export_trace(self, path) -> int:
         """Write the lifecycle-trace ring as JSONL (an epoch header, then
-        one event per line; schema in serve/trace.py); returns the lines."""
+        one event per line; schema in serve/trace.py); returns the lines.
+        Under a mesh only rank 0 writes (the others return 0)."""
+        if not self.is_writer:
+            return 0
         return self.trace.export_jsonl(path)
 
     # --- lifecycle ----------------------------------------------------------
@@ -2034,9 +2156,11 @@ class ServeEngine:
         127.0.0.1 for this engine and own it: close() stops the socket and
         joins its thread. Returns the server (`server_address[1]` is the
         bound port when 0 was asked for); a second call returns the running
-        one."""
+        one. Under a mesh only rank 0 serves (the others return None)."""
         if self.registry is None:
             raise ValueError("serve_metrics() requires telemetry=True")
+        if not self.is_writer:
+            return None
         if self._metrics_server is None:
             self._metrics_server = tel.start_metrics_server(
                 self.registry, port, health_cb=lambda: self._health)

@@ -125,6 +125,9 @@ class FrontDoor:
                  max_waiting: Optional[int] = None):
         if max_waiting is not None and max_waiting < 1:
             raise ValueError(f"max_waiting must be >= 1, got {max_waiting}")
+        if engine.mesh is not None:
+            raise ValueError("the front door under a serving mesh is not "
+                             "served yet (ROADMAP A10b)")
         self.engine = engine
         self.max_waiting = max_waiting
         self._streams: dict = {}            # rid -> TokenStream (live)

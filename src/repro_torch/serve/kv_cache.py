@@ -222,7 +222,8 @@ def kv_bits_by_layer(cfg: ModelConfig, policy
 
 
 def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int, *,
-                      dtype=torch.bfloat16, device=None, policy=None):
+                      dtype=torch.bfloat16, device=None, policy=None,
+                      kv_heads: Optional[int] = None):
     """Pool tree with the model's structure: a tuple per group of
     per-period-layer leaves, each stacked over the group's repeats.
     16-bit layers (policy.kv_bits_for) get float PagedKVCache pools in
@@ -231,11 +232,14 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int, *,
     packed_head_dim plus (repeats, num_blocks, kv_heads) exponent planes
     filled with EXP_EMPTY, so the first write into a block sets its
     scale. The pools live on `device` (default: CUDA, see
-    models/lm.resolve_device)."""
+    models/lm.resolve_device) and hold `kv_heads` heads: a serving-mesh
+    rank's local count (serve/sharding.local_heads), by default
+    cfg.kv_heads_phys."""
     device = resolve_device(device)
     if not paged_supported(cfg):
         raise ValueError(f"{cfg.name}: arch not pageable")
-    kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    kvh = cfg.kv_heads_phys if kv_heads is None else int(kv_heads)
+    hd = cfg.head_dim
     bits_tree = kv_bits_by_layer(cfg, policy)
     caches = []
     for gi, (period, repeats) in enumerate(cfg.groups):

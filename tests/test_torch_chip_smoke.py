@@ -2,13 +2,14 @@
 without one, and its phases — the kernels, serving slices (a)-(c), the
 paper's flow (d), training (e), the prefix cache, preemption and cancel (f),
 the glm4 / qwen archs (g), sampled decoding, telemetry and fault
-containment (h), durable serving (i), MoE / LLaVA (j) and the dense
-backend (k) — hold together
+containment (h), durable serving (i), MoE / LLaVA (j), the dense
+backend (k) and tensor-parallel serving over a mesh (l) — hold together
 end to end in a
 CPU rehearsal at smoke size (plain kernel versions, no timings; exit 1 by
 design)."""
 import importlib.util
 import json
+import sys
 from pathlib import Path
 
 import pytest
@@ -20,9 +21,15 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def _load():
+    """chip_smoke.py as the module `chip_smoke`, registered in sys.modules
+    so the rank processes slice (l) spawns can import its rank function by
+    name."""
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = mod
+    if str(ROOT) not in sys.path:
+        sys.path.append(str(ROOT))
     spec.loader.exec_module(mod)
     return mod
 
@@ -226,6 +233,31 @@ def test_cpu_rehearsal_runs_every_phase(capsys, tmp_path):
     assert [r["label"] for r in kernels[-1]["shapes_slice_k"]] == [
         "mla prefill d48", "whisper encoder", "cross prefill",
         "cross decode"]
+    # slice (l): a (1, 1) mesh (gloo here, nccl on the card) with the
+    # unsharded bits; (1, 2) over gloo in two spawned ranks in (b)'s and
+    # (c)'s setups and on the dense backend (f32 here: the logits agree to
+    # rounding, the streams exactly); the rank shapes of the kernels
+    mesh = report["mesh"]
+    assert mesh["mesh_1x1"]["streams_identical"]
+    assert mesh["mesh_1x1"]["logits_bit_identical"]
+    for label in ("grau", "wq4_kv4_grau", "dense"):
+        row = mesh[f"mesh_1x2_{label}"]
+        assert row["first_decode_logits_rel_l2"] < 1e-5
+        assert row["greedy_identical_share"] == 1.0
+        assert [r["rank"] for r in row["ranks"]] == [0, 1]
+        assert all(r["decode_tokens"] > 0 for r in row["ranks"])
+    full = report["slice"]["grau"]["weight_bytes"]
+    assert all(r["weight_bytes"] < full
+               for r in mesh["mesh_1x2_grau"]["ranks"])
+    assert mesh["mesh_1x2_wq4_kv4_grau"]["packed_planes_compared"] > 0
+    assert [mesh[f"mesh_1x2_{label}"]["requests"] for label in (
+        "grau", "wq4_kv4_grau", "dense")] == [8, 2, 2]
+    shards = [k["rank_shape"] for k in kernels[1:5]] + [
+        kernels[-1]["rank_shape"]]
+    assert all(r["heads"] == [2, 1] and r["same_bits_as_full_launch"]
+               and r["launches"] == 0 for r in shards)
+    assert "slice_l" in report["phase_s"]
+    assert report["phase_s"]["slice_l"] < 60
     assert '"ok"' not in out.out
 
 

@@ -47,7 +47,8 @@ def test_port_files_exist():
                  "serve/telemetry.py", "serve/trace.py", "serve/faults.py",
                  "serve/journal.py", "serve/frontdoor.py", "nn/moe.py",
                  "nn/mamba2.py", "nn/blocks.py", "models/config.py",
-                 "configs/archs.py", "serve/kv_cache.py"):
+                 "configs/archs.py", "serve/kv_cache.py", "launch/mesh.py",
+                 "nn/shard_ctx.py", "serve/sharding.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
 

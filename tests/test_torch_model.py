@@ -251,17 +251,16 @@ def _fields(cfg):
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_new_configs_match_reference_field_for_field(arch):
-    """All ten archs, full and smoke: every field the port has equals the
-    reference's (moe, mla, ssm, encoder, vision and the layer specs of each
-    group included); the reference's one extra field (attn_pad, the
-    tensor-parallel head padding) is unset."""
+    """All ten archs, full and smoke: the port has the reference's fields
+    and every one equals the reference's (moe, mla, ssm, encoder, vision,
+    the layer specs of each group and attn_pad, the tensor-parallel head
+    padding, included)."""
     for smoke in (False, True):
         j, t = _fields(jget_config(arch, smoke=smoke)), _fields(
             tget_config(arch, smoke=smoke))
+        assert set(j) == set(t), (arch, smoke, set(j) ^ set(t))
         for name, v in t.items():
             assert j[name] == v, (arch, smoke, name)
-        assert all(j[name] in (None, False) for name in set(j) - set(t)), (
-            arch, smoke, set(j) - set(t))
 
 
 def test_layer_specs_moe_accepted_the_rest_still_raise():
