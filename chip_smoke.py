@@ -163,10 +163,37 @@ Phases (any failure exits non-zero):
      with the 2 of (b)'s requests with the shortest prompts: each served
      engine's first-decode logits (the 3 shortest prompts) within rel L2
      0.05 of the unsharded engine's, the greedy share, and each rank's
-     weight bytes, peak memory and tokens/s printed. Before the slices, phase
-     mesh_kernels launches the bf16 decode and prefill (16- and 4-bit
-     pools, with the epilogue) and flash at a rank's heads (12 of 24 over
-     4 of 8 KV heads): the full launch's bits head for head, timed.
+     weight bytes, peak memory and tokens/s printed. Then (m), in the
+     same two rank processes after (l)'s setups, from the host tree they
+     built from: the serving mesh's data axis, a (2, 1) mesh over gloo,
+     two data ranks on the one card, in (b)'s setup with the prefix cache
+     on and EOS off: (1) 8 requests sharing one 512-token prefix, each
+     with its own 16-64-token suffix and 32 new tokens, on 8 slots (4 a
+     rank), the first served alone through its prefill: the two ranks'
+     pool bytes (payload and exponents) equal, their block tables, free
+     lists and radix pins after every step equal to each other's and to
+     the one-card engine's on the same trace (run in this process), 7 x
+     512 prefix tokens cached, the first-decode logits as a data rank
+     computes them within rel L2 0.05 of the one-card engine's, the
+     greedy share, each rank's tokens/s, weight bytes and peak memory;
+     (2) the 4 requests with the shortest suffixes on 4 slots: a snapshot
+     with every slot busy restored on the mesh, a crash mid-decode
+     recovered on the mesh from global rank 0's journal (rank 0 alone
+     writing it), a handoff mid-decode to a fresh (2, 1) engine and the
+     front door on global rank 0 (4 concurrent submits, max_waiting=2, one
+     cancel after its 4th token; rank 1 follows), each giving the
+     uninterrupted mesh run's streams exactly, then a handoff mid-decode
+     to the (1, 2) mesh: every request in full, the source's blocks all
+     free, the greedy share printed; (m)'s seconds printed. Before the
+     slices, phase mesh_kernels launches the bf16 decode and prefill (16-
+     and 4-bit pools, with the epilogue) and flash at a rank's heads (12
+     of 24 over 4 of 8 KV heads), and the bf16 decode at a data rank's
+     slots (4 of 8, every head, planned for 8 slots) and at a (2, 2)
+     rank's (4 of 8 slots, 12 of 24 heads over 4 of 8 KV heads, planned
+     for both counts): the full launch's bits head for head and slot for
+     slot, each timed; and matmul_wq (int4 and int8, 8 and 32 rows) at a
+     (1, 2) rank's MLP shares (3072 x 4096, 4096 x 3072) against its
+     plain version, timed beside torch.matmul and the bound.
      Launch counters are zeroed before and read after each run.
 Each phase prints its seconds. The last two lines are the kernels JSON and
 the result line.
@@ -188,8 +215,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -802,7 +831,7 @@ def sm_count(torch, dev):
 
 
 def paged_timing_case(torch, np, dev, name, s, group, rng, kv_bits,
-                      bucket=None, plan_kvh=None):
+                      bucket=None, plan_kvh=None, plan_batch=None):
     """The main path's shape in bf16: a decode tick at the widest bucket (8
     slots, ragged up to max_len) or, with `bucket`, at the table sliced to
     that many blocks (its row stride kept, as the engine slices it; every
@@ -812,9 +841,9 @@ def paged_timing_case(torch, np, dev, name, s, group, rng, kv_bits,
     live pools at kv_bits. Decode gets copies of its pools (and exponent
     planes) whose live bytes together exceed L2_SPAN_BYTES, so that a call
     cycling through them reads device memory, as a served tick's 28
-    layers of pools do; the prefill's one case. `plan_kvh`: the KV heads
-    the kernel plans its parts for (a mesh rank's launch: the unsharded
-    count)."""
+    layers of pools do; the prefill's one case. `plan_kvh` / `plan_batch`:
+    the KV heads and the decode slots the kernel plans its parts for (a
+    mesh rank's launch: the unsharded counts)."""
     from functools import partial
 
     from repro_torch.kernels import paged_attention as pa
@@ -858,6 +887,8 @@ def paged_timing_case(torch, np, dev, name, s, group, rng, kv_bits,
         kern, plain = pa.paged_prefill_attention, pa.paged_prefill_plain
         calls = [((qp, k, v, tab, start), kv)]
     plan = {} if plan_kvh is None else {"plan_kvh": plan_kvh}
+    if plan_batch is not None:
+        plan["plan_batch"] = plan_batch
     return ([partial(kern, *a, **kw, **plan) for a, kw in calls],
             partial(plain, *calls[0][0], **calls[0][1]), nbytes, flops, lib)
 
@@ -873,20 +904,23 @@ def paged_parts(torch, dev, name, s, group, width):
 
 
 def time_paged(torch, np, dev, name, s, group, rng, kv_bits=16,
-               plan_kvh=None):
+               plan_kvh=None, plan_batch=None):
     """The kernel (CUDA-graph replay, and eager) over paged_timing_case's
     calls, its plain version and the library call, with the bound;
     `parts`: the kernel's sequence parts (planned for `plan_kvh` KV heads
-    when given); `pool_copies`: the decode's pool sets cycled through."""
+    and `plan_batch` decode slots when given); `pool_copies`: the decode's
+    pool sets cycled through."""
     kerns, plain, nbytes, flops, lib = paged_timing_case(
-        torch, np, dev, name, s, group, rng, kv_bits, plan_kvh=plan_kvh)
+        torch, np, dev, name, s, group, rng, kv_bits, plan_kvh=plan_kvh,
+        plan_batch=plan_batch)
     width = (-(-(s["max_len"] // 2) // s["bs"]) if name == "paged_prefill"
              else s["max_len"] // s["bs"])
     t_bound, by = bound(nbytes, flops, "bf16")
     return {"ms": graph_ms(torch, cycling(kerns)),
             "eager_ms": device_ms(torch, cycling(kerns)),
             "parts": paged_parts(torch, dev, name,
-                                 dict(s, kvh=plan_kvh or s["kvh"]),
+                                 dict(s, kvh=plan_kvh or s["kvh"],
+                                      slots=plan_batch or s["slots"]),
                                  group, width),
             "pool_copies": len(kerns),
             "plain_ms": device_ms(torch, plain, 5, 1),
@@ -1494,7 +1528,8 @@ def serve(torch, np, dev, cfg, params, ecfg_kw, reqs_fn, warm_prefill=True,
 
 def first_decode_logits(torch, np, dev, cfg, params, attn_quant, prompts,
                         max_seq, bs, chunk, policy=None, gather_params=None,
-                        routes=None, mesh=None, paths=("kernel", "gather")):
+                        routes=None, mesh=None, paths=("kernel", "gather"),
+                        plan_batch=None, data_split=False):
     """Prefill every prompt through the kernels into fresh pools (quantized
     per `policy`), then run the first decode step once through each path on
     its own copy of the pools: the kernels with `params`, and the gather
@@ -1502,7 +1537,12 @@ def first_decode_logits(torch, np, dev, cfg, params, attn_quant, prompts,
     dict), each path's decode step runs under a RouteLog kept there by
     path name. With `mesh`, `params` is this rank's shard (cfg padded as
     the engine pads it), the pools hold its KV heads and every call runs
-    under the mesh; the result is the {path: logits} of `paths`."""
+    under the mesh, the decode kernel planned for `plan_batch` slots (a
+    data rank's share of a larger batch); with `data_split` the decode step
+    runs as a data rank's engine runs it (serve/engine.py _decode_tick:
+    the rank's own rows, then the gathered write-back) and the rows are
+    gathered over the data axis. The
+    result is the {path: logits} of `paths`."""
     import contextlib
 
     from repro_torch.models import lm
@@ -1514,7 +1554,8 @@ def first_decode_logits(torch, np, dev, cfg, params, attn_quant, prompts,
     if mesh is not None:
         from repro_torch.serve import sharding
         kvh = sharding.local_heads(cfg, shard_ctx.model_size(mesh))[1]
-        sharded = lambda: shard_ctx.use(mesh, cfg.kv_heads_phys)  # noqa: E731
+        sharded = lambda: shard_ctx.use(  # noqa: E731
+            mesh, cfg.kv_heads_phys, plan_batch=plan_batch)
     act = lm.make_act(cfg, dev)
     bps = kvc.blocks_for(max_seq, bs)
     cols = bps + chunk // bs
@@ -1546,8 +1587,14 @@ def first_decode_logits(torch, np, dev, cfg, params, attn_quant, prompts,
     w = kvc.bucket_for(kvc.blocks_for(int(lengths.max()) + 1, bs),
                        kvc.decode_block_buckets(bps))
     last = torch.tensor([[int(p[-1])] for p in prompts], device=dev)
-    st = PagedState(torch.tensor(table[:, :w], **i32),
-                    torch.tensor(lengths, **i32))
+    # a column view of the whole table, as the engine's decode buckets are
+    # (its row stride sizes the kernel's sequence parts)
+    full = torch.tensor(table, **i32)
+    st = PagedState(full[:, :w], torch.tensor(lengths, **i32))
+    rows, wb = slice(None), None
+    if data_split:
+        rows = slice(*shard_ctx.data_slots(slots, mesh))
+        st, wb = PagedState(full[rows, :w], st.length[rows]), st
     out = {}
     for impl in paths:
         tree = params if impl == "kernel" else (gather_params or params)
@@ -1557,12 +1604,15 @@ def first_decode_logits(torch, np, dev, cfg, params, attn_quant, prompts,
                                     for t in c]) for c in grp)
                     for grp in caches)
         with RouteLog() as rl, sharded():
-            logits, _ = lm.decode_step(tree, cfg, last, own, paged=st,
-                                       act=act, paged_impl=impl,
-                                       attn_quant=attn_quant)
+            logits, _ = lm.decode_step(tree, cfg, last[rows], own,
+                                       paged=st, act=act, paged_impl=impl,
+                                       attn_quant=attn_quant, write_back=wb)
+            logits = logits[:, -1].float()
+            if data_split:
+                logits = shard_ctx.gather_data(logits, dim=0)
         if routes is not None:
             routes[impl] = rl.calls
-        out[impl] = logits[:, -1].float()
+        out[impl] = logits
         del own
     del caches
     if mesh is not None or paths != ("kernel", "gather"):
@@ -4555,6 +4605,127 @@ def check_rank_shapes(torch, np, dev, shapes, rng, timed, rehearse):
     return rows
 
 
+MESH_DATA_SHAPES = (("data_rank", 2, 1), ("data_model_rank", 2, 2))
+# (label, data, model): slice (m)'s data rank of a (2, 1) mesh, and a rank
+# of a (2, 2) mesh (not served on the one card)
+
+
+def check_data_rank_shapes(torch, np, dev, shapes, rng, timed, rehearse):
+    """The bf16 decode at MESH_DATA_SHAPES' rank shapes — slice (m)'s data
+    rank: 4 of 8 slots, every head, planned for 8 slots; a (2, 2) rank: 4
+    of 8 slots, 12 of 24 heads over 4 of 8 KV heads, planned for 8 slots
+    and 8 KV heads, as the engine plans under a mesh (shard_ctx's
+    plan_batch and plan_kv_heads) — on 16- and 4-bit pools, bf16 out and
+    with the GRAU epilogue, against the full launch on the same inputs:
+    every rank's launch must give the full launch's bits slot for slot and
+    head for head (the launch planned for its own share printed beside
+    it). Each shape is then timed beside its plain version, SDPA and the
+    bound."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.nn.common import build_lm_grau
+
+    g = build_lm_grau("identity")
+    s = shapes
+    h, kvh, slots = s["h"], s["kvh"], s["slots"]
+    epis = (("bf16", {}), ("grau", {"spec": g.spec, "s_in": g.s_in}))
+    rows = {}
+    for label, D, M in MESH_DATA_SHAPES:
+        n, hl, kl = slots // D, h // M, kvh // M
+        for kv_bits in (16, 4):
+            (q, k, v, table, lengths), kv = paged_case(
+                torch, np, dev, torch.bfloat16, s, rng, kv_bits)
+            full = {ep: pa.paged_attention(q, k, v, table, lengths, **kv,
+                                           **e) for ep, e in epis}
+            same, own_plan = True, 0.0
+            for d in range(D):
+                sl = slice(d * n, (d + 1) * n)
+                for m in range(M):
+                    qr = q[sl, m * hl:(m + 1) * hl].contiguous()
+                    kr, vr = (x.narrow(2, m * kl, kl).contiguous()
+                              for x in (k, v))
+                    kvr = {key: (x.narrow(1, m * kl, kl).contiguous()
+                                 if torch.is_tensor(x) else x)
+                           for key, x in kv.items()}
+                    for ep, e in epis:
+                        want = full[ep][sl, m * hl:(m + 1) * hl]
+                        got = pa.paged_attention(
+                            qr, kr, vr, table[sl], lengths[sl], **kvr, **e,
+                            plan_kvh=kvh, plan_batch=slots)
+                        same &= torch.equal(got, want)
+                        alone = pa.paged_attention(qr, kr, vr, table[sl],
+                                                   lengths[sl], **kvr, **e)
+                        own_plan = max(own_plan, float(
+                            (alone.float() - want.float()).abs().max()))
+            suffix = "" if kv_bits == 16 else f"_kv{kv_bits}"
+            what = (f"paged_attention{suffix} at {n} of {slots} slots, "
+                    f"{hl} / {kl} heads")
+            need(rehearse or same, f"{what}: a rank's launch is not the "
+                 "full launch's bits slot for slot and head for head")
+            log(f"{what}: the rank launches (planned for {slots} slots and "
+                f"{kvh} KV heads) give the full launch's bits: {same}; "
+                f"planned for their own share: max |diff| {own_plan:.3g}")
+            row = {"name": f"paged_attention{suffix}_{label}",
+                   "route": "cuda",
+                   "source": "src/repro_torch/csrc/paged_prefill.cu",
+                   "replaces": "src/repro/kernels/paged_attention.py:189",
+                   "kv_bits": kv_bits, "mesh": [D, M], "slots": [n, slots],
+                   "heads": [hl, kl],
+                   "max_abs_err": 0.0 if same else None,
+                   "same_bits_as_full_launch": same,
+                   "own_plan_max_abs_diff": own_plan}
+            if timed:
+                row.update(time_paged(
+                    torch, np, dev, "paged_attention",
+                    dict(s, slots=n, h=hl, kvh=kl), hl // kl, rng, kv_bits,
+                    plan_kvh=kvh, plan_batch=slots))
+                log(f"timed: {json.dumps(row)}")
+            rows[row["name"]] = row
+    return rows
+
+
+def check_matmul_wq_rank(torch, np, dev, shapes, timed):
+    """matmul_wq at a (1, 2) rank's share of the MLP — w_gate / w_up with
+    half the columns (3072 x 4096), w_down with half the rows (4096 x
+    3072), the shapes slice (l)'s (c) setup runs — int4 and int8, bf16 x at
+    8 and 32 rows: against matmul_wq_plain within check_matmul_wq's
+    tolerance, then timed as check_matmul_wq times the full shapes."""
+    from repro_torch.kernels import matmul_wq as mm
+    from repro_torch.quant import weights as wq
+    (K, N), (K2, N2) = shapes["mlp"]["w_gate"], shapes["mlp"]["w_down"]
+    rank = {"mlp": {"w_gate": (K, N // 2), "w_down": (K2 // 2, N2)}}
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    worst = 0.0
+    for wname, (k, n) in rank["mlp"].items():
+        for bits in (4, 8):
+            w = wq.pack_tensor(torch.randn((k, n), device=dev) * k ** -0.5,
+                               bits, -2)
+            wabs = wq.dense(w).abs()
+            for M in shapes["rows"]:
+                x = torch.randn((M, k), device=dev).to(torch.bfloat16)
+                got = mm.matmul_wq(x, w)
+                sync()
+                want = mm.matmul_wq_plain(x, w.q, w.e, bits=bits, kdim=k)
+                tol = (F32_TOL * (x.float().abs() @ wabs) + BF16_ATOL
+                       + BF16_RTOL * want.float().abs())
+                diff = (got.float() - want.float()).abs()
+                need(bool((diff <= tol).all()),
+                     f"matmul_wq {wname} rank share {k} x {n} M={M} "
+                     f"int{bits}: off by {float(diff.max()):.3g}")
+                worst = max(worst, float(diff.max()))
+    log(f"matmul_wq at a (1, 2) rank's MLP shares: max |kernel - plain| "
+        f"{worst:.3g}, within the stated tolerance")
+    row = {"max_abs_err": worst,
+           "shapes_rank": {w: list(kn) for w, kn in rank["mlp"].items()}}
+    if timed:
+        row["timed"] = [time_matmul_wq(torch, dev, dict(shapes, **rank),
+                                       wname, M, bits)
+                        for wname in rank["mlp"] for bits in (4, 8)
+                        for M in shapes["rows"]]
+        for r in row["timed"]:
+            log(f"timed matmul_wq rank share: {json.dumps(r)}")
+    return row
+
+
 def dense_first_decode(torch, np, dev, cfg, params, prompts, max_seq,
                        mesh=None):
     """Each prompt's context through lm.prefill_step into fresh dense
@@ -4663,8 +4834,336 @@ def mesh_requests(np, Request, vocab, lo, hi, seed, n):
     return make
 
 
-def slice_l_rank(rank, seed, rehearse, card):
-    """One rank of slice (l)'s (1, 2) gloo mesh on the card. The full tree
+MESH_M_PREFIX = 512     # slice (m): the shared prefix's tokens (64 in a
+# rehearsal)
+MESH_M_SHORT = 4        # (m)(2) serves the 4 requests with the shortest
+# suffixes on 4 slots
+MESH_M_LOGIT_PROMPTS = 2   # first-decode logits: the 2 shortest prompts,
+# one a data rank (each prompt's prefill runs on both ranks: the cost)
+
+
+def m_trace(np, Request, vocab, seed, rehearse, n=8):
+    """Slice (m)'s trace: 8 requests sharing one prefix of MESH_M_PREFIX
+    tokens (64 in a rehearsal), each with its own suffix of 16-64 tokens
+    (8-16) and 32 new tokens (8), drawn from `seed`; with n < 8, the n with
+    the shortest suffixes, in rid order. Returns (prefix length,
+    requests)."""
+    rng = np.random.default_rng(seed + 41)
+    plen, (lo, hi), new = ((64, (8, 16), 8) if rehearse else
+                           (MESH_M_PREFIX, (16, 64), 32))
+    prefix = rng.integers(2, vocab, size=plen)
+    sizes = [int(rng.integers(lo, hi + 1)) for _ in range(8)]
+    reqs = [Request(rid=i, prompt=np.concatenate(
+        [prefix, rng.integers(2, vocab, size=k)]), max_new_tokens=new)
+        for i, k in enumerate(sizes)]
+    keep = sorted(range(8), key=lambda i: (sizes[i], i))[:n]
+    return plen, [reqs[i] for i in sorted(keep)]
+
+
+def m_engine_config(attn, seed, rehearse, **kw):
+    """Slice (m)'s engine: (b)'s setup (the fused GRAU epilogue, 16-bit
+    pools, page 16, chunk 32) with the prefix cache, EOS off, max_seq
+    1024 (256 in a rehearsal)."""
+    return dict(slots=8, max_seq=256 if rehearse else 1024, page_size=16,
+                prefill_chunk=32, attn_grau=attn, eos_id=-1, seed=seed,
+                prefix_cache=True, **kw)
+
+
+class StateTrail:
+    """A drive() hook: a running sha256 of the engine's host schedule after
+    every step — its block table, its allocator's free list and its radix
+    cache's pins — so two engines' whole trajectories compare by one
+    digest."""
+
+    def __init__(self):
+        import hashlib
+        self.h, self.steps = hashlib.sha256(), 0
+
+    def __call__(self, eng):
+        import numpy as np
+        self.h.update(eng.block_table.tobytes())
+        self.h.update(np.asarray(eng.allocator._free, np.int64).tobytes())
+        self.h.update(json.dumps(eng.radix.pin_summary(),
+                                 sort_keys=True).encode())
+        self.steps += 1
+        return False
+
+    def digest(self):
+        return self.h.hexdigest()
+
+
+def pool_digest(torch, caches):
+    """sha256 of every pool tensor's bytes (payloads and exponent planes),
+    a layer at a time through host memory."""
+    import hashlib
+
+    from repro_torch.nn.attention import pool_tensors
+    h = hashlib.sha256()
+    for t in pool_tensors(caches):
+        for layer in t:
+            h.update(layer.contiguous().view(-1).view(torch.uint8).cpu()
+                     .numpy().tobytes())
+    return h.hexdigest()
+
+
+def m_logit_prompts(reqs):
+    """The MESH_M_LOGIT_PROMPTS shortest prompts of (m)'s trace, in rid
+    order."""
+    keep = sorted(range(len(reqs)), key=lambda i: (len(reqs[i].prompt), i))
+    return [reqs[i].prompt for i in sorted(keep[:MESH_M_LOGIT_PROMPTS])]
+
+
+def slice_m_rank(rank, host, mesh12, seed, rehearse, dev, shared):
+    """Slice (m) in one of slice (l)'s two rank processes, after (l)'s
+    setups, from the host tree they built from: a (2, 1) mesh over gloo,
+    two data ranks on the one card. (1) (m)'s trace (m_trace) on 8 slots,
+    4 a rank, the prefix cache on, the first request served alone through
+    its prefill: the streams, the trail of the host schedule (StateTrail),
+    the pool bytes' digest, the cached prefix tokens, tokens/s, weight
+    bytes, peak memory and the first-decode logits as the engine's data
+    rank computes them (first_decode_logits with data_split). (2) The 4
+    requests with the shortest suffixes on 4 slots: the uninterrupted run,
+    then a snapshot with every slot busy restored on the mesh, a crash
+    mid-decode recovered on the mesh from global rank 0's journal, a
+    handoff mid-decode to a fresh (2, 1) engine, the front door on global
+    rank 0 (4 concurrent submits, max_waiting=2, one cancel after its 4th
+    token; rank 1 follows), and a handoff mid-decode to an engine on
+    `mesh12`, (l)'s (1, 2) mesh over the same ranks. `shared`: a directory
+    both ranks see (the snapshot and the journal)."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.archs import get_config
+    from repro_torch.launch.mesh import host_broadcast, make_serve_mesh
+    from repro_torch.models.config import GRAUConfig
+    from repro_torch.nn.attention import AttnQuant
+    from repro_torch.nn.common import build_lm_grau
+    from repro_torch.serve import faults as fl
+    from repro_torch.serve import sharding
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    from repro_torch.serve.frontdoor import FrontDoor, follow
+    from repro_torch.serve.journal import RequestJournal
+
+    t0 = time.perf_counter()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    mesh = make_serve_mesh(2, 1, device=dev, backend="gloo")
+    cfg = get_config("llama3.2-3b", smoke=rehearse).replace(grau=GRAUConfig())
+    # a (2, 1) rank holds the whole tree: moved to the card once and shared
+    # by every (2, 1) engine below (a whole-range slice is the leaf itself)
+    tree = sharding.shard_params(host, cfg, mesh, dev)
+    attn = build_lm_grau("identity")
+    aq = AttnQuant(attn.spec.to(dev), attn.s_in, attn.s_out)
+    base = m_engine_config(attn, seed, rehearse)
+    out = {"rank": rank}
+
+    def engine(m=mesh, params=tree, **kw):
+        return ServeEngine(cfg, params, EngineConfig(**{**base, **kw}),
+                           device=dev, mesh=m)
+
+    # (1) the 8-request trace on 8 slots
+    plen, reqs = m_trace(np, Request, cfg.vocab_size, seed, rehearse)
+    eng = engine()
+    eng.warmup(prefill=False)
+    sync()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    trail = StateTrail()
+    done, wall = drive(eng, reqs, True, (trail,))
+    sync()
+    res = served(eng, done, wall, kernels.launch_counts())
+    res["setup_s"] = time.perf_counter() - t0 - wall
+    res.update(streams=streams_of(done), trail=trail.digest(),
+               trail_steps=trail.steps, pool_digest=pool_digest(
+                   torch, eng.caches), prefix_tokens=plen,
+               weight_bytes=eng.metrics()["weight_bytes"],
+               peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                            if dev.type == "cuda" else None),
+               full_requests=all(len(r.out_tokens) == r.max_new_tokens
+                                 for r in done))
+    del eng
+    t = time.perf_counter()
+    lk = first_decode_logits(
+        torch, np, dev, cfg, tree, aq, m_logit_prompts(reqs),
+        base["max_seq"], 16, 32, mesh=mesh, paths=("kernel",),
+        plan_batch=MESH_M_LOGIT_PROMPTS, data_split=True)["kernel"]
+    res["logits_s"] = time.perf_counter() - t
+    if rank == 0:
+        res["first_decode_logits"] = lk.cpu()
+    out["serve"] = res
+
+    # (2) durability and the door on 4 slots; a tick may prefill the whole
+    # prefix (16 chunks), so the requests a restore, recover or handoff
+    # re-admits together find it cached after the first (the chunk grid,
+    # and so every stream, is the same under any budget)
+    four = dict(slots=4, prefill_token_budget=16 * 32)
+
+    def short():
+        return m_trace(np, Request, cfg.vocab_size, seed, rehearse,
+                       MESH_M_SHORT)[1]
+
+    def watch(eng, until):
+        """step / poll until `until(eng)`; the polled requests."""
+        done = []
+        while not until(eng):
+            need(busy(eng), "(m): the traffic ended before the point")
+            eng.step()
+            done.extend(eng.poll())
+        return done
+
+    def all_decoding(eng):
+        return slot_counts(eng) == (0, MESH_M_SHORT)
+
+    def mid_decode(eng):
+        return (slot_counts(eng)[1] >= 2
+                and eng.stats["decode_tokens"] >= 2 * MESH_M_SHORT)
+
+    def submitted(eng, until):
+        """The 4 requests submitted, then step / poll until `until(eng)`."""
+        for r in short():
+            eng.submit(r)
+        return watch(eng, until)
+
+    def source_released(eng):
+        """After a handoff: DRAINING, no pin held and, once its own prefix
+        cache is evicted, every block free."""
+        pins = total_pins(eng.radix)
+        eng.radix.evict(eng.allocator.num_blocks)
+        return {"source_health": eng.health, "source_pins": pins,
+                "source_blocks_free": (eng.allocator.free_blocks
+                                       == eng.allocator.num_blocks - 1
+                                       and pins == 0)}
+
+    eng = engine(**four)
+    kernels.reset_launches()
+    want, wall = drive(eng, short(), False)
+    want = streams_of(want)
+    dur = {"uninterrupted_s": wall,
+           "uninterrupted_launches": kernels.launch_counts()}
+    ticks = eng.stats["ticks"]
+    del eng
+
+    # one source run carries the snapshot, the handoff and the crash: A
+    # (global rank 0 journaling) snapshots with every slot busy, hands off
+    # mid-decode to a fresh (2, 1) engine B (the journal moves with the
+    # requests), B crashes some ticks later and recover(mesh=) finishes
+    # them from the journal (C); D = restore(mesh=) of A's snapshot
+    t = time.perf_counter()
+    snapdir = os.path.join(shared, "snap")
+    jpath = os.path.join(shared, "m.journal")
+    a = engine(**four, journal=RequestJournal(jpath) if rank == 0 else None)
+    writers = [a.journal is not None]
+    got = submitted(a, all_decoding)
+    path = a.snapshot(snapdir)
+    plan = fl.FaultPlan()
+    plan.arm("process_crash", tick=max(2, ticks // 2))
+    b = engine(**four, faults=plan)
+    t_h = time.perf_counter()
+    moved = a.handoff(b)["transferred"]
+    handoff_s = time.perf_counter() - t_h
+    released = source_released(a)
+    del a
+    writers.append(b.journal is not None)
+    try:
+        got += run_out(b)
+        crashed = False
+    except fl.ProcessCrash:
+        crashed = True
+    if b.journal is not None:
+        b.journal.sync()
+        b.journal.close()
+    del b
+    host_broadcast(mesh, None)          # rank 0's journal is on disk
+    c = ServeEngine.recover(cfg, tree, jpath,
+                            ecfg=EngineConfig(**{**base, **four}),
+                            device=dev, mesh=mesh)
+    writers.append(c.journal is not None)
+    run_out(c)
+    c.close()
+    del c
+    host_broadcast(mesh, None)
+    dur["handoff_2x1"] = {"handoff_s": handoff_s, "transferred": moved,
+                          **released}
+    dur["recover"] = {"crashed": crashed, "writers": writers}
+    if rank == 0:
+        same = {int(k): v for k, v in journal_streams(jpath).items()} == want
+        dur["recover"]["streams_identical"] = same
+        dur["handoff_2x1"]["streams_identical"] = same
+    d = ServeEngine.restore(cfg, tree, snapdir, device=dev, mesh=mesh,
+                            overrides={"attn_grau": attn})
+    dur["restore"] = {"streams_identical": streams_of(got + run_out(d))
+                      == want, "path": str(path)}
+    del d
+    dur["chain_s"] = time.perf_counter() - t
+
+    # the front door on global rank 0; rank 1 follows
+    t = time.perf_counter()
+    eng = engine(**four)
+    if rank != 0:
+        follow(eng).close()
+    else:
+        async def main():
+            depth, cut = [0], {}
+            async with FrontDoor(eng, max_waiting=2) as door:
+                async def client(r, cancel):
+                    st = await door.submit(r.prompt, r.max_new_tokens,
+                                           rid=r.rid)
+                    depth[0] = max(depth[0], len(eng.scheduler.waiting))
+                    n = 0
+                    async for _ in st:
+                        n += 1
+                        if cancel and n == 4:
+                            cut[r.rid] = await st.cancel()
+                    return r.rid, (list(st.tokens), st.finish_reason)
+                trace = short()
+                got = await asyncio.gather(*(client(r, i == 1) for i, r in
+                                             enumerate(trace)))
+            return dict(got), depth[0], cut
+        clients, depth, cut = asyncio.run(main())
+        (crid,) = cut
+        dur["frontdoor"] = {
+            "max_waiting_seen": depth, "cancelled_rid": crid,
+            "cancelled": clients[crid][1] == "cancelled",
+            "cancelled_prefix": clients[crid][0] == want[crid][
+                :len(clients[crid][0])],
+            "others_identical": all(toks == want[rid] for rid, (toks, _)
+                                    in clients.items() if rid != crid)}
+        eng.close()
+    del eng
+    dur["frontdoor_s"] = time.perf_counter() - t
+    # a handoff mid-decode to the (1, 2) mesh over the same ranks: the
+    # target builds its shard from the host tree
+    t = time.perf_counter()
+    src = engine(**four)
+    got = submitted(src, mid_decode)
+    dst = engine(m=mesh12, params=host, **four)
+    t_h = time.perf_counter()
+    moved = src.handoff(dst)["transferred"]
+    row = {"handoff_s": time.perf_counter() - t_h, "transferred": moved,
+           **source_released(src)}
+    del src
+    kernels.reset_launches()
+    got = streams_of(got + run_out(dst))
+    row.update(launches=kernels.launch_counts(),
+               full_requests=all(len(v) == len(want[rid])
+                                 for rid, v in got.items()),
+               greedy_identical_share=compare_streams(got, want))
+    del dst
+    row["seconds"] = time.perf_counter() - t
+    dur["handoff_1x2"] = row
+    out["durable"] = dur
+    sync()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def slice_l_rank(rank, seed, rehearse, card, shared):
+    """One rank of slice (l)'s (1, 2) gloo mesh on the card, then of slice
+    (m)'s (2, 1) mesh over the same two ranks (slice_m_rank, from the same
+    host tree; `shared`: a directory both ranks see). The full tree
     is drawn once on the card and kept on the host (lm.init_lm's store),
     and each setup's engine builds its shard from it a layer at a time
     (sharding.shard_params), so the card never holds the whole tree. Each
@@ -4727,7 +5226,119 @@ def slice_l_rank(rank, seed, rehearse, card):
             after=after)
         res.update(streams=streams, rank=rank, card=card)
         out[label] = res
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    out["m"] = slice_m_rank(rank, host, mesh, seed, rehearse, dev, shared)
     return out
+
+
+def m_one_card(torch, np, dev, cfg, params, attn, aq, seed, rehearse):
+    """Slice (m)'s trace on one card, the engine unsharded: what the (2, 1)
+    mesh is held against (streams, the host schedule's trail, cached
+    prefix tokens, first-decode logits)."""
+    from repro_torch import kernels
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    base = m_engine_config(attn, seed, rehearse)
+    plen, reqs = m_trace(np, Request, cfg.vocab_size, seed, rehearse)
+    eng = ServeEngine(cfg, params, EngineConfig(**base), device=dev)
+    eng.warmup(prefill=False)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    trail = StateTrail()
+    kernels.reset_launches()
+    done, wall = drive(eng, reqs, True, (trail,))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    res = served(eng, done, wall, kernels.launch_counts())
+    res.update(streams=streams_of(done), trail=trail.digest(),
+               trail_steps=trail.steps, prefix_tokens=plen)
+    del eng
+    res["first_decode_logits"] = first_decode_logits(
+        torch, np, dev, cfg, params, aq, m_logit_prompts(reqs),
+        base["max_seq"], 16, 32, paths=("kernel",))["kernel"]
+    return res
+
+
+def check_slice_m(torch, dev, ranks, one, rehearse):
+    """Slice (m)'s gates on both data ranks' results (slice_m_rank) against
+    the one-card engine's (m_one_card): exact — the ranks' pool bytes,
+    their host schedules' trails (block tables, free lists, radix pins
+    after every step) equal to each other and to the one-card engine's,
+    7 x the prefix cached, every request in full; the first-decode logits
+    within MESH_TOL (relative L2), the greedy share printed; and (2): the
+    restored, recovered, handed-off (to (2, 1)) and front-door streams
+    exactly the uninterrupted mesh run's, global rank 0 alone writing the
+    journal, the handoff to (1, 2) finishing every request with every
+    source block free."""
+    per = [r["m"] for r in ranks]
+    sv = [p["serve"] for p in per]
+    lk = sv[0].pop("first_decode_logits").to(dev)
+    rel = rel_l2(lk, one["first_decode_logits"])
+    need(bool(torch.isfinite(lk).all()), "(m): non-finite logits")
+    need(rel <= MESH_TOL, f"(m): first-decode logits rel L2 {rel:.3g} "
+         f"against the one-card engine > {MESH_TOL}")
+    need(sv[0]["pool_digest"] == sv[1]["pool_digest"],
+         "(m): the data ranks' pool bytes differ")
+    need(sv[0]["trail"] == sv[1]["trail"] == one["trail"]
+         and sv[0]["trail_steps"] == one["trail_steps"],
+         "(m): block tables, free lists or radix pins differ between the "
+         "ranks or from the one-card engine's")
+    need(sv[0]["streams"] == sv[1]["streams"], "(m): the ranks' streams "
+         "differ")
+    plen = sv[0]["prefix_tokens"]
+    need(all(v["cached_prefix_tokens"] == 7 * plen and v["full_requests"]
+             for v in sv), f"(m): cached prefix tokens "
+         f"{[v['cached_prefix_tokens'] for v in sv]}, want 7 x {plen}")
+    la = {k: sum(v["launches"][k] for v in sv) for k in sv[0]["launches"]}
+    need(rehearse or (la["paged_attention_epilogue"] > 0
+                      and la["paged_prefill_epilogue"] > 0),
+         f"(m): the attention kernels with the epilogue did not run: {la}")
+    row = {"first_decode_logits_rel_l2": rel,
+           "greedy_identical_share": compare_streams(sv[0]["streams"],
+                                                     one["streams"]),
+           "pool_bytes_equal": True, "trails_equal": True,
+           "trail_steps": one["trail_steps"],
+           "cached_prefix_tokens": sv[0]["cached_prefix_tokens"],
+           "one_card_tokens_per_s": one["tokens_per_s"],
+           "launches": la,
+           "ranks": [{"rank": p["rank"], **{k: v[k] for k in (
+               "tokens_per_s", "weight_bytes", "peak_mem_gb", "wall_s",
+               "ttft_mean_s", "decode_tokens", "prefill_tokens", "ticks",
+               "chunks")}} for p, v in zip(per, sv)]}
+    for p in row["ranks"]:
+        log(f"(m) (2, 1) rank {p['rank']}: {p['tokens_per_s']:.1f} "
+            f"tokens/s (8 requests, {p['ticks']} ticks), weight bytes "
+            f"{p['weight_bytes'] / 1e9:.3f} GB, peak memory "
+            f"{p['peak_mem_gb']} GB")
+    d0, d1 = per[0]["durable"], per[1]["durable"]
+    need(d0["restore"]["streams_identical"]
+         and d1["restore"]["streams_identical"],
+         "(m): restore(mesh=) streams are not the uninterrupted run's")
+    need(d0["recover"]["crashed"] and d1["recover"]["crashed"]
+         and d0["recover"]["writers"] == [True, True, True]
+         and d1["recover"]["writers"] == [False, False, False],
+         f"(m): recover: {d0['recover']} / {d1['recover']}")
+    need(d0["recover"]["streams_identical"],
+         "(m): the journal's streams after the handoff to (2, 1), the "
+         "crash and recover(mesh=) are not the uninterrupted run's")
+    for label in ("handoff_2x1", "handoff_1x2"):
+        for d in (d0, d1):
+            h = d[label]
+            need(h["source_health"] == "draining"
+                 and h["source_blocks_free"], f"(m) {label}: {h}")
+    need(d0["handoff_1x2"]["full_requests"]
+         and d1["handoff_1x2"]["full_requests"],
+         "(m): the handoff to (1, 2) left a request short")
+    fd = d0["frontdoor"]
+    need(fd["max_waiting_seen"] <= 2 and fd["cancelled"]
+         and fd["cancelled_prefix"] and fd["others_identical"],
+         f"(m): front door: {fd}")
+    row["durable"] = {k: d0[k] for k in d0}
+    row["durable_rank1"] = {k: d1[k] for k in ("restore", "recover")}
+    row["seconds_ranks"] = max(p["seconds"] for p in per)
+    log(f"slice[m]: " + json.dumps(row))
+    return row
 
 
 def mesh_slice(torch, np, dev, args, rehearse, base):
@@ -4820,6 +5431,11 @@ def mesh_slice(torch, np, dev, args, rehearse, base):
                logits_bit_identical=True)
     log(f"slice[l mesh (1, 1) {backend}]: " + json.dumps(res))
     out["mesh_1x1"] = res
+    # slice (m)'s one-card run, what its (2, 1) mesh is held against
+    t_m = time.perf_counter()
+    m_one = m_one_card(torch, np, dev, gcfg, params, attn, aq, args.seed,
+                       rehearse)
+    m_one_s = time.perf_counter() - t_m
     del params
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -4828,10 +5444,15 @@ def mesh_slice(torch, np, dev, args, rehearse, base):
     # (2) two ranks over gloo on the one card, 2 torch threads a rank (the
     # host's 8 cores shared with gloo's own threads)
     t0 = time.perf_counter()
-    ranks = mesh_lib.spawn_ranks(
-        slice_l_rank, MESH_RANKS, args=(args.seed, rehearse, args.card),
-        device=dev, backend="gloo", join_s=MESH_JOIN_S,
-        threads=1 if rehearse else 2)
+    shared = tempfile.mkdtemp(prefix="chip-smoke-m-")
+    try:
+        ranks = mesh_lib.spawn_ranks(
+            slice_l_rank, MESH_RANKS, args=(args.seed, rehearse, args.card,
+                                            shared),
+            device=dev, backend="gloo", join_s=MESH_JOIN_S,
+            threads=1 if rehearse else 2)
+    finally:
+        shutil.rmtree(shared, ignore_errors=True)
     out["mesh_1x2_spawn_s"] = time.perf_counter() - t0
     out["launches"] = {}
     for label, _, n in mesh_setups(attn):
@@ -4884,6 +5505,10 @@ def mesh_slice(torch, np, dev, args, rehearse, base):
         log(f"slice[l mesh (1, 2) {label}]: " + json.dumps(row))
         out[f"mesh_1x2_{label}"] = row
     del packed
+    out["m"] = check_slice_m(torch, dev, ranks, m_one, rehearse)
+    out["m"]["seconds"] = out["m"]["seconds_ranks"] + m_one_s
+    log(f"slice (m): {out['m']['seconds']:.1f} s (the ranks "
+        f"{out['m']['seconds_ranks']:.1f}, the one-card run {m_one_s:.1f})")
     return out
 
 
@@ -5113,8 +5738,12 @@ def main(argv=None) -> int:
             torch, np, dev, shapes, rng, timed))
         flash_k = phase("flash_slice_k", lambda: check_flash_dense(
             torch, np, dev, timed))
-        rank_rows = phase("mesh_kernels", lambda: check_rank_shapes(
-            torch, np, dev, shapes, rng, timed, args.rehearse))
+        rank_rows, data_rows, wq_rank = phase("mesh_kernels", lambda: (
+            check_rank_shapes(torch, np, dev, shapes, rng, timed,
+                              args.rehearse),
+            check_data_rank_shapes(torch, np, dev, shapes, rng, timed,
+                                   args.rehearse),
+            check_matmul_wq_rank(torch, np, dev, shapes, timed)))
         slice_res = phase("slices_abc", lambda: slice_phase(
             torch, np, dev, args, args.rehearse))
         paper = phase("slice_d", lambda: paper_flow(torch, np, dev, args,
@@ -5231,6 +5860,20 @@ def main(argv=None) -> int:
         rank_rows[f"{name}_rank"]["launches"] = ml[setup][key]
         rank_rows[f"{name}_rank"]["launches_slice_l_setup"] = setup
     rows["matmul_wq"]["launches_slice_l"] = ml["wq4_kv4_grau"]["matmul_wq"]
+    rows["matmul_wq"]["rank_shapes"] = dict(
+        wq_rank, launches_slice_l=ml["wq4_kv4_grau"]["matmul_wq"])
+    # slice (m): the (2, 1) mesh's data ranks, both ranks' launches of its
+    # 8-request run; the (2, 2) rank shape and the 4-bit pools serve on no
+    # path of the one card (checked and timed only)
+    lm_ = mesh["m"]["launches"]
+    for name in ("paged_attention", "paged_attention_kv4"):
+        for label, _, _ in MESH_DATA_SHAPES:
+            row = data_rows[f"{name}_{label}"]
+            row["launches"] = (lm_[name] if label == "data_rank"
+                               and name == "paged_attention" else 0)
+            rows[name][label + "_shape"] = row
+    for name in ("paged_attention", "paged_prefill"):
+        rows[name]["launches_slice_m"] = lm_[name]
     for name in ("paged_attention", "paged_prefill"):
         rows[name]["launches_slice_l_mesh_1x1"] = mesh["mesh_1x1"][
             "launches"][name]

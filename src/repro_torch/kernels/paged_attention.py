@@ -319,14 +319,18 @@ def _launch(fn_name, q, k_pool, v_pool, block_table, start, shape_args, *,
 
 
 def _launch_bf16(q, k_pool, v_pool, block_table, start, *, scale, spec,
-                 s_in, out_dtype, k_exp, v_exp, kv_bits, plan_kvh=None):
+                 s_in, out_dtype, k_exp, v_exp, kv_bits, plan_kvh=None,
+                 plan_batch=None):
     """bf16 q: csrc/paged_prefill.cu's tensor-core kernels, decode (q 3-D,
     `start` the lengths) or prefill (q 4-D), with the part plan and the f32
     workspace for the parts' (o, m, l). Decode plans its parts from the
     table's row stride: every bucket sliced from one table cuts a slot's
     blocks at the same boundaries. Both plan for `plan_kvh` KV heads
     (default: the pools'), so a tensor-parallel rank launching its share of
-    the heads cuts every head's sequence where the unsharded launch does."""
+    the heads cuts every head's sequence where the unsharded launch does;
+    decode plans for `plan_batch` slots (default: the launch's), so a data
+    rank launching its share of the slots cuts every slot's sequence where
+    the unsharded launch does."""
     if q.data_ptr() % 16:
         q = q.clone()                  # the kernel reads q in 16-byte vectors
     decode = q.dim() == 3
@@ -339,7 +343,7 @@ def _launch_bf16(q, k_pool, v_pool, block_table, start, *, scale, spec,
     pk = plan_kvh or kvh
     if decode:
         cap = max(width, block_table.stride(0))
-        parts, bpp = decode_plan(b, pk, width, cap, bs, sms)
+        parts, bpp = decode_plan(plan_batch or b, pk, width, cap, bs, sms)
     else:
         parts, bpp = prefill_plan(b, pk, rows, width, bs, sms)
     ws_o = torch.empty((b, kvh, parts, rows, d), dtype=torch.float32,
@@ -375,6 +379,7 @@ def paged_attention(
     kv_bits: int = 16,
     out_dtype: Optional[torch.dtype] = None,
     plan_kvh: Optional[int] = None,
+    plan_batch: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash decode over the mapped blocks of each slot.
 
@@ -387,7 +392,9 @@ def paged_attention(
     otherwise the output dtype is `out_dtype` (default: q's). With `kv_bits` 8 or 4 the
     pools are packed int8 with exponent planes `k_exp` / `v_exp`.
     `plan_kvh`: the KV heads the bf16 kernel sizes its parts for (default:
-    the pools'; a tensor-parallel rank passes the unsharded count).
+    the pools'; a tensor-parallel rank passes the unsharded count);
+    `plan_batch`: the slots it sizes them for (default: q's; a data rank
+    passes the unsharded count).
     """
     if spec is not None and s_in is None:
         raise ValueError("the GRAU epilogue needs s_in")
@@ -406,7 +413,8 @@ def paged_attention(
     if q.dtype == torch.bfloat16:          # the served dtype: tensor cores
         out = _launch_bf16(q, k_pool, v_pool, block_table, lengths,
                            scale=scale, spec=spec, s_in=s_in,
-                           out_dtype=out_dtype, plan_kvh=plan_kvh, **kw)
+                           out_dtype=out_dtype, plan_kvh=plan_kvh,
+                           plan_batch=plan_batch, **kw)
     else:
         out = _launch("paged_decode_launch", q, k_pool, v_pool, block_table,
                       lengths, (slots, h), scale=scale, spec=spec, s_in=s_in,

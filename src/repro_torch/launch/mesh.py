@@ -7,8 +7,11 @@ process per rank: `make_serve_mesh(data, model)` returns a
 the ranks of an initialised process group, every rank holds its shard of the
 weights and of the KV storage (serve/sharding.py), every rank runs the same
 host schedule, and the model code calls the collectives itself
-(nn/shard_ctx.py). Only the model axis is served: a data axis needs a pool
-that stays consistent under the prefix cache across ranks (ROADMAP A10b).
+(nn/shard_ctx.py). The model axis shards the heads, the MLP and the
+vocabulary; the data axis shards the decode slot batch, each data rank
+computing its contiguous range of slots and all-gathering the tick's new
+K/V rows and its (tokens, done, finite) record, so every rank's pool and
+host state stay the same (serve/engine.py).
 
 `spawn_ranks(fn, world)` starts the rank processes (the `spawn` start method,
 never `fork`: the parent may hold a CUDA context or other runtimes'
@@ -34,9 +37,11 @@ AXES = ("data", "model")
 A10B = "ROADMAP A10b"
 COLLECTIVE_TIMEOUT_S = 60.0
 
-# the gloo group for host-side decisions of a mesh whose own groups are
-# nccl (the engine broadcasts rank 0's clock-based decisions over it, on
-# CPU tensors, so the tick never waits on the device for them)
+# the gloo group over every rank of a mesh for host-side decisions (the
+# engine broadcasts global rank 0's clock-based decisions and the front
+# door's admissions over it, on CPU tensors, so the tick never waits on
+# the device for them): the world group under gloo, a gloo group of its
+# own when the mesh's groups are nccl
 _HOST_GROUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _OWNED = {"store": None}       # the FileStore directory of a one-rank
 # group make_serve_mesh started (release_mesh ends the group, removes it)
@@ -65,18 +70,12 @@ def default_backend(device) -> str:
 
 
 def check_mesh(data: int, model: int, device, backend: str) -> None:
-    """Refuse what this slice does not serve or a backend cannot do, before
-    any process group exists: a data axis (A10b), nccl on the CPU, and nccl
-    with more ranks than cards (nccl refuses two ranks on one device; it
-    never silently becomes gloo)."""
+    """Refuse what a backend cannot do, before any process group exists:
+    nccl on the CPU, and nccl with more ranks than cards (nccl refuses two
+    ranks on one device; it never silently becomes gloo)."""
     import torch
     if data < 1 or model < 1:
         raise ValueError(f"mesh ({data}, {model}): axes must be >= 1")
-    if data > 1:
-        raise ValueError(
-            f"mesh ({data}, {model}): the data axis is not served yet (a "
-            "pool that stays consistent under the prefix cache across "
-            f"ranks, {A10B}); use data=1")
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"unknown backend {backend!r}: nccl or gloo")
     if backend != "nccl":
@@ -145,14 +144,33 @@ def make_serve_mesh(data: int = 1, model: int = 1, *, device=None,
         import torch
         torch.cuda.set_device(rank_device(dist.get_rank(), dev, backend))
     mesh = init_device_mesh(dev.type, (data, model), mesh_dim_names=AXES)
-    _HOST_GROUPS[mesh] = (mesh.get_group("model") if backend == "gloo"
+    _HOST_GROUPS[mesh] = (dist.group.WORLD if backend == "gloo"
                           else dist.new_group(backend="gloo"))
     return mesh
 
 
 def host_group(mesh):
-    """The gloo group over `mesh`'s model axis for host-side decisions."""
+    """The gloo group over every rank of `mesh` for host-side decisions."""
     return _HOST_GROUPS[mesh]
+
+
+def global_rank(mesh) -> int:
+    """This process's rank in `mesh`'s process group (0 without a mesh):
+    global rank 0 alone takes the clock's decisions, runs the front door
+    and writes the journal, the trace, the snapshot and /metrics."""
+    if mesh is None:
+        return 0
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
+def host_broadcast(mesh, obj: Any) -> Any:
+    """Global rank 0's `obj` (any picklable value; the others pass None),
+    returned on every rank of `mesh` over its host group."""
+    import torch.distributed as dist
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, group=host_group(mesh))
+    return box[0]
 
 
 def mesh_sizes(mesh) -> dict:
@@ -161,9 +179,8 @@ def mesh_sizes(mesh) -> dict:
 
 
 def data_axes(mesh) -> tuple:
-    """The axes that shard the decode batch (the reference's data_axes).
-    No mesh served here has one of size > 1: its caller is the data axis
-    (ROADMAP A10b)."""
+    """The axes that shard the decode batch (the reference's data_axes):
+    the engine splits its slots over them (nn/shard_ctx.data_size)."""
     return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
 
 

@@ -37,11 +37,15 @@ Examples:
       --snapshot-dir build/serve-snap
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --max-new 200 --journal build/serve.journal --resume
-  # tensor-parallel over a serving mesh: two rank processes over gloo on
-  # the CPU; on cards nccl with one card a rank, or --dist-backend gloo
-  # when the ranks share one card
+  # a serving mesh: 1x2 is two tensor-parallel rank processes, 2x2 adds a
+  # data axis (each pair of model ranks decodes half of the slots); gloo
+  # on the CPU; on cards nccl with one card a rank, or --dist-backend gloo
+  # when the ranks share one card; --journal / --snapshot-dir / --resume
+  # work under a mesh (global rank 0 writes)
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --mesh 1x2
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --mesh 2x2 --journal build/serve.journal --snapshot-dir build/snap
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
       --mesh 2 --dist-backend gloo
 
@@ -50,13 +54,15 @@ qwen1.5-32b, llava-next-mistral-7b (served text-only, as the reference's
 engine), llama4-maverick-400b-a17b (MoE at full capacity: serving drops no
 token) on either backend, and mamba2-1.3b, jamba-v0.1-52b,
 deepseek-v3-671b and whisper-medium on the dense one.
-`--mesh M|DxM` serves tensor-parallel over the model axis (launch/mesh.py):
-M rank processes, each with its shard of the weights and KV heads, rank 0
-printing; the data axis, the dense-cache archs and --snapshot-dir under a
-mesh are ROADMAP A10b. A first SIGINT or SIGTERM drains (in-flight streams
-finish, queued requests wait in the journal and the final snapshot), a
-second stops at once; either way the snapshot is written and the engine
-closed. Under a mesh rank 0's signals decide for every rank.
+`--mesh M|DxM` serves over a (data, model) mesh (launch/mesh.py): D x M
+rank processes, each with its shard of the weights and KV heads over the
+model axis and its range of the decode slots over the data axis, global
+rank 0 printing and alone writing the journal, the trace and the snapshot;
+the MoE, MLA and dense-cache SSM / enc-dec archs under a mesh are ROADMAP
+A10b. A first SIGINT or SIGTERM drains (in-flight streams finish, queued
+requests wait in the journal and the final snapshot), a second stops at
+once; either way the snapshot is written and the engine closed. Under a
+mesh rank 0's signals decide for every rank.
 
 Weights are random, drawn from --seed on the device (the published weight
 files are not in the repository). At startup it prints the analytic KV and
@@ -210,8 +216,9 @@ def main(argv=None) -> None:
                          "of submitting new ones (the flags, --seed above "
                          "all, must match the killed run)")
     ap.add_argument("--mesh", default=None, metavar="M|DxM",
-                    help="serve tensor-parallel over a (data, model) mesh of "
-                         "rank processes; data must be 1 (ROADMAP A10b)")
+                    help="serve over a (data, model) mesh of D x M rank "
+                         "processes: tensor-parallel over the model axis, "
+                         "the decode slots split over the data axis")
     ap.add_argument("--dist-backend", choices=["nccl", "gloo"],
                     default=None,
                     help="the mesh's collectives: nccl (default on CUDA, one "
@@ -228,49 +235,47 @@ def main(argv=None) -> None:
         ap.error("--trace-out requires telemetry (drop --no-telemetry)")
     if args.mesh is None:
         return serve(args)
-    if args.snapshot_dir:
-        ap.error("--snapshot-dir under a mesh is not served yet "
-                 "(ROADMAP A10b)")
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import lm
     data, model = mesh_lib.parse_mesh_spec(args.mesh)
     device = lm.resolve_device(args.device)
     backend = args.dist_backend or mesh_lib.default_backend(device)
     mesh_lib.check_mesh(data, model, device, backend)
-    if model == 1:
+    if data * model == 1:
         try:
             return serve(args, mesh_lib.make_serve_mesh(
                 data, model, device=device, backend=backend))
         finally:
             mesh_lib.release_mesh()
-    mesh_lib.spawn_ranks(_serve_rank, model,
-                         args=(args, model, device, backend), device=device,
-                         backend=backend, join_s=None)
+    mesh_lib.spawn_ranks(_serve_rank, data * model,
+                         args=(args, data, model, device, backend),
+                         device=device, backend=backend, join_s=None)
 
 
-def _serve_rank(rank: int, args, model: int, device, backend: str) -> None:
+def _serve_rank(rank: int, args, data: int, model: int, device,
+                backend: str) -> None:
     from repro_torch.launch import mesh as mesh_lib
-    serve(args, mesh_lib.make_serve_mesh(1, model, device=device,
+    serve(args, mesh_lib.make_serve_mesh(data, model, device=device,
                                          backend=backend))
 
 
 def serve(args, mesh=None) -> None:
     """Serve the launcher's requests, in this process (one rank of `mesh`
-    when given: every rank runs this with the same arguments, and rank 0
-    alone prints)."""
+    when given: every rank runs this with the same arguments, and global
+    rank 0 alone prints and writes)."""
     import torch
 
     from repro_torch.configs.archs import get_config
     from repro_torch.models import lm
+    from repro_torch.launch.mesh import global_rank
     from repro_torch.models.config import GRAUConfig
-    from repro_torch.nn import shard_ctx
     from repro_torch.nn.common import build_lm_grau
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
     from repro_torch.serve.journal import RequestJournal
     from repro_torch.serve.sampling import SamplingParams
 
     device = lm.resolve_device(args.device)
-    rank = shard_ctx.model_rank(mesh)
+    rank = global_rank(mesh)
     if mesh is not None and device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     say = print if rank == 0 else (lambda *a, **k: None)
@@ -398,21 +403,21 @@ def serve(args, mesh=None) -> None:
             n = engine.export_trace(args.trace_out)
             print(f"wrote {n} trace events to {args.trace_out}")
         if args.snapshot_dir:
+            # every rank takes part; global rank 0 writes
             path = engine.snapshot(args.snapshot_dir)
-            print(f"snapshot: {path} ({len(engine.scheduler.waiting)} "
-                  "undelivered requests captured)")
+            say(f"snapshot: {path} ({len(engine.scheduler.waiting)} "
+                "undelivered requests captured)")
     finally:
         engine.close()
 
 
 def _rank0_count(engine, count: int) -> int:
-    """Rank 0's signal count, broadcast over the mesh's host group, so
-    every rank drains or stops at the same tick."""
+    """Global rank 0's signal count, broadcast over the mesh's host group,
+    so every rank drains or stops at the same tick."""
     import torch
     import torch.distributed as dist
     t = torch.tensor([count], dtype=torch.int64)
-    dist.broadcast(t, src=dist.get_global_rank(engine._host_group, 0),
-                   group=engine._host_group)
+    dist.broadcast(t, src=0, group=engine._host_group)
     return int(t[0])
 
 

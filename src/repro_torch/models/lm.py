@@ -23,8 +23,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import blocks, shard_ctx
-from repro_torch.nn.attention import (CrossKV, KVCache, MLACache, PagedState,
-                                      cache_slice)
+from repro_torch.nn.attention import (NULL_BLOCK, CrossKV, KVCache, MLACache,
+                                      PagedState, cache_slice, pool_tensors,
+                                      write_gathered)
 from repro_torch.nn.common import act_fn, init_param, tree_map
 from repro_torch.nn.mamba2 import SSMState
 from repro_torch.nn.rope import rope_tables
@@ -403,7 +404,8 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 
 def decode_step(params, cfg: ModelConfig, tokens, caches, *,
                 paged: Optional[PagedState] = None, act=None,
-                paged_impl: str = "kernel", attn_quant=None):
+                paged_impl: str = "kernel", attn_quant=None,
+                write_back: Optional[PagedState] = None):
     """One serving step: tokens (b, 1) + caches -> (logits (b, 1, vocab),
     caches), the caches updated in place. With `paged`, the caches are the
     paged pools, per-slot positions come from `paged.length` and
@@ -411,15 +413,37 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, *,
     without it they are the dense caches and each row's position is its
     cache `length`. A cross-attention layer reads its cached K/V. An MoE
     layer runs at full capacity (no token dropped); its router loss is not
-    returned."""
+    returned.
+
+    `write_back` (paged, a data rank under a serving mesh): `tokens` and
+    `paged` are this rank's range of the slots (its rows of the table, a
+    column slice of the whole table, so the kernel cuts each slot's
+    sequence where the unsharded launch does), and `write_back` is the
+    whole slot batch's state. Each layer writes the rank's new K/V before
+    attending, as the unsharded forward does; after the forward the null
+    block, which idle slots write, is put back as it was, one all-gather
+    over the data axis brings every slot's rows from its own rank, and
+    every pool takes them in slot order through the same write
+    (nn/attention.write_gathered), so every data rank's pools hold the
+    same bytes."""
     if paged is not None:
         positions = paged.length[:, None]
     else:
         positions = _cache_positions(caches, tokens.shape[0], tokens.device)
-    logits, caches, _ = apply_lm(params, cfg, tokens, mode="decode",
-                                 caches=caches, positions=positions,
-                                 paged=paged, act=act, paged_impl=paged_impl,
-                                 attn_quant=attn_quant)
+    log = saved = None
+    if write_back is not None:
+        log = []
+        saved = [(t, t[:, NULL_BLOCK].clone()) for t in pool_tensors(caches)]
+    with shard_ctx.record_writes(log):
+        logits, caches, _ = apply_lm(params, cfg, tokens, mode="decode",
+                                     caches=caches, positions=positions,
+                                     paged=paged, act=act,
+                                     paged_impl=paged_impl,
+                                     attn_quant=attn_quant)
+    if write_back is not None:
+        for t, null in saved:
+            t[:, NULL_BLOCK] = null
+        write_gathered(log, write_back)
     return logits, caches
 
 

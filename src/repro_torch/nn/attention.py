@@ -22,6 +22,7 @@ from repro_torch.nn import shard_ctx
 from repro_torch.quant import kv as kvq
 
 NEG_INF = -1e30
+NULL_BLOCK = 0           # the paged pools' null / trash block
 
 
 def _largest_divisor(n: int, cap: int) -> int:
@@ -264,26 +265,45 @@ class AttnQuant(NamedTuple):
     s_out: float
 
 
-def _write_slots(cache: AnyPagedKVCache, st: PagedState):
-    """(pool block, offset) of each slot's decode write. The column index is
-    clamped to the table: a slot the host has retired while the device
-    still counts it (a ghost) has a NULL row, so its write lands in the
-    trash block whatever its length."""
+def _write_slots(cache: AnyPagedKVCache, st: PagedState, exact: bool):
+    """(pool block, offset, src) of each slot's decode write. The column
+    index is clamped to the table: a slot the host has retired while the
+    device still counts it (a ghost) has a NULL row, so its write lands in
+    the trash block whatever its length. `src` is None for the plain
+    scatter. With `exact` (a data rank's writes, which must leave every
+    rank's pool the same bytes: write_gathered) it is, for each row, the
+    row whose values its target stores, -1 where the target keeps its
+    value: a position past the (bucket-sliced) table writes nothing, as
+    the reference's out-of-bounds scatter drops it, and rows that share a
+    target (the null block, where ghost and idle slots write) store the
+    last one's, as one scatter in slot order leaves them, whatever order
+    the device applies them in. A quantized pool's target is the block,
+    which it rewrites whole."""
     block_size = cache.k.shape[1]
-    col = torch.clamp(st.length.long() // block_size,
-                      max=st.block_table.shape[1] - 1)
+    col = st.length.long() // block_size
+    valid = col < st.block_table.shape[1]
+    col = torch.clamp(col, max=st.block_table.shape[1] - 1)
     blk = torch.gather(st.block_table, 1, col[:, None])[:, 0].long()
-    return blk, (st.length % block_size).long()
+    off = (st.length % block_size).long()
+    if not exact:
+        return blk, off, None
+    key = (blk if isinstance(cache, QuantPagedKVCache)
+           else blk * block_size + off)
+    same = (key[:, None] == key[None, :]) & valid[None, :]
+    j = torch.arange(key.shape[0], device=key.device)
+    return blk, off, torch.where(same, j[None, :], -1).amax(1)
 
 
 def _quant_paged_update(cache: QuantPagedKVCache, k_new, v_new,
-                        st: PagedState) -> QuantPagedKVCache:
+                        st: PagedState, exact: bool) -> QuantPagedKVCache:
     """Decode write into a quantized pool, one position per slot (in
     place). The block's exponent only rises: e_new = max(resident, token);
     when it rises the resident payload is requantized by a rounding right
-    shift before the new position lands, so a block stays on one grid."""
+    shift before the new position lands, so a block stays on one grid.
+    Every slot's new block is computed from the blocks as they were before
+    the write (`exact`: see _write_slots)."""
     bits = cache.bits
-    blk, off = _write_slots(cache, st)
+    blk, off, src = _write_slots(cache, st, exact)
     rows = torch.arange(blk.shape[0], device=blk.device)
 
     def upd(buf, exp, new):                       # new: (slots, kvh, hd)
@@ -295,8 +315,14 @@ def _quant_paged_update(cache: QuantPagedKVCache, k_new, v_new,
         q = kvq.unpack_int4(resident) if bits == 4 else resident
         q = kvq.requant_shift(q, delta[:, None, :, None], bits)
         q[rows, off] = kvq.quantize_pot(new, e_new[..., None], bits)
-        buf[blk] = kvq.pack_int4(q) if bits == 4 else q
-        exp[blk] = e_new
+        q = kvq.pack_int4(q) if bits == 4 else q
+        if src is None:
+            buf[blk] = q
+            exp[blk] = e_new
+            return
+        keep, s = src < 0, src.clamp(min=0)
+        buf[blk] = torch.where(keep[:, None, None, None], resident, q[s])
+        exp[blk] = torch.where(keep[:, None], e_old, e_new[s])
 
     upd(cache.k, cache.k_exp, k_new[:, 0])
     upd(cache.v, cache.v_exp, v_new[:, 0])
@@ -304,15 +330,51 @@ def _quant_paged_update(cache: QuantPagedKVCache, k_new, v_new,
 
 
 def paged_update(cache: AnyPagedKVCache, k_new: torch.Tensor,
-                 v_new: torch.Tensor, st: PagedState) -> AnyPagedKVCache:
+                 v_new: torch.Tensor, st: PagedState,
+                 exact: bool = False) -> AnyPagedKVCache:
     """Write one position per slot at logical index `length` via the table
-    (in place; see _write_slots for ghost slots)."""
+    (in place; see _write_slots for ghost slots and `exact`)."""
     if isinstance(cache, QuantPagedKVCache):
-        return _quant_paged_update(cache, k_new, v_new, st)
-    blk, off = _write_slots(cache, st)
-    cache.k[blk, off] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[blk, off] = v_new[:, 0].to(cache.v.dtype)
+        return _quant_paged_update(cache, k_new, v_new, st, exact)
+    blk, off, src = _write_slots(cache, st, exact)
+    for buf, new in ((cache.k, k_new), (cache.v, v_new)):
+        new = new[:, 0].to(buf.dtype)
+        if src is not None:
+            keep = (src < 0)[:, None, None]
+            new = torch.where(keep, buf[blk, off], new[src.clamp(min=0)])
+        buf[blk, off] = new
     return cache
+
+
+def pool_tensors(caches):
+    """Every tensor of a paged pool tree (payloads and exponent planes)."""
+    for group in caches:
+        for c in group:
+            yield c.k
+            yield c.v
+            if isinstance(c, QuantPagedKVCache):
+                yield c.k_exp
+                yield c.v_exp
+
+
+def write_gathered(log, state: PagedState) -> None:
+    """A data rank's decode write-back: `log` holds each layer's (pool, k,
+    v) in forward order (shard_ctx.record_writes), k and v the new rows of
+    the rank's slots in the compute dtype, before any quantization. One
+    all-gather over the data axis brings every slot's rows from the rank
+    that owns it, in slot order, and each pool takes them through
+    paged_update's exact write with the whole batch's `state` — the
+    unsharded engine's one scatter, whose 16-bit or requantizing write
+    then leaves every rank's pool the same bytes (the caller has put the
+    null block back as it was before the tick; a rank's own rows are
+    written again unchanged: a tick's slots write disjoint blocks)."""
+    if not log:
+        return
+    rows = torch.stack([torch.stack([k for _, k, _ in log]),
+                        torch.stack([v for _, _, v in log])])
+    rows = shard_ctx.gather_data(rows, dim=2)     # (2, layers, slots, ...)
+    for i, (cache, _, _) in enumerate(log):
+        paged_update(cache, rows[0, i], rows[1, i], state, exact=True)
 
 
 def paged_view(cache: AnyPagedKVCache, st: PagedState,
@@ -354,7 +416,8 @@ def paged_decode_attention(
             q[:, 0], cache.k, cache.v, st.block_table, lengths, scale=scale,
             spec=quant.spec if quant is not None else None,
             s_in=quant.s_in if quant is not None else None,
-            plan_kvh=shard_ctx.plan_kv_heads(), **_kernel_pools(cache))
+            plan_kvh=shard_ctx.plan_kv_heads(),
+            plan_batch=shard_ctx.plan_batch(), **_kernel_pools(cache))
         if quant is not None:
             o = o.float() * quant.s_out
         return o[:, None].to(q.dtype)

@@ -192,6 +192,9 @@ def decode_attention_block(
     through the block table, then attention runs over the mapped blocks via
     the CUDA decode kernel (paged_impl="kernel") or the gathered dense view
     ("gather"); `attn_quant` fuses the GRAU output epilogue on either path.
+    Under shard_ctx.record_writes (a data rank's decode) the write is the
+    exact one (nn/attention._write_slots) and is also logged for the
+    gathered write-back.
     Without it, `cache` is a dense KVCache: the position is written at each
     row's `length` (in place, length += 1) and attention runs over the
     whole buffer masked beyond it (the reference's plain decode)."""
@@ -200,7 +203,10 @@ def decode_attention_block(
     if paged is None:
         cache = attn_lib.update_cache(cache, k, v)
         return _out(attn_lib.decode_attention(q, cache), params["wo"]), cache
-    cache = attn_lib.paged_update(cache, k, v, paged)
+    log = shard_ctx.write_log()
+    cache = attn_lib.paged_update(cache, k, v, paged, exact=log is not None)
+    if log is not None:         # a data rank: lm.decode_step writes back
+        log.append((cache, k, v))
     o = attn_lib.paged_decode_attention(q, cache, paged, impl=paged_impl,
                                         quant=attn_quant)
     return _out(o, params["wo"]), cache

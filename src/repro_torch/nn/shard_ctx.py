@@ -1,5 +1,5 @@
-"""The model-axis context: which serving mesh the model code runs under,
-and the two collectives it calls there.
+"""The serving mesh's context: which mesh the model code runs under, the
+two model-axis collectives it calls there, and the data axis's one.
 
 `use(mesh)` makes a launch/mesh.py serving mesh active on this thread (the
 reference's thread-local `shard_ctx.use`); `active_mesh()` reads it. Under
@@ -14,12 +14,18 @@ and the model code calls:
     the argmax and the finite-logits flag decide alike on every rank.
 
 Both are no-ops without a context and on a one-rank model axis (a (1, 1)
-mesh moves no bytes), and they are the model code's only calls into
-torch.distributed. Under a mesh the paged kernels also plan their
-sequence split for the unsharded KV-head count (`plan_kv_heads`), so each
-head's attention is the unsharded launch's bits. `vocab_splits` /
-`mlp_splits` say whether a tensor is sharded at all; serve/sharding.py
-places the weights by the same rules.
+mesh moves no bytes). On the data axis, which splits the engine's decode
+slots, `gather_data(x, dim)` concatenates the data ranks' slot ranges of a
+tensor: the tick's new K/V rows (models/lm.decode_step's write-back) and
+its (tokens, done, finite) record (serve/engine.py); it is a no-op on a
+one-rank data axis, so a (1, M) mesh issues the model axis's collectives
+alone. These three are the model code's and the engine's only tensor
+collectives. Under a mesh the paged kernels also plan their sequence split
+for the unsharded KV-head count (`plan_kv_heads`) and, in decode, the
+unsharded slot count (`plan_batch`), so each head's and each slot's
+attention is the unsharded launch's bits. `vocab_splits` / `mlp_splits`
+say whether a tensor is sharded at all; serve/sharding.py places the
+weights by the same rules.
 
 The reference's `constrain` and its activation rules instruct GSPMD's
 partitioner, which torch has no counterpart of: they are not ported
@@ -29,7 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -43,16 +49,19 @@ def active_mesh():
 
 
 @contextlib.contextmanager
-def use(mesh, plan_kv_heads: Optional[int] = None):
+def use(mesh, plan_kv_heads: Optional[int] = None,
+        plan_batch: Optional[int] = None):
     """Run the block under `mesh` (None: unsharded). `plan_kv_heads`, the
-    model's unsharded KV-head count, is what the paged kernels size their
-    sequence parts for (plan_kv_heads())."""
-    prev = (getattr(_STATE, "mesh", None), getattr(_STATE, "plan", None))
-    _STATE.mesh, _STATE.plan = mesh, plan_kv_heads
+    model's unsharded KV-head count, and `plan_batch`, the engine's
+    unsharded slot count, are what the paged kernels size their sequence
+    parts for (plan_kv_heads(), plan_batch())."""
+    prev = (getattr(_STATE, "mesh", None), getattr(_STATE, "plan", None),
+            getattr(_STATE, "batch", None))
+    _STATE.mesh, _STATE.plan, _STATE.batch = mesh, plan_kv_heads, plan_batch
     try:
         yield
     finally:
-        _STATE.mesh, _STATE.plan = prev
+        _STATE.mesh, _STATE.plan, _STATE.batch = prev
 
 
 def plan_kv_heads() -> Optional[int]:
@@ -62,6 +71,32 @@ def plan_kv_heads() -> Optional[int]:
     sequence where the unsharded launch does, so a head's output is the
     same bits either way."""
     return getattr(_STATE, "plan", None)
+
+
+def plan_batch() -> Optional[int]:
+    """The decode batch the paged decode kernel plans its sequence parts
+    for under the active mesh (None: the launch's own). A data rank
+    launches its share of the slots; planned for all of them, it cuts each
+    slot's sequence where the unsharded launch does."""
+    return getattr(_STATE, "batch", None)
+
+
+@contextlib.contextmanager
+def record_writes(log: Optional[list]):
+    """Inside the block every paged decode write also appends (pool, k, v)
+    to `log` (a data rank's forward: models/lm.decode_step's write-back
+    then writes every slot's gathered rows). None: no log."""
+    prev = getattr(_STATE, "writes", None)
+    _STATE.writes = log
+    try:
+        yield
+    finally:
+        _STATE.writes = prev
+
+
+def write_log() -> Optional[list]:
+    """The active record_writes log (None outside one)."""
+    return getattr(_STATE, "writes", None)
 
 
 def model_size(mesh=None) -> int:
@@ -76,6 +111,33 @@ def model_rank(mesh=None) -> int:
     """This rank's index on the model axis (0 without a mesh)."""
     mesh = mesh if mesh is not None else active_mesh()
     return 0 if mesh is None else mesh.get_local_rank("model")
+
+
+def data_size(mesh=None) -> int:
+    """The data axis' size (1 without a mesh)."""
+    mesh = mesh if mesh is not None else active_mesh()
+    if mesh is None:
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index("data"))
+
+
+def data_rank(mesh=None) -> int:
+    """This rank's index on the data axis (0 without a mesh)."""
+    mesh = mesh if mesh is not None else active_mesh()
+    return 0 if mesh is None else mesh.get_local_rank("data")
+
+
+def data_slots(slots: int, mesh=None) -> Tuple[int, int]:
+    """[lo, hi): the contiguous range of `slots` decode slots this data
+    rank computes — slots / D of them when D divides the slots, else all
+    (the decode runs replicated, as the reference replicates an axis that
+    does not divide its mesh axis)."""
+    d = data_size(mesh)
+    if d == 1 or slots % d:
+        return 0, slots
+    n = slots // d
+    r = data_rank(mesh)
+    return r * n, (r + 1) * n
 
 
 def vocab_splits(vocab: int, m: int) -> bool:
@@ -107,6 +169,20 @@ def reduce_model(x: torch.Tensor) -> torch.Tensor:
     y = x.to(torch.float32, copy=True)
     dist.all_reduce(y, group=mesh.get_group("model"))
     return y.to(x.dtype)
+
+
+def gather_data(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Concatenate the data ranks' slot ranges of `x` along `dim`, in data
+    rank order (each rank's range is data_slots'); identity without a mesh
+    and on a one-rank data axis. Every rank gets the same bits."""
+    mesh = active_mesh()
+    if mesh is None or data_size(mesh) == 1:
+        return x
+    import torch.distributed as dist
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(data_size(mesh))]
+    dist.all_gather(parts, x, group=mesh.get_group("data"))
+    return torch.cat(parts, dim=dim)
 
 
 def gather_vocab(logits: torch.Tensor) -> torch.Tensor:

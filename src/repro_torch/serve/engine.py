@@ -97,21 +97,36 @@ engine (the same or another configuration) with the journal, passing
 through the HANDOFF health state; serve/frontdoor.py drives the engine
 from asyncio through the token and retire sinks.
 
-Mesh (`mesh`, launch/mesh.make_serve_mesh): explicit tensor parallelism
-over the model axis, one engine a rank process. Each rank holds its shard of
-the weights (heads padded first where they do not divide the axis,
-launch/steps.pad_heads_for) and its KV heads of the pools or dense caches
-(serve/sharding.py); the model code sums and gathers across ranks
-(nn/shard_ctx.py), so every rank computes the same full logits, samples the
-same tokens and runs the same scheduler, allocator, radix cache and
-sampler. The clock is the one rank-local input: rank 0 takes the deadline
-and watchdog decisions and broadcasts them each tick as one small integer
-tensor, so every rank issues the same collectives. Only rank 0 writes the
-journal, the trace file and the /metrics endpoint. The CUDA kernels run
-under the mesh on each rank's local heads (the reference refuses its Pallas
-kernel there: ROADMAP C, D4). Left out (ROADMAP A10b): the data axis, MoE /
-MLA / Mamba-2 / cross-attention under a mesh, and snapshot / restore /
-handoff / the front door under one.
+Mesh (`mesh`, launch/mesh.make_serve_mesh): a (data, model) mesh of rank
+processes, one engine a rank. The model axis is tensor parallelism: each
+rank holds its shard of the weights (heads padded first where they do not
+divide the axis, launch/steps.pad_heads_for) and its KV heads of the pools
+or dense caches (serve/sharding.py); the model code sums and gathers
+across ranks (nn/shard_ctx.py), so every rank computes the same full
+logits. The data axis splits the decode slots: data rank d computes its
+contiguous range (shard_ctx.data_slots; all of them where the axis does
+not divide the slots), and one all-gather a tick brings every rank the
+whole (tokens, done, finite) record. On the paged backend every rank keeps
+every block of the pool: a rank's forward runs its own slots alone (the
+decode kernel planned for every slot, so each slot's attention is the
+unsharded launch's bits) and writes their new K/V, and one all-gather of
+every layer's new rows lets each rank write every slot's through the same
+write (lm.decode_step's write-back), so every data rank's pool holds the
+same bytes; a prefill chunk runs replicated on every data rank. The
+GEMMs run at S/D rows, which on the card may round apart from the
+unsharded engine's S rows. On the dense backend a data rank holds its
+slots' rows and prefills only its own slots. Every rank thus runs the same
+scheduler, allocator, radix cache and sampler on the same host state. The
+clock is the one rank-local input: global rank 0 takes the deadline and
+watchdog decisions and broadcasts them each tick (one small integer tensor
+when nothing expires), with the front door's admissions and cancels since
+the last tick, so every rank issues the same collectives and submits alike.
+Only global rank 0 writes the journal, the trace file, the snapshot and
+the /metrics endpoint, and runs the front door (the other ranks follow:
+serve/frontdoor.follow). The CUDA kernels run under the mesh on each
+rank's local heads and slots (the reference refuses its Pallas kernel
+there: ROADMAP C, D4). Left out (ROADMAP A10b): MoE / MLA / Mamba-2 /
+cross-attention and the vision prefix under a mesh.
 """
 from __future__ import annotations
 
@@ -299,9 +314,17 @@ class _TickRecord(NamedTuple):
     # tick (see _readmit): their output was delivered before, not again
 
 
-def _refuse_under_mesh(what: str) -> None:
-    raise ValueError(f"{what} under a serving mesh is not served yet "
-                     "(ROADMAP A10b)")
+# control messages global rank 0 sends its followers in a mesh sync
+# (serve/frontdoor.py): none, the door closed, a handoff
+_CONTROL = (None, "close", "handoff")
+
+
+def _mesh_ranks(mesh) -> int:
+    """The ranks an engine spans: its mesh's, or this process alone."""
+    if mesh is None:
+        return 1
+    import torch.distributed as dist
+    return dist.get_world_size()
 
 
 class ServeEngine:
@@ -322,17 +345,25 @@ class ServeEngine:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"engine device is {self.device}")
         self.mesh = mesh
-        self.rank = 0
+        self.rank = mesh_lib.global_rank(mesh)
         self._kv_heads: Optional[int] = None
+        # this data rank's decode slots [lo, hi): all of them without a
+        # data axis (or where it does not divide the slots)
+        self._dslots = shard_ctx.data_slots(ecfg.slots, mesh)
         if mesh is not None:
             sharding.check_servable(cfg)
             cfg = pad_heads_for(cfg, mesh)
-            self.rank = shard_ctx.model_rank(mesh)
             self._kv_heads = sharding.local_heads(
                 cfg, shard_ctx.model_size(mesh))[1]
             self._host_group = mesh_lib.host_group(mesh)
-        # rank 0 alone writes host outputs (journal, trace file, /metrics)
+        self._dsharded = self._dslots != (0, ecfg.slots)
+        # global rank 0 alone writes host outputs (journal, trace file,
+        # snapshot, /metrics) and takes the clock's decisions
         self.is_writer = self.rank == 0
+        self._leader = False      # global rank 0 under a front door: its
+        # submits and cancels ride the next mesh sync (_outbox)
+        self._outbox: List[list] = []
+        self._control: Optional[str] = None   # a follower's last control
         paged_ok = kvc.paged_supported(cfg)
         self.paged = paged_ok if ecfg.paged is None else bool(ecfg.paged)
         if self.paged and not paged_ok:
@@ -421,7 +452,9 @@ class ServeEngine:
             budget = self._init_paged(cfg, ecfg)
         else:
             self.allocator = self.radix = None
-            self.caches = lm.init_caches(cfg, ecfg.slots, ecfg.max_seq,
+            # a data rank holds its own slots' rows
+            lo, hi = self._dslots
+            self.caches = lm.init_caches(cfg, hi - lo, ecfg.max_seq,
                                          dtype=self.dtype, device=self.device,
                                          kv_heads=self._kv_heads)
             self.decode_buckets = ()
@@ -608,18 +641,27 @@ class ServeEngine:
         tick): host arrays, their device copies, and whether any slot
         samples (a wholly greedy batch skips the sampler)."""
         self._sp_packed = samp_lib.pack(self._samp)
+        lo, hi = self._dslots
         self._sp_dev = samp_lib.SamplerBatch(
-            *(self._h2d(a) for a in self._sp_packed))
+            *(self._h2d(a[lo:hi]) for a in self._sp_packed))
         self._any_sampled = not bool(np.all(self._sp_packed.greedy))
 
     # --- device steps -----------------------------------------------------
 
     def _sharded(self):
-        """The model-axis context of this engine's forwards (none without a
-        mesh)."""
+        """The mesh context of this engine's forwards (none without a
+        mesh): the paged kernels plan for the unsharded KV heads and
+        slots."""
         if self.mesh is None:
             return contextlib.nullcontext()
-        return shard_ctx.use(self.mesh, self.cfg.kv_heads_phys)
+        return shard_ctx.use(self.mesh, self.cfg.kv_heads_phys,
+                             plan_batch=self.ecfg.slots)
+
+    def _local_slot(self, slot: int) -> Optional[int]:
+        """`slot`'s row in this rank's dense caches (None: another data
+        rank holds it)."""
+        lo, hi = self._dslots
+        return slot - lo if lo <= slot < hi else None
 
     def _decode_tick(self, width: Optional[int],
                      force: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -635,34 +677,54 @@ class ServeEngine:
         and cannot end it. Returns the (3, slots)
         record: tokens, done flags and the per-slot finite-logits flags (an
         inactive slot's garbage is exempt; its output is dropped at drain
-        anyway)."""
+        anyway).
+
+        A data rank computes its range of the slots (their tokens, lengths,
+        table rows and sampler state) and the record is all-gathered over
+        the data axis, so every rank advances the whole slot state alike.
+        On the paged backend the write-back then gives its pools every
+        slot's new K/V (lm.decode_step)."""
         st = self._state
-        paged = (PagedState(self._table_dev[:, :width], st.lengths)
-                 if self.paged else None)
+        sl = slice(*self._dslots)
+        paged = write_back = None
+        if self.paged:
+            # rows of the whole table: its row stride sizes the kernel's
+            # sequence parts (kernels/paged_attention.decode_plan)
+            paged = PagedState(self._table_dev[sl, :width], st.lengths[sl])
+            if self._dsharded:
+                write_back = PagedState(self._table_dev[:, :width],
+                                        st.lengths)
         with self._sharded():
-            logits, _ = lm.decode_step(self.params, self.cfg, st.last_tok,
-                                       self.caches, paged=paged,
-                                       act=self._act,
+            logits, _ = lm.decode_step(self.params, self.cfg,
+                                       st.last_tok[sl], self.caches,
+                                       paged=paged, act=self._act,
                                        paged_impl=self.paged_impl,
-                                       attn_quant=self._attn_quant)
+                                       attn_quant=self._attn_quant,
+                                       write_back=write_back)
         last = logits[:, -1].float()
         if self._any_sampled:
             # per-slot keys from (request stream id, draws so far): a pure
             # function of the request and its progress, not of the tick
-            keys = prng.fold_in(prng.fold_in(self._key, st.sample_seed),
-                                st.sample_step)
+            keys = prng.fold_in(prng.fold_in(self._key, st.sample_seed[sl]),
+                                st.sample_step[sl])
             nxt = samp_lib.sample(last, self._sp_dev, keys)
         else:
             nxt = torch.argmax(last, dim=-1)
-        ok = ~st.active | torch.isfinite(last).all(dim=-1)
-        act_i = st.active.to(torch.int32)
-        remaining = st.remaining - act_i
+        live = st.active[sl]
+        ok = ~live | torch.isfinite(last).all(dim=-1)
         eos = nxt == self.ecfg.eos_id
         if force is not None:
-            forced = force >= 0
-            nxt = torch.where(forced, force, nxt)
+            forced = force[sl] >= 0
+            nxt = torch.where(forced, force[sl], nxt)
             eos &= ~forced
-        done = st.active & (eos | (remaining <= 0))
+        done = live & (eos | (st.remaining[sl] - live.to(torch.int32) <= 0))
+        record = torch.stack([nxt, done.long(), ok.long()])
+        if self._dsharded:
+            with self._sharded():
+                record = shard_ctx.gather_data(record, dim=1)
+            nxt, done = record[0], record[1].bool()
+        act_i = st.active.to(torch.int32)
+        remaining = st.remaining - act_i
         self._state = _SlotState(
             last_tok=torch.where(st.active[:, None], nxt[:, None],
                                  st.last_tok),
@@ -672,7 +734,7 @@ class ServeEngine:
             sample_seed=st.sample_seed,
             sample_step=st.sample_step + 1,
         )
-        return torch.stack([nxt, done.long(), ok.long()])
+        return record
 
     def _chunk(self, toks: np.ndarray, row: np.ndarray, p0: int,
                ctx: int) -> None:
@@ -694,7 +756,11 @@ class ServeEngine:
         """One admitted prompt on the dense backend: prefill_step on a
         fresh (1, len) cache, then the filled cache inserted as the slot's
         row of every leaf (positions past it keep stale values, masked by
-        the lengths)."""
+        the lengths). Under a data axis only the slot's data rank runs it
+        (its model group's collectives stay among its own ranks)."""
+        row = self._local_slot(slot)
+        if row is None:
+            return
         small = lm.init_caches(self.cfg, 1, toks.shape[1], dtype=self.dtype,
                                device=self.device, kv_heads=self._kv_heads)
         with self._sharded():
@@ -706,18 +772,21 @@ class ServeEngine:
                                 self._h2d(frames[None].astype(np.float32))))
         for (_, big), (_, new) in zip(tree_flatten(self.caches),
                                       tree_flatten(small)):
-            big[(slice(None), slot) + tuple(
+            big[(slice(None), row) + tuple(
                 slice(0, n) for n in new.shape[2:])].copy_(new[:, 0])
 
     def _reset_slot(self, slot: int) -> None:
         """Zero one slot's recurrent state and cache lengths (an empty
-        context on the exact-length SSM path)."""
+        context on the exact-length SSM path) on its data rank."""
+        row = self._local_slot(slot)
+        if row is None:
+            return
         for c in lm.dense_leaves(self.caches):
             if isinstance(c, (KVCache, MLACache)):
-                c.length[:, slot] = 0
+                c.length[:, row] = 0
             elif isinstance(c, SSMState):
-                c.conv[:, slot] = 0
-                c.ssm[:, slot] = 0
+                c.conv[:, row] = 0
+                c.ssm[:, row] = 0
 
     # --- submission / results -------------------------------------------
 
@@ -762,6 +831,13 @@ class ServeEngine:
                           "top_p": req.sampling.top_p},
                 deadline_ms=req.deadline_ms)
         self.scheduler.submit(rs, self.stats["ticks"], time.perf_counter())
+        if self._leader:
+            # the other ranks submit it at the next mesh sync
+            sp = req.sampling
+            self._outbox.append(["submit", int(req.rid), rs.prompt.tolist(),
+                                 rs.max_new_tokens,
+                                 [sp.temperature, sp.top_k, sp.top_p],
+                                 req.deadline_ms])
         self.trace.record(req.rid, "submit", prompt_len=plen,
                           max_new_tokens=int(req.max_new_tokens))
         self.trace.record(req.rid, "queued",
@@ -866,25 +942,69 @@ class ServeEngine:
                 and (now - rs.submit_time) * 1e3 >= rs.deadline_ms
                 for rs in self._live_states()]
 
-    def _mesh_sync(self) -> List[RequestState]:
-        """Rank 0's clock-based decisions, broadcast to every rank as one
-        int64 tensor (over the mesh's gloo host group): its health (the
-        watchdog runs on rank 0 alone) and which live requests' deadlines
-        have expired. Every rank adopts them, so no host branch depends on
-        a rank's own clock. Returns the expired requests."""
+    def _mesh_sync(self, control: Optional[str] = None
+                   ) -> List[RequestState]:
+        """Global rank 0's decisions, broadcast to every rank over the
+        mesh's gloo host group: one int64 header (its health — the watchdog
+        runs on rank 0 alone —, the bytes that follow and a `control`
+        message, _CONTROL), then, only when there is any, a JSON payload:
+        the rids whose deadlines have expired by rank 0's clock and the
+        front door's submits and cancels since the last sync (_outbox),
+        which every other rank applies here, in order, before it schedules.
+        So no host branch depends on a rank's own clock and every rank's
+        host state stays the same. A follower keeps the control in
+        `_control`. Returns the expired requests."""
         import torch.distributed as dist
-        live = self._live_states()
-        flags = torch.zeros(1 + len(live), dtype=torch.int64)
+        header = torch.zeros(3, dtype=torch.int64)
+        blob = b""
         if self.rank == 0:
-            flags[0] = _HEALTH_CODE[self._health]
-            if self._has_deadlines:
-                flags[1:] = torch.tensor(self._expired(), dtype=torch.int64)
-        dist.broadcast(flags, src=dist.get_global_rank(self._host_group, 0),
-                       group=self._host_group)
+            expired = []
+            if control is None and self._has_deadlines:
+                expired = [rs.rid for rs, f in zip(self._live_states(),
+                                                   self._expired()) if f]
+            if expired or self._outbox:
+                blob = json.dumps({"expired": expired,
+                                   "ops": self._outbox}).encode()
+            self._outbox = []
+            header[0] = _HEALTH_CODE[self._health]
+            header[1] = len(blob)
+            header[2] = _CONTROL.index(control)
+        dist.broadcast(header, src=0, group=self._host_group)
+        msg = {"expired": [], "ops": []}
+        if int(header[1]):
+            buf = (torch.frombuffer(bytearray(blob), dtype=torch.uint8)
+                   if self.rank == 0 else
+                   torch.empty(int(header[1]), dtype=torch.uint8))
+            dist.broadcast(buf, src=0, group=self._host_group)
+            msg = json.loads(buf.numpy().tobytes().decode())
         if self.rank != 0:
-            state = {v: k for k, v in _HEALTH_CODE.items()}[int(flags[0])]
+            state = {v: k for k, v in _HEALTH_CODE.items()}[int(header[0])]
             self._set_health(state, "rank 0")
-        return [rs for rs, f in zip(live, flags[1:].tolist()) if f]
+            for op in msg["ops"]:
+                self._apply_op(op)
+            self._control = _CONTROL[int(header[2])]
+        expired = set(msg["expired"])
+        return [rs for rs in self._live_states() if rs.rid in expired]
+
+    def _apply_op(self, op: list) -> None:
+        """A follower replays one of global rank 0's front-door calls."""
+        if op[0] == "cancel":
+            self.cancel(int(op[1]))
+            return
+        _, rid, prompt, max_new, (temp, top_k, top_p), deadline_ms = op
+        self.submit(Request(rid=int(rid), prompt=np.asarray(prompt, np.int32),
+                            max_new_tokens=int(max_new),
+                            sampling=SamplingParams(temperature=temp,
+                                                    top_k=top_k, top_p=top_p),
+                            deadline_ms=deadline_ms))
+
+    def send_control(self, control: str) -> None:
+        """Global rank 0 under a front door: a mesh sync that carries
+        `control` ("close", "handoff") and the submits and cancels not yet
+        sent; each follower's pending step() returns at it with the control
+        in `_control` (serve/frontdoor.follow)."""
+        assert self.rank == 0 and self.mesh is not None
+        self._mesh_sync(control)
 
     def _enforce_deadlines(self, hit: Optional[List[RequestState]] = None
                            ) -> int:
@@ -1424,6 +1544,8 @@ class ServeEngine:
         returns it with the tokens it produced."""
         if rid not in self._requests:
             return False
+        if self._leader:
+            self._outbox.append(["cancel", int(rid)])
         self._drain()
         return self._retire_anywhere(rid, "cancelled")
 
@@ -1575,11 +1697,18 @@ class ServeEngine:
         stored in a uint8 tensor. The KV pool is not written: restore
         re-admits every request through chunked prefill, which recomputes
         it. Returns the committed checkpoint path; `step` defaults to the
-        engine tick. Not under a mesh (ROADMAP A10b)."""
-        from repro_torch.ckpt import checkpoint as ckpt
-        if self.mesh is not None:
-            _refuse_under_mesh("snapshot()")
+        engine tick. Under a mesh every rank calls it: global rank 0 writes
+        the payload it writes without one (every rank holds the same
+        records), the others wait for it and return the same path."""
         self._drain()
+        path = (self._write_snapshot(ckpt_dir, step, keep)
+                if self.is_writer else None)
+        if self.mesh is not None:
+            path = mesh_lib.host_broadcast(self.mesh, path)
+        return path
+
+    def _write_snapshot(self, ckpt_dir, step: Optional[int], keep: int):
+        from repro_torch.ckpt import checkpoint as ckpt
         if self.journal is not None:
             self.journal.sync()
         records = self._live_records()
@@ -1616,6 +1745,16 @@ class ServeEngine:
         return json.loads(blob.numpy().tobytes().decode())
 
     @classmethod
+    def _rank0_snapshot(cls, mesh, ckpt_dir, step: Optional[int]) -> dict:
+        """The snapshot payload, read by global rank 0 and broadcast under
+        a mesh."""
+        if mesh is None:
+            return cls._load_snapshot(ckpt_dir, step)
+        rank0 = mesh_lib.global_rank(mesh) == 0
+        return mesh_lib.host_broadcast(
+            mesh, cls._load_snapshot(ckpt_dir, step) if rank0 else None)
+
+    @classmethod
     def restore(cls, cfg: ModelConfig, params, ckpt_dir, *,
                 step: Optional[int] = None,
                 dtype: Optional[torch.dtype] = None, device=None,
@@ -1628,17 +1767,16 @@ class ServeEngine:
         GRAU-epilogue engine restores with {"attn_grau": ...}); `journal`
         attaches a write-ahead journal; `encoder_frames` ({rid: frames})
         supplies an enc-dec model's frames. The seed round-trips as a plain
-        field, so sampled streams resume on the same keys. Not under a mesh
-        (ROADMAP A10b)."""
-        if mesh is not None:
-            _refuse_under_mesh("restore()")
-        payload = cls._load_snapshot(ckpt_dir, step)
+        field, so sampled streams resume on the same keys. Under a `mesh`
+        every rank calls it: global rank 0 reads the payload and broadcasts
+        it, and only its engine keeps `journal`."""
+        payload = cls._rank0_snapshot(mesh, ckpt_dir, step)
         ecfg = _ecfg_from_dict(payload["engine_config"], overrides)
         if journal is not None:
             ecfg = dataclasses.replace(ecfg, journal=journal)
-        eng = cls(cfg, params, ecfg, dtype=dtype, device=device)
+        eng = cls(cfg, params, ecfg, dtype=dtype, device=device, mesh=mesh)
         known = frozenset()
-        if journal is not None:
+        if eng.journal is not None:
             # resuming onto an existing journal: rids already live in it
             # are not journaled again
             known = frozenset(journal_lib.replay(journal.path).live.keys())
@@ -1666,17 +1804,17 @@ class ServeEngine:
         idempotent. The recovered engine owns the writer (close() closes
         it). An enc-dec model needs `encoder_frames` ({rid: frames}): the
         journal does not hold them. Under a `mesh` every rank replays the
-        journal and rank 0 alone reopens it for appending; the deadlines'
-        elapsed time is rank 0's clock."""
+        journal and global rank 0 alone reopens it for appending; the
+        deadlines' elapsed time is rank 0's clock."""
         state = journal_lib.replay(journal_path)
         if ecfg is None:
             if snapshot_dir is None:
                 raise ValueError("recover() needs ecfg or snapshot_dir "
                                  "for the engine config")
-            payload = cls._load_snapshot(snapshot_dir, snapshot_step)
+            payload = cls._rank0_snapshot(mesh, snapshot_dir, snapshot_step)
             ecfg = _ecfg_from_dict(payload["engine_config"], overrides)
         jr = None
-        if mesh is None or shard_ctx.model_rank(mesh) == 0:
+        if mesh_lib.global_rank(mesh) == 0:
             jr = journal_lib.RequestJournal(journal_path,
                                             fsync_every=fsync_every)
         eng = cls(cfg, params, dataclasses.replace(ecfg, journal=jr),
@@ -1684,11 +1822,7 @@ class ServeEngine:
         eng._owns_journal = jr is not None
         now_wall = time.time()
         if mesh is not None:
-            import torch.distributed as dist
-            t = torch.tensor([now_wall], dtype=torch.float64)
-            dist.broadcast(t, src=dist.get_global_rank(eng._host_group, 0),
-                           group=eng._host_group)
-            now_wall = float(t[0])
+            now_wall = mesh_lib.host_broadcast(mesh, now_wall)
         records = [{"rid": lr.rid, "prompt": lr.prompt,
                     "max_new_tokens": lr.max_new_tokens,
                     "sampling": lr.sampling, "deadline_ms": lr.deadline_ms,
@@ -1718,9 +1852,17 @@ class ServeEngine:
 
         The source passes through HANDOFF (the gauge's 3; /healthz answers
         503) and ends DRAINING. If it holds the journal and the target has
-        none, the journal moves with the requests under a handoff epoch."""
-        if self.mesh is not None or target.mesh is not None:
-            _refuse_under_mesh("handoff()")
+        none, the journal moves with the requests under a handoff epoch.
+
+        Under a mesh every rank calls it in lockstep on its own source and
+        target, which may run another mesh shape over the same ranks
+        ((2, 1) -> (1, 2)); the journal moves on global rank 0. An engine
+        without a mesh pairs with a mesh only in a one-process group."""
+        if _mesh_ranks(self.mesh) != _mesh_ranks(target.mesh):
+            raise ValueError(
+                "handoff between engines over different ranks: a mesh "
+                f"of {_mesh_ranks(self.mesh)} ranks, a target over "
+                f"{_mesh_ranks(target.mesh)}")
         if target is self:
             raise ValueError("handoff target must be a different engine")
         if target._health == DRAINING:
@@ -1779,6 +1921,23 @@ class ServeEngine:
         return kvc.bucket_for(min(need, self.blocks_per_slot),
                               self.decode_buckets)
 
+    def _check_disjoint_writes(self, active: List[int]) -> None:
+        """A data rank writes its own slots' new K/V before the others'
+        arrive (lm.decode_step's write-back), which is the unsharded write
+        only if a tick's slots write disjoint blocks: each slot's write
+        lands in a block it alone holds (refcount 1: never a shared radix
+        block) or in the null block (past its reservation)."""
+        bs = self.ecfg.page_size
+        seen = set()
+        for s in active:
+            col = min(int(self._host_len[s]) // bs, self._chunk_cols - 1)
+            blk = int(self.block_table[s, col])
+            if blk == kvc.NULL_BLOCK:
+                continue
+            assert blk not in seen and self.allocator.refcount(blk) == 1, \
+                f"slot {s} writes block {blk}, shared in this tick"
+            seen.add(blk)
+
     def step(self) -> int:
         """Admissions + prefill chunks + one enqueued decode tick; returns
         the number of live slots advanced. Tokens and termination flags stay
@@ -1796,7 +1955,11 @@ class ServeEngine:
             # fresh engine, ServeEngine.recover, not an except path here)
             raise faults_lib.ProcessCrash(self.stats["ticks"])
         if self.mesh is not None:
-            self._enforce_deadlines(self._mesh_sync())
+            hit = self._mesh_sync()
+            if self._control is not None:
+                # global rank 0 sent a control, not a tick (frontdoor.follow)
+                return 0
+            self._enforce_deadlines(hit)
         elif self._has_deadlines:
             self._enforce_deadlines()
         try:
@@ -1867,6 +2030,8 @@ class ServeEngine:
                 f[s] = rs.out_tokens[len(rs.out_tokens) - rs.replay]
                 rs.replay -= 1
             force = self._h2d(f)
+        if self._dsharded and self.paged:
+            self._check_disjoint_writes(active)
         out = self._decode_tick(
             self._decode_bucket(active) if self.paged else None, force)
         self._pending.append(_TickRecord(self.stats["ticks"], tuple(active),
@@ -2046,9 +2211,10 @@ class ServeEngine:
         dense backend the slot's rows of every cache leaf are zeroed, for
         the same reason: a later request's prefill rewrites only its own
         prefix of them (the reference scrubs nothing there)."""
-        if not self.paged:
+        row = self._local_slot(slot)
+        if not self.paged and row is not None:
             for _, leaf in tree_flatten(self.caches):
-                leaf[:, slot] = 0
+                leaf[:, row] = 0
         for b in rs.blocks:
             if self.allocator.refcount(b) == 1:
                 kvc.scrub_pool_block(self.caches, b)

@@ -28,6 +28,15 @@ awaits while the waiting queue is at ``max_waiting`` (arrival pacing), and
 under KV-pool pressure the engine preempts later arrivals rather than
 erroring the blocked head (engine._maybe_preempt). No admission path raises
 on overload.
+
+Under a serving mesh the door runs on global rank 0 alone. Its submits and
+cancels ride the next tick's mesh sync to the other ranks, which apply
+them before they schedule (ServeEngine._mesh_sync), so every rank's engine
+admits alike. The other ranks run ``follow(engine)``: the same loop of
+step, drain(keep=1) and reap, until rank 0 sends the close (stop()) — or a
+handoff, which each follower makes to its own next target. An idle door
+still ticks every HEARTBEAT_S seconds under a mesh, so a follower waiting
+in the sync never reaches the collective timeout.
 """
 from __future__ import annotations
 
@@ -41,9 +50,11 @@ from repro_torch.serve.engine import HEALTHY, Request, ServeEngine
 from repro_torch.serve.faults import ProcessCrash
 from repro_torch.serve.sampling import SamplingParams
 
-__all__ = ["FrontDoor", "TokenStream", "EngineUnhealthy"]
+__all__ = ["FrontDoor", "TokenStream", "EngineUnhealthy", "follow"]
 
 _FINISH = object()       # in-queue sentinel terminating a TokenStream
+HEARTBEAT_S = 1.0        # an idle door's tick under a mesh (< the mesh's
+# 60 s collective timeout, which a waiting follower would otherwise reach)
 
 
 class EngineUnhealthy(RuntimeError):
@@ -125,9 +136,11 @@ class FrontDoor:
                  max_waiting: Optional[int] = None):
         if max_waiting is not None and max_waiting < 1:
             raise ValueError(f"max_waiting must be >= 1, got {max_waiting}")
-        if engine.mesh is not None:
-            raise ValueError("the front door under a serving mesh is not "
-                             "served yet (ROADMAP A10b)")
+        if engine.rank != 0:
+            raise ValueError("under a serving mesh the front door runs on "
+                             "global rank 0; the other ranks run "
+                             "frontdoor.follow(engine)")
+        engine._leader = engine.mesh is not None
         self.engine = engine
         self.max_waiting = max_waiting
         self._streams: dict = {}            # rid -> TokenStream (live)
@@ -222,9 +235,15 @@ class FrontDoor:
         engine — open TokenStreams keep yielding across the swap because
         sinks route by rid and rids carry over. The old engine ends
         DRAINING and stays with the caller (close it when done with its
-        metrics/traces); stop()/the context manager close the new one."""
+        metrics/traces); stop()/the context manager close the new one.
+        Under a mesh the followers hand off at the same tick (a control
+        sync first), each to its own next target (follow())."""
         old = self.engine
+        if old.mesh is not None:
+            old.send_control("handoff")
         summary = old.handoff(target)
+        old._leader = False
+        target._leader = target.mesh is not None
         target.token_sink = self._on_token
         target.retire_sink = self._on_retire
         old.token_sink = None
@@ -301,8 +320,18 @@ class FrontDoor:
             if not self._has_work():
                 self._wake.clear()
                 self._space.set()           # empty queue: admit freely
-                await self._wake.wait()
-                continue
+                if eng.mesh is None:
+                    await self._wake.wait()
+                    continue
+                # under a mesh the followers wait in the tick's sync: tick
+                # (with no work) at least every HEARTBEAT_S
+                try:
+                    await asyncio.wait_for(self._wake.wait(), HEARTBEAT_S)
+                except asyncio.TimeoutError:
+                    pass
+                if not self._running:
+                    break
+                eng = self.engine
             # dispatch tick N+1, then deliver every tick the device has
             # already retired — the newest enqueued tick keeps executing
             # while the host runs delivery and the streams' consumers
@@ -334,3 +363,30 @@ class FrontDoor:
             await asyncio.sleep(0)
         self.engine.drain()                 # deliver any still-pending ticks
         self.engine.reap()
+        if self.engine.mesh is not None:
+            self.engine.send_control("close")
+
+
+def follow(engine: ServeEngine, targets=()) -> ServeEngine:
+    """A mesh rank other than global rank 0 while rank 0 runs a FrontDoor:
+    step, drain(keep=1) and reap, as the door's loop does, each step taking
+    rank 0's submits, cancels and deadlines from its sync, until rank 0
+    closes the door. At a handoff the engine hands off to the next of
+    `targets` (the counterpart of rank 0's FrontDoor.handoff target) and
+    follows it. Returns the engine followed last (the caller closes it)."""
+    targets = list(targets)
+    while True:
+        engine.step()
+        control, engine._control = engine._control, None
+        if control == "close":
+            break
+        if control == "handoff":
+            target = targets.pop(0)
+            engine.handoff(target)
+            engine = target
+            continue
+        engine.drain(keep=1)
+        engine.reap()
+    engine.drain()
+    engine.reap()
+    return engine

@@ -1,5 +1,5 @@
-"""Placement for tensor-parallel serving: each rank's shard of the weights
-and of the KV storage, over the serving mesh's model axis.
+"""Placement for serving over a (data, model) mesh: each rank's shard of the
+weights and of the KV storage.
 
 The reference places whole arrays with NamedShardings and lets GSPMD
 partition the step; here every rank holds only its slice, and the model code
@@ -26,6 +26,14 @@ d_model) replicated:
   * KV storage: the paged pools' and dense caches' kv-head axis, the rank's
     local KV heads (`local_heads`); the block axis, the allocator, the block
     table and the radix cache are the same on every rank.
+
+The data axis replicates all of it but the dense caches, as the
+reference's placement does (weights and pools carry no data axis): every
+rank of a model column holds the same blocks, kept equal by the engine's
+gathered decode write-back (models/lm.decode_step). The dense caches'
+slot axis splits over `data` in contiguous ranges where the axis divides
+the slots (the reference's cache_pspecs batch spec), and is replicated
+otherwise (nn/shard_ctx.data_slots): a data rank then decodes every slot.
 
 Layer kinds outside this slice (MoE, MLA, Mamba-2, cross-attention) raise
 under a mesh: their tensor parallelism is ROADMAP A10b.
@@ -262,15 +270,20 @@ def place_paged_pools(pools, cfg: ModelConfig, mesh):
 
 
 def place_dense_caches(caches, cfg: ModelConfig, mesh):
-    """This rank's kv-head slice of a full dense KVCache tree (the local
-    shapes init_caches(kv_heads=local_heads(...)[1]) builds, as the engine
-    does; this one serves the tests, as place_paged_pools)."""
+    """This rank's slice of a full dense KVCache tree: its kv heads, and its
+    data rank's slots (data_slots) — the local shapes the engine builds
+    with init_caches(batch=its slots, kv_heads=local_heads(...)[1]); this
+    one serves the tests, as place_paged_pools."""
     check_servable(cfg)
     m = shard_ctx.model_size(mesh)
     _, (lo, hi) = head_ranges(cfg, m, shard_ctx.model_rank(mesh))
+    s0, s1 = shard_ctx.data_slots(caches[0][0].k.shape[1], mesh)
+
+    def rows(t, heads=True):
+        t = t.narrow(1, s0, s1 - s0)
+        return (t.narrow(-2, lo, hi - lo) if heads else t).clone()
     return tuple(tuple(
-        KVCache(c.k.narrow(-2, lo, hi - lo).clone(),
-                c.v.narrow(-2, lo, hi - lo).clone(), c.length.clone())
+        KVCache(rows(c.k), rows(c.v), rows(c.length, heads=False))
         for c in group) for group in caches)
 
 

@@ -3,7 +3,8 @@ without one, and its phases — the kernels, serving slices (a)-(c), the
 paper's flow (d), training (e), the prefix cache, preemption and cancel (f),
 the glm4 / qwen archs (g), sampled decoding, telemetry and fault
 containment (h), durable serving (i), MoE / LLaVA (j), the dense
-backend (k) and tensor-parallel serving over a mesh (l) — hold together
+backend (k), tensor-parallel serving over a mesh (l) and the mesh's data
+axis with durable serving and the front door under it (m) — hold together
 end to end in a
 CPU rehearsal at smoke size (plain kernel versions, no timings; exit 1 by
 design)."""
@@ -256,6 +257,34 @@ def test_cpu_rehearsal_runs_every_phase(capsys, tmp_path):
         kernels[-1]["rank_shape"]]
     assert all(r["heads"] == [2, 1] and r["same_bits_as_full_launch"]
                and r["launches"] == 0 for r in shards)
+    # slice (m), in (l)'s two rank processes: a (2, 1) mesh of data ranks
+    # against the one-card engine (f32 here: the same logits), its pool
+    # bytes and host trails equal, 7 x the 64-token prefix cached; then
+    # restore, recover, handoffs and the front door on the mesh
+    m = mesh["m"]
+    assert m["pool_bytes_equal"] and m["trails_equal"]
+    assert m["trail_steps"] > 0 and m["cached_prefix_tokens"] == 7 * 64
+    assert m["first_decode_logits_rel_l2"] < 1e-5
+    assert m["greedy_identical_share"] == 1.0
+    assert [r["rank"] for r in m["ranks"]] == [0, 1]
+    dur = m["durable"]
+    assert dur["restore"]["streams_identical"]
+    assert dur["recover"]["streams_identical"]
+    assert dur["recover"]["writers"] == [True, True, True]
+    assert m["durable_rank1"]["recover"]["writers"] == [False, False, False]
+    assert dur["handoff_2x1"]["streams_identical"]
+    assert dur["handoff_1x2"]["full_requests"]
+    assert dur["frontdoor"]["others_identical"]
+    assert dur["frontdoor"]["max_waiting_seen"] <= 2
+    assert 0 < m["seconds"] < 30
+    for row in (kernels[1], kernels[3]):
+        for key in ("data_rank_shape", "data_model_rank_shape"):
+            assert row[key]["same_bits_as_full_launch"]
+            assert row[key]["slots"] == [4, 8]
+    assert kernels[1]["data_rank_shape"]["heads"] == [4, 2]
+    assert kernels[1]["data_model_rank_shape"]["heads"] == [2, 1]
+    assert kernels[5]["rank_shapes"]["shapes_rank"] == {
+        "w_gate": [128, 128], "w_down": [128, 128]}
     assert "slice_l" in report["phase_s"]
     assert report["phase_s"]["slice_l"] < 60
     assert '"ok"' not in out.out

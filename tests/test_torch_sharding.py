@@ -24,7 +24,9 @@ this process. Checks, f32 at smoke size:
   * at (1, 2): int4 weights + int4 KV + the GRAU epilogue, the prefix cache
     on / off, preemption and cancel, sampled streams cut by deadlines that
     rank 0 alone decides, recover() from a journal the unsharded engine
-    wrote, the launcher's --mesh 1x2, and every refusal.
+    wrote, the launcher's --mesh 1x2 (and 2x1), snapshot / restore /
+    handoff / the front door on the mesh, and every refusal left (the
+    layer kinds of ROADMAP A10b item 2 and the vision prefix).
 
 Every process group here has a 60 s collective timeout and every spawn a
 join deadline, so a divergence fails its test instead of hanging the suite.
@@ -40,6 +42,7 @@ from torch_trace_sweep import port_trace_sweep  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+import torch_mesh_ranks as M  # noqa: E402
 import torch_shard_ranks as R  # noqa: E402
 from repro.configs.archs import get_config as jget_config  # noqa: E402
 from repro.launch import mesh as jmesh  # noqa: E402
@@ -131,6 +134,7 @@ def _jobs(case, journal=None):
                                  "skewed_clock": True, "ecfg": {"seed": 3}},
             "recover": {"kind": "recover", "journal": journal},
             "refusals": {"kind": "refusals"},
+            "served": {"kind": "served"},
         })
     return jobs
 
@@ -148,11 +152,14 @@ def spawned(case, tmp_path_factory=None):
         for c in group:
             _, _, tcfg, tparams = models(CASES[c][0])
             journal = None
+            jobs = _jobs(c)
             if c == "llama3_m2":
-                journal = str(tmp_path_factory.mktemp("shard")
-                              / "crash.journal")
+                tmp = tmp_path_factory.mktemp("shard")
+                journal = str(tmp / "crash.journal")
                 R.crash_journal(tcfg, tparams, journal, tick=6)
-            work.append((c, tcfg, tparams, _jobs(c, journal)))
+                jobs = _jobs(c, journal)
+                jobs["served"]["dir"] = str(tmp / "snap")
+            work.append((c, tcfg, tparams, jobs))
         res = tmesh.spawn_ranks(R.run_cases, m, args=(m, work), threads=1,
                                 join_s=JOIN_S)
         for c in group:
@@ -226,9 +233,9 @@ def test_parse_mesh_spec_matches_reference():
 
 
 def test_make_serve_mesh_refusals():
-    """A data axis (A10b), too few ranks, nccl on the CPU and nccl with
-    ranks sharing a card all raise before any process group exists."""
-    with pytest.raises(ValueError, match="A10b"):
+    """Too few ranks (a data axis as a model axis), nccl on the CPU and nccl
+    with ranks sharing a card all raise before any process group exists."""
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         tmesh.make_serve_mesh(2, 1, device="cpu")
     with pytest.raises(ValueError, match="needs 2 ranks"):
         tmesh.make_serve_mesh(1, 2, device="cpu")
@@ -587,8 +594,7 @@ def test_recover_under_mesh_from_unsharded_journal(ranks):
                                     for rid in r["streams"])
 
 
-REFUSED = ("snapshot", "restore", "handoff", "handoff_into", "frontdoor",
-           "llama4-maverick-400b-a17b", "deepseek-v3-671b", "mamba2-1.3b",
+REFUSED = ("llama4-maverick-400b-a17b", "deepseek-v3-671b", "mamba2-1.3b",
            "jamba-v0.1-52b", "whisper-medium", "vision_prefix")
 
 
@@ -601,11 +607,72 @@ def test_refused_under_mesh(what, ranks):
     assert msgs == [msgs[0]] * len(msgs)
 
 
+@functools.lru_cache(maxsize=None)
+def durable_unsharded(snapdir):
+    """The port's unsharded engine on tests/torch_mesh_ranks.py's durable
+    traffic: the uninterrupted streams and the snapshot payload's request
+    records at the served job's point (4 requests), and the uninterrupted
+    streams of the front door's 6."""
+    _, _, tcfg, tparams = models("llama3.2-3b")
+    snap = M._snapshot_job(tcfg, tparams, {"dir": snapdir}, None)
+    eng = M.ServeEngine(tcfg, tparams, M._ecfg({}, M.DURABLE_ECFG),
+                        device="cpu")
+    six = M.streams(eng.run(M.durable_requests(tcfg.vocab_size, n=6)))
+    eng.close()
+    return snap, six
+
+
+SERVED = ("snapshot", "restore", "handoff", "handoff_into", "frontdoor")
+
+
+@pytest.mark.parametrize("what", SERVED)
+def test_served_under_mesh(what, ranks, tmp_path_factory):
+    """What the (1, 2) mesh serves since the data axis came (these cases
+    raised naming A10b before): snapshot() on every rank, global rank 0
+    alone writing, the payload's request records the unsharded engine's;
+    restore(mesh=) finishing every stream as the unsharded engine does;
+    a live handoff to a fresh (1, 2) engine and one from a (2, 1) engine
+    over the same ranks, the source draining with every block free (and a
+    handoff to an engine of one rank refused); the front door on global
+    rank 0 with the other rank following, its streams the unsharded
+    engine's but the cancelled one, which keeps a prefix."""
+    res = [r["served"] for r in ranks("llama3_m2")]
+    snap, six = durable_unsharded(str(tmp_path_factory.mktemp("unsharded")))
+    whole = snap["whole"]
+    if what == "snapshot":
+        assert [r["snapshot"]["saves"] for r in res] == [1, 0]
+        assert len({r["snapshot"]["path"] for r in res}) == 1
+        for r in res:
+            assert r["snapshot"]["requests"] == snap["requests"]
+            assert r["snapshot"]["tick"] == snap["tick"]
+    elif what == "restore":
+        for r in res:
+            assert r["snapshot"]["whole"] == whole
+            assert r["snapshot"]["streams"] == whole
+    elif what in ("handoff", "handoff_into"):
+        for r in res:
+            h = r[what]
+            assert h["streams"] == whole and h["transferred"] > 0
+            assert h["health"] == "draining"
+            assert h["free_blocks"] == h["usable_blocks"]
+        assert "different ranks" in res[0]["handoff_alone"]
+    else:
+        door = res[0]["frontdoor"]
+        for rid, (toks, why) in door["clients"].items():
+            if rid == 3 and why == "cancelled":
+                assert 4 <= len(toks) < len(six[rid])
+                assert toks == six[rid][:len(toks)]
+            else:
+                assert toks == six[rid], rid
+        assert door["max_waiting_seen"] <= 2
+        assert res[1]["frontdoor"]["engine"] == door["engine"]
+
+
 def test_launcher_mesh_1x2(capfd, monkeypatch):
     """`python -m repro_torch.launch.serve --mesh 1x2 --device cpu`: rank 0
-    prints the unsharded launcher's streams and the mesh in its metrics.
-    (The launcher's ranks run with no join deadline, as a server's do; here
-    they get one.)"""
+    prints the unsharded launcher's streams and the mesh in its metrics;
+    so does `--mesh 2x1`, the data axis. (The launcher's ranks run with no
+    join deadline, as a server's do; here they get one.)"""
     from repro_torch.launch import serve as launch
     spawn = tmesh.spawn_ranks
     monkeypatch.setattr(tmesh, "spawn_ranks", lambda *a, **kw: spawn(
@@ -620,8 +687,10 @@ def test_launcher_mesh_1x2(capfd, monkeypatch):
     got = [ln for ln in out.splitlines() if ln.startswith("rid=")]
     assert len(want) == 3 and got == want
     assert '"mesh": "mesh(data=1xmodel=2, devices=2)"' in out
-    with pytest.raises(ValueError, match="A10b"):
-        launch.main(argv + ["--mesh", "2x1"])
+    launch.main(argv + ["--mesh", "2x1"])
+    out = capfd.readouterr().out
+    assert [ln for ln in out.splitlines() if ln.startswith("rid=")] == want
+    assert '"mesh": "mesh(data=2xmodel=1, devices=2)"' in out
 
 
 def test_mesh_metrics_and_refused_arch_before_spawn():

@@ -98,6 +98,7 @@ def _engine_job(cfg, params, job, mesh) -> Dict[str, Any]:
         if eng.paged:
             out["block_table"] = eng.block_table.copy()
             out["free_blocks"] = eng.allocator.free_blocks
+            out["free_list"] = list(eng.allocator._free)
     m = eng.metrics()
     out["metrics"] = {k: m.get(k) for k in (
         "preempted", "cached_prefix_tokens", "weight_bytes", "mesh", "rank")}
@@ -143,13 +144,9 @@ def _recover_job(cfg, params, job, mesh) -> Dict[str, Any]:
 
 
 def _refusals_job(cfg, params, job, mesh) -> Dict[str, Any]:
-    """Every feature this slice refuses under a mesh: the message of each
+    """Every feature still refused under a mesh: the message of each
     ValueError (or None if it did not raise)."""
-    import shutil
-    import tempfile
-
     from repro_torch.configs.archs import get_config
-    from repro_torch.serve.frontdoor import FrontDoor
     out = {}
 
     def attempt(name, fn):
@@ -160,14 +157,6 @@ def _refusals_job(cfg, params, job, mesh) -> Dict[str, Any]:
             out[name] = str(e)
 
     eng = ServeEngine(cfg, params, _ecfg(job), device="cpu", mesh=mesh)
-    tmp = tempfile.mkdtemp(prefix="shard-refusals-")
-    attempt("snapshot", lambda: eng.snapshot(tmp))
-    attempt("restore", lambda: ServeEngine.restore(
-        cfg, params, tmp, device="cpu", mesh=mesh))
-    other = ServeEngine(cfg, params, _ecfg(job), device="cpu")
-    attempt("handoff", lambda: eng.handoff(other))
-    attempt("handoff_into", lambda: other.handoff(eng))
-    attempt("frontdoor", lambda: FrontDoor(eng))
     for arch in ("llama4-maverick-400b-a17b", "deepseek-v3-671b",
                  "mamba2-1.3b", "jamba-v0.1-52b", "whisper-medium"):
         attempt(arch, lambda a=arch: ServeEngine(
@@ -181,14 +170,42 @@ def _refusals_job(cfg, params, job, mesh) -> Dict[str, Any]:
                                                          dtype=torch.long),
                         patch_embeds=patches)
     attempt("vision_prefix", vision)
-    other.close()
     eng.close()
-    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _served_job(cfg, params, job, mesh) -> Dict[str, Any]:
+    """What a (1, 2) mesh serves that the model axis alone refused:
+    snapshot and restore, a handoff to a (1, 2) engine and from a (2, 1)
+    one (each over these two ranks), and the front door on global rank 0
+    (tests/torch_mesh_ranks.py's jobs); and the message of the ValueError
+    a handoff to an engine of this rank alone raises."""
+    import torch_mesh_ranks as M
+    M._MESHES[(1, 2)] = mesh
+    out = {"snapshot": M._snapshot_job(cfg, params, {"dir": job["dir"]},
+                                       mesh),
+           "handoff": M._handoff_job(cfg, params,
+                                     {"src": (1, 2), "dst": (1, 2)}, mesh),
+           "handoff_into": M._handoff_job(cfg, params,
+                                          {"src": (2, 1), "dst": (1, 2)},
+                                          mesh),
+           "frontdoor": M._frontdoor_job(cfg, params,
+                                         {"n": 6, "cancel": 3}, mesh)}
+    eng = ServeEngine(cfg, params, _ecfg(job), device="cpu", mesh=mesh)
+    alone = ServeEngine(cfg, params, _ecfg(job), device="cpu")
+    try:
+        eng.handoff(alone)
+        out["handoff_alone"] = None
+    except ValueError as e:
+        out["handoff_alone"] = str(e)
+    alone.close()
+    eng.close()
     return out
 
 
 JOBS = {"engine": _engine_job, "logits": _logits_job,
-        "recover": _recover_job, "refusals": _refusals_job}
+        "recover": _recover_job, "refusals": _refusals_job,
+        "served": _served_job}
 
 
 def run_jobs(cfg, params, jobs, mesh) -> Dict[str, Any]:
