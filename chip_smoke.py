@@ -156,16 +156,16 @@ Phases (any failure exits non-zero):
      llama3.2-3b in (b)'s setup: (1) a (1, 1) mesh over nccl in this
      process, whose streams and first-decode logits must be the unsharded
      engine's bits; (2) a (1, 2) mesh over gloo, two rank processes on the
-     one card (nccl refuses two ranks on a device; each keeps the full
-     tree on the host and builds its shard on the card a layer at a
-     time), in (b)'s setup, and in (c)'s (each rank's packed bytes slices
+     one card (nccl refuses two ranks on a device; each engine draws its
+     shard on the card a piece at a time from a sharding.Draw, as the
+     launcher's --mesh does), in (b)'s setup, and in (c)'s (each rank's packed bytes slices
      of the unsharded packed tree) and on the dense backend through flash
      with the 2 of (b)'s requests with the shortest prompts: each served
      engine's first-decode logits (the 3 shortest prompts) within rel L2
      0.05 of the unsharded engine's, the greedy share, and each rank's
      weight bytes, peak memory and tokens/s printed. Then (m), in the
-     same two rank processes after (l)'s setups, from the host tree they
-     built from: the serving mesh's data axis, a (2, 1) mesh over gloo,
+     same two rank processes after (l)'s setups, from the same draw: the
+     serving mesh's data axis, a (2, 1) mesh over gloo,
      two data ranks on the one card, in (b)'s setup with the prefix cache
      on and EOS off: (1) 8 requests sharing one 512-token prefix, each
      with its own 16-64-token suffix and 32 new tokens, on 8 slots (4 a
@@ -184,10 +184,33 @@ Phases (any failure exits non-zero):
      cancel after its 4th token; rank 1 follows), each giving the
      uninterrupted mesh run's streams exactly, then a handoff mid-decode
      to the (1, 2) mesh: every request in full, the source's blocks all
-     free, the greedy share printed; (m)'s seconds printed. Before the
+     free, the greedy share printed; (m)'s seconds printed. Then (n), in
+     the same two rank processes after (m): the mesh for MoE, MLA, Mamba-2
+     and the encoder-decoder, in (b)'s setup with EOS off, each arch at
+     full width on the (1, 2) mesh, each rank's engine drawing its own
+     shard on the card a piece at a time (the ranks in turn; no host
+     tree):
+     llama4-maverick at 2 of 48 layers (paged, the GRAU attention
+     epilogue), deepseek-v3 at 4 of 61 (its 3 dense layers and one MoE
+     layer), mamba2-1.3b and whisper-medium at full size (1,500 stub
+     frames a request, max_seq 448) on the dense backend; each serves the
+     2 of 8 requests with the shortest prompts, 16 new tokens: the
+     first-decode logits within rel L2 0.05 of the one-card run's (run in
+     this process before the spawn; an MoE arch's expert flips printed,
+     each explained by the router scores, and where any flipped the
+     logits taken again with the one-card routes pinned), the ranks'
+     streams equal, the greedy share, each rank's weight bytes, peak
+     memory and tokens/s; then llama4 on a (2, 1) mesh (each data rank
+     the whole 2-layer tree): the data ranks' pool bytes equal, their
+     streams the one-card run's; (n)'s seconds printed. Before the
      slices, phase mesh_kernels launches the bf16 decode and prefill (16-
      and 4-bit pools, with the epilogue) and flash at a rank's heads (12
-     of 24 over 4 of 8 KV heads), and the bf16 decode at a data rank's
+     of 24 over 4 of 8 KV heads), (n)'s rank shapes (llama4's decode and
+     prefill at 20 of 40 heads over 4 of 8 KV heads on 16-bit pools,
+     planned for 8 KV heads; flash at 64 of deepseek-v3's 128 MLA heads
+     of 192, causal over 1,024, at 8 of whisper's 16 encoder heads over
+     1,500 frames and at its cross-attention prefill, 448 x 1,500), and
+     the bf16 decode at a data rank's
      slots (4 of 8, every head, planned for 8 slots) and at a (2, 2)
      rank's (4 of 8 slots, 12 of 24 heads over 4 of 8 KV heads, planned
      for both counts): the full launch's bits head for head and slot for
@@ -213,6 +236,7 @@ prints them as one JSON line, so two versions compare on one card.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import shutil
@@ -1312,44 +1336,50 @@ def flash_bf16_bound(torch, q, k, v, o, want, causal, q_offset):
     return ratio, rel_l2(got[:, first:], want[:, first:])
 
 
-def time_flash(torch, dev, shape):
-    """Slice (e)'s attention in bf16, causal: the kernel (CUDA-graph
+def time_flash(torch, dev, shape, causal=True, s_kv=None):
+    """Slice (e)'s attention in bf16, causal (or, with `causal` False and
+    `s_kv` keys, another shape of the served path): the kernel (CUDA-graph
     replay, and eager), its plain version and
     F.scaled_dot_product_attention(is_causal, enable_gqa) on (b, h, s, d)
     copies made before timing (replay and eager too). The bound: q, k, v
-    read and o, lse written once over the memory rate, against 4 b h s^2 d
-    / 2 operations (causal) over the bf16 tensor-core peak."""
+    read and o, lse written once over the memory rate, against 4 b h s
+    s_kv d operations (halved when causal) over the bf16 tensor-core
+    peak."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_plain
     b, s, h, kvh, d = shape
+    skv = s if s_kv is None else s_kv
     q = torch.randn((b, s, h, d), device=dev).to(torch.bfloat16)
-    k, v = (torch.randn((b, s, kvh, d), device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, skv, kvh, d), device=dev).to(torch.bfloat16)
             for _ in range(2))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
 
     def lib():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                               enable_gqa=True)
-    ok, err = close(lib().transpose(1, 2), fa.flash_attention(q, k, v)[0],
-                    2e-2, 2e-2)
+    ok, err = close(lib().transpose(1, 2),
+                    fa.flash_attention(q, k, v, causal=causal)[0], 2e-2,
+                    2e-2)
     need(ok, f"the SDPA yardstick computes another function (off by "
          f"{err:.3g})")
     nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * b * h * s
-    t_bound, by = bound(nbytes, 4 * b * h * s * s * d / 2, "bf16")
-    kern = lambda: fa.flash_attention(q, k, v)  # noqa: E731
-    return {"shape": [b, s, h, kvh, d], "kernel": fa.kernel_for(q.dtype, d),
+    t_bound, by = bound(nbytes, 4 * b * h * s * skv * d / (2 if causal
+                                                           else 1), "bf16")
+    kern = lambda: fa.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    return {"shape": [b, s, h, kvh, d] + ([] if s_kv is None else [skv]),
+            "kernel": fa.kernel_for(q.dtype, d),
             "ms": graph_ms(torch, kern, calls=10, replays=5),
             "eager_ms": device_ms(torch, kern),
             "plain_ms": device_ms(torch, lambda: flash_attention_plain(
-                q, k, v), 5, 1),
+                q, k, v, causal=causal), 5, 1),
             "bound_ms": t_bound, "bound_by": by,
             "library_ms": graph_ms(torch, lib, calls=10, replays=5),
             "library_eager_ms": device_ms(torch, lib),
             "library_call": "torch.nn.functional.scaled_dot_product_attention"
-                            "(is_causal=True, enable_gqa=True) on (b, h, s, "
-                            "d) copies"}
+                            f"(is_causal={causal}, enable_gqa=True) on (b, "
+                            "h, s, d) copies"}
 
 
 # The flash kernel at slice (k)'s new shapes, (label, b, s_q, s_kv, h, kvh,
@@ -1459,19 +1489,24 @@ def make_requests(np, Request, vocab, n, lo, hi, max_new, seed):
 
 
 def serve(torch, np, dev, cfg, params, ecfg_kw, reqs_fn, warm_prefill=True,
-          mesh=None, after=None):
+          mesh=None, after=None, build=None):
     """Serve reqs_fn()'s requests after the engine's warmup and report the
     timed window's numbers. warm_prefill=True warms every prefill bucket /
     chunk width; "requests" instead runs the same prompts once, one new
     token each, before the window, so exactly the buckets they use are
-    warm. With `mesh` the engine serves this rank's shard of `params` (on
-    the card or on the host). `after(engine)`, run once the window is read,
-    returns a dict added to the report."""
+    warm. With `mesh` the engine serves this rank's shard of `params` (a
+    tree on the card, or a sharding.Draw the engine draws a piece at a
+    time). `build(make)` calls make() to construct the engine (default:
+    at once; slice (n) builds its ranks' engines in turn). `after(engine)`,
+    run once the window is read, returns a dict added to the report."""
     import dataclasses
     from repro_torch import kernels
     from repro_torch.serve.engine import EngineConfig, ServeEngine
-    eng = ServeEngine(cfg, params, EngineConfig(**ecfg_kw), device=dev,
-                      mesh=mesh)
+
+    def make():
+        return ServeEngine(cfg, params, EngineConfig(**ecfg_kw), device=dev,
+                           mesh=mesh)
+    eng = make() if build is None else build(make)
     eng.warmup(prefill=warm_prefill is True)
     # the peak through the engine's construction and warmup
     build_peak = (torch.cuda.max_memory_allocated() / 1e9
@@ -4500,27 +4535,46 @@ def check_rank_shapes(torch, np, dev, shapes, rng, timed, rehearse):
     """The bf16 decode and prefill kernels (16- and 4-bit pools, bf16 out
     and with the GRAU epilogue) and flash at slice (l)'s per-rank heads:
     llama3.2-3b's heads [r*12, (r+1)*12) over KV heads [r*4, (r+1)*4) of a
-    2-rank mesh, against the full 24 / 8-head launch on the same inputs.
-    Each rank's paged launch plans its sequence parts for the full 8 KV
-    heads, as the engine does under a mesh (shard_ctx.plan_kv_heads), and
-    must give the full launch's bits head for head; the launch planned for
-    its own 4 KV heads is printed beside it (its parts differ, so its sums
-    may round apart). Flash must give the same bits too. Each rank shape is
-    then timed beside its plain version, SDPA and the bound."""
-    from functools import partial
+    2-rank mesh, against the full 24 / 8-head launch on the same inputs
+    (paged_rank_rows, flash_rank_row); then slice (n)'s rank shapes
+    (N_RANK_PAGED, N_RANK_FLASH)."""
+    rows = paged_rank_rows(torch, np, dev, shapes, rng, timed, rehearse,
+                           (16, 4), "")
+    sq = 1024 if timed else 64
+    row = flash_rank_row(torch, dev, "", (1, sq, sq, shapes["h"],
+                                          shapes["kvh"], shapes["d"], True),
+                         timed, rehearse)
+    rows[row["name"]] = row
+    rows.update(paged_rank_rows(torch, np, dev, N_RANK_PAGED[timed], rng,
+                                timed, rehearse, (16,), "_llama4"))
+    for tag, shape in N_RANK_FLASH[timed]:
+        row = flash_rank_row(torch, dev, tag, shape, timed, rehearse)
+        rows[row["name"]] = row
+    return rows
 
-    from repro_torch.kernels import flash_attention as fa
+
+def paged_rank_rows(torch, np, dev, s, rng, timed, rehearse, bits, tag):
+    """The bf16 decode and prefill kernels at a (1, MESH_RANKS) rank's heads
+    of the shape `s` (each rank a contiguous share of the query heads and
+    the KV heads they read), on pools of each of `bits`, bf16 out and with
+    the GRAU epilogue, against the full launch on the same inputs. Each
+    rank's launch plans its sequence parts for the full KV heads, as the
+    engine does under a mesh (shard_ctx.plan_kv_heads), and must give the
+    full launch's bits head for head; the launch planned for its own KV
+    heads is printed beside it (its parts differ, so its sums may round
+    apart). Each rank shape is then timed beside its plain version, SDPA
+    and the bound. Rows are named <kernel>[_kv4]_rank<tag>."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.nn.common import build_lm_grau
 
     g = build_lm_grau("identity")
-    s, m = shapes, MESH_RANKS
+    m = MESH_RANKS
     h, kvh = s["h"], s["kvh"]
     hl, kl = h // m, kvh // m
     srank = dict(s, h=hl, kvh=kl)
     epis = (("bf16", {}), ("grau", {"spec": g.spec, "s_in": g.s_in}))
     rows = {}
-    for kv_bits in (16, 4):
+    for kv_bits in bits:
         for name in ("paged_attention", "paged_prefill"):
             (q, k, v, table, lengths), kv = paged_case(
                 torch, np, dev, torch.bfloat16, s, rng, kv_bits)
@@ -4561,7 +4615,7 @@ def check_rank_shapes(torch, np, dev, shapes, rng, timed, rehearse):
             log(f"{label}: the rank launches (planned for {kvh} KV heads) "
                 f"give the full launch's bits head for head: {same}; "
                 f"planned for their own {kl}: max |diff| {own_plan:.3g}")
-            row = {"name": f"{name}{suffix}_rank", "route": "cuda",
+            row = {"name": f"{name}{suffix}_rank{tag}", "route": "cuda",
                    "source": "src/repro_torch/csrc/paged_prefill.cu",
                    "replaces": ("src/repro/kernels/paged_attention.py:189"
                                 if name == "paged_attention" else
@@ -4575,34 +4629,67 @@ def check_rank_shapes(torch, np, dev, shapes, rng, timed, rehearse):
                                       rng, kv_bits, plan_kvh=kvh))
                 log(f"timed: {json.dumps(row)}")
             rows[row["name"]] = row
-    # flash: the dense backend's prefill at the rank's heads
-    b, sq = 1, (1024 if timed else 64)
-    q = torch.randn((b, sq, h, s["d"]), device=dev).to(torch.bfloat16)
-    k, v = (torch.randn((b, sq, kvh, s["d"]), device=dev).to(torch.bfloat16)
+    return rows
+
+
+def flash_rank_row(torch, dev, tag, shape, timed, rehearse):
+    """Flash at a (1, MESH_RANKS) rank's heads of `shape` (b, s_q, s_kv, h,
+    kvh, d, causal): each rank's launch on its contiguous share of the
+    heads must give the full launch's o and lse bits head for head; then
+    timed (time_flash). The row is named flash_attention_rank<tag>."""
+    from repro_torch.kernels import flash_attention as fa
+    b, sq, skv, h, kvh, d, causal = shape
+    m = MESH_RANKS
+    hl, kl = h // m, kvh // m
+    q = torch.randn((b, sq, h, d), device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, skv, kvh, d), device=dev).to(torch.bfloat16)
             for _ in range(2))
-    o, lse = fa.flash_attention(q, k, v, causal=True)
+    o, lse = fa.flash_attention(q, k, v, causal=causal)
     same = True
     for r in range(m):
         orr, lr = fa.flash_attention(
             q[:, :, r * hl:(r + 1) * hl].contiguous(),
             k[:, :, r * kl:(r + 1) * kl].contiguous(),
-            v[:, :, r * kl:(r + 1) * kl].contiguous(), causal=True)
+            v[:, :, r * kl:(r + 1) * kl].contiguous(), causal=causal)
         same &= (torch.equal(orr, o[:, :, r * hl:(r + 1) * hl])
                  and torch.equal(lr, lse[:, r * hl:(r + 1) * hl]))
-    need(rehearse or same, f"flash at {hl} / {kl} heads: a rank's launch is "
-         "not the full launch's bits head for head")
-    log(f"flash causal {sq} x {hl} / {kl} heads: the rank launches give the "
-        f"full launch's bits head for head: {same}")
-    row = {"name": "flash_attention_rank", "route": "cuda",
+    what = (f"flash {'causal' if causal else 'full'} {sq} x {skv} at {hl} "
+            f"/ {kl} heads of {d}")
+    need(rehearse or same, f"{what}: a rank's launch is not the full "
+         "launch's bits head for head")
+    log(f"{what}: the rank launches give the full launch's bits head for "
+        f"head: {same}")
+    row = {"name": f"flash_attention_rank{tag}", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention.py:79",
            "heads": [hl, kl], "max_abs_err": 0.0 if same else None,
            "same_bits_as_full_launch": same}
     if timed:
-        row.update(time_flash(torch, dev, (b, sq, hl, kl, s["d"])))
+        row.update(time_flash(torch, dev, (b, sq, hl, kl, d), causal=causal,
+                              s_kv=None if skv == sq and causal else skv))
         log(f"timed: {json.dumps(row)}")
-    rows[row["name"]] = row
-    return rows
+    return row
+
+
+# slice (n)'s rank shapes on its (1, 2) mesh, checked and timed in the
+# mesh_kernels phase ({timed: ...}; smoke-size in the rehearsal):
+# llama4-maverick's paged decode and prefill (40 / 8 heads of 128: a rank
+# 20 over 4, group 5, planned for 8 KV heads), and flash at deepseek-v3's
+# MLA prefill (causal 1,024 x 128 heads of 192: a rank 64), Whisper's
+# encoder (1,500 frames x 16 heads of 64: a rank 8) and its
+# cross-attention prefill (the 448-token top bucket against 1,500 frames)
+N_RANK_PAGED = {True: dict(slots=8, h=40, kvh=8, d=128, bs=16, max_len=2048,
+                           chunk=32),
+                False: dict(slots=8, h=4, kvh=2, d=32, bs=16, max_len=128,
+                            chunk=32)}
+N_RANK_FLASH = {True: [("_mla", (1, 1024, 1024, 128, 128, 192, True)),
+                       ("_whisper_encoder", (1, 1500, 1500, 16, 16, 64,
+                                             False)),
+                       ("_whisper_cross", (1, 448, 1500, 16, 16, 64,
+                                           False))],
+                False: [("_mla", (1, 64, 64, 4, 4, 48, True)),
+                        ("_whisper_encoder", (1, 100, 100, 4, 4, 32, False)),
+                        ("_whisper_cross", (1, 32, 100, 4, 4, 32, False))]}
 
 
 MESH_DATA_SHAPES = (("data_rank", 2, 1), ("data_model_rank", 2, 2))
@@ -4727,36 +4814,43 @@ def check_matmul_wq_rank(torch, np, dev, shapes, timed):
 
 
 def dense_first_decode(torch, np, dev, cfg, params, prompts, max_seq,
-                       mesh=None):
+                       mesh=None, frames=None):
     """Each prompt's context through lm.prefill_step into fresh dense
-    caches (bucket-padded, the flash kernel on the card), then the first
-    decode step: the (prompts, vocab) f32 logits. With `mesh`, `params` is
-    this rank's shard and the caches hold its KV heads."""
+    caches (bucket-padded, the flash kernel on the card; at exact length
+    with SSM layers, as the engine prefills them; an enc-dec prompt with
+    its `frames`), then the first decode step: the (prompts, vocab) f32
+    logits. With `mesh`, `params` is this rank's shard and the caches hold
+    its KV heads and SSM heads."""
     import contextlib
 
     from repro_torch.models import lm
     from repro_torch.nn import shard_ctx
     from repro_torch.serve import kv_cache as kvc
-    kvh, sharded = None, contextlib.nullcontext
+    kw, sharded = {}, contextlib.nullcontext
     if mesh is not None:
         from repro_torch.serve import sharding
-        kvh = sharding.local_heads(cfg, shard_ctx.model_size(mesh))[1]
+        kw = sharding.local_caches(cfg, shard_ctx.model_size(mesh))
         sharded = lambda: shard_ctx.use(mesh, cfg.kv_heads_phys)  # noqa: E731
     act = lm.make_act(cfg, dev)
     buckets = kvc.default_buckets(max_seq)
+    exact = any(spec.kind == "mamba" for period, _ in cfg.groups
+                for spec in period)
     out = []
-    for p in prompts:
+    for i, p in enumerate(prompts):
         ctx = len(p) - 1
-        toks = np.zeros((1, kvc.bucket_for(ctx, buckets)), np.int64)
+        toks = np.zeros((1, ctx if exact else kvc.bucket_for(ctx, buckets)),
+                        np.int64)
         toks[0, :ctx] = p[:ctx]
         caches = lm.init_caches(cfg, 1, max_seq,
                                 dtype=lm.compute_dtype(params), device=dev,
-                                kv_heads=kvh)
+                                **kw)
+        enc = (None if frames is None or frames[i] is None else
+               torch.from_numpy(frames[i][None]).to(dev))
         with sharded():
             lm.prefill_step(params, cfg, torch.from_numpy(toks).to(dev),
                             caches, true_length=torch.tensor([ctx],
                                                              device=dev),
-                            act=act, want_logits=False)
+                            act=act, want_logits=False, encoder_frames=enc)
             logits, _ = lm.decode_step(
                 params, cfg, torch.tensor([[int(p[-1])]], device=dev),
                 caches, act=act)
@@ -4913,9 +5007,9 @@ def m_logit_prompts(reqs):
     return [reqs[i].prompt for i in sorted(keep[:MESH_M_LOGIT_PROMPTS])]
 
 
-def slice_m_rank(rank, host, mesh12, seed, rehearse, dev, shared):
+def slice_m_rank(rank, mesh12, seed, rehearse, dev, shared):
     """Slice (m) in one of slice (l)'s two rank processes, after (l)'s
-    setups, from the host tree they built from: a (2, 1) mesh over gloo,
+    setups, from the same draw: a (2, 1) mesh over gloo,
     two data ranks on the one card. (1) (m)'s trace (m_trace) on 8 slots,
     4 a rank, the prefix cache on, the first request served alone through
     its prefill: the streams, the trail of the host schedule (StateTrail),
@@ -4938,6 +5032,7 @@ def slice_m_rank(rank, host, mesh12, seed, rehearse, dev, shared):
     from repro_torch import kernels
     from repro_torch.configs.archs import get_config
     from repro_torch.launch.mesh import host_broadcast, make_serve_mesh
+    from repro_torch.models import lm
     from repro_torch.models.config import GRAUConfig
     from repro_torch.nn.attention import AttnQuant
     from repro_torch.nn.common import build_lm_grau
@@ -4951,9 +5046,10 @@ def slice_m_rank(rank, host, mesh12, seed, rehearse, dev, shared):
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     mesh = make_serve_mesh(2, 1, device=dev, backend="gloo")
     cfg = get_config("llama3.2-3b", smoke=rehearse).replace(grau=GRAUConfig())
-    # a (2, 1) rank holds the whole tree: moved to the card once and shared
+    # a (2, 1) rank holds the whole tree: drawn on the card once and shared
     # by every (2, 1) engine below (a whole-range slice is the leaf itself)
-    tree = sharding.shard_params(host, cfg, mesh, dev)
+    tree = lm.init_lm(cfg, seed=seed, dtype=torch.float32 if rehearse
+                      else torch.bfloat16, device=dev)
     attn = build_lm_grau("identity")
     aq = AttnQuant(attn.spec.to(dev), attn.s_in, attn.s_out)
     base = m_engine_config(attn, seed, rehearse)
@@ -5135,11 +5231,12 @@ def slice_m_rank(rank, host, mesh12, seed, rehearse, dev, shared):
     del eng
     dur["frontdoor_s"] = time.perf_counter() - t
     # a handoff mid-decode to the (1, 2) mesh over the same ranks: the
-    # target builds its shard from the host tree
+    # target draws its shard
     t = time.perf_counter()
     src = engine(**four)
     got = submitted(src, mid_decode)
-    dst = engine(m=mesh12, params=host, **four)
+    dst = engine(m=mesh12, params=sharding.Draw(seed, tree["embed"].dtype),
+                 **four)
     t_h = time.perf_counter()
     moved = src.handoff(dst)["transferred"]
     row = {"handoff_s": time.perf_counter() - t_h, "transferred": moved,
@@ -5160,13 +5257,13 @@ def slice_m_rank(rank, host, mesh12, seed, rehearse, dev, shared):
     return out
 
 
-def slice_l_rank(rank, seed, rehearse, card, shared):
+def slice_l_rank(rank, seed, rehearse, card, shared, one_n):
     """One rank of slice (l)'s (1, 2) gloo mesh on the card, then of slice
     (m)'s (2, 1) mesh over the same two ranks (slice_m_rank, from the same
-    host tree; `shared`: a directory both ranks see). The full tree
-    is drawn once on the card and kept on the host (lm.init_lm's store),
-    and each setup's engine builds its shard from it a layer at a time
-    (sharding.shard_params), so the card never holds the whole tree. Each
+    `shared`: a directory both ranks see), then slice (n) (slice_n_rank,
+    held against `one_n`, n_one_card's). Each setup's engine draws its
+    shard on the card a piece at a time (a sharding.Draw, as the
+    launcher's --mesh does), so the card never holds the whole tree. Each
     setup (mesh_setups) is served from 0 launches; then the served
     engine's own params give the first-decode logits (rank 0 returns them)
     and, in (c)'s setup, the digests of its packed planes. Also returned:
@@ -5176,11 +5273,11 @@ def slice_l_rank(rank, seed, rehearse, card, shared):
 
     from repro_torch.configs.archs import get_config
     from repro_torch.launch.mesh import make_serve_mesh
-    from repro_torch.models import lm
     from repro_torch.models.config import GRAUConfig
     from repro_torch.nn.attention import AttnQuant
     from repro_torch.nn.common import build_lm_grau
     from repro_torch.quant.policy import PrecisionPolicy
+    from repro_torch.serve import sharding
     from repro_torch.serve.engine import Request
 
     dev = (torch.device("cpu") if rehearse else
@@ -5189,7 +5286,7 @@ def slice_l_rank(rank, seed, rehearse, card, shared):
     cfg = get_config("llama3.2-3b", smoke=rehearse)
     gcfg = cfg.replace(grau=GRAUConfig())
     dtype = torch.float32 if rehearse else torch.bfloat16
-    host = lm.init_lm(cfg, seed=seed, dtype=dtype, device=dev, store="cpu")
+    draw = sharding.Draw(seed, dtype)
     max_seq = 256 if rehearse else 2048
     lo, hi = (8, 100) if rehearse else (64, 1024)
     prompts = logit_prompts([r.prompt for r in mesh_requests(
@@ -5221,7 +5318,7 @@ def slice_l_rank(rank, seed, rehearse, card, shared):
                 got["first_decode_logits"] = lk.cpu()
             return got
         res, streams = serve(
-            torch, np, dev, gcfg, host, {**ecfg, **kw}, mesh_requests(
+            torch, np, dev, gcfg, draw, {**ecfg, **kw}, mesh_requests(
                 np, Request, cfg.vocab_size, lo, hi, seed, n), mesh=mesh,
             after=after)
         res.update(streams=streams, rank=rank, card=card)
@@ -5229,7 +5326,10 @@ def slice_l_rank(rank, seed, rehearse, card, shared):
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-    out["m"] = slice_m_rank(rank, host, mesh, seed, rehearse, dev, shared)
+    out["m"] = slice_m_rank(rank, mesh, seed, rehearse, dev, shared)
+    t0 = time.perf_counter()
+    out["n"] = slice_n_rank(rank, mesh, seed, rehearse, dev, one_n)
+    out["n_seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -5341,6 +5441,343 @@ def check_slice_m(torch, dev, ranks, one, rehearse):
     return row
 
 
+N_LLAMA4_LAYERS = 2     # slice (n): llama4-maverick's depth, as (j)'s
+N_DEEPSEEK_LAYERS = 4   # deepseek-v3's: its 3 dense layers and one MoE
+# layer (~15.3 B parameters; (k) serves 5 on one card)
+N_NEW = 16              # new tokens a request in slice (n)
+
+
+def n_setups(rehearse, attn, seed):
+    """Slice (n)'s archs, [(label, cfg, engine options, prompt lengths,
+    depth cut)], each in (b)'s setup (the GRAU MLP activation), EOS off, 8
+    slots: llama4-maverick on the paged backend with the GRAU attention
+    epilogue, deepseek-v3, mamba2-1.3b and whisper-medium (max_seq 448,
+    1,500 stub frames a request) on the dense one."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models.config import GRAUConfig, moe_groups
+    base = dict(slots=8, max_seq=256 if rehearse else 2048, eos_id=-1,
+                seed=seed)
+    lens = (8, 100) if rehearse else (64, 1024)
+
+    def grau(arch):
+        return get_config(arch, smoke=rehearse).replace(grau=GRAUConfig())
+    llama4, deepseek = (grau("llama4-maverick-400b-a17b"),
+                        grau("deepseek-v3-671b"))
+    cuts = {"llama4": None, "deepseek": None}
+    if not rehearse:
+        cuts["llama4"] = (f"{N_LLAMA4_LAYERS} of {llama4.num_layers} layers "
+                          "(one dense + MoE period, as (j))")
+        llama4 = llama4.replace(groups=moe_groups(N_LLAMA4_LAYERS, 0, 2))
+        cuts["deepseek"] = (f"{N_DEEPSEEK_LAYERS} of {deepseek.num_layers} "
+                            "layers (its 3 dense layers and one MoE layer)")
+        deepseek = deepseek.replace(groups=moe_groups(N_DEEPSEEK_LAYERS,
+                                                      first_dense=3))
+    dense = dict(base, paged=False)
+    return [("llama4", llama4, dict(base, page_size=16, attn_grau=attn),
+             lens, cuts["llama4"]),
+            ("deepseek", deepseek, dense, lens, cuts["deepseek"]),
+            ("mamba2", grau("mamba2-1.3b"), dense, lens, None),
+            ("whisper", grau("whisper-medium"), dict(
+                dense, max_seq=128 if rehearse else WHISPER_MAX_SEQ),
+             (8, 60) if rehearse else (16, 384), None)]
+
+
+def n_requests(np, Request, cfg, lens, seed):
+    """The MESH_SHORT_REQUESTS of 8 requests of `lens` prompt tokens (an
+    enc-dec arch's with their stub frames) with the shortest prompts, in
+    rid order, N_NEW new tokens each."""
+    reqs = dense_requests(np, Request, cfg, 8, *lens, N_NEW, seed)
+    keep = sorted(range(8), key=lambda i: (len(reqs[i].prompt), i))
+    return [reqs[i] for i in sorted(keep[:MESH_SHORT_REQUESTS])]
+
+
+def n_logits(torch, np, dev, cfg, params, aq, reqs, ecfg, mesh=None):
+    """The first-decode logits of `reqs`' prompts (their frames too):
+    through the paged kernels (first_decode_logits) or the dense caches
+    (dense_first_decode), as the arch is served."""
+    prompts = [r.prompt for r in reqs]
+    if ecfg.get("paged") is False:
+        return dense_first_decode(torch, np, dev, cfg, params, prompts,
+                                  ecfg["max_seq"], mesh=mesh,
+                                  frames=[r.encoder_frames for r in reqs])
+    return first_decode_logits(torch, np, dev, cfg, params, aq, prompts,
+                               ecfg["max_seq"], 16, 32, mesh=mesh,
+                               paths=("kernel",))["kernel"]
+
+
+def n_gated_f32(cfg):
+    """An SSM arch's (n) logits are gated in f32 (the served bf16 weights
+    cast): at random weights bf16 rounding alone moves mamba2-1.3b's
+    first-decode logits by ~0.2 relative L2 over its 48 layers (PERF.md
+    §6), so any other rounding, the mesh's included, lands that far in
+    bf16; in f32 the mesh must give one card's logits within
+    MAMBA_GATE_REL, as (k)'s mamba2 gates are held."""
+    return any(spec.kind == "mamba" for period, _ in cfg.groups
+               for spec in period)
+
+
+def n_one_card(torch, np, dev, args, rehearse, attn, aq):
+    """Slice (n)'s archs unsharded on one card, what the meshes are held
+    against: each drawn whole from --seed, its requests served
+    (n_requests), the first-decode logits with every MoE layer's routes
+    recorded (RouteLog: the mesh pins them) — an SSM arch's also in f32
+    (n_gated_f32) — then freed."""
+    import types
+
+    from repro_torch.nn.common import tree_map
+    from repro_torch.serve.engine import Request
+    out = {}
+    for label, cfg, ecfg, lens, cut in n_setups(rehearse, attn, args.seed):
+        t0 = time.perf_counter()
+        params, nparams = init_logged(torch, dev, args, cfg, torch.float32
+                                      if rehearse else torch.bfloat16, cut)
+        reqs_fn = lambda: n_requests(np, Request, cfg, lens,  # noqa: E731
+                                     args.seed)
+        res, streams = serve(torch, np, dev, cfg, params, ecfg, reqs_fn,
+                             warm_prefill=False)
+        with RouteLog() as rl:
+            lk = n_logits(torch, np, dev, cfg, params, aq, reqs_fn(), ecfg)
+        l32 = (n_logits(torch, np, dev, cfg, tree_map(
+            lambda t: t.float(), params), aq, reqs_fn(), ecfg).cpu()
+            if n_gated_f32(cfg) else None)
+        out[label] = {
+            "streams": streams, "logits": lk.cpu(), "logits_f32": l32,
+            "routes": types.SimpleNamespace(calls=rl.calls,
+                                            weights=rl.weights),
+            "tokens_per_s": res["tokens_per_s"], "params_b": nparams,
+            "depth_cut": cut, "launches": res["launches"]}
+        del params, lk
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        out[label]["seconds"] = time.perf_counter() - t0
+        log(f"(n) {label} on one card: {res['tokens_per_s']:.1f} tokens/s, "
+            f"{out[label]['seconds']:.1f} s")
+    return out
+
+
+def slice_n_rank(rank, mesh12, seed, rehearse, dev, one):
+    """Slice (n) in one of slice (l)'s two rank processes, after (m): each
+    of n_setups' archs on (l)'s (1, 2) mesh, then llama4 on a (2, 1) mesh.
+    A rank's engine draws its shard itself (a sharding.Draw, as the
+    launcher's --mesh does: each piece drawn whole on the card, its slice
+    kept, the rest freed), the ranks' engines built one at a time, so a
+    piece drawn whole (llama4's MoE layer, 32.6 GB) never stands beside
+    another rank's; no tree is kept on the host. Each arch
+    serves its requests from 0 launches (warm decode), then the served
+    engine's params give the first-decode logits under a RouteLog: the
+    expert flips against the one-card run's routes (`one`) are explained
+    by the router scores (route_flips), and where any flipped the logits
+    are taken again with the one-card routes pinned (RoutePin). The (2, 1)
+    mesh: each data rank's engine draws the whole 2-layer tree (one at a
+    time) and serves the same requests; its pool bytes' digest is
+    returned."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import host_group, make_serve_mesh
+    from repro_torch.nn.attention import AttnQuant
+    from repro_torch.nn.common import build_lm_grau, tree_map
+    from repro_torch.serve import sharding
+    from repro_torch.serve.engine import Request
+
+    attn = build_lm_grau("identity")
+    aq = AttnQuant(attn.spec.to(dev), attn.s_in, attn.s_out)
+    draw = sharding.Draw(seed, torch.float32 if rehearse
+                         else torch.bfloat16)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def free():
+        # an engine and its trace recorder refer to each other: collect
+        # them before the card's cached blocks are handed back
+        gc.collect()
+        sync()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def in_turn(mesh, fn):
+        # the drawing rank hands its freed pieces back to the card (the
+        # caching allocator would keep them) before the next one draws
+        got = None
+        for r in range(dist.get_world_size()):
+            if rank == r:
+                try:
+                    got = fn()
+                except Exception as e:
+                    log(f"(n) rank {rank}: {type(e).__name__}: {e}")
+                    raise
+                free()
+            dist.barrier(group=host_group(mesh))
+        return got
+
+    out = {}
+    free()
+    if dev.type == "cuda":
+        log(f"(n) rank {rank}: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+            f"held from (l) and (m), {torch.cuda.mem_get_info()[0] / 1e9:.2f}"
+            " GB free on the card")
+
+    setups = n_setups(rehearse, attn, seed)
+    for label, cfg, ecfg, lens, cut in setups:
+        free()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ref = one[label]
+        reqs_fn = lambda: n_requests(np, Request, cfg, lens,  # noqa: E731
+                                     seed)
+
+        def after(eng, label=label, cfg=cfg, ecfg=ecfg, ref=ref,
+                  reqs_fn=reqs_fn):
+            t = time.perf_counter()
+            with RouteLog() as rl:
+                lk = n_logits(torch, np, dev, eng.cfg, eng.params, aq,
+                              reqs_fn(), ecfg, mesh=mesh12)
+            got = {}
+            if cfg.moe is not None:
+                flips = route_flips(rl.calls, ref["routes"].calls,
+                                    f"(n) {label} (1, 2) vs one card")
+                got["flips"] = [x["flips"] for x in flips]
+                got["unpinned_rel_l2"] = rel_l2(lk.cpu(), ref["logits"])
+                if any(got["flips"]):
+                    with RoutePin(ref["routes"]):
+                        lk = n_logits(torch, np, dev, eng.cfg, eng.params,
+                                      aq, reqs_fn(), ecfg, mesh=mesh12)
+            if n_gated_f32(cfg):
+                l32 = n_logits(torch, np, dev, eng.cfg, tree_map(
+                    lambda w: w.float(), eng.params), aq, reqs_fn(), ecfg,
+                    mesh=mesh12)
+                if rank == 0:
+                    got["first_decode_logits_f32"] = l32.cpu()
+            got["logits_s"] = time.perf_counter() - t
+            if rank == 0:
+                got["first_decode_logits"] = lk.cpu()
+            return got
+        built = []
+
+        def build(make):
+            eng = in_turn(mesh12, make)
+            built.append(time.perf_counter() - t0)
+            return eng
+        res, streams = serve(torch, np, dev, cfg, draw, ecfg, reqs_fn,
+                             warm_prefill=False, mesh=mesh12, after=after,
+                             build=build)
+        res.update(streams=streams, draw_s=built[0], rank=rank,
+                   seconds=time.perf_counter() - t0)
+        out[label] = res
+    free()
+    # llama4 on a (2, 1) mesh: two data ranks, each with the whole tree
+    t0 = time.perf_counter()
+    mesh21 = make_serve_mesh(2, 1, device=dev, backend="gloo")
+    label, cfg, ecfg, lens, _ = setups[0]
+    res, streams = serve(
+        torch, np, dev, cfg, draw, ecfg, lambda: n_requests(
+            np, Request, cfg, lens, seed), warm_prefill=False, mesh=mesh21,
+        after=lambda eng: {"pool_digest": pool_digest(torch, eng.caches)},
+        build=lambda make: in_turn(mesh21, make))
+    res.update(streams=streams, rank=rank, seconds=time.perf_counter() - t0)
+    out["llama4_2x1"] = res
+    free()
+    return out
+
+
+def check_slice_n(torch, dev, ranks, one, rehearse):
+    """Slice (n)'s gates on both ranks' results (slice_n_rank) against the
+    one-card runs (n_one_card): per arch, the first-decode logits within
+    MESH_TOL (relative L2; the MoE archs with the one-card routes pinned
+    where an expert flipped, each flip explained by the router scores),
+    the ranks' streams equal, the kernels of the arch's path launched; the
+    greedy share against one card, each rank's weight bytes, peak memory
+    and tokens/s printed. The (2, 1) mesh: the data ranks' pool bytes
+    equal, and their streams one card's."""
+    out = {"launches": {}}
+    for label in [k for k in one]:
+        per = [r["n"][label] for r in ranks]
+        lk = per[0].pop("first_decode_logits").to(dev)
+        rel = rel_l2(lk, one[label]["logits"].to(dev))
+        need(bool(torch.isfinite(lk).all()), f"(n) {label}: non-finite "
+             "logits")
+        extra = {}
+        if one[label]["logits_f32"] is not None:
+            # an SSM arch (n_gated_f32): the f32 logits are gated within
+            # MAMBA_GATE_REL, and the served bf16 logits within one card's
+            # own bf16 rounding distance (its bf16 against its f32 logits):
+            # the bf16-only code (out_proj's f32 partials, the cast after
+            # the sharded gated norm) moves them no further than bf16
+            # rounding moves one card; a wrong shard lands near 1
+            l32 = per[0].pop("first_decode_logits_f32").to(dev)
+            w32 = one[label]["logits_f32"].to(dev)
+            extra = {"first_decode_logits_f32_rel_l2": rel_l2(l32, w32),
+                     "one_card_bf16_vs_f32_rel_l2": rel_l2(
+                         one[label]["logits"].to(dev), w32)}
+            need(extra["first_decode_logits_f32_rel_l2"] <= MAMBA_GATE_REL,
+                 f"(n) {label}: f32 first-decode logits rel L2 "
+                 f"{extra['first_decode_logits_f32_rel_l2']:.3g} against "
+                 f"one card > {MAMBA_GATE_REL}")
+            # (a rehearsal serves f32: no bf16 rounding to measure by)
+            need(rehearse or rel <= extra["one_card_bf16_vs_f32_rel_l2"],
+                 f"(n) {label}: bf16 first-decode logits rel L2 {rel:.3g} "
+                 "against one card > one card's own bf16 against f32 "
+                 f"distance {extra['one_card_bf16_vs_f32_rel_l2']:.3g}")
+        else:
+            need(rel <= MESH_TOL, f"(n) {label}: first-decode logits rel "
+                 f"L2 {rel:.3g} against one card > {MESH_TOL}")
+        need(all(p["streams"] == per[0]["streams"] for p in per),
+             f"(n) {label}: the ranks' streams differ")
+        la = {k: sum(p["launches"][k] for p in per)
+              for k in per[0]["launches"]}
+        if label == "llama4":
+            need(rehearse or (la["paged_attention_epilogue"] > 0
+                              and la["paged_prefill_epilogue"] > 0),
+                 f"(n) llama4: the attention kernels with the epilogue did "
+                 f"not run: {la}")
+        elif label in ("deepseek", "whisper"):
+            need(rehearse or la["flash_attention"] > 0,
+                 f"(n) {label}: flash did not launch: {la}")
+        else:
+            need(la["flash_attention"] == 0, f"(n) {label}: flash launched "
+                 "on an arch without attention")
+        row = {"first_decode_logits_rel_l2": rel, **extra,
+               "greedy_identical_share": compare_streams(
+                   per[0]["streams"], one[label]["streams"]),
+               "requests": per[0]["requests"],
+               "one_card_tokens_per_s": one[label]["tokens_per_s"],
+               "params_b": one[label]["params_b"],
+               "depth_cut": one[label]["depth_cut"],
+               "launches": la,
+               "ranks": [{k: p.get(k) for k in (
+                   "rank", "weight_bytes", "tokens_per_s", "ttft_mean_s",
+                   "peak_mem_gb", "peak_mem_gb_build", "wall_s",
+                   "decode_tokens", "prefill_tokens", "ticks", "draw_s",
+                   "logits_s", "seconds", "flips", "unpinned_rel_l2")}
+                   for p in per]}
+        out["launches"][label] = la
+        for p in row["ranks"]:
+            log(f"(n) (1, 2) {label} rank {p['rank']}: weight bytes "
+                f"{p['weight_bytes'] / 1e9:.3f} GB, tokens/s "
+                f"{p['tokens_per_s']:.1f} ({row['requests']} requests), "
+                f"peak memory {p['peak_mem_gb']} GB (drawing and building "
+                f"its shard: {p['peak_mem_gb_build']}), expert flips "
+                f"{p['flips']}")
+        log(f"slice[n {label}]: " + json.dumps(row))
+        out[label] = row
+    per = [r["n"]["llama4_2x1"] for r in ranks]
+    need(per[0]["pool_digest"] == per[1]["pool_digest"],
+         "(n) llama4 (2, 1): the data ranks' pool bytes differ")
+    need(all(p["streams"] == one["llama4"]["streams"] for p in per),
+         "(n) llama4 (2, 1): streams are not one card's")
+    la = {k: sum(p["launches"][k] for p in per) for k in per[0]["launches"]}
+    out["launches"]["llama4_2x1"] = la
+    out["llama4_2x1"] = {
+        "pool_bytes_equal": True, "streams_identical": True,
+        "launches": la, "ranks": [{k: p[k] for k in (
+            "rank", "weight_bytes", "tokens_per_s", "peak_mem_gb", "wall_s",
+            "ticks", "seconds")} for p in per]}
+    log("slice[n llama4 (2, 1)]: " + json.dumps(out["llama4_2x1"]))
+    return out
+
+
 def mesh_slice(torch, np, dev, args, rehearse, base):
     """Slice (l): full-width, full-depth llama3.2-3b in bf16 (weights from
     --seed) served tensor-parallel in (b)'s setup. (1) A (1, 1) mesh over
@@ -5440,19 +5877,40 @@ def mesh_slice(torch, np, dev, args, rehearse, base):
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+    # slice (n)'s one-card runs, what its meshes are held against
+    t_n = time.perf_counter()
+    n_one = n_one_card(torch, np, dev, args, rehearse, attn, aq)
+    n_one_s = time.perf_counter() - t_n
 
     # (2) two ranks over gloo on the one card, 2 torch threads a rank (the
     # host's 8 cores shared with gloo's own threads)
+    if dev.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        free_b, total_b = torch.cuda.mem_get_info()
+        log(f"before the ranks: this process holds "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB "
+            f"({torch.cuda.memory_reserved() / 1e9:.2f} reserved); the card "
+            f"has {free_b / 1e9:.2f} of {total_b / 1e9:.2f} GB free")
     t0 = time.perf_counter()
     shared = tempfile.mkdtemp(prefix="chip-smoke-m-")
+    # the rank processes' allocators grow segments in place: (n)'s (2, 1)
+    # mesh holds two whole 37.4 GB llama4 trees on the card, and a piece
+    # drawn into a split segment would pin the rest of it
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
         ranks = mesh_lib.spawn_ranks(
             slice_l_rank, MESH_RANKS, args=(args.seed, rehearse, args.card,
-                                            shared),
+                                            shared, n_one),
             device=dev, backend="gloo", join_s=MESH_JOIN_S,
             threads=1 if rehearse else 2)
     finally:
         shutil.rmtree(shared, ignore_errors=True)
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     out["mesh_1x2_spawn_s"] = time.perf_counter() - t0
     out["launches"] = {}
     for label, _, n in mesh_setups(attn):
@@ -5500,8 +5958,8 @@ def mesh_slice(torch, np, dev, args, rehearse, base):
             log(f"mesh (1, 2) {label} rank {p['rank']}: weight bytes "
                 f"{p['weight_bytes'] / 1e9:.3f} GB, tokens/s "
                 f"{p['tokens_per_s']:.1f} ({n} requests), peak memory "
-                f"serving {p['peak_mem_gb']} GB (building its shard from "
-                f"the host tree: {p['peak_mem_gb_build']})")
+                f"serving {p['peak_mem_gb']} GB (drawing its shard: "
+                f"{p['peak_mem_gb_build']})")
         log(f"slice[l mesh (1, 2) {label}]: " + json.dumps(row))
         out[f"mesh_1x2_{label}"] = row
     del packed
@@ -5509,6 +5967,12 @@ def mesh_slice(torch, np, dev, args, rehearse, base):
     out["m"]["seconds"] = out["m"]["seconds_ranks"] + m_one_s
     log(f"slice (m): {out['m']['seconds']:.1f} s (the ranks "
         f"{out['m']['seconds_ranks']:.1f}, the one-card run {m_one_s:.1f})")
+    out["n"] = check_slice_n(torch, dev, ranks, n_one, rehearse)
+    n_ranks = max(r["n_seconds"] for r in ranks)
+    out["n"].update(seconds=n_ranks + n_one_s, seconds_ranks=n_ranks,
+                    seconds_one_card=n_one_s)
+    log(f"slice (n): {out['n']['seconds']:.1f} s (the ranks {n_ranks:.1f}, "
+        f"the one-card runs {n_one_s:.1f})")
     return out
 
 
@@ -5665,6 +6129,16 @@ def main(argv=None) -> int:
         card = smi.stdout.strip().splitlines()[0] if smi.stdout else "?"
         log(card)
         report["card"] = args.card = card
+        # the host's and the card's memory: slice (n)'s ranks draw their
+        # shards on the card, so no host holds two whole trees
+        mem = Path("/proc/meminfo")
+        host_kb = (int(mem.read_text().split("MemTotal:")[1].split()[0])
+                   if mem.exists() else None)
+        free_b, total_b = torch.cuda.mem_get_info()
+        report["memory"] = {"host_mem_total_gb": host_kb and host_kb / 1e6,
+                            "card_total_gb": total_b / 1e9,
+                            "card_free_gb": free_b / 1e9}
+        log(f"memory: {json.dumps(report['memory'])}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         t0 = time.perf_counter()
@@ -5859,6 +6333,25 @@ def main(argv=None) -> int:
         key = name.replace("_kv4", "") if setup != "wq4_kv4_grau" else name
         rank_rows[f"{name}_rank"]["launches"] = ml[setup][key]
         rank_rows[f"{name}_rank"]["launches_slice_l_setup"] = setup
+    # slice (n): both ranks' launches in each arch's (1, 2) run, counted
+    # from 0 just before it: llama4's attention kernels at their rank
+    # shape, flash at deepseek's MLA rank shape and at whisper's (its
+    # encoder and cross-attention prefill in the same run)
+    ln = mesh["n"]["launches"]
+    for name in ("paged_attention", "paged_prefill"):
+        row = rank_rows[f"{name}_rank_llama4"]
+        row.update(launches=ln["llama4"][name],
+                   epilogue_launches=ln["llama4"][f"{name}_epilogue"])
+        rows[name]["rank_shape_slice_n"] = row
+        rows[name]["launches_slice_n"] = {k: ln[k][name] for k in (
+            "llama4", "llama4_2x1")}
+    rows["flash_attention"]["rank_shapes_slice_n"] = []
+    for tag, run in (("_mla", "deepseek"), ("_whisper_encoder", "whisper"),
+                     ("_whisper_cross", "whisper")):
+        row = rank_rows[f"flash_attention_rank{tag}"]
+        row.update(launches=ln[run]["flash_attention"],
+                   launches_slice_n_run=run)
+        rows["flash_attention"]["rank_shapes_slice_n"].append(row)
     rows["matmul_wq"]["launches_slice_l"] = ml["wq4_kv4_grau"]["matmul_wq"]
     rows["matmul_wq"]["rank_shapes"] = dict(
         wq_rank, launches_slice_l=ml["wq4_kv4_grau"]["matmul_wq"])

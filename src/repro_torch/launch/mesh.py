@@ -34,7 +34,6 @@ import weakref
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 AXES = ("data", "model")
-A10B = "ROADMAP A10b"
 COLLECTIVE_TIMEOUT_S = 60.0
 
 # the gloo group over every rank of a mesh for host-side decisions (the

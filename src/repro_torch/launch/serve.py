@@ -58,8 +58,9 @@ deepseek-v3-671b and whisper-medium on the dense one.
 rank processes, each with its shard of the weights and KV heads over the
 model axis and its range of the decode slots over the data axis, global
 rank 0 printing and alone writing the journal, the trace and the snapshot;
-the MoE, MLA and dense-cache SSM / enc-dec archs under a mesh are ROADMAP
-A10b. A first SIGINT or SIGTERM drains (in-flight streams finish, queued
+every arch above is served under a mesh (MoE by experts, MLA by heads,
+Mamba-2 by SSM heads, Whisper's encoder and cross-attention by heads). A
+first SIGINT or SIGTERM drains (in-flight streams finish, queued
 requests wait in the journal and the final snapshot), a second stops at
 once; either way the snapshot is written and the engine closed. Under a
 mesh rank 0's signals decide for every rank.
@@ -273,6 +274,7 @@ def serve(args, mesh=None) -> None:
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
     from repro_torch.serve.journal import RequestJournal
     from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.serve.sharding import Draw
 
     device = lm.resolve_device(args.device)
     rank = global_rank(mesh)
@@ -283,11 +285,11 @@ def serve(args, mesh=None) -> None:
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.grau:
         cfg = cfg.replace(grau=GRAUConfig())
-    # under a mesh the tree is drawn on the card and kept on the host: the
-    # engine moves over only this rank's shard, a layer at a time
-    params = lm.init_lm(cfg, seed=args.seed, dtype=getattr(torch, args.dtype),
-                        device=device, store="cpu" if mesh is not None
-                        else None)
+    dtype = getattr(torch, args.dtype)
+    # under a mesh each rank's engine draws its own shard a piece at a time
+    # (sharding.Draw): no card or host holds the whole tree
+    params = (Draw(args.seed, dtype) if mesh is not None else
+              lm.init_lm(cfg, seed=args.seed, dtype=dtype, device=device))
     ecfg = EngineConfig(
         slots=args.slots, max_seq=args.max_seq,
         paged=None if args.backend == "auto" else args.backend == "paged",
@@ -326,7 +328,7 @@ def serve(args, mesh=None) -> None:
         engine = ServeEngine(cfg, params, ecfg, device=device, mesh=mesh)
         # the launcher hands the writer over: close() closes it
         engine._owns_journal = engine.journal is not None
-    del params          # under a mesh the engine keeps only its shard
+    del params          # the engine holds what it serves
     if args.metrics_port is not None and rank == 0:
         # engine-owned endpoint: engine.close() (the finally below) stops
         # the socket and joins its thread however the launcher exits

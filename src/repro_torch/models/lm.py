@@ -26,7 +26,7 @@ from repro_torch.nn import blocks, shard_ctx
 from repro_torch.nn.attention import (NULL_BLOCK, CrossKV, KVCache, MLACache,
                                       PagedState, cache_slice, pool_tensors,
                                       write_gathered)
-from repro_torch.nn.common import act_fn, init_param, tree_map
+from repro_torch.nn.common import act_fn, init_param
 from repro_torch.nn.mamba2 import SSMState
 from repro_torch.nn.rope import rope_tables
 from repro_torch.quant import weights as wq_lib
@@ -49,44 +49,43 @@ def resolve_device(device=None) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def init_lm(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
-            device=None, store=None) -> Dict[str, Any]:
+            device=None, shard=None) -> Dict[str, Any]:
     """Random parameters from `seed` with the JAX package's initializers
     (embedding: truncated normal, std 0.02; matrices: fan-in truncated
     normal; norms: zeros for rmsnorm's 1 + w), drawn by a torch.Generator on
-    `device` (default: CUDA, see resolve_device). `store`: the device each
-    leaf is kept on once drawn (default: `device`). A rank of a serving
-    mesh draws on its card and keeps the tree on the host (store="cpu"):
-    the values of a draw kept on the card, with one layer at a time on the
-    card, whose engine then moves over only what its shard needs
-    (serve/sharding.shard_params)."""
+    `device` (default: CUDA, see resolve_device). `shard` maps each piece
+    as it is drawn — a tree holding only the embedding, the head, one
+    encoder layer or one repeat of a group — to what is kept of it
+    (serve/sharding.draw_shard: a mesh rank's slice, the rest freed); the
+    norms are kept as drawn."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     kw = dict(device=device, dtype=dtype)
 
-    def keep(tree):
-        return tree if store is None else tree_map(
-            lambda t: t.to(store), tree)
-    params: Dict[str, Any] = {
-        "embed": keep(init_param((cfg.vocab_size, cfg.d_model), gen,
-                                 init="normal", scale=0.02, **kw))}
+    def keep(piece):
+        return piece if shard is None else shard(piece)
+    params: Dict[str, Any] = keep({
+        "embed": init_param((cfg.vocab_size, cfg.d_model), gen,
+                            init="normal", scale=0.02, **kw)})
     if not cfg.tie_embeddings:
-        params["head"] = keep(init_param((cfg.d_model, cfg.vocab_size), gen,
-                                         **kw))
+        params.update(keep({"head": init_param((cfg.d_model, cfg.vocab_size),
+                                               gen, **kw)}))
     blocks.init_norm(params, "ln_f", cfg.d_model, cfg.norm, **kw)
     if cfg.encoder is not None:
         spec = blocks.LayerSpec(kind="attn", mlp="dense")
-        enc = {"layers": [keep(blocks.init_layer(spec, cfg, gen, **kw))
-                          for _ in range(cfg.encoder.num_layers)]}
+        enc = {"layers": [keep({"encoder": {"layers": [blocks.init_layer(
+            spec, cfg, gen, **kw)]}})["encoder"]["layers"][0]
+            for _ in range(cfg.encoder.num_layers)]}
         blocks.init_norm(enc, "ln_enc", cfg.d_model, cfg.norm, **kw)
         params["encoder"] = enc
     for gi, (period, repeats) in enumerate(cfg.groups):
         params[f"group{gi}"] = [
-            keep({f"l{li}": blocks.init_layer(spec, cfg, gen, **kw)
-                  for li, spec in enumerate(period)})
+            keep({f"group{gi}": [{f"l{li}": blocks.init_layer(
+                spec, cfg, gen, **kw) for li, spec in enumerate(period)}]})[
+                    f"group{gi}"][0]
             for _ in range(repeats)]
-    # the norms (the leaves kept above are already there)
-    return keep(params)
+    return params
 
 
 def make_act(cfg: ModelConfig, device):
@@ -108,19 +107,20 @@ def make_act(cfg: ModelConfig, device):
 # ---------------------------------------------------------------------------
 
 def _layer_cache(spec, cfg: ModelConfig, lead: Tuple[int, ...], max_seq: int,
-                 length: int, dtype, device, kvh: int):
+                 length: int, dtype, device, kvh: int,
+                 ssm_share: Optional[Tuple[int, int]]):
     """One period-layer's dense cache, each tensor with leading dims
-    `lead` (repeats, batch): an SSM state, an MLA latent cache or a
-    KVCache of `kvh` heads."""
+    `lead` (repeats, batch): an SSM state of `ssm_share` (heads, groups),
+    an MLA latent cache or a KVCache of `kvh` heads."""
     kw = dict(dtype=dtype, device=device)
     lengths = torch.full(lead, length, dtype=torch.int32, device=device)
     if spec.kind == "mamba":
         s = cfg.ssm
-        conv_dim = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
+        h, g = ssm_share or (s.n_heads(cfg.d_model), s.n_groups)
+        conv_dim = h * s.head_dim + 2 * g * s.d_state
         return SSMState(
             conv=torch.zeros(lead + (s.conv_width - 1, conv_dim), **kw),
-            ssm=torch.zeros(lead + (s.n_heads(cfg.d_model), s.head_dim,
-                                    s.d_state),
+            ssm=torch.zeros(lead + (h, s.head_dim, s.d_state),
                             dtype=torch.float32, device=device))
     if cfg.mla is not None:
         m = cfg.mla
@@ -135,12 +135,14 @@ def _layer_cache(spec, cfg: ModelConfig, lead: Tuple[int, ...], max_seq: int,
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *,
                 length: int = 0, dtype=torch.bfloat16, device=None,
-                policy=None, kv_heads: Optional[int] = None):
+                policy=None, kv_heads: Optional[int] = None,
+                ssm_share: Optional[Tuple[int, int]] = None):
     """The dense cache tree on `device` (default: CUDA, see
     resolve_device): a tuple per group of per-period-layer leaves stacked
     over repeats; cross-attention layers carry (self cache, CrossKV) pairs.
-    Attention caches hold `kv_heads` heads: a serving-mesh rank's local
-    count (serve/sharding.local_heads), by default cfg.kv_heads_phys.
+    Attention caches hold `kv_heads` heads and SSM states `ssm_share`
+    (heads, groups): a serving-mesh rank's local counts
+    (serve/sharding.local_caches), by default the whole model's.
     Dense caches hold float KV only (SSM state is recurrent and MLA latents
     are already compressed: neither pages, so neither quantizes): a policy
     that quantizes any layer's KV is rejected, as in the reference."""
@@ -157,7 +159,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *,
         per_layer = []
         for spec in period:
             c = _layer_cache(spec, cfg, lead, max_seq, length, dtype, device,
-                             kvh)
+                             kvh, ssm_share)
             if spec.cross_attn:
                 shape = lead + (cfg.encoder.num_frames, kvh, cfg.head_dim)
                 c = (c, CrossKV(
@@ -257,9 +259,7 @@ def _hidden(params, cfg: ModelConfig, tokens, *, mode, caches, positions,
     wraps it in jax.checkpoint."""
     x = _embed(params["embed"], cfg, tokens).to(compute_dtype(params))
     if patch_embeds is not None:
-        if shard_ctx.active_mesh() is not None:
-            raise ValueError(f"{cfg.name}: a vision prefix under a serving "
-                             "mesh is not served yet (ROADMAP A10b)")
+        # a replicated input under a serving mesh, as the tokens are
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     rope = rope_tables(positions, _rope_dim(cfg), cfg.rope_theta)
     kw = dict(rope=rope, act=act, mode=mode, paged=paged,
@@ -296,7 +296,9 @@ def run_encoder(params, cfg: ModelConfig, frames, *, act=None,
     """Whisper's encoder stack over the stub frames (b, frames, d), cast to
     the model's activation dtype: bidirectional self-attention (rope at
     positions [0, frames), no causal mask: the flash kernel on the card)
-    and a dense MLP a layer, then the final encoder norm."""
+    and a dense MLP a layer, then the final encoder norm. Under a serving
+    mesh the layers are tensor-parallel as the decoder's are, and the
+    output, reduced, is replicated."""
     act = act or make_act(cfg, frames.device)
     enc = params["encoder"]
     e = frames.to(compute_dtype(params))
@@ -309,7 +311,8 @@ def run_encoder(params, cfg: ModelConfig, frames, *, act=None,
                                       kv_chunk=kv_chunk, attn_impl=attn_impl)
         e = e + a
         hn = blocks.apply_norm(layer, "ln2", e, cfg.norm, cfg.norm_eps)
-        e = e + blocks.apply_mlp(layer["mlp"], hn, act, cfg.gated_mlp)
+        e = e + blocks.apply_mlp(layer["mlp"], hn, act, cfg.gated_mlp,
+                                 blocks.mlp_reduce(cfg, layer["mlp"]))
     return blocks.apply_norm(enc, "ln_enc", e, cfg.norm, cfg.norm_eps)
 
 

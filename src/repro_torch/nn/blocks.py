@@ -103,32 +103,18 @@ def _proj(x, w):
         b, s, w.shape[1], w.shape[2])
 
 
-def _partial(a, w):
-    """A row-parallel product's partial a @ w (a 2-D or 3-D, w 2-D) for
-    reduce_model to sum: in f32 where the model axis has several ranks (on
-    the card through torch.mm's f32 output, so the partials are summed
-    before the one rounding to a's dtype), in a's dtype on one rank (the
-    unsharded product's bits)."""
-    if shard_ctx.model_size() == 1 or a.dtype == torch.float32:
-        return a @ w
-    if a.is_cuda:
-        a2 = a.reshape(-1, a.shape[-1])
-        out = torch.mm(a2, w, out_dtype=torch.float32)
-        return out.reshape(a.shape[:-1] + (w.shape[-1],))
-    return (a @ w).float()
-
-
-def _out(o, wo):
+def _out(o, wo, reduce: bool = True):
     """einsum("bshk,hkd->bsd") as one matrix product (packed wo through
     wq_lib.dense). Under a serving mesh o holds this rank's heads and wo
-    their rows: the partial products are summed over the model axis."""
+    their rows: the partial products are summed over the model axis
+    (unless `reduce` is False: heads the mesh replicates)."""
     wo = wq_lib.dense(wo, o.dtype)
     b, s, h, k = o.shape
     a, w = o.reshape(b * s, h * k), wo.reshape(h * k, -1)
-    if shard_ctx.active_mesh() is None:
+    if shard_ctx.active_mesh() is None or not reduce:
         return (a @ w).reshape(b, s, -1)
-    return shard_ctx.reduce_model(_partial(a, w)).to(o.dtype).reshape(
-        b, s, -1)
+    return shard_ctx.reduce_model(shard_ctx.row_partial(a, w)).to(
+        o.dtype).reshape(b, s, -1)
 
 
 def _qkv(params, x, cfg):
@@ -264,6 +250,15 @@ def _mla_scale(m: MLAConfig) -> float:
     return (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
 
 
+def _mla_heads(params, cfg) -> Tuple[int, bool]:
+    """(the heads `params` hold, whether they are a model-axis share):
+    under a serving mesh wq_b / wk_b / wv_b / wo hold this rank's heads
+    (serve/sharding.py), or all of them where the axis does not divide
+    the heads (replicated: no reduction)."""
+    h = params["wq_b"].shape[1]
+    return h, h != cfg.num_heads
+
+
 def apply_mla(params, x, cfg, *, rope, cache: Optional[MLACache] = None,
               q_chunk: int = 1024, kv_chunk: int = 1024,
               attn_impl: str = "kernel"
@@ -272,10 +267,12 @@ def apply_mla(params, x, cfg, *, rope, cache: Optional[MLACache] = None,
     the latent, v zero-padded to q's head_dim (nope + rope) so the shared
     chunked_attention (the flash kernel on the card) runs it, then cut
     back. `rope` holds the tables at the rope width (qk_rope_dim). With
-    `cache` the latent and the rope key are written at [0, s) in place."""
+    `cache` the latent and the rope key are written at [0, s) in place.
+    Under a serving mesh the heads are this rank's (_mla_heads) and the
+    latent is replicated."""
     m: MLAConfig = cfg.mla
     b, s, _ = x.shape
-    h = cfg.num_heads
+    h, split = _mla_heads(params, cfg)
     q_nope, q_rope = _mla_q(params, x, m, rope)
     ckv, k_rope = (x @ params["wkv_a"]).split(
         [m.kv_lora_rank, m.qk_rope_dim], dim=-1)
@@ -289,7 +286,7 @@ def apply_mla(params, x, cfg, *, rope, cache: Optional[MLACache] = None,
         F.pad(v, (0, k.shape[-1] - v.shape[-1])), causal=True,
         q_chunk=q_chunk, kv_chunk=kv_chunk, scale=_mla_scale(m),
         impl=attn_impl)
-    out = _out(o[..., :m.v_head_dim], params["wo"])
+    out = _out(o[..., :m.v_head_dim], params["wo"], reduce=split)
     if cache is not None:
         cache.ckv[:, :s] = ckv.to(cache.ckv.dtype)
         cache.k_rope[:, :s] = k_rope[:, :, 0].to(cache.k_rope.dtype)
@@ -317,7 +314,7 @@ def decode_mla(params, x, cfg, *, rope, cache: MLACache
     o_lat = attn_lib.mla_decode_attention(q_abs, q_rope, cache,
                                           scale=_mla_scale(m))
     o = torch.einsum("bshr,rhk->bshk", o_lat, params["wv_b"])
-    return _out(o, params["wo"]), cache
+    return _out(o, params["wo"], reduce=_mla_heads(params, cfg)[1]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -355,7 +352,7 @@ def apply_mlp(params, x, act: Callable, gated: bool = True,
         part = wq_lib.matmul(h, w, out_dtype=(
             torch.float32 if shard_ctx.model_size() > 1 else None))
     else:
-        part = _partial(h, w)
+        part = shard_ctx.row_partial(h, w)
     return shard_ctx.reduce_model(part).to(h.dtype)
 
 
@@ -485,10 +482,15 @@ def apply_layer(
         # serving never drops a token: capacity-factor drops are a training
         # discipline, and in decode they would couple co-batched slots (one
         # slot's routing could evict another's token)
-        cap = None if mode == "train" else h.shape[0] * h.shape[1]
-        m, aux = apply_moe(params["moe"], h, cfg.moe, act, capacity=cap)
+        m, aux = apply_moe(params["moe"], h, cfg.moe, act,
+                           full=mode != "train")
         return x + m, cache, aux
-    mlp = params["mlp"]
-    reduce = (shard_ctx.active_mesh() is not None and shard_ctx.mlp_splits(
+    return x + apply_mlp(params["mlp"], h, act, cfg.gated_mlp,
+                         mlp_reduce(cfg, params["mlp"])), cache, 0.0
+
+
+def mlp_reduce(cfg, mlp) -> bool:
+    """Whether a dense MLP's weights are a model-axis shard under the
+    active serving mesh (its w_down partials are then summed)."""
+    return (shard_ctx.active_mesh() is not None and shard_ctx.mlp_splits(
         cfg.d_ff, mlp["w_down"], shard_ctx.model_size()))
-    return x + apply_mlp(mlp, h, act, cfg.gated_mlp, reduce), cache, 0.0

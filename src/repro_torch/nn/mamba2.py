@@ -18,6 +18,13 @@ Memory: the einsums contract pairwise in a stated order. The widest
 intermediates are the (b, chunks, q, q, heads) decay and C.B tiles (64 MB
 f32 at chunk 256, 64 heads, 1,024 tokens), never a (b, chunks, q, q,
 heads, d_state) product (~8.6 GB there).
+
+Under a serving mesh whose model axis divides the heads, a rank holds its
+contiguous share of them (z, x, dt and their conv channels, dt_bias,
+a_log, d_skip, norm_w, out_proj's rows; B and C whole unless the axis
+divides the groups), its SSM state theirs, and the block reads its sizes
+from its parameters (_dims): the norm's statistic and out_proj's partials
+are summed over the model group (_norm_out).
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.nn import shard_ctx
 from repro_torch.nn.common import init_param, rmsnorm
 
 
@@ -71,12 +79,36 @@ def init_mamba2(d_model: int, cfg: SSMConfig, gen: torch.Generator, *,
     }
 
 
-def _split_proj(proj, d_model: int, cfg: SSMConfig):
-    di = cfg.d_inner(d_model)
-    g, n = cfg.n_groups, cfg.d_state
-    h = cfg.n_heads(d_model)
+def _dims(params, cfg: SSMConfig) -> Tuple[int, int, int, int]:
+    """(d_inner, groups, d_state, heads) of the block `params` hold: the
+    config's, or under a serving mesh this rank's share of the heads (and
+    of the groups where the mesh splits them; serve/sharding.py)."""
+    n = cfg.d_state
+    h = params["dt_bias"].shape[0]
+    di = h * cfg.head_dim
+    return di, (params["conv_b"].shape[0] - di) // (2 * n), n, h
+
+
+def _split_proj(proj, params, cfg: SSMConfig):
+    di, g, n, h = _dims(params, cfg)
     z, xbc, dt = torch.split(proj, [di, di + 2 * g * n, h], dim=-1)
     return z, xbc, dt, (di, g, n, h)
+
+
+def _norm_out(params, y, d_model: int, cfg: SSMConfig):
+    """The gated RMSNorm over d_inner, then out_proj. Where the block holds
+    a model-axis share of the heads, the norm's sum of squares is summed
+    over the model group (one f32 collective) and out_proj's partials are
+    reduced (shard_ctx.reduce_model)."""
+    di = cfg.d_inner(d_model)
+    if y.shape[-1] == di:
+        return rmsnorm(y, params["norm_w"]) @ params["out_proj"]
+    yf = y.float()
+    var = shard_ctx.sum_model(yf.square().sum(-1, keepdim=True)) / di
+    yn = (yf * torch.rsqrt(var + 1e-6)
+          * (1.0 + params["norm_w"].float())).to(y.dtype)
+    return shard_ctx.reduce_model(
+        shard_ctx.row_partial(yn, params["out_proj"])).to(y.dtype)
 
 
 def _causal_conv(xbc, w, b, init_state: Optional[torch.Tensor] = None):
@@ -152,7 +184,7 @@ def apply_mamba2(params, x: torch.Tensor, d_model: int, cfg: SSMConfig,
     after the last row)."""
     b, l, _ = x.shape
     proj = x @ params["in_proj"]
-    z, xbc, dt, (di, g, n, h) = _split_proj(proj, d_model, cfg)
+    z, xbc, dt, (di, g, n, h) = _split_proj(proj, params, cfg)
     p = cfg.head_dim
     conv_in = None if state is None else state.conv
     xbc, conv_state = _causal_conv(xbc, params["conv_w"], params["conv_b"],
@@ -173,8 +205,8 @@ def apply_mamba2(params, x: torch.Tensor, d_model: int, cfg: SSMConfig,
     y = y + xs.float() * params["d_skip"].float()[None, None, :, None]
     y = y.reshape(b, l, di).to(x.dtype)
     y = y * gate_act(z)
-    y = rmsnorm(y, params["norm_w"])
-    return y @ params["out_proj"], SSMState(conv_state, ssm_state)
+    return _norm_out(params, y, d_model, cfg), SSMState(conv_state,
+                                                        ssm_state)
 
 
 def decode_mamba2(params, x: torch.Tensor, d_model: int, cfg: SSMConfig,
@@ -184,7 +216,7 @@ def decode_mamba2(params, x: torch.Tensor, d_model: int, cfg: SSMConfig,
     place and returned."""
     b = x.shape[0]
     proj = x[:, 0] @ params["in_proj"]
-    z, xbc, dt, (di, g, n, h) = _split_proj(proj, d_model, cfg)
+    z, xbc, dt, (di, g, n, h) = _split_proj(proj, params, cfg)
     p = cfg.head_dim
     w = params["conv_w"]
 
@@ -208,7 +240,6 @@ def decode_mamba2(params, x: torch.Tensor, d_model: int, cfg: SSMConfig,
     y = y + xs.float() * params["d_skip"].float()[None, :, None]
     y = y.reshape(b, di).to(x.dtype)
     y = y * gate_act(z)
-    y = rmsnorm(y, params["norm_w"])
     state.conv.copy_(buf[:, 1:])
     state.ssm.copy_(new_ssm)
-    return (y @ params["out_proj"])[:, None], state
+    return _norm_out(params, y, d_model, cfg)[:, None], state

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.nn import shard_ctx
 from repro_torch.nn.common import init_param, trunc_normal
 
 
@@ -100,11 +101,29 @@ def queue_positions(topi: torch.Tensor, e: int) -> torch.Tensor:
 
 
 def apply_moe(params, x: torch.Tensor, cfg: MoEConfig, act: Callable, *,
-              capacity: Optional[int] = None):
-    """x (b, s, d) -> (y (b, s, d) in x's dtype, aux_loss f32 scalar)."""
+              capacity: Optional[int] = None, full: bool = False):
+    """x (b, s, d) -> (y (b, s, d) in x's dtype, aux_loss f32 scalar).
+    `full` (serving): every routed slot is kept, the capacity being the
+    routed token count (the reference's capacity=t).
+
+    Under a serving mesh (nn/shard_ctx.py) the router is replicated and
+    every rank routes every token, so the queue positions and the drops
+    are the same on every rank; inside split_rows (a data rank's decode
+    tick) the input is first gathered over the data axis, so the routing,
+    the capacity and the drops are the whole batch's, and the rank keeps
+    its rows of the output. The expert weights are this rank's contiguous
+    range of E / m experts (experts_split; all of them otherwise) and the
+    shared experts its d_ff shard (mlp_splits): the rank dispatches only
+    its experts' slots, and the routed and shared partial sums go through
+    one reduce_model."""
     b, s, d = x.shape
-    t = b * s
-    xt = x.reshape(t, d)
+    xt = x.reshape(b * s, d)
+    rows = None
+    if shard_ctx.rows_split():
+        n = xt.shape[0]
+        rows = shard_ctx.data_rank() * n, n
+        xt = shard_ctx.gather_data(xt, dim=0)
+    t = xt.shape[0]
     e, k = cfg.num_experts, cfg.top_k
 
     scores, topi, topw = route(params, xt, cfg)
@@ -114,32 +133,63 @@ def apply_moe(params, x: torch.Tensor, cfg: MoEConfig, act: Callable, *,
     router_prob = scores.mean(0)
     aux_loss = cfg.router_aux_weight * e * torch.sum(density * router_prob)
 
-    c = capacity_for(cfg, t, capacity)
+    c = t if full else capacity_for(cfg, t, capacity)
     flat = topi.reshape(-1)                               # (t*k,)
     pos = queue_positions(topi, e)
     keep = pos < c
-    slot = flat * c + torch.where(keep, pos, 0)           # (t*k,)
 
-    # dispatch: scatter into (e*c, d); a dropped slot goes to the extra row
-    # e*c, which is cut off (the reference's mode="drop")
+    # this rank's experts [e0, e0 + el): all of them without a sharded
+    # expert axis
+    el = params["w_gate"].shape[0]
+    e0 = shard_ctx.model_rank() * el if el != e else 0
+    if el != e:
+        keep = keep & (flat >= e0) & (flat < e0 + el)
+    slot = (flat - e0) * c + torch.where(keep, pos, 0)    # (t*k,)
+
+    # dispatch: scatter into (el*c, d); a dropped (or another rank's) slot
+    # goes to the extra row el*c, which is cut off (the reference's
+    # mode="drop")
     src = torch.repeat_interleave(xt, k, dim=0)           # (t*k, d)
-    buf = torch.zeros((e * c + 1, d), dtype=xt.dtype, device=xt.device)
-    buf = buf.index_add(0, torch.where(keep, slot, e * c), src)
-    buf = buf[:e * c].reshape(e, c, d)
+    buf = torch.zeros((el * c + 1, d), dtype=xt.dtype, device=xt.device)
+    buf = buf.index_add(0, torch.where(keep, slot, el * c), src)
+    buf = buf[:el * c].reshape(el, c, d)
 
     # expert compute: batched products over the leading expert axis
     h = (act(torch.bmm(buf, params["w_gate"]))
          * torch.bmm(buf, params["w_up"]))
-    out_buf = torch.bmm(h, params["w_down"]).reshape(e * c, d)
+    out_buf = torch.bmm(h, params["w_down"]).reshape(el * c, d)
 
     # combine: gather each (token, k) slot back and weight
     gathered = out_buf[torch.where(keep, slot, 0)]
     gathered = torch.where(keep[:, None], gathered, 0.0)
     w = (topw.reshape(-1) * keep.to(topw.dtype)).to(gathered.dtype)
-    yt = (gathered * w[:, None]).reshape(t, k, d).sum(1)
 
-    if cfg.num_shared:
-        hs = act(xt @ params["ws_gate"]) * (xt @ params["ws_up"])
-        yt = yt + hs @ params["ws_down"]
-
+    if rows is not None:
+        # this rank's rows of the output (and of the shared experts' input)
+        gathered = gathered.reshape(t, k, d)[rows[0]:rows[0] + rows[1]]
+        w = w.reshape(t, k)[rows[0]:rows[0] + rows[1]]
+        xt = xt[rows[0]:rows[0] + rows[1]]
+        t = rows[1]
+    m = shard_ctx.model_size()
+    shared_split = cfg.num_shared and params["ws_gate"].shape[1] != (
+        cfg.d_ff * cfg.num_shared)
+    if m == 1 or (el == e and not shared_split):
+        # every term on this rank: the unsharded function
+        yt = (gathered.reshape(t * k, d) * w.reshape(-1)[:, None]).reshape(
+            t, k, d).sum(1)
+        if cfg.num_shared:
+            hs = act(xt @ params["ws_gate"]) * (xt @ params["ws_up"])
+            yt = yt + hs @ params["ws_down"]
+    else:
+        # partial sums in f32: a replicated term counts on model rank 0
+        lead = shard_ctx.model_rank() == 0
+        yt = (gathered.reshape(t * k, d).float()
+              * w.reshape(-1).float()[:, None]).reshape(t, k, d).sum(1)
+        if el == e and not lead:
+            yt = torch.zeros_like(yt)
+        if cfg.num_shared and (shared_split or lead):
+            hs = act(xt @ params["ws_gate"]) * (xt @ params["ws_up"])
+            yt = yt + (shard_ctx.row_partial(hs, params["ws_down"])
+                       if shared_split else hs @ params["ws_down"]).float()
+        yt = shard_ctx.reduce_model(yt)
     return yt.reshape(b, s, d).to(x.dtype), aux_loss

@@ -1,5 +1,5 @@
 """The serving mesh's context: which mesh the model code runs under, the
-two model-axis collectives it calls there, and the data axis's one.
+model-axis collectives it calls there, and the data axis's one.
 
 `use(mesh)` makes a launch/mesh.py serving mesh active on this thread (the
 reference's thread-local `shard_ctx.use`); `active_mesh()` reads it. Under
@@ -7,25 +7,31 @@ it the weights and KV storage are this rank's shards (serve/sharding.py),
 and the model code calls:
 
   * `reduce_model(x)`: the sum of a row-parallel product's partials (the
-    attention's `wo`, the MLP's `w_down`, the vocab-parallel embedding
-    lookup) over the model group, in f32, cast back to x's dtype once;
+    attention's and MLA's `wo`, the MLP's `w_down`, an MoE layer's routed
+    and shared experts together, Mamba-2's `out_proj`, the vocab-parallel
+    embedding lookup) over the model group, in f32, cast back to x's dtype
+    once (`row_partial` gives a partial in f32);
+  * `sum_model(s)`: an f32 statistic summed over the model group: the sum
+    of squares of Mamba-2's gated RMSNorm, whose d_inner the ranks split;
   * `gather_vocab(logits)`: the vocabulary shards of the logits
     concatenated, so every rank holds the full logits and the sampler,
     the argmax and the finite-logits flag decide alike on every rank.
 
-Both are no-ops without a context and on a one-rank model axis (a (1, 1)
+They are no-ops without a context and on a one-rank model axis (a (1, 1)
 mesh moves no bytes). On the data axis, which splits the engine's decode
 slots, `gather_data(x, dim)` concatenates the data ranks' slot ranges of a
-tensor: the tick's new K/V rows (models/lm.decode_step's write-back) and
-its (tokens, done, finite) record (serve/engine.py); it is a no-op on a
-one-rank data axis, so a (1, M) mesh issues the model axis's collectives
-alone. These three are the model code's and the engine's only tensor
-collectives. Under a mesh the paged kernels also plan their sequence split
-for the unsharded KV-head count (`plan_kv_heads`) and, in decode, the
-unsharded slot count (`plan_batch`), so each head's and each slot's
-attention is the unsharded launch's bits. `vocab_splits` / `mlp_splits`
-say whether a tensor is sharded at all; serve/sharding.py places the
-weights by the same rules.
+tensor: the tick's new K/V rows (models/lm.decode_step's write-back), its
+(tokens, done, finite) record (serve/engine.py) and, inside `split_rows`
+(a data rank's decode tick), an MoE layer's input, so every rank routes
+and drops over the whole batch as the unsharded engine does; it is a no-op
+on a one-rank data axis, so a (1, M) mesh issues the model axis's
+collectives alone. These five are the model code's and the engine's only
+tensor collectives. Under a mesh the paged kernels also plan their
+sequence split for the unsharded KV-head count (`plan_kv_heads`) and, in
+decode, the unsharded slot count (`plan_batch`), so each head's and each
+slot's attention is the unsharded launch's bits. `vocab_splits` /
+`mlp_splits` / `experts_split` / `ssm_splits` say whether a tensor is
+sharded at all; serve/sharding.py places the weights by the same rules.
 
 The reference's `constrain` and its activation rules instruct GSPMD's
 partitioner, which torch has no counterpart of: they are not ported
@@ -99,6 +105,25 @@ def write_log() -> Optional[list]:
     return getattr(_STATE, "writes", None)
 
 
+@contextlib.contextmanager
+def split_rows(on: bool = True):
+    """Inside the block (with `on`) the forward's rows are this data rank's
+    range of the decode slots (data_slots): an MoE layer gathers its input
+    over the data axis, routes every slot's rows and keeps its own."""
+    prev = getattr(_STATE, "rows", False)
+    _STATE.rows = bool(on)
+    try:
+        yield
+    finally:
+        _STATE.rows = prev
+
+
+def rows_split() -> bool:
+    """Whether the forward runs inside split_rows on a data axis of
+    several ranks."""
+    return getattr(_STATE, "rows", False) and data_size() > 1
+
+
 def model_size(mesh=None) -> int:
     """The model axis' size (1 without a mesh)."""
     mesh = mesh if mesh is not None else active_mesh()
@@ -158,17 +183,62 @@ def mlp_splits(d_ff: int, w_down: Any, m: int) -> bool:
             or (d_ff // m) % w_down.tile == 0)
 
 
+def experts_split(num_experts: int, m: int) -> bool:
+    """An MoE layer's experts shard over m ranks in contiguous ranges of
+    E / m (else they are replicated, the reference's divisibility
+    fallback)."""
+    return num_experts % m == 0
+
+
+def ssm_splits(heads: int, groups: int, m: int) -> Tuple[bool, bool]:
+    """(heads split, groups split): a Mamba-2 mixer shards by SSM head
+    over m ranks where m divides the heads and every rank's heads keep
+    their group — one group (B and C replicated) or m dividing the groups
+    (B and C split with them); otherwise the mixer is replicated whole."""
+    if m == 1 or heads % m:
+        return False, False
+    if groups % m == 0:
+        return True, True
+    return groups == 1, False
+
+
+def row_partial(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's partial a @ w (a 2-D or 3-D, w 2-D) for
+    reduce_model to sum: in f32 where the model axis has several ranks (on
+    the card through torch.mm's f32 output, so the partials are summed
+    before the one rounding to a's dtype), in a's dtype on one rank (the
+    unsharded product's bits)."""
+    if model_size() == 1 or a.dtype == torch.float32:
+        return a @ w
+    if a.is_cuda:
+        a2 = a.reshape(-1, a.shape[-1])
+        out = torch.mm(a2, w, out_dtype=torch.float32)
+        return out.reshape(a.shape[:-1] + (w.shape[-1],))
+    return (a @ w).float()
+
+
 def reduce_model(x: torch.Tensor) -> torch.Tensor:
     """Sum `x` over the model group (in f32, cast back once); identity
     without a mesh and on a one-rank model axis (no collective: a sum of
     one term). Every rank gets the same bits."""
-    mesh = active_mesh()
-    if mesh is None or model_size(mesh) == 1:
+    if model_size() == 1:
         return x
+    return _sum_model(x.to(torch.float32, copy=True)).to(x.dtype)
+
+
+def sum_model(s: torch.Tensor) -> torch.Tensor:
+    """An f32 statistic summed over the model group (a fresh tensor; s
+    itself without a mesh and on a one-rank model axis). Every rank gets
+    the same bits."""
+    if model_size() == 1:
+        return s
+    return _sum_model(s.clone())
+
+
+def _sum_model(y: torch.Tensor) -> torch.Tensor:
     import torch.distributed as dist
-    y = x.to(torch.float32, copy=True)
-    dist.all_reduce(y, group=mesh.get_group("model"))
-    return y.to(x.dtype)
+    dist.all_reduce(y, group=active_mesh().get_group("model"))
+    return y
 
 
 def gather_data(x: torch.Tensor, dim: int) -> torch.Tensor:

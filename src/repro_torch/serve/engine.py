@@ -115,18 +115,23 @@ write (lm.decode_step's write-back), so every data rank's pool holds the
 same bytes; a prefill chunk runs replicated on every data rank. The
 GEMMs run at S/D rows, which on the card may round apart from the
 unsharded engine's S rows. On the dense backend a data rank holds its
-slots' rows and prefills only its own slots. Every rank thus runs the same
-scheduler, allocator, radix cache and sampler on the same host state. The
-clock is the one rank-local input: global rank 0 takes the deadline and
-watchdog decisions and broadcasts them each tick (one small integer tensor
-when nothing expires), with the front door's admissions and cancels since
-the last tick, so every rank issues the same collectives and submits alike.
-Only global rank 0 writes the journal, the trace file, the snapshot and
-the /metrics endpoint, and runs the front door (the other ranks follow:
-serve/frontdoor.follow). The CUDA kernels run under the mesh on each
+slots' rows and prefills only its own slots. An MoE layer in a data
+rank's decode gathers its input over the data axis and routes the whole
+batch (shard_ctx.split_rows), so its drops are the unsharded engine's.
+Every rank thus runs the same scheduler, allocator, radix cache and
+sampler on the same host state. The clock is the one rank-local input:
+global rank 0 takes the deadline and watchdog decisions and broadcasts
+them each tick (one small integer tensor when nothing expires), with the
+front door's admissions and cancels since the last tick (an enc-dec
+request's frames as bytes beside them), so every rank issues the same
+collectives and submits alike. Only global rank 0 writes the journal, the
+trace file, the snapshot and the /metrics endpoint, and runs the front
+door (the other ranks follow: serve/frontdoor.follow). The CUDA kernels run under the mesh on each
 rank's local heads and slots (the reference refuses its Pallas kernel
-there: ROADMAP C, D4). Left out (ROADMAP A10b): MoE / MLA / Mamba-2 /
-cross-attention and the vision prefix under a mesh.
+there: ROADMAP C, D4). Every registered arch is served under a mesh: MoE
+by experts, MLA by heads (its latent cache replicated over the model
+axis), Mamba-2 by SSM heads, Whisper's encoder and cross-attention by
+heads; a config with no attention layer pads and splits no heads.
 """
 from __future__ import annotations
 
@@ -141,7 +146,6 @@ import numpy as np
 import torch
 
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.launch.steps import pad_heads_for
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import shard_ctx
@@ -335,26 +339,34 @@ class ServeEngine:
         lm.resolve_device). `dtype` is the float KV pool dtype (default: the
         activations', lm.compute_dtype). `mesh` (launch/mesh.make_serve_mesh,
         in every rank process with the same arguments and traffic) serves
-        the model tensor-parallel: `params` is the full tree, on `device` or
-        on the host, of which this rank keeps its shard; a tree on the host
-        is moved over a layer at a time (sharding.shard_params), so the
-        card never holds it whole."""
+        the model tensor-parallel: `params` is either the full tree, of
+        which this rank keeps its shard (sharding.shard_params), or a
+        sharding.Draw, which this rank draws on `device` a piece at a time,
+        keeping only its shard (sharding.draw_shard): the launcher's way,
+        with which no card or host holds a model too large for it. Either
+        way each piece is padded, packed by the engine's precision and
+        sliced."""
         self.device = lm.resolve_device(device)
-        held = params["embed"].device.type
-        if held != self.device.type and (mesh is None or held != "cpu"):
+        drawn = isinstance(params, sharding.Draw)
+        if drawn and mesh is None:
+            raise ValueError("a sharding.Draw is drawn a shard at a time "
+                             "under a mesh; without one pass "
+                             "lm.init_lm's tree")
+        if not drawn and params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"engine device is {self.device}")
         self.mesh = mesh
         self.rank = mesh_lib.global_rank(mesh)
-        self._kv_heads: Optional[int] = None
+        self._cache_kw: Dict[str, Any] = {}    # a rank's local shares
         # this data rank's decode slots [lo, hi): all of them without a
         # data axis (or where it does not divide the slots)
         self._dslots = shard_ctx.data_slots(ecfg.slots, mesh)
+        draw_cfg = cfg      # a Draw's tree is the unpadded config's
         if mesh is not None:
-            sharding.check_servable(cfg)
-            cfg = pad_heads_for(cfg, mesh)
-            self._kv_heads = sharding.local_heads(
-                cfg, shard_ctx.model_size(mesh))[1]
+            # a pure SSM stack has no heads to pad or split
+            cfg = sharding.serving_config(cfg, mesh)
+            self._cache_kw = sharding.local_caches(
+                cfg, shard_ctx.model_size(mesh))
             self._host_group = mesh_lib.host_group(mesh)
         self._dsharded = self._dslots != (0, ecfg.slots)
         # global rank 0 alone writes host outputs (journal, trace file,
@@ -363,6 +375,7 @@ class ServeEngine:
         self._leader = False      # global rank 0 under a front door: its
         # submits and cancels ride the next mesh sync (_outbox)
         self._outbox: List[list] = []
+        self._outbox_frames: List[bytes] = []   # its submits' frames
         self._control: Optional[str] = None   # a follower's last control
         paged_ok = kvc.paged_supported(cfg)
         self.paged = paged_ok if ecfg.paged is None else bool(ecfg.paged)
@@ -424,18 +437,19 @@ class ServeEngine:
         if self._kv_quant and not self.paged:
             raise ValueError("quantized KV (kv_bits < 16) requires the paged "
                              "backend: dense/SSM/MLA caches stay float")
-        self.dtype = dtype or lm.compute_dtype(params)
         # packed once here (int4 evenness validated eagerly); leaves that
         # are already packed are kept as they are
         pack = ((lambda t: wq_lib.pack_params(t, cfg, self.precision))
                 if self._wq else None)
-        if mesh is not None:
-            # this rank's shard, padded, packed and sliced a piece at a
-            # time: packed leaves are sliced, never re-packed
-            params = sharding.shard_params(params, cfg, mesh, self.device,
-                                           pack)
+        if drawn:
+            params = sharding.draw_shard(draw_cfg, mesh, params,
+                                         self.device, pack)
+        elif mesh is not None:
+            # packed leaves are sliced, never re-packed
+            params = sharding.shard_params(params, cfg, mesh, pack)
         elif pack is not None:
             params = pack(params)
+        self.dtype = dtype or lm.compute_dtype(params)
         self.cfg, self.params, self.ecfg = cfg, params, ecfg
         self.paged_impl = ecfg.paged_impl or "kernel"
         self._act = lm.make_act(cfg, self.device)
@@ -456,7 +470,7 @@ class ServeEngine:
             lo, hi = self._dslots
             self.caches = lm.init_caches(cfg, hi - lo, ecfg.max_seq,
                                          dtype=self.dtype, device=self.device,
-                                         kv_heads=self._kv_heads)
+                                         **self._cache_kw)
             self.decode_buckets = ()
             self.buckets = (tuple(sorted(ecfg.prefill_buckets))
                             if ecfg.prefill_buckets is not None
@@ -576,7 +590,8 @@ class ServeEngine:
                                             dtype=self.dtype,
                                             device=self.device,
                                             policy=self.precision,
-                                            kv_heads=self._kv_heads)
+                                            kv_heads=self._cache_kw.get(
+                                                "kv_heads"))
         if ecfg.prefill_chunk is None:
             self.prefill_chunk = max(32, bs)
             self.prefill_chunk -= self.prefill_chunk % bs
@@ -694,7 +709,7 @@ class ServeEngine:
             if self._dsharded:
                 write_back = PagedState(self._table_dev[:, :width],
                                         st.lengths)
-        with self._sharded():
+        with self._sharded(), shard_ctx.split_rows(self._dsharded):
             logits, _ = lm.decode_step(self.params, self.cfg,
                                        st.last_tok[sl], self.caches,
                                        paged=paged, act=self._act,
@@ -762,7 +777,7 @@ class ServeEngine:
         if row is None:
             return
         small = lm.init_caches(self.cfg, 1, toks.shape[1], dtype=self.dtype,
-                               device=self.device, kv_heads=self._kv_heads)
+                               device=self.device, **self._cache_kw)
         with self._sharded():
             lm.prefill_step(
                 self.params, self.cfg, self._h2d(toks), small,
@@ -832,12 +847,18 @@ class ServeEngine:
                 deadline_ms=req.deadline_ms)
         self.scheduler.submit(rs, self.stats["ticks"], time.perf_counter())
         if self._leader:
-            # the other ranks submit it at the next mesh sync
+            # the other ranks submit it at the next mesh sync; an enc-dec
+            # request's frames ride it as bytes (shape and dtype here)
             sp = req.sampling
+            frames = None
+            if req.encoder_frames is not None:
+                a = np.ascontiguousarray(req.encoder_frames)
+                frames = [list(a.shape), a.dtype.str]
+                self._outbox_frames.append(a.tobytes())
             self._outbox.append(["submit", int(req.rid), rs.prompt.tolist(),
                                  rs.max_new_tokens,
                                  [sp.temperature, sp.top_k, sp.top_p],
-                                 req.deadline_ms])
+                                 req.deadline_ms, frames])
         self.trace.record(req.rid, "submit", prompt_len=plen,
                           max_new_tokens=int(req.max_new_tokens))
         self.trace.record(req.rid, "queued",
@@ -950,13 +971,14 @@ class ServeEngine:
         message, _CONTROL), then, only when there is any, a JSON payload:
         the rids whose deadlines have expired by rank 0's clock and the
         front door's submits and cancels since the last sync (_outbox),
-        which every other rank applies here, in order, before it schedules.
-        So no host branch depends on a rank's own clock and every rank's
-        host state stays the same. A follower keeps the control in
+        which every other rank applies here, in order, before it schedules,
+        and, in a second broadcast, the submitted enc-dec requests' frame
+        bytes. So no host branch depends on a rank's own clock and every
+        rank's host state stays the same. A follower keeps the control in
         `_control`. Returns the expired requests."""
         import torch.distributed as dist
-        header = torch.zeros(3, dtype=torch.int64)
-        blob = b""
+        header = torch.zeros(4, dtype=torch.int64)
+        blob = frames = b""
         if self.rank == 0:
             expired = []
             if control is None and self._has_deadlines:
@@ -965,38 +987,55 @@ class ServeEngine:
             if expired or self._outbox:
                 blob = json.dumps({"expired": expired,
                                    "ops": self._outbox}).encode()
-            self._outbox = []
+            frames = b"".join(self._outbox_frames)
+            self._outbox, self._outbox_frames = [], []
             header[0] = _HEALTH_CODE[self._health]
             header[1] = len(blob)
             header[2] = _CONTROL.index(control)
+            header[3] = len(frames)
         dist.broadcast(header, src=0, group=self._host_group)
+
+        def bytes_of(data: bytes, n: int) -> bytes:
+            buf = (torch.frombuffer(bytearray(data), dtype=torch.uint8)
+                   if self.rank == 0 else torch.empty(n, dtype=torch.uint8))
+            dist.broadcast(buf, src=0, group=self._host_group)
+            return buf.numpy().tobytes()
         msg = {"expired": [], "ops": []}
         if int(header[1]):
-            buf = (torch.frombuffer(bytearray(blob), dtype=torch.uint8)
-                   if self.rank == 0 else
-                   torch.empty(int(header[1]), dtype=torch.uint8))
-            dist.broadcast(buf, src=0, group=self._host_group)
-            msg = json.loads(buf.numpy().tobytes().decode())
+            msg = json.loads(bytes_of(blob, int(header[1])).decode())
+        if int(header[3]):
+            frames = bytes_of(frames, int(header[3]))
         if self.rank != 0:
             state = {v: k for k, v in _HEALTH_CODE.items()}[int(header[0])]
             self._set_health(state, "rank 0")
+            at = 0
             for op in msg["ops"]:
-                self._apply_op(op)
+                at = self._apply_op(op, frames, at)
             self._control = _CONTROL[int(header[2])]
         expired = set(msg["expired"])
         return [rs for rs in self._live_states() if rs.rid in expired]
 
-    def _apply_op(self, op: list) -> None:
-        """A follower replays one of global rank 0's front-door calls."""
+    def _apply_op(self, op: list, frames: bytes, at: int) -> int:
+        """A follower replays one of global rank 0's front-door calls; a
+        submit's encoder frames are read from `frames` at byte `at`.
+        Returns the offset past them."""
         if op[0] == "cancel":
             self.cancel(int(op[1]))
-            return
-        _, rid, prompt, max_new, (temp, top_k, top_p), deadline_ms = op
+            return at
+        _, rid, prompt, max_new, (temp, top_k, top_p), deadline_ms, fr = op
+        enc = None
+        if fr is not None:
+            shape, dtype = fr
+            n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+            enc = np.frombuffer(frames, dtype=dtype, count=int(np.prod(
+                shape)), offset=at).reshape(shape).copy()
+            at += n
         self.submit(Request(rid=int(rid), prompt=np.asarray(prompt, np.int32),
                             max_new_tokens=int(max_new),
                             sampling=SamplingParams(temperature=temp,
                                                     top_k=top_k, top_p=top_p),
-                            deadline_ms=deadline_ms))
+                            encoder_frames=enc, deadline_ms=deadline_ms))
+        return at
 
     def send_control(self, control: str) -> None:
         """Global rank 0 under a front door: a mesh sync that carries

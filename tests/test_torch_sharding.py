@@ -25,8 +25,8 @@ this process. Checks, f32 at smoke size:
     on / off, preemption and cancel, sampled streams cut by deadlines that
     rank 0 alone decides, recover() from a journal the unsharded engine
     wrote, the launcher's --mesh 1x2 (and 2x1), snapshot / restore /
-    handoff / the front door on the mesh, and every refusal left (the
-    layer kinds of ROADMAP A10b item 2 and the vision prefix).
+    handoff / the front door on the mesh (the other layer kinds under a
+    mesh: tests/test_torch_mesh_layers.py).
 
 Every process group here has a 60 s collective timeout and every spawn a
 join deadline, so a divergence fails its test instead of hanging the suite.
@@ -133,7 +133,6 @@ def _jobs(case, journal=None):
                                  "deadline_ms": DEADLINES,
                                  "skewed_clock": True, "ecfg": {"seed": 3}},
             "recover": {"kind": "recover", "journal": journal},
-            "refusals": {"kind": "refusals"},
             "served": {"kind": "served"},
         })
     return jobs
@@ -175,7 +174,7 @@ def ranks(tmp_path_factory):
 @functools.lru_cache(maxsize=None)
 def unsharded(case):
     """The port's unsharded results of the case's jobs but the journal and
-    refusal ones."""
+    served ones."""
     arch, _ = CASES[case]
     _, _, tcfg, tparams = models(arch)
     jobs = {k: v for k, v in _jobs(case).items()
@@ -405,11 +404,10 @@ def _same_leaves(a, b):
 
 @pytest.mark.parametrize("m,bits", [(2, 4), (2, 16), (3, 4)])
 def test_shard_params_piecewise_is_the_whole_tree_placement(m, bits):
-    """sharding.shard_params, the engine's build under a mesh (pad, pack
-    and slice one piece at a time, so a tree held on the host never stands
-    whole on the card), gives every rank the bits that pad_params,
-    pack_params and place_params give on the whole tree; at (1, 3) with
-    the heads padded."""
+    """sharding.shard_params, the engine's build from a full tree under a
+    mesh (pad, pack and slice one piece at a time), gives every rank the
+    bits that pad_params, pack_params and place_params give on the whole
+    tree; at (1, 3) with the heads padded."""
     _, _, cfg, params = models("llama3.2-3b")
     cfg = pad_heads_for(cfg, m)
     policy = PrecisionPolicy(weight_default_bits=bits)
@@ -420,25 +418,8 @@ def test_shard_params_piecewise_is_the_whole_tree_placement(m, bits):
         whole = sharding.pad_params(params, cfg)
         whole = sharding.place_params(whole if pack is None else pack(whole),
                                       cfg, mesh)
-        _same_leaves(sharding.shard_params(params, cfg, mesh, "cpu", pack),
+        _same_leaves(sharding.shard_params(params, cfg, mesh, pack),
                      whole)
-
-
-def test_init_lm_store_keeps_every_leaf():
-    """lm.init_lm(store=...) keeps every leaf where asked once drawn (a
-    mesh rank keeps its full tree on the host), with the values of a draw
-    kept where it was made."""
-    cfg = tget_config("llama3.2-3b", smoke=True)
-    kept = tlm.init_lm(cfg, seed=3, dtype=torch.float32, device="cpu",
-                       store="meta")
-    drawn = tlm.init_lm(cfg, seed=3, dtype=torch.float32, device="cpu")
-    fk, fd = tree_flatten(kept), tree_flatten(drawn)
-    assert [p for p, _ in fk] == [p for p, _ in fd]
-    assert all(t.device.type == "meta" and t.shape == d.shape
-               for (_, t), (_, d) in zip(fk, fd))
-    again = tlm.init_lm(cfg, seed=3, dtype=torch.float32, device="cpu",
-                        store="cpu")
-    _same_leaves(again, drawn)
 
 
 @pytest.mark.parametrize("arch,m,want", [
@@ -594,19 +575,6 @@ def test_recover_under_mesh_from_unsharded_journal(ranks):
                                     for rid in r["streams"])
 
 
-REFUSED = ("llama4-maverick-400b-a17b", "deepseek-v3-671b", "mamba2-1.3b",
-           "jamba-v0.1-52b", "whisper-medium", "vision_prefix")
-
-
-@pytest.mark.parametrize("what", REFUSED)
-def test_refused_under_mesh(what, ranks):
-    """What this slice does not serve under a mesh raises ValueError naming
-    A10b, on every rank alike."""
-    msgs = [r["refusals"][what] for r in ranks("llama3_m2")]
-    assert msgs[0] is not None and "A10b" in msgs[0]
-    assert msgs == [msgs[0]] * len(msgs)
-
-
 @functools.lru_cache(maxsize=None)
 def durable_unsharded(snapdir):
     """The port's unsharded engine on tests/torch_mesh_ranks.py's durable
@@ -694,13 +662,13 @@ def test_launcher_mesh_1x2(capfd, monkeypatch):
 
 
 def test_mesh_metrics_and_refused_arch_before_spawn():
-    """The mesh gauge reads 1 a axis without a mesh; check_servable names
-    every layer kind it refuses."""
-    with pytest.raises(ValueError, match="MoE.*A10b"):
-        sharding.check_servable(tget_config("llama4-maverick-400b-a17b",
-                                            smoke=True))
-    with pytest.raises(ValueError, match="Mamba-2"):
-        sharding.check_servable(tget_config("jamba-v0.1-52b", smoke=True))
-    sharding.check_servable(tget_config("llava-next-mistral-7b", smoke=True))
+    """The mesh summary names each axis; no registered arch is refused
+    before a spawn (the placement of every layer kind:
+    tests/test_torch_mesh_layers.py)."""
+    assert not hasattr(sharding, "check_servable")
+    for arch in ("llama4-maverick-400b-a17b", "jamba-v0.1-52b",
+                 "mamba2-1.3b", "llava-next-mistral-7b"):
+        cfg = tget_config(arch, smoke=True)
+        assert sharding.serving_config(cfg, 4).name == cfg.name
     assert sharding.mesh_summary(FakeMesh(4, 0)) == \
         "mesh(data=1xmodel=4, devices=4)"

@@ -143,37 +143,6 @@ def _recover_job(cfg, params, job, mesh) -> Dict[str, Any]:
     return out
 
 
-def _refusals_job(cfg, params, job, mesh) -> Dict[str, Any]:
-    """Every feature still refused under a mesh: the message of each
-    ValueError (or None if it did not raise)."""
-    from repro_torch.configs.archs import get_config
-    out = {}
-
-    def attempt(name, fn):
-        try:
-            fn()
-            out[name] = None
-        except ValueError as e:
-            out[name] = str(e)
-
-    eng = ServeEngine(cfg, params, _ecfg(job), device="cpu", mesh=mesh)
-    for arch in ("llama4-maverick-400b-a17b", "deepseek-v3-671b",
-                 "mamba2-1.3b", "jamba-v0.1-52b", "whisper-medium"):
-        attempt(arch, lambda a=arch: ServeEngine(
-            get_config(a, smoke=True), params, _ecfg(job), device="cpu",
-            mesh=mesh))
-
-    def vision():
-        patches = torch.zeros((1, 2, cfg.d_model))
-        with shard_ctx.use(mesh):
-            lm.apply_lm(eng.params, eng.cfg, torch.zeros((1, 3),
-                                                         dtype=torch.long),
-                        patch_embeds=patches)
-    attempt("vision_prefix", vision)
-    eng.close()
-    return out
-
-
 def _served_job(cfg, params, job, mesh) -> Dict[str, Any]:
     """What a (1, 2) mesh serves that the model axis alone refused:
     snapshot and restore, a handoff to a (1, 2) engine and from a (2, 1)
@@ -204,8 +173,7 @@ def _served_job(cfg, params, job, mesh) -> Dict[str, Any]:
 
 
 JOBS = {"engine": _engine_job, "logits": _logits_job,
-        "recover": _recover_job, "refusals": _refusals_job,
-        "served": _served_job}
+        "recover": _recover_job, "served": _served_job}
 
 
 def run_jobs(cfg, params, jobs, mesh) -> Dict[str, Any]:
