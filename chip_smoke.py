@@ -60,8 +60,15 @@ Phases (any failure exits non-zero):
      f32 AdamW moments, GRAU apot, sequence 4096, remat "full") through
      launch/steps.make_train_step and train/loop.run: loss and gradients
      through the flash kernel held against the plain attention scan on
-     batch 0, 8 steps with the kernel's launches counted, and a checkpoint
-     / resume check at llama3-smoke size whose loss must fall.
+     batch 0, 8 steps with the kernel's launches counted, then 3 steps
+     with remat "dots" (selective checkpointing: the mm outputs kept) on
+     the same model, their peak memory and median step seconds printed
+     beside "full"'s, and a checkpoint / resume check at llama3-smoke size
+     whose loss must fall.
+     Every later slice that serves a dense arch — (f), (g), (h), (i), (j)'s
+     LLaVA, (k)'s llama3.2-3b and (l)-(m) — runs it at full width and
+     RERUN_LAYERS (7) layers, which keeps the script inside its time limit;
+     each holds runs of its own depth against each other.
      Then (f), full-width llama3.2-3b in (b)'s setup with EOS off: a
      shared-prefix trace (16 requests, one 1024-token prefix, then the
      first served alone through its prefill) cache-off and cache-on, whose
@@ -71,18 +78,15 @@ Phases (any failure exits non-zero):
      512-1024 prompt tokens on 256 usable blocks) that must preempt, finish
      every request in full and return every block and pin, beside an
      unpreempted run whose identical-token share it prints. Then (g), (b)'s
-     8 requests on glm4-9b (full width and depth) and qwen1.5-32b (full
-     width, 16 of 64 layers: the bf16 weights of all 64 leave no room on an
-     80 GB card), through the kernels and the gather path. Then (h),
+     8 requests on glm4-9b and qwen1.5-32b at full width, through the
+     kernels and the gather path. Then (h),
      (b)'s setup with EOS off: (1) the sampler (serve/sampling.py, threefry
      keys from serve/prng.py) on the card against itself on the CPU — the
      same (8, 128256) logits and keys, 32 draws under four SamplingParams:
      raw bits equal, tokens equal but for near-ties (2 f32 ulps, each
      printed), and a chi-square of 200,000 draws at a 16-way distribution
-     (p > 1e-3); (2) (f)'s shared-prefix trace sampled, cache off and on
-     (at 7 of the 28 layers, as part 5: reruns of earlier paths, cut to
-     keep the script inside its limit): the streams the same tokens, 15 x
-     1024 prefix tokens cached; (3)
+     (p > 1e-3); (2) (f)'s shared-prefix trace sampled, cache off and on:
+     the streams the same tokens, 15 x 1024 prefix tokens cached; (3)
      (b)'s 8 requests sampled with telemetry on and off: the same streams,
      the 30 metric families in the Prometheus text, counters equal to the
      engine's stats, a valid JSONL trace with submit -> finish per request,
@@ -133,13 +137,15 @@ Phases (any failure exits non-zero):
      lm_loss forward at 1 x 2048 through the flash kernel and the plain
      scan (the capacity factor's dropped slots, the aux loss); (2)
      llava-next-mistral-7b at full size served through both paths (text
-     only); (3) LLaVA GRAU-QAT training at full width cut to 16 of 32
+     only; RERUN_LAYERS layers); (3) LLaVA GRAU-QAT training at full width
+     cut to 16 of 32
      layers (f32 AdamW moments: all 32 take ~87 GB) on make_lm_batch_for's
      4096 tokens after the 576-patch stub: loss and gradients through the
      flash kernel against the plain scan on batch 0, then 4 steps.
      Then (k), the dense-cache backend in (b)'s setup (GRAU MLP, EOS off,
      8 slots; no attention epilogue), each model freed before the next:
-     llama3.2-3b with paged=False (its greedy share against the paged
+     llama3.2-3b (RERUN_LAYERS layers) with paged=False (its greedy share
+     against the paged
      engine printed), mamba2-1.3b at full size (exact-length prefill, most
      contexts through the padded ragged tail; f32 gates: prefill then one
      decode step against the train forward, the tail against the
@@ -152,15 +158,17 @@ Phases (any failure exits non-zero):
      scan (last-position and first-decode logits, rel L2 0.05; an MoE
      arch's expert flips printed and explained, its gate with the kernel
      path's routes pinned).
-     Then (l), tensor-parallel serving of full-width, full-depth
-     llama3.2-3b in (b)'s setup: (1) a (1, 1) mesh over nccl in this
+     Then (l), tensor-parallel serving of full-width llama3.2-3b
+     (RERUN_LAYERS layers) in (b)'s setup, held against its unsharded
+     engine run first in this process: (1) a (1, 1) mesh over nccl in this
      process, whose streams and first-decode logits must be the unsharded
      engine's bits; (2) a (1, 2) mesh over gloo, two rank processes on the
      one card (nccl refuses two ranks on a device; each engine draws its
      shard on the card a piece at a time from a sharding.Draw, as the
-     launcher's --mesh does), in (b)'s setup, and in (c)'s (each rank's packed bytes slices
-     of the unsharded packed tree) and on the dense backend through flash
-     with the 2 of (b)'s requests with the shortest prompts: each served
+     launcher's --mesh does), in (b)'s setup, in (c)'s (each rank's
+     packed bytes slices of the unsharded packed tree) and on the dense
+     backend through flash, each with the 2 of (b)'s requests with the
+     shortest prompts: each served
      engine's first-decode logits (the 3 shortest prompts) within rel L2
      0.05 of the unsharded engine's, the greedy share, and each rank's
      weight bytes, peak memory and tokens/s printed. Then (m), in the
@@ -194,7 +202,8 @@ Phases (any failure exits non-zero):
      epilogue), deepseek-v3 at 4 of 61 (its 3 dense layers and one MoE
      layer), mamba2-1.3b and whisper-medium at full size (1,500 stub
      frames a request, max_seq 448) on the dense backend; each serves the
-     2 of 8 requests with the shortest prompts, 16 new tokens: the
+     2 of 8 requests with the shortest prompts, 16 new tokens (mamba2 and
+     whisper 2: one decode tick): the
      first-decode logits within rel L2 0.05 of the one-card run's (run in
      this process before the spawn; an MoE arch's expert flips printed,
      each explained by the router scores, and where any flipped the
@@ -202,10 +211,33 @@ Phases (any failure exits non-zero):
      streams equal, the greedy share, each rank's weight bytes, peak
      memory and tokens/s; then llama4 on a (2, 1) mesh (each data rank
      the whole 2-layer tree): the data ranks' pool bytes equal, their
-     streams the one-card run's; (n)'s seconds printed. Before the
+     streams the one-card run's; (n)'s seconds printed. Then (o), in the
+     same two rank processes after (n): training over a (data, model)
+     mesh (launch/steps.make_train_step(mesh=): tensor-parallel over the
+     model axis, FSDP over the data axis) of full-width llama3.2-3b with
+     (e)'s GRAU, bf16 parameters, f32 AdamW, remat "full", cut to 4 of 28
+     layers: at (1, 2) on 1 x 4,096 tokens and at (2, 1) on 2 x 2,048 (a
+     row a data rank), each rank first taking the one-card step on batch
+     0; step 0's loss and gradients (each rank's shard against the same
+     piece of the one-card gradient, summed into the gathered tree's
+     relative L2) against it (loss rel 1e-3,
+     gradients rel L2 0.05, (e)'s bf16 bounds), then 2 more steps, each
+     rank's parameter and moment bytes, peak memory, median step seconds
+     (the steps after step 0, timed without the collective counter) and
+     step 0's collectives printed, flash's launches counted; the same
+     gate in f32 at 1 layer with float activations (rel L2 1e-4); and at
+     llama3-smoke size a sharded checkpoint saved at (2, 1) restored at
+     (1, 2), the whole tree's digest the same and the next step's loss
+     within 1e-5 of the (2, 1) run's. (o)'s cost (its seconds and the
+     torch._dynamo import its remat needs, run on a thread during
+     (l)-(n)) is printed beside what ROADMAP S1's cuts ((l)'s (b) setup
+     from 8 requests to 2, (n)'s mamba2 and whisper from 16 new tokens to
+     2) free in the same call, estimated from its own seconds a forward
+     (s1_freed), and before the kernels line the phases' total. Before the
      slices, phase mesh_kernels launches the bf16 decode and prefill (16-
      and 4-bit pools, with the epilogue) and flash at a rank's heads (12
-     of 24 over 4 of 8 KV heads), (n)'s rank shapes (llama4's decode and
+     of 24 over 4 of 8 KV heads, and at (o)'s, causal 4,096 tokens), (n)'s
+     rank shapes (llama4's decode and
      prefill at 20 of 40 heads over 4 of 8 KV heads on 16-bit pools,
      planned for 8 KV heads; flash at 64 of deepseek-v3's 128 MLA heads
      of 192, causal over 1,024, at 8 of whisper's 16 encoder heads over
@@ -1732,8 +1764,6 @@ def slice_phase(torch, np, dev, args, rehearse):
                                      aq if "attn_grau" in extra else None,
                                      prompts, max_seq, 16, 32)
         results[label] = check_logits(torch, label, res, lk, lg)
-        # slice (l) holds its meshes' streams against these
-        results[label]["streams"] = streams
     if args.profile:
         for label, c, extra in (("float", cfg, {}),
                                 ("grau", gcfg, {"attn_grau": attn})):
@@ -1777,7 +1807,6 @@ def slice_phase(torch, np, dev, args, rehearse):
                                  gather_params=plain)
     del plain
     results[label] = check_logits(torch, label, res, lk, lg)
-    results[label]["streams"] = streams
     if args.profile:
         results[f"profile_{label}"] = profile_serve(
             torch, dev, gcfg, packed, qcfg, reqs_fn,
@@ -2076,15 +2105,34 @@ def first_divergence(streams, other):
     return best
 
 
+# Every slice after (e) that serves a dense arch — (f), (g), (h), (i),
+# (j)'s LLaVA, (k)'s llama3.2-3b and (l)-(m) — runs its model at full width
+# and RERUN_LAYERS layers, which keeps the whole script inside its time
+# limit; each holds runs of its own depth against each other (PERF.md §4).
+# The main path, (a)-(c), and (e)'s training run all 28 of llama3.2-3b's.
+RERUN_LAYERS = 7
+
+
+def rerun_depth(cfg, rehearse):
+    """(cfg cut to RERUN_LAYERS of its dense layers, the cut's words); a
+    rehearsal's smoke config is already shallow and stays whole."""
+    from repro_torch.models.config import dense_groups
+    if rehearse:
+        return cfg, None
+    return (cfg.replace(groups=dense_groups(RERUN_LAYERS)),
+            f"{RERUN_LAYERS} of {cfg.num_layers} layers (the script's time "
+            "limit: ROADMAP S1)")
+
+
 def prefix_slice(torch, np, dev, args, rehearse):
-    """Slice (f), at llama3.2-3b's full width and depth in slice (b)'s
-    setup (GRAU MLP, fused GRAU attention epilogue, 16-bit pools, 8 slots,
-    max_seq 2048, page 16, chunk 32; weights from --seed; EOS off, so every
-    stream runs its full budget): the shared-prefix trace cache-off and
-    cache-on (streams the same bits; 15 x 1024 prefix tokens cached, as
-    many fewer computed), the overload trace on 256 usable blocks (every
-    request complete, preemptions, the pool returned) beside an unpreempted
-    run, and cancels mid-prefill and mid-decode."""
+    """Slice (f), at llama3.2-3b's full width and RERUN_LAYERS layers in
+    slice (b)'s setup (GRAU MLP, fused GRAU attention epilogue, 16-bit
+    pools, 8 slots, max_seq 2048, page 16, chunk 32; weights from --seed;
+    EOS off, so every stream runs its full budget): the shared-prefix
+    trace cache-off and cache-on (streams the same bits; 15 x 1024 prefix
+    tokens cached, as many fewer computed), the overload trace on 256
+    usable blocks (every request complete, preemptions, the pool returned)
+    beside an unpreempted run, and cancels mid-prefill and mid-decode."""
     from repro_torch import kernels
     from repro_torch.configs.archs import get_config
     from repro_torch.models import lm
@@ -2093,7 +2141,8 @@ def prefix_slice(torch, np, dev, args, rehearse):
     from repro_torch.nn.common import build_lm_grau
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
 
-    cfg = get_config("llama3.2-3b", smoke=rehearse).replace(grau=GRAUConfig())
+    cfg, cut = rerun_depth(get_config("llama3.2-3b", smoke=rehearse).replace(
+        grau=GRAUConfig()), rehearse)
     dtype = torch.float32 if rehearse else torch.bfloat16
     params = lm.init_lm(cfg, seed=args.seed, dtype=dtype, device=dev)
     attn = build_lm_grau("identity")
@@ -2101,7 +2150,7 @@ def prefix_slice(torch, np, dev, args, rehearse):
     base = dict(slots=8, max_seq=max_seq, page_size=16, prefill_chunk=32,
                 attn_grau=attn, eos_id=-1, seed=args.seed)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    out = {"arch": cfg.name, "layers": cfg.num_layers,
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "depth_cut": cut,
            "d_model": cfg.d_model, "max_seq": max_seq}
 
     def run(kw, reqs, hooks=(), first_alone=True):
@@ -2240,21 +2289,16 @@ def prefix_slice(torch, np, dev, args, rehearse):
 # slice (g): glm4-9b and qwen1.5-32b on the card
 # ---------------------------------------------------------------------------
 
-QWEN_LAYERS = 16     # of 64: all 64 in bf16 take ~70 GB, which leaves no
-# room for the pools and activations on one 80 GB card, and packing needs
-# the bf16 tree first
-
-
 def new_archs_slice(torch, np, dev, args, rehearse):
     """Slice (g), in slice (b)'s setup (GRAU MLP, fused GRAU attention
     epilogue, bf16, 8 slots, max_seq 2048, page 16, chunk 32) and its 8
-    requests: glm4-9b at full width and depth (a GQA group of 16, an untied
-    head) and qwen1.5-32b at full width and QWEN_LAYERS layers (MHA, QKV
-    bias, an untied head), each through the kernels and through the gather
-    path, the first decode logits of the two within the GRAU slice's
-    tolerance."""
+    requests: glm4-9b (a GQA group of 16, an untied head) and qwen1.5-32b
+    (MHA, QKV bias, an untied head), each at full width and RERUN_LAYERS
+    layers (all 64 of qwen's would not fit one 80 GB card in bf16 anyway),
+    each through the kernels and through the gather path, the first decode
+    logits of the two within the GRAU slice's tolerance."""
     from repro_torch.configs.archs import get_config
-    from repro_torch.models.config import GRAUConfig, dense_groups
+    from repro_torch.models.config import GRAUConfig
     from repro_torch.nn.attention import AttnQuant
     from repro_torch.nn.common import build_lm_grau
 
@@ -2268,13 +2312,8 @@ def new_archs_slice(torch, np, dev, args, rehearse):
     out = {}
     for arch, label in (("glm4-9b", "glm4_grau"), ("qwen1.5-32b",
                                                    "qwen_grau")):
-        cfg = get_config(arch, smoke=rehearse).replace(grau=GRAUConfig())
-        cut = None
-        if arch == "qwen1.5-32b" and not rehearse:
-            cut = (f"{QWEN_LAYERS} of {cfg.num_layers} layers: the bf16 "
-                   "weights of all 64 take ~70 GB, leaving no room for the "
-                   "pools and activations on one 80 GB card")
-            cfg = cfg.replace(groups=dense_groups(QWEN_LAYERS))
+        cfg, cut = rerun_depth(get_config(arch, smoke=rehearse).replace(
+            grau=GRAUConfig()), rehearse)
         out[label] = serve_arch(torch, np, dev, args, cfg, label, ecfg, aq,
                                 (lo, hi), max_seq, dtype, rehearse, cut)
     return out
@@ -2691,7 +2730,8 @@ def moe_llava_slice(torch, np, dev, args, rehearse):
     """Slice (j), in slice (b)'s setup (GRAU MLP, fused GRAU attention
     epilogue, bf16, 8 slots, max_seq 2048, page 16, chunk 32) and its 8
     requests: (1) llama4-maverick (llama4_serve), (2) llava-next-mistral-7b
-    at full size served through the kernels and the gather path, the first
+    at full width and RERUN_LAYERS layers served through the kernels and
+    the gather path, the first
     decode logits within the GRAU slice's tolerance, (3) LLaVA trained
     (llava_train). Each part's seconds are printed."""
     from repro_torch.configs.archs import get_config
@@ -2720,11 +2760,12 @@ def moe_llava_slice(torch, np, dev, args, rehearse):
     seconds["llama4"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    cfg = get_config("llava-next-mistral-7b", smoke=rehearse).replace(
-        grau=GRAUConfig())
+    cfg, cut = rerun_depth(get_config(
+        "llava-next-mistral-7b", smoke=rehearse).replace(grau=GRAUConfig()),
+        rehearse)
     out["llava_grau"] = serve_arch(torch, np, dev, args, cfg, "llava_grau",
                                    ecfg, aq, (lo, hi), max_seq, dtype,
-                                   rehearse)
+                                   rehearse, cut)
     seconds["llava_serve"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -2959,7 +3000,8 @@ def dense_slice(torch, np, dev, args, rehearse):
     """Slice (k), the dense-cache backend in (b)'s setup (bf16 weights from
     --seed, the GRAU apot MLP activation, EOS off, 8 slots; no attention
     epilogue: the reference allows it only on the paged backend), each arch
-    freed before the next: (1) llama3.2-3b at full size with paged=False on
+    freed before the next: (1) llama3.2-3b at full width and RERUN_LAYERS
+    layers with paged=False on
     (b)'s 8 requests (64-1,024 prompt tokens, 32 new, max_seq 2,048), its
     greedy share against the paged engine; (2) mamba2-1.3b at full size on
     the same lengths (exact-length prefill: most take D3's tail) and its
@@ -2995,8 +3037,8 @@ def dense_slice(torch, np, dev, args, rehearse):
         del params
         return res
 
-    run("llama3_dense", lambda: simple("llama3_dense", grau("llama3.2-3b"),
-                                       paged_share=True))
+    run("llama3_dense", lambda: simple("llama3_dense", *rerun_depth(
+        grau("llama3.2-3b"), rehearse), paged_share=True))
 
     def mamba():
         cfg = grau("mamba2-1.3b")
@@ -3042,11 +3084,6 @@ def dense_slice(torch, np, dev, args, rehearse):
 # slice (h): sampled decoding, telemetry and traces, fault containment
 # ---------------------------------------------------------------------------
 
-# slice (h)'s reruns of earlier paths — (f)'s shared-prefix trace sampled,
-# and real NaN in the pool — run at this many of llama3.2-3b's 28 layers,
-# which keeps the whole script inside its time limit; each compares runs of
-# its own depth with each other (PERF.md §4)
-RERUN_LAYERS = 7
 # (temperature, top_k, top_p) of slice (h)'s sampled requests, in turn
 SAMPLED = [(0.0, 0, 1.0), (0.8, 40, 0.9), (1.0, 50, 1.0), (0.7, 0, 0.95)]
 CHI2_P = 1e-3           # the 16-way chi-square's p-value must exceed this
@@ -3179,45 +3216,38 @@ def phase_quantiles(eng):
             for ph in ("schedule", "dispatch", "device_step", "drain")}
 
 
-def sampled_slice(torch, np, dev, args, rehearse, greedy_f=None,
-                  greedy_b=None):
-    """Slice (h), at llama3.2-3b's full width in slice (b)'s setup (GRAU
+def sampled_slice(torch, np, dev, args, rehearse, greedy_f=None):
+    """Slice (h), at llama3.2-3b's full width and RERUN_LAYERS layers in
+    slice (b)'s setup (GRAU
     MLP, fused GRAU attention epilogue, 16-bit pools, 8 slots, max_seq
     2048, page 16, chunk 32; weights from --seed; EOS off): (1) the
     sampler card vs CPU; (2) (f)'s shared-prefix trace sampled, cache off
     and on; (3) (b)'s 8 requests sampled with telemetry off, on, off, on;
     (4) one FaultPlan on them (nan_logits, chunk_error, a deadline, a slow
     step); (5) real NaN in a decoding slot's block under (a)'s float
-    setup (gated) and (b)'s epilogue (printed). Parts 3 and 4 run all 28
-    layers, parts 2 and 5 RERUN_LAYERS."""
+    setup (gated) and (b)'s epilogue (printed)."""
     from repro_torch import kernels
     from repro_torch.configs.archs import get_config
     from repro_torch.models import lm
-    from repro_torch.models.config import GRAUConfig, dense_groups
+    from repro_torch.models.config import GRAUConfig
     from repro_torch.nn.common import build_lm_grau
     from repro_torch.serve import faults as faults_lib
     from repro_torch.serve import trace as trace_lib
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
 
     full = not rehearse
-    cfg = get_config("llama3.2-3b", smoke=rehearse)
+    cfg, cut = rerun_depth(get_config("llama3.2-3b", smoke=rehearse),
+                           rehearse)
     gcfg = cfg.replace(grau=GRAUConfig())
     dtype = torch.float32 if rehearse else torch.bfloat16
     params = lm.init_lm(gcfg, seed=args.seed, dtype=dtype, device=dev)
-    # parts 2 and 5 at RERUN_LAYERS (the smoke config is already shallow)
-    cut_cfg = cfg if rehearse else cfg.replace(
-        groups=dense_groups(RERUN_LAYERS))
-    cut_g = cut_cfg.replace(grau=GRAUConfig())
-    cut_params = (params if rehearse else
-                  lm.init_lm(cut_g, seed=args.seed, dtype=dtype, device=dev))
     attn = build_lm_grau("identity")
     max_seq = 256 if rehearse else 2048
     base = dict(slots=8, max_seq=max_seq, page_size=16, prefill_chunk=32,
                 attn_grau=attn, eos_id=-1, seed=args.seed)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    out = {"arch": cfg.name, "layers": cfg.num_layers,
-           "rerun_layers": cut_cfg.num_layers, "d_model": cfg.d_model,
-           "max_seq": max_seq, "launches": {}}
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "depth_cut": cut,
+           "d_model": cfg.d_model, "max_seq": max_seq, "launches": {}}
 
     def engine(kw, c=gcfg, p=params):
         eng = ServeEngine(c, p, EngineConfig(**{**base, **kw}), device=dev)
@@ -3249,7 +3279,7 @@ def sampled_slice(torch, np, dev, args, rehearse, greedy_f=None,
     for on in (False, True):
         _, trace = shared_prefix_trace(np, Request, cfg.vocab_size, full,
                                        args.seed)
-        eng = engine({"prefix_cache": on}, cut_g, cut_params)
+        eng = engine({"prefix_cache": on})
         done, wall = drive(eng, with_sampling(trace), True)
         sync()
         label = f"shared_prefix_sampled_cache_{'on' if on else 'off'}"
@@ -3343,7 +3373,6 @@ def sampled_slice(torch, np, dev, args, rehearse, greedy_f=None,
     med = {k: float(np.median(v))
            for k, v in out["telemetry"]["tokens_per_s"].items()}
     out["telemetry"]["median_tokens_per_s"] = med
-    out["telemetry"]["greedy_b_tokens_per_s"] = greedy_b
     ph = ab[True][0]["phases"]
     log("slice[h] telemetry: streams identical on / off; tokens/s (off, "
         "on, off, on) "
@@ -3429,13 +3458,13 @@ def sampled_slice(torch, np, dev, args, rehearse, greedy_f=None,
     def poisoned(c, kw, label):
         two = make_requests(np, Request, cfg.vocab_size, 2, lo, hi, 32,
                             args.seed)
-        eng = engine(kw, c, cut_params)
+        eng = engine(kw, c)
         ref, _, _ = timed_drive(eng, two, sync)
         ref_streams = {r.rid: list(r.out_tokens) for r in ref}
         del eng
         two = make_requests(np, Request, cfg.vocab_size, 2, lo, hi, 32,
                             args.seed)
-        eng = engine(kw, c, cut_params)
+        eng = engine(kw, c)
         for r in two:
             eng.submit(r)
         while not all(len(r.out_tokens) >= 2 for r in two):
@@ -3491,7 +3520,7 @@ def sampled_slice(torch, np, dev, args, rehearse, greedy_f=None,
         del eng
         return res
 
-    nan_float = poisoned(cut_cfg, {"attn_grau": None}, "nan_float")
+    nan_float = poisoned(cfg, {"attn_grau": None}, "nan_float")
     launches("nan_float", need_epilogue=False)
     need(nan_float["victim_reason"] == "numeric_error"
          and nan_float["other_identical"]
@@ -3501,7 +3530,7 @@ def sampled_slice(torch, np, dev, args, rehearse, greedy_f=None,
          and nan_float["all_free"] and nan_float["audit_leaked"] == 0,
          f"real NaN (float setup): {nan_float}")
     out["nan_float"] = nan_float
-    out["nan_grau"] = poisoned(cut_g, {}, "nan_grau")
+    out["nan_grau"] = poisoned(gcfg, {}, "nan_grau")
     launches("nan_grau")
     log(f"slice[h] real NaN, float: {nan_float}")
     log(f"slice[h] real NaN under the GRAU epilogue (not gated): "
@@ -3558,13 +3587,13 @@ def slot_counts(eng):
 
 
 def durable_slice(torch, np, dev, args, rehearse):
-    """Slice (i), at llama3.2-3b's full width and depth in slice (b)'s
-    setup (GRAU MLP, fused GRAU attention epilogue, 16-bit pools, 8 slots,
-    max_seq 2048, page 16, chunk 32; weights from --seed; EOS off; even
-    rids greedy, odd sampled at T 0.8 / top-k 40 / top-p 1.0): (1) the
-    uninterrupted run, journal off and on interleaved; (2) process_crash at
-    three ticks (a request mid-prefill, >= 3 slots mid-decode, the last
-    tick), each recovered from its journal into a fresh engine; (3) the
+    """Slice (i), at llama3.2-3b's full width and RERUN_LAYERS layers in
+    slice (b)'s setup (GRAU MLP, fused GRAU attention epilogue, 16-bit
+    pools, 8 slots, max_seq 2048, page 16, chunk 32; weights from --seed;
+    EOS off; even rids greedy, odd sampled at T 0.8 / top-k 40 / top-p
+    1.0): (1) the uninterrupted run, journal off and on interleaved; (2)
+    process_crash at three ticks (a request mid-prefill, >= 3 slots
+    mid-decode, the last tick), each recovered from its journal into a fresh engine; (3) the
     launcher as a process, SIGKILLed and rerun with --resume; (4) snapshot
     with every slot busy, restore; (5) live handoff to the same config and
     to wq4 + kv4; (6) the asyncio front door: cancel, backpressure, a
@@ -3585,7 +3614,8 @@ def durable_slice(torch, np, dev, args, rehearse):
     from repro_torch.serve.frontdoor import FrontDoor
     from repro_torch.serve.sampling import SamplingParams
 
-    cfg = get_config("llama3.2-3b", smoke=rehearse)
+    cfg, cut = rerun_depth(get_config("llama3.2-3b", smoke=rehearse),
+                           rehearse)
     gcfg = cfg.replace(grau=GRAUConfig())
     dtype = torch.float32 if rehearse else torch.bfloat16
     params = lm.init_lm(gcfg, seed=args.seed, dtype=dtype, device=dev)
@@ -3598,7 +3628,7 @@ def durable_slice(torch, np, dev, args, rehearse):
     work = ROOT / "build" / "slice_i"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    out = {"arch": cfg.name, "layers": cfg.num_layers,
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "depth_cut": cut,
            "d_model": cfg.d_model, "max_seq": max_seq, "launches": {}}
 
     def requests():
@@ -3793,7 +3823,7 @@ def durable_slice(torch, np, dev, args, rehearse):
              str(lo), str(hi + 1), "--max-new", "32", "--temperature",
              str(SAMPLED_I[0]), "--top-k", str(SAMPLED_I[1]), "--top-p",
              str(SAMPLED_I[2]), "--alternate-greedy", "--eos-id", "-1",
-             "--seed", str(args.seed)]
+             "--layers", str(cfg.num_layers), "--seed", str(args.seed)]
     flags += (["--smoke", "--device", "cpu", "--dtype", "float32"]
               if rehearse else ["--device", "cuda"])
     env = dict(os.environ)
@@ -4199,6 +4229,9 @@ def grau_flips(torch, cfg, params, batch, dev, chunk):
     return counts
 
 
+DOTS_STEPS = 3          # slice (e)'s remat "dots" steps after its 8 "full"
+
+
 def train_slice(torch, np, dev, args, rehearse):
     """Slice (e): GRAU-QAT training of full-width llama3.2-3b (bf16 weights
     from --seed, f32 AdamW moments, GRAU apot 6 x 8, sequence 4096 x batch 1,
@@ -4206,7 +4239,9 @@ def train_slice(torch, np, dev, args, rehearse):
     1. before the optimizer state exists: loss and gradients on batch 0
        through the flash kernel and through the plain scan, held together,
        and the GRAU activation flips between the two forwards;
-    2. 8 steps, launches of the flash kernel counted;
+    2. 8 steps, launches of the flash kernel counted; then DOTS_STEPS
+       steps with remat "dots" on the same model, their peak memory and
+       median step seconds beside "full"'s;
     3. checkpoint and resume on the card at llama3-smoke size."""
     from repro_torch import kernels
     from repro_torch.configs.archs import get_config
@@ -4307,6 +4342,39 @@ def train_slice(torch, np, dev, args, rehearse):
         out["train"]["model_flops_per_step"] / step_s / PEAK_OPS["bf16"])
     out["train"]["card"] = args.card
     log(f"train[8 steps]: {json.dumps(out['train'])}")
+
+    # 2b. remat "dots" on the same model (selective checkpointing: the mm
+    # outputs kept, the rest recomputed), beside "full"'s numbers
+    dots_step = steps.make_train_step(cfg, opt_cfg, remat="dots",
+                                      q_chunk=chunk, kv_chunk=chunk)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times, losses = [], []
+    for i in range(DOTS_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, m = dots_step(params, opt_state,
+                                         pipe.batch(steps_n + i))
+        losses.append(float(m["loss"]))
+        sync()
+        times.append(time.perf_counter() - t0)
+    fl = kernels.launch_counts()["flash_attention"]
+    want = 2 * cfg.num_layers * DOTS_STEPS
+    need(all(np.isfinite(losses)), f"train dots: non-finite loss {losses}")
+    need(rehearse or fl == want, f"train dots: flash_attention launched "
+         f"{fl} times, want {want} (forward + recompute)")
+    out["dots"] = {
+        "losses": losses, "step_s": times,
+        "median_step_s": float(np.median(times)),
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if cuda else None),
+        "full_median_step_s": out["train"]["median_step_s"],
+        "full_peak_mem_gb": out["train"]["peak_mem_gb"],
+        "flash_launches": fl, "card": args.card}
+    log(f"train[{DOTS_STEPS} dots steps]: {json.dumps(out['dots'])}")
+    del dots_step
     if args.profile:
         out["profile"] = profile_train(torch, dev, train_step, params,
                                        opt_state, pipe.batch,
@@ -4521,8 +4589,8 @@ MESH_LOGIT_PROMPTS = 3  # first-decode logits on (b)'s 3 shortest prompts:
 # a gloo collective between two processes on the card takes milliseconds
 # (58 a forward), so a chunked prefill of all 8 (96 chunks) would cost
 # tens of seconds a setup
-MESH_SHORT_REQUESTS = 2  # (c)'s setup and the dense backend on the mesh
-# serve the 2 of (b)'s requests with the shortest prompts (the same cost)
+MESH_SHORT_REQUESTS = 2  # (b)'s and (c)'s setups and the dense backend
+# on the mesh serve the 2 of (b)'s requests with the shortest prompts
 
 
 def logit_prompts(prompts):
@@ -4544,6 +4612,9 @@ def check_rank_shapes(torch, np, dev, shapes, rng, timed, rehearse):
     row = flash_rank_row(torch, dev, "", (1, sq, sq, shapes["h"],
                                           shapes["kvh"], shapes["d"], True),
                          timed, rehearse)
+    rows[row["name"]] = row
+    row = flash_rank_row(torch, dev, "_train", O_RANK_FLASH[timed], timed,
+                         rehearse)
     rows[row["name"]] = row
     rows.update(paged_rank_rows(torch, np, dev, N_RANK_PAGED[timed], rng,
                                 timed, rehearse, (16,), "_llama4"))
@@ -4690,6 +4761,12 @@ N_RANK_FLASH = {True: [("_mla", (1, 1024, 1024, 128, 128, 192, True)),
                 False: [("_mla", (1, 64, 64, 4, 4, 48, True)),
                         ("_whisper_encoder", (1, 100, 100, 4, 4, 32, False)),
                         ("_whisper_cross", (1, 32, 100, 4, 4, 32, False))]}
+
+
+# slice (o)'s flash launch at a (1, 2) training rank's heads: causal
+# 4,096 x 12 of 24 heads over 4 of 8 KV heads, of 128
+O_RANK_FLASH = {True: (1, 4096, 4096, 24, 8, 128, True),
+                False: (1, 64, 64, 4, 2, 32, True)}
 
 
 MESH_DATA_SHAPES = (("data_rank", 2, 1), ("data_model_rank", 2, 2))
@@ -4908,11 +4985,11 @@ def packed_slices_match(torch, full, digests, r):
 
 def mesh_setups(attn):
     """Slice (l)'s three setups on the (1, 2) mesh: (label, engine
-    options, requests served). (b)'s setup serves (b)'s 8 requests; (c)'s
-    setup and the dense backend serve the MESH_SHORT_REQUESTS of them with
-    the shortest prompts (gloo's collectives set the time: see
-    MESH_LOGIT_PROMPTS)."""
-    return (("grau", {"attn_grau": attn}, 8),
+    options, requests served). Each serves the MESH_SHORT_REQUESTS of
+    (b)'s 8 requests with the shortest prompts (gloo's collectives set the
+    time: see MESH_LOGIT_PROMPTS); (b)'s setup served all 8 until ROADMAP
+    S1 cut it (s1_freed)."""
+    return (("grau", {"attn_grau": attn}, MESH_SHORT_REQUESTS),
             ("wq4_kv4_grau", {"attn_grau": attn, "weight_bits": 4,
                               "kv_bits": 4}, MESH_SHORT_REQUESTS),
             ("dense", {"paged": False}, MESH_SHORT_REQUESTS))
@@ -5045,7 +5122,8 @@ def slice_m_rank(rank, mesh12, seed, rehearse, dev, shared):
     t0 = time.perf_counter()
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     mesh = make_serve_mesh(2, 1, device=dev, backend="gloo")
-    cfg = get_config("llama3.2-3b", smoke=rehearse).replace(grau=GRAUConfig())
+    cfg, _ = rerun_depth(get_config("llama3.2-3b", smoke=rehearse).replace(
+        grau=GRAUConfig()), rehearse)
     # a (2, 1) rank holds the whole tree: drawn on the card once and shared
     # by every (2, 1) engine below (a whole-range slice is the leaf itself)
     tree = lm.init_lm(cfg, seed=seed, dtype=torch.float32 if rehearse
@@ -5282,8 +5360,9 @@ def slice_l_rank(rank, seed, rehearse, card, shared, one_n):
 
     dev = (torch.device("cpu") if rehearse else
            torch.device("cuda", torch.cuda.current_device()))
+    warm = warm_checkpoint_imports()
     mesh = make_serve_mesh(1, MESH_RANKS, device=dev, backend="gloo")
-    cfg = get_config("llama3.2-3b", smoke=rehearse)
+    cfg, _ = rerun_depth(get_config("llama3.2-3b", smoke=rehearse), rehearse)
     gcfg = cfg.replace(grau=GRAUConfig())
     dtype = torch.float32 if rehearse else torch.bfloat16
     draw = sharding.Draw(seed, dtype)
@@ -5330,7 +5409,28 @@ def slice_l_rank(rank, seed, rehearse, card, shared, one_n):
     t0 = time.perf_counter()
     out["n"] = slice_n_rank(rank, mesh, seed, rehearse, dev, one_n)
     out["n_seconds"] = time.perf_counter() - t0
+    out["o"] = slice_o_rank(rank, mesh, seed, rehearse, dev, shared, warm)
     return out
+
+
+def warm_checkpoint_imports():
+    """torch.utils.checkpoint's first recomputation imports torch._dynamo
+    (9.2 s alone in a fresh process on an H100 host, where it also
+    imports triton: PERF.md), which slice (o)'s first remat step would
+    wait for in each rank process. Import it on a thread of its
+    own while (l)-(n) serve; slice_o_rank joins the thread first. The
+    thread's `seconds` (the import's own wall) are counted into (o)'s cost
+    against the S1 cuts (mesh_slice), though they overlap (l)-(n)."""
+    import importlib
+    import threading
+
+    def run():
+        t0 = time.perf_counter()
+        importlib.import_module("torch._dynamo")
+        t.seconds = time.perf_counter() - t0
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t
 
 
 def m_one_card(torch, np, dev, cfg, params, attn, aq, seed, rehearse):
@@ -5444,7 +5544,10 @@ def check_slice_m(torch, dev, ranks, one, rehearse):
 N_LLAMA4_LAYERS = 2     # slice (n): llama4-maverick's depth, as (j)'s
 N_DEEPSEEK_LAYERS = 4   # deepseek-v3's: its 3 dense layers and one MoE
 # layer (~15.3 B parameters; (k) serves 5 on one card)
-N_NEW = 16              # new tokens a request in slice (n)
+N_NEW = {"llama4": 16, "deepseek": 16, "mamba2": 2, "whisper": 2}
+# new tokens a request in slice (n): mamba2's and whisper's cut from 16 to
+# 2 (ROADMAP S1: ~28 s of gloo decode freed; the one decode tick kept
+# gives this call's seconds a tick, s1_freed)
 
 
 def n_setups(rehearse, attn, seed):
@@ -5482,11 +5585,11 @@ def n_setups(rehearse, attn, seed):
              (8, 60) if rehearse else (16, 384), None)]
 
 
-def n_requests(np, Request, cfg, lens, seed):
+def n_requests(np, Request, cfg, lens, seed, new):
     """The MESH_SHORT_REQUESTS of 8 requests of `lens` prompt tokens (an
     enc-dec arch's with their stub frames) with the shortest prompts, in
-    rid order, N_NEW new tokens each."""
-    reqs = dense_requests(np, Request, cfg, 8, *lens, N_NEW, seed)
+    rid order, `new` new tokens each (N_NEW)."""
+    reqs = dense_requests(np, Request, cfg, 8, *lens, new, seed)
     keep = sorted(range(8), key=lambda i: (len(reqs[i].prompt), i))
     return [reqs[i] for i in sorted(keep[:MESH_SHORT_REQUESTS])]
 
@@ -5532,7 +5635,7 @@ def n_one_card(torch, np, dev, args, rehearse, attn, aq):
         params, nparams = init_logged(torch, dev, args, cfg, torch.float32
                                       if rehearse else torch.bfloat16, cut)
         reqs_fn = lambda: n_requests(np, Request, cfg, lens,  # noqa: E731
-                                     args.seed)
+                                     args.seed, N_NEW[label])
         res, streams = serve(torch, np, dev, cfg, params, ecfg, reqs_fn,
                              warm_prefill=False)
         with RouteLog() as rl:
@@ -5545,7 +5648,8 @@ def n_one_card(torch, np, dev, args, rehearse, attn, aq):
             "routes": types.SimpleNamespace(calls=rl.calls,
                                             weights=rl.weights),
             "tokens_per_s": res["tokens_per_s"], "params_b": nparams,
-            "depth_cut": cut, "launches": res["launches"]}
+            "depth_cut": cut, "launches": res["launches"],
+            "wall_s": res["wall_s"], "ttft_max_s": res["ttft_max_s"]}
         del params, lk
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -5626,7 +5730,7 @@ def slice_n_rank(rank, mesh12, seed, rehearse, dev, one):
         t0 = time.perf_counter()
         ref = one[label]
         reqs_fn = lambda: n_requests(np, Request, cfg, lens,  # noqa: E731
-                                     seed)
+                                     seed, N_NEW[label])
 
         def after(eng, label=label, cfg=cfg, ecfg=ecfg, ref=ref,
                   reqs_fn=reqs_fn):
@@ -5673,7 +5777,8 @@ def slice_n_rank(rank, mesh12, seed, rehearse, dev, one):
     label, cfg, ecfg, lens, _ = setups[0]
     res, streams = serve(
         torch, np, dev, cfg, draw, ecfg, lambda: n_requests(
-            np, Request, cfg, lens, seed), warm_prefill=False, mesh=mesh21,
+            np, Request, cfg, lens, seed, N_NEW[label]), warm_prefill=False,
+        mesh=mesh21,
         after=lambda eng: {"pool_digest": pool_digest(torch, eng.caches)},
         build=lambda make: in_turn(mesh21, make))
     res.update(streams=streams, rank=rank, seconds=time.perf_counter() - t0)
@@ -5750,7 +5855,8 @@ def check_slice_n(torch, dev, ranks, one, rehearse):
                    "rank", "weight_bytes", "tokens_per_s", "ttft_mean_s",
                    "peak_mem_gb", "peak_mem_gb_build", "wall_s",
                    "decode_tokens", "prefill_tokens", "ticks", "draw_s",
-                   "logits_s", "seconds", "flips", "unpinned_rel_l2")}
+                   "logits_s", "seconds", "flips", "unpinned_rel_l2",
+                   "ttft_max_s")}
                    for p in per]}
         out["launches"][label] = la
         for p in row["ranks"]:
@@ -5778,9 +5884,11 @@ def check_slice_n(torch, dev, ranks, one, rehearse):
     return out
 
 
-def mesh_slice(torch, np, dev, args, rehearse, base):
-    """Slice (l): full-width, full-depth llama3.2-3b in bf16 (weights from
-    --seed) served tensor-parallel in (b)'s setup. (1) A (1, 1) mesh over
+def mesh_slice(torch, np, dev, args, rehearse):
+    """Slice (l): llama3.2-3b at full width and RERUN_LAYERS layers in bf16
+    (weights from --seed) served tensor-parallel in (b)'s setup, held
+    against its unsharded engine's streams on one card (run here first).
+    (1) A (1, 1) mesh over
     nccl (gloo in the CPU rehearsal) in this process: streams and the
     first-decode logits (from the served engine's params) the unsharded
     engine's bits. (2) A (1, 2) mesh over gloo, two rank processes on the
@@ -5790,8 +5898,7 @@ def mesh_slice(torch, np, dev, args, rehearse, base):
     flash (mesh_setups), each served engine's first-decode logits (on the
     shortest prompts, logit_prompts) within MESH_TOL (relative L2) of the
     unsharded engine's, the greedy share against the unsharded streams
-    printed; each rank's weight bytes, peak memory and tokens/s printed.
-    `base`: slice_phase's results (the unsharded (b) and (c) streams)."""
+    printed; each rank's weight bytes, peak memory and tokens/s printed."""
     import dataclasses
 
     from repro_torch.configs.archs import get_config
@@ -5803,10 +5910,11 @@ def mesh_slice(torch, np, dev, args, rehearse, base):
     from repro_torch.quant.policy import PrecisionPolicy
     from repro_torch.serve.engine import Request
 
-    cfg = get_config("llama3.2-3b", smoke=rehearse)
+    cfg, cut = rerun_depth(get_config("llama3.2-3b", smoke=rehearse),
+                           rehearse)
     gcfg = cfg.replace(grau=GRAUConfig())
     params, nparams = init_logged(torch, dev, args, cfg, torch.float32
-                                  if rehearse else torch.bfloat16)
+                                  if rehearse else torch.bfloat16, cut)
     max_seq = 256 if rehearse else 2048
     lo, hi = (8, 100) if rehearse else (64, 1024)
     reqs_fn = mesh_requests(np, Request, cfg.vocab_size, lo, hi, args.seed,
@@ -5818,7 +5926,7 @@ def mesh_slice(torch, np, dev, args, rehearse, base):
     aq = AttnQuant(attn.spec.to(dev), attn.s_in, attn.s_out)
     ecfg = dict(slots=8, max_seq=max_seq, page_size=16, seed=args.seed)
     policy = PrecisionPolicy(kv_default_bits=4, weight_default_bits=4)
-    out = {"params_b": nparams,
+    out = {"params_b": nparams, "layers": cfg.num_layers, "depth_cut": cut,
            "logit_prompt_lengths": [len(p) for p in prompts],
            "short_request_rids": [r.rid for r in short_fn()]}
     # the unsharded first-decode logits of the three setups, and the
@@ -5830,6 +5938,13 @@ def mesh_slice(torch, np, dev, args, rehearse, base):
     want["wq4_kv4_grau"] = first_decode_logits(
         torch, np, dev, gcfg, packed, aq, prompts, max_seq, 16, 32,
         policy=policy, paths=("kernel",))["kernel"]
+    # the unsharded engine's streams in (b)'s setup (all 8 requests: the
+    # (1, 1) mesh's gate) and in (c)'s (the short requests)
+    one_b, bstreams = serve(torch, np, dev, gcfg, params,
+                            {**ecfg, "attn_grau": attn}, reqs_fn)
+    _, cstreams = serve(torch, np, dev, gcfg, packed,
+                        {**ecfg, "attn_grau": attn, "weight_bits": 4,
+                         "kv_bits": 4}, short_fn)
     # kept on the host for the ranks' packed-bytes check
     packed = tree_map(lambda w: dataclasses.replace(
         w, q=w.q.cpu(), e=w.e.cpu()) if isinstance(w, wq.QuantWeight)
@@ -5839,9 +5954,7 @@ def mesh_slice(torch, np, dev, args, rehearse, base):
     dres, dstreams = serve(torch, np, dev, gcfg, params,
                            dict(slots=8, max_seq=max_seq, seed=args.seed,
                                 paged=False), short_fn)
-    one = {"grau": base["grau"]["streams"],
-           "wq4_kv4_grau": base["wq4_kv4_grau"]["streams"],
-           "dense": dstreams}
+    one = {"grau": bstreams, "wq4_kv4_grau": cstreams, "dense": dstreams}
     out["unsharded_dense_short_tokens_per_s"] = dres["tokens_per_s"]
 
     # (1) a one-rank mesh over nccl: the unsharded bits (its collectives
@@ -5973,6 +6086,392 @@ def mesh_slice(torch, np, dev, args, rehearse, base):
                     seconds_one_card=n_one_s)
     log(f"slice (n): {out['n']['seconds']:.1f} s (the ranks {n_ranks:.1f}, "
         f"the one-card runs {n_one_s:.1f})")
+    out["o"] = check_slice_o(torch, ranks, rehearse)
+    out["o"]["seconds"] = out["o"]["seconds_ranks"]
+    # (o)'s cost: its own seconds and the torch._dynamo import its remat
+    # steps need, which a thread ran during (l)-(n) (counted whole)
+    out["s1"] = s1_freed(out, one_b, n_one)
+    out["s1"]["o_seconds"] = out["o"]["seconds"] + out["o"]["import_s"]
+    out["s1"]["o_within_freed"] = (out["s1"]["o_seconds"]
+                                   <= out["s1"]["freed_s"])
+    log(f"slice (o): {out['o']['seconds']:.1f} s, and the import its remat "
+        f"needs {out['o']['import_s']:.1f} s: {out['s1']['o_seconds']:.1f} "
+        f"s against {out['s1']['freed_s']:.1f} s the S1 cuts freed in this "
+        f"call (estimated: {json.dumps(out['s1'])})")
+    return out
+
+
+S1_N_NEW_BEFORE = 16    # (n)'s new tokens for mamba2 and whisper before S1
+
+
+def s1_freed(mesh, one_b, n_one):
+    """The seconds ROADMAP S1's cuts free in this call, from this call's
+    own runs: (l)'s (b) setup, 8 requests cut to 2 — the slowest rank's
+    seconds a forward (its 2-request run's wall over its decode ticks and
+    prefill chunks) times the forwards the 8 requests took more (slice
+    (b)'s one-card run of the same 8 requests, the same engine settings
+    and scheduler, counts its ticks and chunks); (n)'s mamba2 and whisper,
+    16 new tokens cut to 2 — a decode tick's seconds (the run's wall after
+    its last first token: its one tick) times the 14 ticks cut, on the
+    slowest rank and in the one-card run the mesh is held against."""
+    ranks = mesh["mesh_1x2_grau"]["ranks"]
+    fwd = max(r["wall_s"] / (r["ticks"] + r["chunks"]) for r in ranks)
+    more = (one_b["ticks"] + one_b["chunks"]
+            - ranks[0]["ticks"] - ranks[0]["chunks"])
+    out = {"l_b_forward_s": fwd, "l_b_forwards_cut": more,
+           "l_b_freed_s": fwd * more}
+    cut = S1_N_NEW_BEFORE - N_NEW["mamba2"]
+    freed = out["l_b_freed_s"]
+    for label in ("mamba2", "whisper"):
+        tick = max(r["wall_s"] - r["ttft_max_s"]
+                   for r in mesh["n"][label]["ranks"])
+        one = n_one[label]["wall_s"] - n_one[label]["ttft_max_s"]
+        out[f"n_{label}_tick_s"] = tick
+        out[f"n_{label}_one_card_tick_s"] = one
+        out[f"n_{label}_freed_s"] = cut * (tick + one)
+        freed += out[f"n_{label}_freed_s"]
+    out["freed_s"] = freed
+    return out
+
+
+# slice (o): training over a (data, model) mesh in slice (l)'s two rank
+# processes (gloo on the one card): llama3.2-3b at full width with GRAU
+# (slice (e)'s apot 6 x 8), bf16 parameters, f32 AdamW, remat "full", cut
+# to O_LAYERS of its 28 layers for gloo's time (a full-depth FSDP step
+# would move ~19 GB of weights and 6.4 GB of gradients through host TCP)
+O_LAYERS = 4
+O_STEPS = 3             # a mesh shape's steps: step 0 gated, then 2 more
+O_SHAPES = (("1x2", (1, 2), 1, 4096), ("2x1", (2, 1), 2, 2048))
+# (label, (data, model), rows, sequence): the same 4,096 tokens a step,
+# one row a data rank at (2, 1)
+O_F32_LAYERS = 1        # the f32 gate: 1 layer, float activations
+O_F32_TOL = 1e-4        # relative L2 of every gathered gradient, f32
+O_ELASTIC_TOL = 1e-5    # the step after a (2, 1) -> (1, 2) restore, f32
+
+
+def o_config(rehearse, layers, grau=True):
+    """Slice (o)'s llama3.2-3b (smoke in the rehearsal) with (e)'s GRAU
+    apot 6 x 8 (or float activations), cut to `layers` layers."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models.config import GRAUConfig, dense_groups
+    cfg = get_config("llama3.2-3b", smoke=rehearse)
+    if grau:
+        cfg = cfg.replace(grau=GRAUConfig(mode="apot", segments=6,
+                                          num_exponents=8))
+    return cfg.replace(groups=dense_groups(min(layers, cfg.num_layers)))
+
+
+class CollectiveCount:
+    """Counts the collectives (c10d ops but barriers) issued inside the
+    block, through a torch dispatch mode."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(mode, func, types, args=(), kwargs=None):
+                if (func.namespace == "c10d"
+                        and "barrier" not in func.__name__):
+                    self.n += 1
+                return func(*args, **(kwargs or {}))
+        self.n = 0
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def tree_digest(torch, tree):
+    """sha256 over every tensor's bytes, in tree order."""
+    import hashlib
+
+    from repro_torch.nn.common import tree_flatten
+    h = hashlib.sha256()
+    for path, t in tree_flatten(tree):
+        h.update(path.encode())
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def o_train(torch, rank, mesh, cfg, dtype, rows, seq, seed, dev, steps_n):
+    """One mesh shape of slice (o): every rank first takes the one-card step
+    on batch 0 (no mesh, the whole tree; its loss and gradients kept); then
+    takes its shard of the same draw (shard_train_params) and trains
+    `steps_n` steps on the mesh: the flash launches counted from 0 just
+    before step 0 and read after the last step; step 0's collectives,
+    counted under CollectiveCount (a dispatch mode that sends every aten op
+    through Python, so step 0's seconds are kept apart), and the later
+    steps' seconds, timed without it. Step 0's gradient shard is held
+    against the same piece of the one-card gradient: each leaf's sums of
+    squared differences and of squares over the rank's distinct piece (a
+    piece replicated over an axis counted by that axis' rank 0 alone),
+    which check_slice_o adds over the ranks into the gathered tree's
+    relative L2 with no gather."""
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.nn import shard_ctx
+    from repro_torch.nn.common import tree_flatten
+    from repro_torch.train import optim
+    from repro_torch.train.fsdp import local_piece
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    chunk = min(1024, seq)
+    pipe = TokenPipeline(cfg.vocab_size, seq, rows, seed=seed,
+                         device=str(dev))
+    full = lm.init_lm(cfg, seed=seed, dtype=dtype, device=dev)
+    out = {"rank": rank, "rows": rows, "seq": seq, "dtype": str(dtype),
+           "layers": cfg.num_layers}
+    t0 = time.perf_counter()
+    ref_loss, ref = steps.make_loss_and_grads(
+        cfg, remat="full", q_chunk=chunk, kv_chunk=chunk)(full, pipe.batch(0))
+    sync()
+    out["one_card_step_s"] = time.perf_counter() - t0
+    shards = steps.shard_train_params(full, cfg, mesh)
+    del full
+    gc.collect()
+    opt = optim.init_opt_state(shards)
+    out["param_bytes"] = sum(x.numel() * x.element_size()
+                             for _, x in tree_flatten(shards))
+    out["moment_bytes"] = sum(x.numel() * x.element_size()
+                              for _, x in tree_flatten((opt.m, opt.v)))
+    opt_cfg = optim.AdamWConfig(peak_lr=3e-3, warmup_steps=5,
+                                total_steps=8)
+    placement = steps.param_placement(cfg, mesh)
+    grads_fn = steps.make_loss_and_grads(cfg, remat="full", q_chunk=chunk,
+                                         kv_chunk=chunk, mesh=mesh)
+    step = steps.make_train_step(cfg, opt_cfg, remat="full", q_chunk=chunk,
+                                 kv_chunk=chunk, mesh=mesh)
+    if cuda:
+        torch.cuda.empty_cache()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with CollectiveCount() as cc, shard_ctx.use(mesh):
+        loss, grads = grads_fn(shards, steps.data_rows(pipe.batch(0), mesh))
+        loss = shard_ctx.sum_data(loss)
+        shards, opt, _ = optim.adamw_update(opt_cfg, shards, grads, opt,
+                                            placement=placement)
+        sync()
+    step0_s = time.perf_counter() - t0
+    losses.append(float(loss))
+    for i in range(1, steps_n):
+        t0 = time.perf_counter()
+        shards, opt, m = step(shards, opt, pipe.batch(i))
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    sync()
+    out["launches"] = kernels.launch_counts()
+    out.update(losses=losses, step0_counted_s=step0_s, step_s=times,
+               median_step_s=(float(sorted(times)[len(times) // 2])
+                              if times else None),
+               collectives_a_step=cc.n,
+               peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                            if cuda else None))
+    coords = (shard_ctx.data_rank(mesh), shard_ctx.model_rank(mesh))
+    sizes = steps.mesh_shape(mesh)
+    cuts = dict(tree_flatten(placement))
+    sums = {}
+    for (path, g), (_, want) in zip(tree_flatten(grads), tree_flatten(ref)):
+        c = cuts[path]
+        if (c.model is None and coords[1]) or (c.data is None and coords[0]):
+            continue
+        want = local_piece(want, c, coords, sizes)
+        sums[path] = (float((g.double() - want.double()).square().sum()),
+                      float(want.double().square().sum()),
+                      bool(torch.isfinite(g).all()))
+    out.update(one_card_loss=float(ref_loss), loss_rel=abs(
+        losses[0] - float(ref_loss)) / abs(float(ref_loss)), grad_sums=sums)
+    del shards, opt, grads, ref
+    gc.collect()
+    if cuda:
+        sync()
+        torch.cuda.empty_cache()
+    return out
+
+
+def o_elastic(torch, rank, mesh12, mesh21, seed, dev, shared):
+    """Slice (o)'s elasticity at llama3-smoke size with GRAU in f32, as
+    (e)'s resume check: a (2, 1) run takes a step, saves a sharded
+    checkpoint (each rank its pieces) and takes a second step; the (1, 2)
+    mesh restores it — the whole tree's digest the saved one's — and takes
+    the same second step."""
+    from repro_torch.ckpt import checkpoint as ckpt_lib
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.train import optim
+
+    cfg = o_config(True, 2)
+    pipe = TokenPipeline(cfg.vocab_size, 64, 4, seed=seed, device=str(dev))
+    opt_cfg = optim.AdamWConfig(peak_lr=3e-3, warmup_steps=2, total_steps=6)
+    params = lm.init_lm(cfg, seed=seed, dtype=torch.float32, device=dev)
+    d = os.path.join(shared, "o_ckpt")
+
+    def whole(mesh, p, o):
+        return {"params": steps.unshard(p, cfg, mesh),
+                "opt": optim.OptState(o.step, steps.unshard(o.m, cfg, mesh),
+                                      steps.unshard(o.v, cfg, mesh))}
+
+    def start(mesh):
+        p = steps.shard_train_params(params, cfg, mesh)
+        return (p, optim.init_opt_state(p),
+                steps.make_train_step(cfg, opt_cfg, remat="full",
+                                      q_chunk=32, kv_chunk=32, mesh=mesh),
+                steps.state_placement(steps.param_placement(cfg, mesh)))
+    t0 = time.perf_counter()
+    p, o, step, sp = start(mesh21)
+    p, o, _ = step(p, o, pipe.batch(0))
+    ckpt_lib.save(d, 1, {"params": p, "opt": o}, mesh=mesh21, placement=sp)
+    saved = tree_digest(torch, whole(mesh21, p, o))
+    _, _, m = step(p, o, pipe.batch(1))
+    loss21 = float(m["loss"])
+    p, o, step, sp = start(mesh12)
+    state = ckpt_lib.restore(d, 1, {"params": p, "opt": o}, mesh=mesh12,
+                             placement=sp)
+    restored = tree_digest(torch, whole(mesh12, state["params"],
+                                        state["opt"]))
+    _, _, m = step(state["params"], state["opt"], pipe.batch(1))
+    loss12 = float(m["loss"])
+    return {"saved_digest": saved, "restored_digest": restored,
+            "digests_equal": saved == restored, "loss_2x1": loss21,
+            "loss_1x2": loss12,
+            "loss_rel": abs(loss12 - loss21) / abs(loss21),
+            "manifest_mesh": ckpt_lib.read_manifest(d, 1)["mesh"],
+            "seconds": time.perf_counter() - t0}
+
+
+def slice_o_rank(rank, mesh12, seed, rehearse, dev, shared, warm):
+    """Slice (o) in one of slice (l)'s two rank processes, after (n):
+    training over a (data, model) mesh (launch/steps.make_train_step(
+    mesh=)). o_train at (1, 2) (1 x 4,096 tokens) and at (2, 1) (2 x 2,048,
+    a row a data rank), O_STEPS steps each, in bf16 with GRAU; then the f32
+    gate (O_F32_LAYERS layer, float activations, step 0 only) at both
+    shapes; then the elasticity check (o_elastic). `warm`: the thread
+    importing torch._dynamo (warm_checkpoint_imports), joined first."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    warm.join()
+    out = {"import_wait_s": time.perf_counter() - t0,
+           "import_s": warm.seconds}
+    mesh21 = make_mesh(2, 1, device=dev, backend="gloo")
+    meshes = {"1x2": mesh12, "2x1": mesh21}
+    dtype = torch.float32 if rehearse else torch.bfloat16
+    cfg = o_config(rehearse, O_LAYERS)
+    cfg32 = o_config(rehearse, O_F32_LAYERS, grau=False)
+    for label, _, rows, seq in O_SHAPES:
+        if rehearse:
+            rows, seq = rows * 2, seq // 64
+        out[label] = o_train(torch, rank, meshes[label], cfg, dtype, rows,
+                             seq, seed, dev, O_STEPS)
+    for label, _, rows, seq in O_SHAPES:
+        if rehearse:
+            rows, seq = rows * 2, seq // 64
+        out[f"f32_{label}"] = o_train(torch, rank, meshes[label], cfg32,
+                                      torch.float32, rows, seq, seed, dev, 1)
+    out["elastic"] = o_elastic(torch, rank, mesh12, mesh21, seed, dev,
+                               shared)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_slice_o(torch, ranks, rehearse):
+    """Slice (o)'s gates on both ranks' results (slice_o_rank): at each mesh
+    shape step 0's loss within TRAIN_LOSS_TOL (relative) and every
+    gathered gradient within TRAIN_GRAD_TOL (relative L2, (e)'s bounds for
+    bf16 with GRAU; from the ranks' sums over their pieces, o_train) of
+    the one-card step's, and in f32 within O_F32_TOL; the
+    ranks' losses the same bits, finite; the flash kernel launched 2 x
+    O_LAYERS times a step a rank (the forward and remat "full"'s
+    recompute); the elasticity digests equal and its step within
+    O_ELASTIC_TOL. Prints each rank's parameter and moment bytes, peak
+    memory, median step seconds (the steps after step 0, timed without the
+    collective counter) and step 0's collectives."""
+    out = {"launches": {}}
+    for label, shape, _, _ in O_SHAPES:
+        for key, tol in ((label, (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL)),
+                         (f"f32_{label}", (O_F32_TOL, O_F32_TOL))):
+            per = [r["o"][key] for r in ranks]
+            r0 = per[0]
+            need(all(p["losses"] == r0["losses"] for p in per),
+                 f"(o) {key}: the ranks' losses differ")
+            # the gathered gradient's relative L2 a leaf, from the ranks'
+            # sums over their distinct pieces
+            sums = {}
+            for p in per:
+                for path, (d2, w2, ok) in p.pop("grad_sums").items():
+                    a, b, c = sums.get(path, (0.0, 0.0, True))
+                    sums[path] = (a + d2, b + w2, c and ok)
+            rel = {path: (d2 / max(w2, 1e-300)) ** 0.5
+                   for path, (d2, w2, _) in sums.items()}
+            worst = max(rel, key=rel.get)
+            r0.update(grad_rel_l2_max=rel[worst], grad_rel_l2_max_leaf=worst,
+                      grad_leaves=len(rel))
+            need(all(ok for _, _, ok in sums.values()) and all(
+                x == x and abs(x) < float("inf") for x in r0["losses"]),
+                 f"(o) {key}: non-finite loss or gradients")
+            need(r0["loss_rel"] <= tol[0], f"(o) {key}: step 0's loss "
+                 f"{r0['losses'][0]} against one card's "
+                 f"{r0['one_card_loss']}: rel {r0['loss_rel']:.3g} > "
+                 f"{tol[0]}")
+            need(r0["grad_rel_l2_max"] <= tol[1], f"(o) {key}: gradient "
+                 f"{r0['grad_rel_l2_max_leaf']} rel L2 "
+                 f"{r0['grad_rel_l2_max']:.3g} against one card > {tol[1]}")
+            la = {k: sum(p["launches"][k] for p in per)
+                  for k in r0["launches"]}
+            want = 2 * r0["layers"] * len(r0["losses"]) * len(per)
+            need(rehearse or la["flash_attention"] == want,
+                 f"(o) {key}: flash_attention launched "
+                 f"{la['flash_attention']} times, want {want}")
+            out["launches"][key] = la
+            row = {"mesh": list(shape), "rows": r0["rows"],
+                   "seq": r0["seq"], "dtype": r0["dtype"],
+                   "layers": r0["layers"], "losses": r0["losses"],
+                   "one_card_loss": r0["one_card_loss"],
+                   "loss_rel": r0["loss_rel"],
+                   "grad_rel_l2_max": r0["grad_rel_l2_max"],
+                   "grad_rel_l2_max_leaf": r0["grad_rel_l2_max_leaf"],
+                   "grad_leaves": r0["grad_leaves"],
+                   "one_card_step_s": [p["one_card_step_s"] for p in per],
+                   "launches": la,
+                   "ranks": [{k: p[k] for k in (
+                       "rank", "param_bytes", "moment_bytes", "peak_mem_gb",
+                       "median_step_s", "step_s", "step0_counted_s",
+                       "collectives_a_step")} for p in per]}
+            for p in row["ranks"]:
+                med = p["median_step_s"]
+                log(f"(o) {key} rank {p['rank']}: parameters "
+                    f"{p['param_bytes'] / 1e9:.3f} GB, moments "
+                    f"{p['moment_bytes'] / 1e9:.3f} GB, peak memory "
+                    f"{p['peak_mem_gb']} GB, median step "
+                    + (f"{med:.3f} s" if med is not None else "(one step)")
+                    + f" (step 0 under the collective counter "
+                    f"{p['step0_counted_s']:.3f} s), collectives a step "
+                    f"{p['collectives_a_step']}")
+            log(f"slice[o {key}]: " + json.dumps(row))
+            out[key] = row
+    el = ranks[0]["o"]["elastic"]
+    need(el["digests_equal"], "(o) elasticity: the tree restored at (1, 2) "
+         "is not the one saved at (2, 1)")
+    need(el["loss_rel"] <= O_ELASTIC_TOL, f"(o) elasticity: the step after "
+         f"the restore {el['loss_1x2']} against the (2, 1) run's "
+         f"{el['loss_2x1']}: rel {el['loss_rel']:.3g} > {O_ELASTIC_TOL}")
+    log("slice[o elasticity]: " + json.dumps(el))
+    out["elastic"] = el
+    out["seconds_ranks"] = max(r["o"]["seconds"] for r in ranks)
+    out["import_wait_s"] = [r["o"]["import_wait_s"] for r in ranks]
+    out["import_s"] = max(r["o"]["import_s"] for r in ranks)
     return out
 
 
@@ -6234,10 +6733,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         greedy_f = {k: prefix[f"shared_prefix_cache_{k}"]["tokens_per_s"]
                     for k in ("off", "on")}
-        greedy_b = {k: slice_res["grau"][k] for k in (
-            "tokens_per_s", "ttft_mean_s", "ttft_p50_s")}
         sampled = phase("slice_h", lambda: sampled_slice(
-            torch, np, dev, args, args.rehearse, greedy_f, greedy_b))
+            torch, np, dev, args, args.rehearse, greedy_f))
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         durable = phase("slice_i", lambda: durable_slice(
@@ -6253,7 +6750,7 @@ def main(argv=None) -> int:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         mesh = phase("slice_l", lambda: mesh_slice(
-            torch, np, dev, args, args.rehearse, slice_res))
+            torch, np, dev, args, args.rehearse))
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6289,6 +6786,8 @@ def main(argv=None) -> int:
     rows["matmul_wq"].update(launches=lc["matmul_wq"],
                              epilogue_launches=lc["matmul_wq_epilogue"])
     rows["flash_attention"]["launches"] = train["train"]["flash_launches"]
+    rows["flash_attention"]["launches_slice_e_dots"] = train["dots"][
+        "flash_launches"]
     # the attention kernels' launches on slices (f) and (g), each run's
     # counts zeroed just before it and read just after
     runs_f = [prefix[k]["launches"] for k in (
@@ -6352,6 +6851,16 @@ def main(argv=None) -> int:
         row.update(launches=ln[run]["flash_attention"],
                    launches_slice_n_run=run)
         rows["flash_attention"]["rank_shapes_slice_n"].append(row)
+    # slice (o): both ranks' flash launches in each mesh's training run,
+    # counted from 0 just before its step 0; the (1, 2) run launches at
+    # the training rank shape, the (2, 1) run at the whole heads
+    lo = mesh["o"]["launches"]
+    row = rank_rows["flash_attention_rank_train"]
+    row.update(launches=lo["1x2"]["flash_attention"],
+               launches_slice_o_run="1x2")
+    rows["flash_attention"]["rank_shape_slice_o"] = row
+    rows["flash_attention"]["launches_slice_o"] = {
+        k: lo[k]["flash_attention"] for k in lo}
     rows["matmul_wq"]["launches_slice_l"] = ml["wq4_kv4_grau"]["matmul_wq"]
     rows["matmul_wq"]["rank_shapes"] = dict(
         wq_rank, launches_slice_l=ml["wq4_kv4_grau"]["matmul_wq"])
@@ -6382,6 +6891,13 @@ def main(argv=None) -> int:
     # in the report only
     report["kernels_kv8"] = [rows["paged_attention_kv8"],
                              rows["paged_prefill_kv8"]]
+    # the number the script's time budget judges: every phase, the build
+    # included
+    report["phase_s_total"] = sum(phase_s.values())
+    log(f"phases: {report['phase_s_total']:.1f} s in all (the build "
+        f"included); slice (o) cost {mesh['s1']['o_seconds']:.1f} s against "
+        f"{mesh['s1']['freed_s']:.1f} s freed by the S1 cuts "
+        f"(within: {mesh['s1']['o_within_freed']})")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

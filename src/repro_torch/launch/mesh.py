@@ -1,8 +1,10 @@
-"""The serving mesh over torch.distributed: explicit tensor parallelism.
+"""The (data, model) mesh over torch.distributed, for serving and training:
+explicit tensor parallelism (and, in training, FSDP).
 
-The JAX package's serving mesh is a `jax.sharding.Mesh` of devices in one
-process, and GSPMD partitions each jitted step over it. Here the mesh is one
-process per rank: `make_serve_mesh(data, model)` returns a
+The JAX package's meshes are `jax.sharding.Mesh`es of devices in one
+process, and GSPMD partitions each jitted step over them. Here the mesh is
+one process per rank: `make_mesh(data, model)` (`make_serve_mesh` is the
+same function) returns a
 `torch.distributed.device_mesh.DeviceMesh` with dims ("data", "model") over
 the ranks of an initialised process group, every rank holds its shard of the
 weights and of the KV storage (serve/sharding.py), every rank runs the same
@@ -11,7 +13,10 @@ host schedule, and the model code calls the collectives itself
 vocabulary; the data axis shards the decode slot batch, each data rank
 computing its contiguous range of slots and all-gathering the tick's new
 K/V rows and its (tokens, done, finite) record, so every rank's pool and
-host state stay the same (serve/engine.py).
+host state stay the same (serve/engine.py). Training (launch/steps.py
+make_train_step(mesh=)) cuts the same model axis and, FSDP, each leaf's
+d_model over the data axis (train/fsdp.py), each data rank training on its
+share of the batch's rows.
 
 `spawn_ranks(fn, world)` starts the rank processes (the `spawn` start method,
 never `fork`: the parent may hold a CUDA context or other runtimes'
@@ -43,7 +48,7 @@ COLLECTIVE_TIMEOUT_S = 60.0
 # own when the mesh's groups are nccl
 _HOST_GROUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _OWNED = {"store": None}       # the FileStore directory of a one-rank
-# group make_serve_mesh started (release_mesh ends the group, removes it)
+# group make_mesh started (release_mesh ends the group, removes it)
 
 
 def parse_mesh_spec(spec: str) -> Tuple[int, int]:
@@ -110,14 +115,14 @@ def _init_one_rank(backend: str, timeout_s: float) -> None:
     _OWNED["store"] = tmp
 
 
-def make_serve_mesh(data: int = 1, model: int = 1, *, device=None,
-                    backend: Optional[str] = None,
-                    timeout_s: float = COLLECTIVE_TIMEOUT_S):
-    """(data, model) serving mesh over the ranks of the initialised process
-    group (spawn_ranks starts them). A (1, 1) mesh in a process with no
-    group starts a one-rank group itself (release_mesh ends it). `device`
-    defaults to CUDA (models/lm.resolve_device); `backend` to nccl there,
-    gloo on the CPU."""
+def make_mesh(data: int = 1, model: int = 1, *, device=None,
+              backend: Optional[str] = None,
+              timeout_s: float = COLLECTIVE_TIMEOUT_S):
+    """(data, model) mesh over the ranks of the initialised process group
+    (spawn_ranks starts them), for serving or training. A (1, 1) mesh in a
+    process with no group starts a one-rank group itself (release_mesh ends
+    it). `device` defaults to CUDA (models/lm.resolve_device); `backend` to
+    nccl there, gloo on the CPU."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -146,6 +151,9 @@ def make_serve_mesh(data: int = 1, model: int = 1, *, device=None,
     _HOST_GROUPS[mesh] = (dist.group.WORLD if backend == "gloo"
                           else dist.new_group(backend="gloo"))
     return mesh
+
+
+make_serve_mesh = make_mesh
 
 
 def host_group(mesh):
@@ -184,7 +192,7 @@ def data_axes(mesh) -> tuple:
 
 
 def release_mesh() -> None:
-    """End the one-rank group make_serve_mesh started (no-op otherwise)."""
+    """End the one-rank group make_mesh started (no-op otherwise)."""
     import torch.distributed as dist
     tmp, _OWNED["store"] = _OWNED["store"], None
     if tmp is None:

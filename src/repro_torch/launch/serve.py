@@ -127,6 +127,9 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="llama3.2-3b", choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true",
                     help="use the arch's reduced smoke config")
+    ap.add_argument("--layers", type=int, default=None, metavar="N",
+                    help="serve the first N layers only, at full width (an "
+                         "arch whose layers are all of one kind)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; never chosen silently")
     ap.add_argument("--dtype", choices=["bfloat16", "float32"],
@@ -229,6 +232,12 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.resume and not args.journal:
         ap.error("--resume requires --journal")
+    if args.layers is not None:
+        from repro_torch.configs.archs import get_config
+        groups = get_config(args.arch, smoke=args.smoke).groups
+        if len(groups) != 1 or len(groups[0][0]) != 1 or args.layers < 1:
+            ap.error(f"--layers: {args.arch}'s layers are not all of one "
+                     "kind, or N < 1")
     telemetry = not args.no_telemetry
     if args.metrics_port is not None and not telemetry:
         ap.error("--metrics-port requires telemetry (drop --no-telemetry)")
@@ -283,6 +292,8 @@ def serve(args, mesh=None) -> None:
     say = print if rank == 0 else (lambda *a, **k: None)
     telemetry = not args.no_telemetry
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.layers is not None:
+        cfg = cfg.replace(groups=((cfg.groups[0][0], args.layers),))
     if args.grau:
         cfg = cfg.replace(grau=GRAUConfig())
     dtype = getattr(torch, args.dtype)

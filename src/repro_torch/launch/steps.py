@@ -1,21 +1,31 @@
-"""The training step (the JAX package's launch/steps.py::make_train_step)
-and the head padding of tensor-parallel serving (`pad_heads_for`).
+"""The training step (the JAX package's launch/steps.py::make_train_step),
+its placement over a (data, model) training mesh (`param_placement`, the
+reference's param_pspecs(fsdp=True)), and the head padding of
+tensor-parallel serving and training (`pad_heads_for`).
 
-Training's FSDP x TP mesh and the dry-run's cell builders are not ported
-(ROADMAP A11); serving's mesh is launch/mesh.py. PyTorch runs eagerly: the
-step is a plain function, and its GRAU register file is built once per
-device, on the host, as the reference builds it once outside its trace.
+Training over a mesh is explicit: every rank holds its shard of each
+parameter and of its AdamW moments, cut over `model` as serving cuts the
+weights (serve/sharding.place_params: heads, d_ff, vocabulary) and over
+`data` on the d_model axis (FSDP, train/fsdp.py); every rank of a model
+column takes its data rank's share of each microbatch's rows; the model
+code issues its own collectives (nn/shard_ctx.py) and autograd their
+backward. The dry run's cell builders are not ported (ROADMAP A11).
+PyTorch runs eagerly: the step is a plain function, and its GRAU register
+file is built once per device, on the host, as the reference builds it
+once outside its trace.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.nn import shard_ctx
 from repro_torch.nn.common import tree_flatten, tree_map
 from repro_torch.train import optim
+from repro_torch.train.fsdp import Cut, gather_leaf, gatherer, local_piece
 
 
 def pad_heads_for(cfg: ModelConfig, mesh) -> ModelConfig:
@@ -40,14 +50,220 @@ def pad_heads_for(cfg: ModelConfig, mesh) -> ModelConfig:
     return cfg.replace(attn_pad=(h // kv * kvp, kvp))
 
 
+# ---------------------------------------------------------------------------
+# Placement over a training mesh
+# ---------------------------------------------------------------------------
+
+def mesh_shape(mesh) -> Tuple[int, int]:
+    """(data, model) of a DeviceMesh, or a (data, model) pair itself."""
+    if isinstance(mesh, tuple):
+        return mesh
+    return shard_ctx.data_size(mesh), shard_ctx.model_size(mesh)
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """A training mesh takes the decoder-only archs with dense MLPs and GQA
+    attention. MoE (its capacity drops and aux loss are of the global batch:
+    they need serving's gathered routing, shard_ctx.split_rows, with a
+    backward of its own), MLA, Mamba-2 and the encoder-decoder raise."""
+    kinds = {(spec.kind, spec.mlp, spec.cross_attn)
+             for period, _ in cfg.groups for spec in period}
+    what = [name for name, on in (
+        ("MoE", any(mlp == "moe" for _, mlp, _ in kinds)),
+        ("MLA", cfg.mla is not None),
+        ("Mamba-2", any(kind == "mamba" for kind, _, _ in kinds)),
+        ("the encoder-decoder", cfg.encoder is not None
+         or any(x for _, _, x in kinds))) if on]
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: training over a mesh takes decoder-only GQA archs "
+            f"with dense MLPs; {', '.join(what)} over a training mesh is "
+            "queued (ROADMAP A11)")
+
+
+def train_config(cfg: ModelConfig, mesh) -> ModelConfig:
+    """The config a rank of a training mesh computes: its attention heads
+    padded to the model axis (pad_heads_for)."""
+    return pad_heads_for(cfg, mesh_shape(mesh)[1])
+
+
+def param_placement(cfg: ModelConfig, mesh, *, fsdp: bool = True):
+    """Each leaf's Cut on a (data, model) mesh (a DeviceMesh or a (data,
+    model) pair), shaped as the parameter tree of train_config(cfg, mesh).
+    Over `model`, as
+    serve/sharding.place_params: attention's query and KV heads, the MLP's
+    d_ff (column-parallel w_gate / w_up, row-parallel w_down) and the
+    vocabulary (the embedding's rows, an untied head's columns); an axis
+    the model axis does not divide is replicated. Over `data`, with
+    `fsdp`, every leaf's d_model axis (the reference's logical "embed"
+    axis: the embedding's and the norms' last, wq / wk / wv's first, wo's
+    and w_down's last, w_gate / w_up's and the head's first), replicated
+    where the data axis does not divide d_model — the reference's
+    param_pspecs(cfg, mesh, fsdp=True) and its divisibility fallback."""
+    check_trainable(cfg)
+    nd, nm = mesh_shape(mesh)
+    tcfg = train_config(cfg, (nd, nm))
+    if tcfg.kv_heads_phys % nm:
+        raise ValueError(
+            f"{cfg.name}: {tcfg.kv_heads_phys} KV heads do not split over a "
+            f"model axis of {nm}: a training mesh cuts each KV head's "
+            "weights onto one rank")
+    emb = fsdp and tcfg.d_model % nd == 0 and nd > 1
+    dax = (lambda axis: axis if emb else None)
+    vocab = nm > 1 and shard_ctx.vocab_splits(tcfg.vocab_size, nm)
+    mlp = nm > 1 and tcfg.d_ff % nm == 0
+    heads = nm > 1
+    rules = {
+        "embed": Cut(-2 if vocab else None, dax(-1)),
+        "head": Cut(-1 if vocab else None, dax(-2)),
+        "wq": Cut(-2 if heads else None, dax(-3)),
+        "wk": Cut(-2 if heads else None, dax(-3)),
+        "wv": Cut(-2 if heads else None, dax(-3)),
+        "wo": Cut(-3 if heads else None, dax(-1)),
+        "bq": Cut(-2 if heads else None, None),
+        "bk": Cut(-2 if heads else None, None),
+        "bv": Cut(-2 if heads else None, None),
+        "w_gate": Cut(-1 if mlp else None, dax(-2)),
+        "w_up": Cut(-1 if mlp else None, dax(-2)),
+        "w_down": Cut(-2 if mlp else None, dax(-1)),
+    }
+
+    def cut(path: str) -> Cut:
+        name = path.split("/")[-1]
+        if name in rules:
+            return rules[name]
+        if name.endswith(("_w", "_b")):      # a norm over d_model
+            return Cut(None, dax(-1))
+        raise ValueError(f"{cfg.name}: no training placement for {path}")
+    shapes = lm.init_lm(tcfg, device="meta")
+    paths = iter(path for path, _ in tree_flatten(shapes))
+    return tree_map(lambda _: cut(next(paths)), shapes)
+
+
+def state_placement(placement):
+    """The Cut tree of a training state {"params", "opt"}: the moments cut
+    as their parameters, the step count replicated (ckpt save / restore
+    under a mesh)."""
+    return {"params": placement,
+            "opt": optim.OptState(step=Cut(), m=placement, v=placement)}
+
+
+def _pieces(tree, placement):
+    """`placement` restricted to the keys of `tree` (a whole parameter tree
+    or a piece of one: some top-level leaves, or {"group{i}": [repeats]}),
+    every repeat of a group taking the group's cuts."""
+    return {k: ([placement[k][0]] * len(v) if k.startswith("group")
+                else placement[k]) for k, v in tree.items()}
+
+
+def _coords(mesh) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    return ((shard_ctx.data_rank(mesh), shard_ctx.model_rank(mesh)),
+            mesh_shape(mesh))
+
+
+def shard_train_params(params, cfg: ModelConfig, mesh, *,
+                       fsdp: bool = True):
+    """This rank's shard of the whole (unpadded) parameter tree `params`,
+    or of a piece of it (init_lm's `shard` pieces): the attention heads
+    zero-padded to train_config (serve/sharding.pad_params), then each
+    leaf cut by param_placement. Leaves the rank holds whole are shared
+    with the input."""
+    from repro_torch.serve.sharding import pad_params
+    tcfg = train_config(cfg, mesh)
+    placement = param_placement(cfg, mesh, fsdp=fsdp)
+    skel = {f"group{gi}": [] for gi in range(len(cfg.groups))}
+    padded = pad_params({**skel, **params}, tcfg)
+    full = {k: padded[k] for k in params}
+    coords, sizes = _coords(mesh)
+    return tree_map(lambda x, c: local_piece(x, c, coords, sizes), full,
+                    _pieces(full, placement))
+
+
+def draw_train_shard(cfg: ModelConfig, mesh, seed: int, dtype, device, *,
+                     fsdp: bool = True):
+    """This rank's shard of lm.init_lm(cfg, seed, dtype)'s tree, drawn on
+    `device` a piece at a time (each piece drawn whole, its shard kept):
+    the bits shard_train_params gives on the whole draw."""
+    params = lm.init_lm(cfg, seed=seed, dtype=dtype, device=device,
+                        shard=lambda piece: shard_train_params(
+                            piece, cfg, mesh, fsdp=fsdp))
+    # the final norm is drawn outside the pieces
+    norms = {k: v for k, v in params.items() if k.startswith("ln_f")}
+    params.update(shard_train_params(norms, cfg, mesh, fsdp=fsdp))
+    return params
+
+
+def unshard(tree, cfg: ModelConfig, mesh, *, fsdp: bool = True):
+    """The whole tree (parameters, gradients or moments, shaped as the
+    parameters) from every rank's shard: each leaf gathered over the axes
+    it is cut on, then the padded heads taken off (cfg's own shapes).
+    Every rank gets it."""
+    placement = param_placement(cfg, mesh, fsdp=fsdp)
+    full = tree_map(lambda x, c: gather_leaf(x, c, mesh), tree,
+                    _pieces(tree, placement))
+    return unpad_params(full, cfg)
+
+
+def unpad_params(params, cfg: ModelConfig):
+    """The tree with every attention leaf cut back to cfg's own head counts
+    (what serve/sharding.pad_params added, taken off)."""
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    axes = {"wq": (-2, h), "wk": (-2, kv), "wv": (-2, kv), "wo": (-3, h),
+            "bq": (-2, h), "bk": (-2, kv), "bv": (-2, kv)}
+
+    def attn(p):
+        return {k: (w.narrow(w.dim() + axes[k][0], 0, axes[k][1])
+                    if k in axes and w.shape[axes[k][0]] != axes[k][1]
+                    else w) for k, w in p.items()}
+    out = dict(params)
+    for gi in range(len(cfg.groups)):
+        out[f"group{gi}"] = [{ln: {k: (attn(v) if k == "attn" else v)
+                                   for k, v in layer.items()}
+                              for ln, layer in rep.items()}
+                             for rep in params[f"group{gi}"]]
+    return out
+
+
+def data_rows(batch: Dict[str, torch.Tensor], mesh,
+              microbatches: int = 1) -> Dict[str, torch.Tensor]:
+    """A data rank's rows of the global batch: of each of the reference's
+    `microbatches` microbatches (contiguous row ranges of the batch), its
+    contiguous share, in microbatch order — so splitting the result into
+    `microbatches` gives the rank's share of each."""
+    nd = shard_ctx.data_size(mesh)
+    rows = next(iter(batch.values())).shape[0]
+    if rows % (nd * microbatches):
+        raise ValueError(f"a batch of {rows} rows does not split into "
+                         f"{microbatches} microbatches over {nd} data ranks")
+    if nd == 1:
+        return batch
+    n = rows // (nd * microbatches)
+    d = shard_ctx.data_rank(mesh)
+    idx = torch.cat([torch.arange(i * nd * n + d * n, i * nd * n + (d + 1) * n)
+                     for i in range(microbatches)])
+    return {k: v[idx.to(v.device)] for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# The step
+# ---------------------------------------------------------------------------
+
 def make_loss_and_grads(cfg: ModelConfig, *, remat: Optional[str] = "full",
                         q_chunk: int = 1024, kv_chunk: int = 1024,
-                        attn_impl: str = "kernel") -> Callable:
+                        attn_impl: str = "kernel", mesh=None) -> Callable:
     """(params, batch) -> (loss, grads): lm_loss and its gradient with
     respect to every parameter leaf (grads in the leaves' dtypes). The
     parameters need not require grad: the gradient is taken through
-    detached aliases of them."""
+    detached aliases of them. With `mesh` (run it under
+    shard_ctx.use(mesh)), `params` are this rank's shards (train_config's
+    tree), `batch` its rows, the loss its share of the global mean and
+    each gradient its shard's, summed over the data ranks (train/fsdp.py)."""
     acts = {}
+    gather = None
+    if mesh is not None:
+        placement = param_placement(cfg, mesh)
+        gather = gatherer(placement, mesh)
+        cfg = train_config(cfg, mesh)
 
     def loss_and_grads(params, batch):
         dev = batch["tokens"].device
@@ -59,7 +275,7 @@ def make_loss_and_grads(cfg: ModelConfig, *, remat: Optional[str] = "full",
         alias = tree_map(lambda _: next(it), params)
         loss = lm.lm_loss(alias, cfg, batch, act=acts[dev], q_chunk=q_chunk,
                           kv_chunk=kv_chunk, remat=remat,
-                          attn_impl=attn_impl)
+                          attn_impl=attn_impl, gather=gather)
         grads = torch.autograd.grad(loss, leaves)
         it = iter(grads)
         return loss.detach(), tree_map(lambda _: next(it), params)
@@ -69,36 +285,53 @@ def make_loss_and_grads(cfg: ModelConfig, *, remat: Optional[str] = "full",
 
 def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, *,
                     remat: Optional[str] = "full", q_chunk: int = 1024,
-                    kv_chunk: int = 1024, microbatches: int = 1) -> Callable:
+                    kv_chunk: int = 1024, microbatches: int = 1,
+                    attn_impl: str = "kernel", mesh=None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics); the
     parameters and moments are updated in place (train/optim.py). With
     `microbatches` > 1 the batch splits along its first axis, the gradients
-    sum in an f32 accumulator and the loss and gradients are averaged."""
+    sum in an f32 accumulator and the loss and gradients are averaged.
+
+    With `mesh` (a launch/mesh.make_mesh (data, model) mesh) `params` and
+    `opt_state` are this rank's shards (shard_train_params,
+    optim.init_opt_state of the shards) and `batch` is the global batch:
+    the step runs under shard_ctx.use(mesh), takes the rank's rows
+    (data_rows), sums the loss's shares over the data axis (every rank
+    reports the same bits) and clips by the norm of the whole gradient
+    (optim.adamw_update(placement=))."""
     loss_and_grads = make_loss_and_grads(cfg, remat=remat, q_chunk=q_chunk,
-                                         kv_chunk=kv_chunk)
+                                         kv_chunk=kv_chunk,
+                                         attn_impl=attn_impl, mesh=mesh)
+    placement = None if mesh is None else param_placement(cfg, mesh)
 
     def train_step(params, opt_state, batch):
-        if microbatches > 1:
-            if batch["tokens"].shape[0] % microbatches:
-                raise ValueError(f"batch of {batch['tokens'].shape[0]} does "
-                                 f"not split into {microbatches} "
-                                 "microbatches")
-            parts = {k: v.chunk(microbatches, dim=0) for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            loss = 0.0
-            for i in range(microbatches):
-                l, g = loss_and_grads(params, {k: v[i]
-                                               for k, v in parts.items()})
-                tree_map(lambda a, b: a.add_(b), grads, g)
-                loss = loss + l
-                del g
-            grads = tree_map(lambda g: g.div_(microbatches), grads)
-            loss = loss / microbatches
-        else:
-            loss, grads = loss_and_grads(params, batch)
-        params, opt_state, metrics = optim.adamw_update(opt_cfg, params,
-                                                        grads, opt_state)
+        with shard_ctx.use(mesh):
+            if mesh is not None:
+                batch = data_rows(batch, mesh, microbatches)
+            if microbatches > 1:
+                if batch["tokens"].shape[0] % microbatches:
+                    raise ValueError(
+                        f"batch of {batch['tokens'].shape[0]} does not "
+                        f"split into {microbatches} microbatches")
+                parts = {k: v.chunk(microbatches, dim=0)
+                         for k, v in batch.items()}
+                grads = tree_map(lambda p: torch.zeros(
+                    p.shape, dtype=torch.float32, device=p.device), params)
+                loss = 0.0
+                for i in range(microbatches):
+                    l, g = loss_and_grads(params, {k: v[i] for k, v
+                                                   in parts.items()})
+                    tree_map(lambda a, b: a.add_(b), grads, g)
+                    loss = loss + l
+                    del g
+                grads = tree_map(lambda g: g.div_(microbatches), grads)
+                loss = loss / microbatches
+            else:
+                loss, grads = loss_and_grads(params, batch)
+            if mesh is not None:
+                loss = shard_ctx.sum_data(loss)
+            params, opt_state, metrics = optim.adamw_update(
+                opt_cfg, params, grads, opt_state, placement=placement)
         metrics["loss"] = loss
         return params, opt_state, metrics
 

@@ -16,10 +16,12 @@ layer's a (self cache, CrossKV) pair (init_caches).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import blocks, shard_ctx
@@ -56,11 +58,15 @@ def init_lm(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     `device` (default: CUDA, see resolve_device). `shard` maps each piece
     as it is drawn — a tree holding only the embedding, the head, one
     encoder layer or one repeat of a group — to what is kept of it
-    (serve/sharding.draw_shard: a mesh rank's slice, the rest freed); the
-    norms are kept as drawn."""
+    (serve/sharding.draw_shard, launch/steps.draw_train_shard: a mesh
+    rank's slice, the rest freed); the norms are kept as drawn (a training
+    mesh cuts them afterwards). On device "meta" the tree's shapes and
+    dtypes are built without drawing."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
+    gen = None      # the meta device draws nothing: shapes only
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
     kw = dict(device=device, dtype=dtype)
 
     def keep(piece):
@@ -211,13 +217,49 @@ def compute_dtype(params) -> torch.dtype:
     return embed.dtype
 
 
+REMATS = (None, "full", "dots")
+
+# remat "dots": the ops whose outputs are kept for the backward pass, as
+# XLA's dots_with_no_batch_dims_saveable keeps the dots without batch
+# dimensions. Every 2-D product of the layers is aten.mm (a 3-D x @ w folds
+# its leading axes into mm's rows) or addmm; bmm (the plain attention's
+# batched products), the flash kernel's Function, the norms, rope, the MLP
+# activation (the GRAU surrogate) and the mesh's collectives recompute.
+DOTS_SAVED = (torch.ops.aten.mm, torch.ops.aten.addmm)
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    if getattr(func, "_overloadpacket", None) in DOTS_SAVED:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _check_remat(remat: Optional[str]) -> None:
+    if remat not in REMATS:
+        raise ValueError(f"unknown remat {remat!r}: None, 'full' or 'dots'")
+
+
+def _remat(body: Callable, x, remat: Optional[str]):
+    """body(x) under activation checkpointing (torch.utils.checkpoint,
+    non-reentrant): "full" keeps only x and runs the body again in the
+    backward pass (the reference's jax.checkpoint); "dots" also keeps the
+    outputs of its mm / addmm products (selective checkpointing with
+    DOTS_SAVED, the reference's dots_with_no_batch_dims_saveable) and
+    recomputes the rest; None runs it plainly. The recomputation runs on
+    autograd's thread (a CUDA backward's own), so the body runs under the
+    shard_ctx context of the forward's thread (a mesh's collectives)."""
+    if remat is None:
+        return body(x)
+    kw = {}
     if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' is XLA's dots_with_no_batch_dims_saveable policy; "
-            "the port has only None and 'full' (ROADMAP)")
-    if remat not in (None, "full"):
-        raise ValueError(f"unknown remat {remat!r}: None or 'full'")
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    snap = shard_ctx.snapshot()
+
+    def run(h):
+        with shard_ctx.restored(snap):
+            return body(h)
+    return checkpoint(run, x, use_reentrant=False, **kw)
 
 
 def _rope_dim(cfg: ModelConfig) -> int:
@@ -246,17 +288,20 @@ def _hidden(params, cfg: ModelConfig, tokens, *, mode, caches, positions,
             act, paged: Optional[PagedState], paged_impl, attn_quant,
             remat: Optional[str] = None, q_chunk: int = 1024,
             kv_chunk: int = 1024, attn_impl: str = "kernel",
-            patch_embeds=None, encoder_out=None):
+            patch_embeds=None, encoder_out=None,
+            gather: Optional[Callable] = None):
     """Embed (a packed table dequantizes only the gathered rows; LLaVA's
     `patch_embeds` (b, patches, d) go before the tokens, cast to their
     dtype) -> layers (caches updated in place; cross-attention layers read
     `encoder_out`) -> final norm. Returns (x, aux): aux is the MoE layers'
     router losses summed, or 0.0 when no layer has one. The rope tables are
     built once and shared by every layer. In "train" mode (no caches), with
-    remat="full" each repeat's body runs under activation checkpointing
-    (torch.utils.checkpoint, non-reentrant): only its input is kept and the
-    body runs again in the backward pass, as the reference's _run_group
-    wraps it in jax.checkpoint."""
+    remat "full" or "dots" each repeat's body runs under activation
+    checkpointing (_remat), as the reference's _run_group wraps it in
+    jax.checkpoint. `gather` (training over a mesh, train/fsdp.py) maps a
+    repeat's layer shards to the layers it computes with: it runs inside
+    the body, so under remat the layer is gathered again in the backward
+    pass and one repeat's whole weights are live at a time."""
     x = _embed(params["embed"], cfg, tokens).to(compute_dtype(params))
     if patch_embeds is not None:
         # a replicated input under a serving mesh, as the tokens are
@@ -271,15 +316,16 @@ def _hidden(params, cfg: ModelConfig, tokens, *, mode, caches, positions,
         group = params[f"group{gi}"]
         for r in range(repeats):
             if mode == "train":
-                def body(h, layer=group[r], period=period):
+                def body(h, layer=group[r], period=period, gi=gi):
+                    if gather is not None:
+                        layer = gather(layer, f"group{gi}")
                     total = 0.0
                     for li, spec in enumerate(period):
                         h, _, a = blocks.apply_layer(layer[f"l{li}"], h,
                                                      spec, cfg, **kw)
                         total = total + a
                     return h, total
-                x, a = (checkpoint(body, x, use_reentrant=False)
-                        if remat == "full" else body(x))
+                x, a = _remat(body, x, remat)
                 aux = aux + a
                 continue
             for li, spec in enumerate(period):
@@ -319,14 +365,19 @@ def run_encoder(params, cfg: ModelConfig, frames, *, act=None,
 def _head(params, cfg: ModelConfig, x):
     """Logits: tied through the embedding, or an untied head; packed tables
     dequantize through wq_lib.dense (in x's dtype), as in the reference.
-    Under a serving mesh that splits the vocabulary each rank computes its
-    shard and the shards are gathered: every rank gets the full logits."""
+    Under a mesh that splits the vocabulary each rank computes its shard
+    and the shards are gathered: every rank gets the full logits (in
+    training the replicated x enters the shard through
+    shard_ctx.enter_model)."""
+    split = shard_ctx.active_mesh() is not None and shard_ctx.vocab_splits(
+        cfg.vocab_size, shard_ctx.model_size())
+    if split:
+        x = shard_ctx.enter_model(x)
     if cfg.tie_embeddings:
         logits = x @ wq_lib.dense(params["embed"], x.dtype).t()
     else:
         logits = x @ wq_lib.dense(params["head"], x.dtype)
-    if shard_ctx.active_mesh() is not None and shard_ctx.vocab_splits(
-            cfg.vocab_size, shard_ctx.model_size()):
+    if split:
         logits = shard_ctx.gather_vocab(logits)
     return logits
 
@@ -349,21 +400,29 @@ def apply_lm(params, cfg: ModelConfig, tokens, *, mode: str = "train",
              act=None, paged_impl: str = "kernel", attn_quant=None,
              remat: Optional[str] = None, q_chunk: int = 1024,
              kv_chunk: int = 1024, attn_impl: str = "kernel",
-             patch_embeds=None, encoder_frames=None, encoder_out=None):
+             patch_embeds=None, encoder_frames=None, encoder_out=None,
+             gather: Optional[Callable] = None):
     """Returns (logits, caches, aux_loss): the training forward over the
     whole sequence (mode="train", no caches, positions [0, s) over the
     patch prefix and the tokens), or a "decode" step or "prefill" pass
     (the caches updated in place). An enc-dec model runs its encoder over
     `encoder_frames` unless `encoder_out` is given, or unless it decodes
     from caches (the cross K/V are cached). aux_loss is the MoE router
-    losses' sum (0.0 for a dense model). `remat` (None | "full") and
+    losses' sum (0.0 for a dense model). `remat` (None | "full" | "dots"),
     `attn_impl` ("kernel" | "plain": the flash kernel on the card, or the
-    plain scan) apply to "train"."""
+    plain scan) and `gather` apply to "train": under a training mesh
+    `params` are a rank's shards and gather(tree, where) gives the
+    parameters a piece computes with — the top-level leaves (where None)
+    here, each repeat's layers (where "group{i}") inside its body."""
     _check_remat(remat)
     act = act or make_act(cfg, tokens.device)
     if mode == "train":
         if caches is not None or paged is not None:
             raise ValueError("mode='train' runs without caches")
+        if gather is not None:
+            top = {k: v for k, v in params.items()
+                   if not k.startswith("group") and k != "encoder"}
+            params = {**params, **gather(top, None)}
         if positions is None:
             s = tokens.shape[1] + (0 if patch_embeds is None
                                    else patch_embeds.shape[1])
@@ -377,32 +436,38 @@ def apply_lm(params, cfg: ModelConfig, tokens, *, mode: str = "train",
                      paged_impl=paged_impl, attn_quant=attn_quant,
                      remat=remat, q_chunk=q_chunk, kv_chunk=kv_chunk,
                      attn_impl=attn_impl, patch_embeds=patch_embeds,
-                     encoder_out=encoder_out)
+                     encoder_out=encoder_out, gather=gather)
     return _head(params, cfg, x), caches, aux
 
 
 def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             act=None, q_chunk: int = 1024, kv_chunk: int = 1024,
             remat: Optional[str] = None,
-            attn_impl: str = "kernel") -> torch.Tensor:
+            attn_impl: str = "kernel",
+            gather: Optional[Callable] = None) -> torch.Tensor:
     """Next-token cross-entropy over batch["tokens"] / batch["labels"]
     (b, s), plus the MoE router's load-balancing loss: log-softmax in f32
     over the last labels.shape[1] positions (a vision prefix,
     batch["patch_embeds"], carries no labels; Whisper's encoder reads
     batch["encoder_frames"]), labels < 0 masked out, the mean over the
     rest. Only the f32 log-probabilities are kept for the backward, not a
-    second f32 copy of the logits."""
+    second f32 copy of the logits. Under a training mesh the batch is a
+    data rank's rows and the count of the mean is summed over the data
+    axis (shard_ctx.sum_data): the loss is this rank's share of the global
+    mean, and the data ranks' shares sum to it."""
     logits, _, aux = apply_lm(params, cfg, batch["tokens"], mode="train",
                               act=act, q_chunk=q_chunk, kv_chunk=kv_chunk,
                               remat=remat, attn_impl=attn_impl,
                               patch_embeds=batch.get("patch_embeds"),
-                              encoder_frames=batch.get("encoder_frames"))
+                              encoder_frames=batch.get("encoder_frames"),
+                              gather=gather)
     labels = batch["labels"]
     logp = torch.log_softmax(logits[:, -labels.shape[1]:].float(), dim=-1)
     del logits
     mask = (labels >= 0).to(torch.float32)
     ll = torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
-    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0) + aux
+    count = shard_ctx.sum_data(mask.sum())
+    return -(ll * mask).sum() / torch.clamp(count, min=1.0) + aux
 
 
 def decode_step(params, cfg: ModelConfig, tokens, caches, *,

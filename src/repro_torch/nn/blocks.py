@@ -148,7 +148,9 @@ def apply_attention(params, x, cfg, *, rope,
     KVCache's length set to s; a CrossKV takes the projected encoder K/V
     whole (with the bias where a config sets qkv_bias, which no registered
     enc-dec arch does; the reference's cross cache leaves it out)."""
-    src = x if kv_source is None else kv_source
+    # the projections are column-parallel over heads under a mesh
+    x = shard_ctx.enter_model(x)
+    src = x if kv_source is None else shard_ctx.enter_model(kv_source)
     q, k, v = (_proj(x, params["wq"]), _proj(src, params["wk"]),
                _proj(src, params["wv"]))
     if cfg.qkv_bias:
@@ -338,7 +340,10 @@ def apply_mlp(params, x, act: Callable, gated: bool = True,
     2-D weights go to the matmul_wq kernel (its plain version on the
     CPU). With `reduce` the weights are this rank's d_ff shard under a
     serving mesh: w_down's partial products are summed over the model
-    axis."""
+    axis (and in training the replicated x enters w_gate / w_up's shards
+    through shard_ctx.enter_model)."""
+    if reduce:
+        x = shard_ctx.enter_model(x)
     if gated:
         h = (act(wq_lib.matmul(x, params["w_gate"]))
              * wq_lib.matmul(x, params["w_up"]))

@@ -25,8 +25,20 @@ tensor: the tick's new K/V rows (models/lm.decode_step's write-back), its
 (a data rank's decode tick), an MoE layer's input, so every rank routes
 and drops over the whole batch as the unsharded engine does; it is a no-op
 on a one-rank data axis, so a (1, M) mesh issues the model axis's
-collectives alone. These five are the model code's and the engine's only
-tensor collectives. Under a mesh the paged kernels also plan their
+collectives alone. Training (launch/steps.make_train_step(mesh=)) runs
+the same model code with autograd on: each of these is a
+torch.autograd.Function there,
+with its backward (reduce_model's and sum_model's the identity,
+gather_vocab's the rank's slice of the gradient), and one more marks where
+a replicated activation enters a column-parallel product,
+`enter_model(x)`: the identity forward, the gradient summed over the
+model group backward (Megatron's "f"), so the residual stream's, the
+norms' and the embedding's gradients are every rank's contributions, not
+this rank's alone. `sum_data(s)` sums an f32 statistic over the data axis
+without a gradient (the loss's token count). Under torch.no_grad (serving)
+each runs its forward alone: the bits and the collectives are the ones
+serving has always issued. These are the model code's and the engine's
+only tensor collectives. Under a mesh the paged kernels also plan their
 sequence split for the unsharded KV-head count (`plan_kv_heads`) and, in
 decode, the unsharded slot count (`plan_batch`), so each head's and each
 slot's attention is the unsharded launch's bits. `vocab_splits` /
@@ -68,6 +80,31 @@ def use(mesh, plan_kv_heads: Optional[int] = None,
         yield
     finally:
         _STATE.mesh, _STATE.plan, _STATE.batch = prev
+
+
+_FIELDS = (("mesh", None), ("plan", None), ("batch", None), ("writes", None),
+           ("rows", False))
+
+
+def snapshot() -> tuple:
+    """This thread's context (the mesh and every setting above), for
+    `restored` on another thread."""
+    return tuple(getattr(_STATE, k, d) for k, d in _FIELDS)
+
+
+@contextlib.contextmanager
+def restored(snap: tuple):
+    """Run the block under a `snapshot` taken on another thread: autograd
+    runs a CUDA backward, and with it activation checkpointing's
+    recomputed forward, on a thread of its own, which holds no context."""
+    prev = snapshot()
+    for (k, _), v in zip(_FIELDS, snap):
+        setattr(_STATE, k, v)
+    try:
+        yield
+    finally:
+        for (k, _), v in zip(_FIELDS, prev):
+            setattr(_STATE, k, v)
 
 
 def plan_kv_heads() -> Optional[int]:
@@ -202,6 +239,23 @@ def ssm_splits(heads: int, groups: int, m: int) -> Tuple[bool, bool]:
     return groups == 1, False
 
 
+class _PartialMM(torch.autograd.Function):
+    """a @ w in f32 from bf16 operands on the card (torch.mm's f32 output,
+    which has no autograd formula of its own); the backward runs the two
+    products in the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return torch.mm(a, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return g @ w.t(), a.t() @ g
+
+
 def row_partial(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """A row-parallel product's partial a @ w (a 2-D or 3-D, w 2-D) for
     reduce_model to sum: in f32 where the model axis has several ranks (on
@@ -212,33 +266,113 @@ def row_partial(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return a @ w
     if a.is_cuda:
         a2 = a.reshape(-1, a.shape[-1])
-        out = torch.mm(a2, w, out_dtype=torch.float32)
+        if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+            out = _PartialMM.apply(a2, w)
+        else:
+            out = torch.mm(a2, w, out_dtype=torch.float32)
         return out.reshape(a.shape[:-1] + (w.shape[-1],))
     return (a @ w).float()
+
+
+def _grad_on(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _all_reduce(y: torch.Tensor, axis: str, group=None) -> torch.Tensor:
+    import torch.distributed as dist
+    dist.all_reduce(y, group=group or active_mesh().get_group(axis))
+    return y
+
+
+class _SumModel(torch.autograd.Function):
+    """Forward: the f32 sum over the model group, cast to x's dtype.
+    Backward: the identity (the output is replicated, and so is the
+    gradient that reaches it)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return _all_reduce(x.to(torch.float32, copy=True), "model").to(
+            x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+# The Functions' backward runs on autograd's thread (a CUDA backward's is
+# its own, with no shard_ctx context): each keeps what it needs in ctx.
+
+class _EnterModel(torch.autograd.Function):
+    """Forward: the identity. Backward: the gradient summed over the model
+    group (each rank's holds only its shard's contribution)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.group = active_mesh().get_group("model")
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous().clone(), "model", ctx.group)
+
+
+class _GatherVocab(torch.autograd.Function):
+    """Forward: the ranks' vocabulary shards concatenated on the last axis.
+    Backward: this rank's slice of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, logits):
+        ctx.n, ctx.r = logits.shape[-1], model_rank()
+        return _gather_model_last(logits)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.r * ctx.n, ctx.n).contiguous()
 
 
 def reduce_model(x: torch.Tensor) -> torch.Tensor:
     """Sum `x` over the model group (in f32, cast back once); identity
     without a mesh and on a one-rank model axis (no collective: a sum of
-    one term). Every rank gets the same bits."""
+    one term). Every rank gets the same bits. With autograd on, its
+    backward is the identity."""
     if model_size() == 1:
         return x
-    return _sum_model(x.to(torch.float32, copy=True)).to(x.dtype)
+    if _grad_on(x):
+        return _SumModel.apply(x)
+    return _all_reduce(x.to(torch.float32, copy=True), "model").to(x.dtype)
+
+
+def enter_model(x: torch.Tensor) -> torch.Tensor:
+    """Where a replicated activation enters a column-parallel product (a
+    model-axis shard of heads, of d_ff or of the vocabulary): x itself
+    forward; with autograd on, the gradient summed over the model group
+    backward. x itself without a mesh, on a one-rank model axis and
+    without autograd (serving)."""
+    if model_size() == 1 or not _grad_on(x):
+        return x
+    return _EnterModel.apply(x)
 
 
 def sum_model(s: torch.Tensor) -> torch.Tensor:
     """An f32 statistic summed over the model group (a fresh tensor; s
     itself without a mesh and on a one-rank model axis). Every rank gets
-    the same bits."""
+    the same bits. With autograd on, its backward is the identity."""
     if model_size() == 1:
         return s
-    return _sum_model(s.clone())
+    if _grad_on(s):
+        return _SumModel.apply(s)
+    return _all_reduce(s.clone(), "model")
 
 
-def _sum_model(y: torch.Tensor) -> torch.Tensor:
-    import torch.distributed as dist
-    dist.all_reduce(y, group=active_mesh().get_group("model"))
-    return y
+def sum_data(s: torch.Tensor) -> torch.Tensor:
+    """An f32 statistic summed over the data group, without a gradient (a
+    fresh tensor; s itself without a mesh and on a one-rank data axis):
+    the training loss's token count, so each data rank's partial is its
+    share of the global mean."""
+    if data_size() == 1:
+        return s
+    return _all_reduce(s.detach().clone(), "data")
 
 
 def gather_data(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -255,14 +389,22 @@ def gather_data(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def _gather_model_last(x: torch.Tensor) -> torch.Tensor:
+    import torch.distributed as dist
+    mesh = active_mesh()
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(model_size(mesh))]
+    dist.all_gather(parts, x, group=mesh.get_group("model"))
+    return torch.cat(parts, dim=-1)
+
+
 def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
     """Concatenate the model ranks' vocabulary shards of `logits` along the
-    last axis; identity without a mesh and on a one-rank model axis."""
+    last axis; identity without a mesh and on a one-rank model axis. With
+    autograd on, its backward keeps this rank's slice of the gradient."""
     mesh = active_mesh()
     if mesh is None or model_size(mesh) == 1:
         return logits
-    import torch.distributed as dist
-    logits = logits.contiguous()
-    parts = [torch.empty_like(logits) for _ in range(model_size(mesh))]
-    dist.all_gather(parts, logits, group=mesh.get_group("model"))
-    return torch.cat(parts, dim=-1)
+    if _grad_on(logits):
+        return _GatherVocab.apply(logits)
+    return _gather_model_last(logits)

@@ -11,6 +11,13 @@ atomic commits in ckpt/. Fault tolerance:
     are logged (on a cluster that feeds the reschedule signal).
 Reading the loss each step (`float(...)`) waits for the device, as the
 reference's does.
+
+Under a training mesh (`mesh`, `placement`: launch/steps.make_train_step's)
+every rank runs the loop: checkpoints are sharded (each rank writes its
+pieces, global rank 0 commits) and restore onto this mesh whatever shape
+wrote them; only global rank 0 logs; the NaN fuse reads the loss, which is
+the same bits on every rank, and the straggler check reads the slowest
+rank's step time (a max over the ranks), so both decide alike everywhere.
 """
 from __future__ import annotations
 
@@ -41,14 +48,23 @@ def run(
     batch_fn: Callable[[int], Dict],
     loop: LoopConfig,
     log: Callable[[str], None] = print,
+    mesh=None,
+    placement=None,
 ):
+    if mesh is not None:
+        from repro_torch.launch.mesh import global_rank
+        from repro_torch.launch.steps import state_placement
+        if global_rank(mesh):
+            log = _silent
+        placement = state_placement(placement)
     start = 0
     if loop.ckpt_dir:
         last = ckpt_lib.latest_step(loop.ckpt_dir)
         if last is not None:
             log(f"[resume] restoring step {last} from {loop.ckpt_dir}")
             state = ckpt_lib.restore(loop.ckpt_dir, last,
-                                     {"params": params, "opt": opt_state})
+                                     {"params": params, "opt": opt_state},
+                                     mesh=mesh, placement=placement)
             params, opt_state = state["params"], state["opt"]
             start = last
 
@@ -60,6 +76,8 @@ def run(
         params, opt_state, metrics = train_step(params, opt_state, batch)
         loss = float(metrics["loss"])
         dt = time.time() - t0
+        if mesh is not None:
+            dt = _slowest(mesh, dt)
         times.append(dt)
         losses.append(loss)
 
@@ -83,8 +101,23 @@ def run(
         if loop.ckpt_dir and (step + 1) % loop.ckpt_every == 0:
             ckpt_lib.save(loop.ckpt_dir, step + 1,
                           {"params": params, "opt": opt_state},
-                          keep=loop.keep)
+                          keep=loop.keep, mesh=mesh, placement=placement)
             log(f"[ckpt] committed step {step + 1}")
 
     return params, opt_state, {"losses": losses, "times": times,
                                "start": start}
+
+
+def _silent(_msg: str) -> None:
+    pass
+
+
+def _slowest(mesh, dt: float) -> float:
+    """The largest of the ranks' step times (over the mesh's host group)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import host_group
+    t = torch.tensor([dt], dtype=torch.float64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=host_group(mesh))
+    return float(t)

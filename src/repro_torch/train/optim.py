@@ -15,7 +15,9 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.nn import shard_ctx
 from repro_torch.nn.common import tree_flatten, tree_map
+from repro_torch.train.fsdp import cut_sums
 
 
 class OptState(NamedTuple):
@@ -58,19 +60,31 @@ def init_opt_state(params) -> OptState:
                     m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, placement=None) -> torch.Tensor:
+    """The L2 norm of every leaf of `tree` together. Under a training mesh
+    (shard_ctx.use) with `placement` (the leaves' train/fsdp.Cut tree) the
+    leaves are this rank's shards: each leaf's sum of squares is summed
+    over the mesh axes it is cut on, and only those (train/fsdp.cut_sums),
+    so every rank clips by the whole gradient's norm, the same bits."""
+    mesh = shard_ctx.active_mesh()
+    if placement is not None and mesh is not None:
+        return torch.sqrt(cut_sums(tree, placement, mesh))
     return torch.sqrt(sum(x.float().square().sum()
                           for _, x in tree_flatten(tree)))
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, state: OptState
+def adamw_update(cfg: AdamWConfig, params, grads, state: OptState, *,
+                 placement=None
                  ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step. `params`, `state.m` and `state.v` are updated in
-    place (see the module note) and returned with the new step count."""
+    place (see the module note) and returned with the new step count.
+    Under a training mesh they are this rank's shards (the moments cut as
+    their parameters are: the update is elementwise) and `placement` makes
+    the clip's norm the whole gradient's (global_norm)."""
     step = state.step + 1
     lr = lr_schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, placement)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     b1c = 1.0 - cfg.b1 ** step.to(torch.float32)

@@ -4,9 +4,9 @@ paper's flow (d), training (e), the prefix cache, preemption and cancel (f),
 the glm4 / qwen archs (g), sampled decoding, telemetry and fault
 containment (h), durable serving (i), MoE / LLaVA (j), the dense
 backend (k), tensor-parallel serving over a mesh (l), the mesh's data
-axis with durable serving and the front door under it (m) and the mesh
-for MoE, MLA, Mamba-2 and the encoder-decoder (n) — hold together
-end to end in a
+axis with durable serving and the front door under it (m), the mesh
+for MoE, MLA, Mamba-2 and the encoder-decoder (n) and training over a
+(data, model) mesh (o) — hold together end to end in a
 CPU rehearsal at smoke size (plain kernel versions, no timings; exit 1 by
 design)."""
 import importlib.util
@@ -49,7 +49,8 @@ def test_cpu_rehearsal_runs_every_phase(capsys, tmp_path):
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        rc = _load().main(["--rehearse", "--out", str(tmp_path / "r.json")])
+        mod = _load()
+        rc = mod.main(["--rehearse", "--out", str(tmp_path / "r.json")])
     finally:
         torch.set_num_threads(n)
     out = capsys.readouterr()
@@ -253,7 +254,7 @@ def test_cpu_rehearsal_runs_every_phase(capsys, tmp_path):
                for r in mesh["mesh_1x2_grau"]["ranks"])
     assert mesh["mesh_1x2_wq4_kv4_grau"]["packed_planes_compared"] > 0
     assert [mesh[f"mesh_1x2_{label}"]["requests"] for label in (
-        "grau", "wq4_kv4_grau", "dense")] == [8, 2, 2]
+        "grau", "wq4_kv4_grau", "dense")] == [2, 2, 2]
     shards = [k["rank_shape"] for k in kernels[1:5]] + [
         kernels[-1]["rank_shape"]]
     assert all(r["heads"] == [2, 1] and r["same_bits_as_full_launch"]
@@ -298,7 +299,8 @@ def test_cpu_rehearsal_runs_every_phase(capsys, tmp_path):
         assert row["greedy_identical_share"] == 1.0
         assert row["requests"] == 2
         assert [r["rank"] for r in row["ranks"]] == [0, 1]
-        assert all(r["decode_tokens"] == 2 * 16 for r in row["ranks"])
+        assert all(r["decode_tokens"] == 2 * mod.N_NEW[label]
+                   for r in row["ranks"])
         if label in ("llama4", "deepseek"):
             assert all(r["flips"] and not any(r["flips"])
                        for r in row["ranks"])
@@ -316,9 +318,44 @@ def test_cpu_rehearsal_runs_every_phase(capsys, tmp_path):
         ("flash_attention_rank_mla", [2, 2], True),
         ("flash_attention_rank_whisper_encoder", [2, 2], True),
         ("flash_attention_rank_whisper_cross", [2, 2], True)]
+    # slice (o), in the same rank processes after (n): training at (1, 2)
+    # and (2, 1) against the one-card step (f32 here: the same loss and
+    # gradients to rounding), the f32 gate, the elasticity check; its
+    # seconds beside the S1 cuts' estimate
+    o = mesh["o"]
+    for key in ("1x2", "2x1", "f32_1x2", "f32_2x1"):
+        row = o[key]
+        assert row["loss_rel"] < 1e-5 and row["grad_rel_l2_max"] < 1e-5
+        assert row["grad_leaves"] == 2 + 9 * row["layers"]
+        assert len(row["losses"]) == (3 if key in ("1x2", "2x1") else 1)
+        assert [r["rank"] for r in row["ranks"]] == [0, 1]
+        assert all(r["collectives_a_step"] > 0 and r["step0_counted_s"] > 0
+                   and len(r["step_s"]) == len(row["losses"]) - 1
+                   for r in row["ranks"])
+    full = o["2x1"]["ranks"][0]["param_bytes"]
+    assert all(abs(r["param_bytes"] - full) <= 0.01 * full
+               for r in o["1x2"]["ranks"])
+    assert all(r["moment_bytes"] == 2 * r["param_bytes"]      # f32 here
+               for r in o["1x2"]["ranks"])
+    assert o["elastic"]["digests_equal"] and o["elastic"]["loss_rel"] < 1e-5
+    assert o["elastic"]["manifest_mesh"] == {"data": 2, "model": 1}
+    s1 = mesh["s1"]
+    assert s1["l_b_forwards_cut"] > 0 and s1["freed_s"] > 0
+    assert s1["o_seconds"] == o["seconds"] + o["import_s"]
+    assert o["seconds"] > 0 and o["import_s"] > 0
+    assert report["phase_s_total"] == sum(report["phase_s"].values())
+    row = kernels[-1]["rank_shape_slice_o"]
+    assert row["heads"] == [2, 1] and row["same_bits_as_full_launch"]
+    assert set(kernels[-1]["launches_slice_o"]) == {
+        "1x2", "2x1", "f32_1x2", "f32_2x1"}
+    # slice (e)'s remat "dots" steps beside "full"'s
+    dots = report["train"]["dots"]
+    assert len(dots["losses"]) == 3 and dots["full_median_step_s"] > 0
+    assert "launches_slice_e_dots" in kernels[-1]
     assert "slice_l" in report["phase_s"]
-    # (l) and (m) inside the phase as before; (n) bounded above
-    assert report["phase_s"]["slice_l"] - n["seconds"] < 60
+    # (l) and (m) inside the phase as before; (n) and (o) bounded above
+    assert report["phase_s"]["slice_l"] - n["seconds"] - o["seconds"] < 60
+    assert 0 < o["seconds"] < 30
     assert '"ok"' not in out.out
 
 

@@ -142,3 +142,28 @@ def test_sigterm_drains_snapshots_and_resumes(uninterrupted, tmp_path,
     assert rc == 0, out
     assert not tjl.replay(path).live
     assert journal_streams(path) == uninterrupted
+
+
+def test_layers_serves_the_first_n_layers(capsys):
+    """--layers N serves the arch cut to its first N layers at full width:
+    the weights are init_lm's of the cut config, bit for bit in bytes; an
+    arch whose layers are of several kinds is refused."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import lm
+    from repro_torch.models.config import dense_groups
+    from repro_torch.quant.weights import packed_param_bytes
+
+    launcher.main(["--smoke", "--device", "cpu", "--dtype", "float32",
+                   "--requests", "2", "--slots", "2", "--max-seq", "64",
+                   "--max-new", "4", "--layers", "1"])
+    metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cut = get_config("llama3.2-3b", smoke=True).replace(
+        groups=dense_groups(1))
+    want = packed_param_bytes(lm.init_lm(cut, seed=0, dtype=torch.float32,
+                                         device="cpu"))
+    assert metrics["weight_bytes"] == want
+    assert metrics["decode_tokens"] == 8
+    with pytest.raises(SystemExit):
+        launcher.main(["--smoke", "--device", "cpu", "--arch",
+                       "jamba-v0.1-52b", "--layers", "1"])

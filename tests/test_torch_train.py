@@ -229,16 +229,97 @@ def test_microbatches_and_remat_agree_inside_the_port():
     with pytest.raises(ValueError, match="microbatches"):
         tsteps.make_train_step(cfg, opt, microbatches=3)(
             params, toptim.init_opt_state(params), batch)
-    # remat "full" recomputes the same forward: identical loss and grads
+    # remat "full" and "dots" recompute the same forward: identical loss
+    # and grads
     res = [tsteps.make_loss_and_grads(cfg, remat=r, q_chunk=CHUNK,
                                       kv_chunk=CHUNK)(params, batch)
-           for r in (None, "full")]
-    assert float(res[0][0]) == float(res[1][0])
-    for (path, a), (_, b) in zip(tree_flatten(res[0][1]),
-                                 tree_flatten(res[1][1])):
-        assert torch.equal(a, b), path
-    with pytest.raises(NotImplementedError, match="dots"):
-        tlm.lm_loss(params, cfg, batch, remat="dots")
+           for r in (None, "full", "dots")]
+    for other in res[1:]:
+        assert float(res[0][0]) == float(other[0])
+        for (path, a), (_, b) in zip(tree_flatten(res[0][1]),
+                                     tree_flatten(other[1])):
+            assert torch.equal(a, b), path
+    with pytest.raises(ValueError, match="remat"):
+        tlm.lm_loss(params, cfg, batch, remat="attn")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("grau", [False, True])
+def test_dots_step_matches_the_references_dots(arch, grau):
+    """remat "dots" (the reference's dots_with_no_batch_dims_saveable, the
+    port's selective checkpointing of mm / addmm): the loss within 1e-5 and
+    every gradient within 1e-4 (1e-3 with GRAU) of the reference's "dots"
+    step."""
+    jcfg, tcfg = _configs(arch, grau)
+    jp, _ = jlm.init_lm(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    batch = _batch(jcfg.vocab_size, 2)
+    act = jlm.make_act(jcfg)
+    loss, grads = jax.jit(jax.value_and_grad(lambda p, b: jlm.lm_loss(
+        p, jcfg, b, act=act, q_chunk=CHUNK, kv_chunk=CHUNK,
+        remat="dots")))(jp, _j(batch))
+    params = from_reference(jp, tcfg, device="cpu")
+    tl, tg = tsteps.make_loss_and_grads(tcfg, remat="dots", q_chunk=CHUNK,
+                                        kv_chunk=CHUNK)(params, _t(batch))
+    assert abs(float(tl) - float(loss)) <= 1e-5 * abs(float(loss))
+    want = dict(tree_flatten(from_reference(grads, tcfg, device="cpu")))
+    tol = 1e-3 if grau else 1e-4
+    for path, g in tree_flatten(tg):
+        err = _rel_l2(g.numpy(), want[path].numpy())
+        assert err <= tol, f"{path}: rel L2 {err:.3g}"
+
+
+def test_dots_recomputes_no_mm_and_full_every_one():
+    """aten.mm counted under a dispatch mode while the backward runs: "dots"
+    recomputes no mm (remat None's count: the gradients' own products);
+    "full" recomputes every mm of the layers' forward (the forward's count
+    less the head's one, which runs outside the checkpointed bodies) that
+    the backward reads — all but each body's last, w_down, whose output
+    only the residual sum takes (it keeps nothing), so torch's
+    non-reentrant checkpoint stops its recomputation before it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountMM(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func._overloadpacket in tlm.DOTS_SAVED:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    cfg, params = _smoke(grau=True)
+    batch = _t(_batch(cfg.vocab_size, 4))
+    leaves = [p.requires_grad_() for _, p in tree_flatten(params)]
+    counts = {}
+    for remat in (None, "full", "dots"):
+        fwd = CountMM()
+        with fwd:
+            loss = tlm.lm_loss(params, cfg, batch, q_chunk=CHUNK,
+                               kv_chunk=CHUNK, remat=remat)
+        bwd = CountMM()
+        with bwd:
+            torch.autograd.grad(loss, leaves)
+        counts[remat] = (fwd.n, bwd.n)
+    layers_mm = counts[None][0] - 1
+    assert layers_mm == cfg.num_layers * 7        # q, k, v, o, gate, up, down
+    assert all(c[0] == counts[None][0] for c in counts.values())
+    assert counts["dots"][1] == counts[None][1]
+    assert counts["full"][1] == counts[None][1] + layers_mm - cfg.num_layers
+
+
+def test_launcher_mesh_1x2_gives_the_one_device_losses(capsys):
+    """launch.train --mesh 1x2 (two gloo rank processes on the CPU): the
+    final loss it prints is the one-device run's within 1e-5."""
+    from repro_torch.launch import train
+    argv = ["--arch", "llama3.2-3b", "--smoke", "--device", "cpu",
+            "--steps", "2", "--seq-len", "32", "--batch", "2"]
+    one = train.main(argv)
+    mesh = train.main(argv + ["--mesh", "1x2"])
+    assert abs(mesh[-1] - one[-1]) <= 1e-5 * abs(one[-1])
+    out = capsys.readouterr().out
+    assert out.count("final loss") == 2
+    assert f"final loss: {mesh[-1]:.8g}" in out
 
 
 def test_training_reduces_loss():
