@@ -250,6 +250,21 @@ Phases (any failure exits non-zero):
      (1, 2) rank's MLP shares (3072 x 4096, 4096 x 3072) against its
      plain version, timed beside torch.matmul and the bound.
      Launch counters are zeroed before and read after each run.
+  4. roofline: the port's work count (src/repro_torch/roofline/) held
+     against the card. At every decode bucket (b)'s and (c)'s served
+     windows ticked in with a live slot, ServeEngine.decode_cost (a count
+     on the engine's meta copy, kept from the run) launches by kernel
+     what each served tick launched,
+     and where the window served ROOF_TICKS or more ticks there, the
+     median of their times (CUDA events around each) is set against its
+     roofline bound (the share must not pass 1.0); (c)'s weight bytes are
+     metrics()'s. In (l)'s (1, 2) ranks one tick's collectives by
+     decode_cost are a real tick's; (o)'s rank bytes by
+     launch/steps.build_cell are what each rank held; (e)'s remat "full"
+     step is counted beside train_flops; `python -m
+     repro_torch.launch.dryrun --arch llama3.2-3b --mesh single`, in a
+     process of its own beside the phase's counts, exits 0. The kernel rows' bounds are the
+     wrappers' recorded costs (kernels/*.cost), the count's own.
 Each phase prints its seconds. The last two lines are the kernels JSON and
 the result line.
 
@@ -279,15 +294,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
-PEAK_OPS = {                      # dense peaks, H100 SXM
-    "bf16": 989e12,               # tensor cores (data sheet)
-    # the data sheet has no int32 entry: 64 INT32 lanes per SM x 132 SMs x
-    # the 1.98 GHz boost clock, one operation a lane a cycle (a compare, a
-    # shift, a select or an add is one operation, not a multiply-add pair)
-    "int32": 16.7e12,
-    "int8": 1979e12,              # tensor cores, dense (data sheet)
-}
+# The card's peaks, bound(), train_flops() and the work count live in the
+# port's roofline package (src/repro_torch/roofline/): one yardstick for
+# this script and the port's own counts.
 # Kernel vs plain, element by element: |got - want| <= atol + rtol * |want|.
 F32_TOL = 2e-5      # f32: the same sums in another order (FMA contraction)
 # bf16 output: both sides round an f32 result (held at F32_TOL) to bf16, so
@@ -403,10 +412,12 @@ def cycling(fns):
     return call
 
 
-def bound(nbytes, ops, kind):
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[kind] * 1e3
-    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+def cost_bound(c):
+    """roofline/analyze.bound of a kernel wrapper's recorded cost
+    (roofline/count.Cost): the bound a roofline count of the same call
+    adds up."""
+    from repro_torch.roofline.analyze import bound
+    return bound(c.nbytes, c.flops + c.ops, c.kind)
 
 
 # ---------------------------------------------------------------------------
@@ -484,11 +495,6 @@ def check_grau(torch, np, dev, shapes, rng, timed):
 # array of MAC outputs (an MLP's width at 2048 rows), timed over copies
 # past L2.
 GRAU_TIMED = [(256, 512), (128, 256), (32768, 16), (8192, 32), (2048, 8192)]
-# Integer operations of the datapath an element, as csrc/grau_datapath.cuh
-# runs it: 7 compares and 7 adds (the comparator bank), 3 table selects,
-# the enc mask, the multiply-add and 2 clamps; then 4 a fired stage (find
-# the lowest set bit, shift, add, clear the bit).
-GRAU_OPS_BASE, GRAU_OPS_STAGE = 21, 4
 
 
 def quickstart_unit():
@@ -502,9 +508,11 @@ def quickstart_unit():
 
 
 def grau_ops(torch, x, spec):
-    """The integer operations the datapath needs on x: GRAU_OPS_BASE an
-    element plus GRAU_OPS_STAGE for each stage that fires on it (the set
-    bits of enc[segment] below num_exponents), counted from the data."""
+    """The integer operations the datapath needs on x: kernels/grau.py's
+    OPS_BASE an element plus OPS_STAGE for each stage that fires on it (the
+    set bits of enc[segment] below num_exponents), counted from the
+    data."""
+    from repro_torch.kernels.grau import OPS_BASE, OPS_STAGE
     from repro_torch.pwlf.spec import MAX_SEGMENTS, REG_BP, REG_ENC
     regs = spec.packed(x.device)
     seg = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
@@ -515,7 +523,7 @@ def grau_ops(torch, x, spec):
     fired = [bin(int(e) & mask).count("1")
              for e in regs[REG_ENC:REG_ENC + MAX_SEGMENTS].cpu()]
     stages = sum(int(n) * f for n, f in zip(per_seg.cpu(), fired))
-    return GRAU_OPS_BASE * x.numel() + GRAU_OPS_STAGE * stages, stages
+    return OPS_BASE * x.numel() + OPS_STAGE * stages, stages
 
 
 def grau_timing_case(torch, np, dev, rows, cols, rng):
@@ -532,8 +540,10 @@ def grau_timing_case(torch, np, dev, rows, cols, rng):
 def time_grau(torch, dev, spec, rows, cols, rng):
     """The unit on (rows, cols) int32 MAC outputs: the kernel under CUDA-
     graph replay (and eager events, which read the host's enqueue for a
-    small call), its plain version, and the bound: 5 bytes an element
-    against grau_ops' count at the int32 rate."""
+    small call), its plain version, and the bound of the wrapper's
+    recorded cost (kernels/grau.cost: 5 bytes an element and the register
+    file) with the stages that fire on this data (grau_ops) at the int32
+    rate."""
     import numpy as np
     from repro_torch.kernels import grau as gk
     xs = grau_timing_case(torch, np, dev, rows, cols, rng)
@@ -542,7 +552,8 @@ def time_grau(torch, dev, spec, rows, cols, rng):
               qmax=spec.qmax)
     kern = cycling([(lambda x=x: gk.grau_unit(x, regs, **kw)) for x in xs])
     ops, stages = grau_ops(torch, xs[0], spec)
-    t_bound, by = bound(5 * xs[0].numel(), ops, "int32")
+    t_bound, by = cost_bound(gk.cost(xs[0].numel(), spec.num_exponents,
+                                     stages=stages))
     return {"shape": [rows, cols], "copies": len(xs),
             "ms": graph_ms(torch, kern),
             "eager_ms": device_ms(torch, kern, 50, 5),
@@ -892,9 +903,10 @@ def paged_timing_case(torch, np, dev, name, s, group, rng, kv_bits,
     slots, ragged up to max_len) or, with `bucket`, at the table sliced to
     that many blocks (its row stride kept, as the engine slices it; every
     length inside the bucket), or one prefill chunk (b = 1) starting
-    mid-prompt, over 16-, 8- or 4-bit pools. Returns (kernel, plain, a list
-    of argument tuples, bytes, flops, library call); the bytes count the
-    live pools at kv_bits. Decode gets copies of its pools (and exponent
+    mid-prompt, over 16-, 8- or 4-bit pools. Returns (kernel calls, plain
+    call, bytes, flops, library call): the wrapper's recorded cost
+    (kernels/paged_attention.cost) over the blocks this data's lengths
+    cover (the live pools at kv_bits). Decode gets copies of its pools (and exponent
     planes) whose live bytes together exceed L2_SPAN_BYTES, so that a call
     cycling through them reads device memory, as a served tick's 28
     layers of pools do; the prefill's one case. `plan_kvh` / `plan_batch`:
@@ -916,9 +928,10 @@ def paged_timing_case(torch, np, dev, name, s, group, rng, kv_bits,
     h, d, kvh, bs = s["h"], s["d"], s["kvh"], s["bs"]
     if name == "paged_attention":
         ends = [int(n) for n in lengths.cpu()]
-        nbytes = (live_bytes(ends, bs, kvh, d, kv_bits) + 2 * 2 * q.numel()
-                  + 4 * len(ends))
-        flops = sum(4 * h * d * n for n in ends)
+        c = pa.cost(q, k, table, lengths, spec=None, out_dtype=q.dtype,
+                    k_exp=kv.get("k_exp"),
+                    live_blocks=sum(max(-(-n // bs), 1) for n in ends))
+        nbytes, flops = c.nbytes, c.flops
         lib = sdpa_yardstick(torch, q, kd, vd, table, lengths, group)
         kern, plain = pa.paged_attention, pa.paged_attention_plain
         copies = max(2, -(-L2_SPAN_BYTES // live_bytes(ends, bs, kvh, d,
@@ -935,9 +948,9 @@ def paged_timing_case(torch, np, dev, name, s, group, rng, kv_bits,
         width = -(-(int(start) + C) // bs)
         tab = table[1:2, :width].contiguous()
         qp = torch.randn((1, C, h, d), device=dev).to(torch.bfloat16)
-        end = int(start) + C
-        nbytes = live_bytes([end], bs, kvh, d, kv_bits) + 2 * 2 * qp.numel()
-        flops = sum(4 * h * d * (int(start) + r + 1) for r in range(C))
+        c = pa.cost(qp, k, tab, start, spec=None, out_dtype=qp.dtype,
+                    k_exp=kv.get("k_exp"))
+        nbytes, flops = c.nbytes, c.flops
         rows_end = start[:, None] + torch.arange(C, device=dev)[None]
         lib = sdpa_yardstick(torch, qp, kd, vd, tab, None, group, rows_end)
         kern, plain = pa.paged_prefill_attention, pa.paged_prefill_plain
@@ -966,6 +979,7 @@ def time_paged(torch, np, dev, name, s, group, rng, kv_bits=16,
     `parts`: the kernel's sequence parts (planned for `plan_kvh` KV heads
     and `plan_batch` decode slots when given); `pool_copies`: the decode's
     pool sets cycled through."""
+    from repro_torch.roofline.analyze import bound
     kerns, plain, nbytes, flops, lib = paged_timing_case(
         torch, np, dev, name, s, group, rng, kv_bits, plan_kvh=plan_kvh,
         plan_batch=plan_batch)
@@ -1098,7 +1112,8 @@ def time_matmul_wq(torch, dev, shapes, wname, M, bits):
     """One MLP product in bf16 over matmul_wq_case's weight copies: the
     kernel (CUDA-graph replay, and eager), its plain version, and
     torch.matmul on the same copies dequantized to bf16 (4x / 2x the bytes);
-    the bound counts x, the payload, the exponents and the output once.
+    the bound is the wrapper's recorded cost (kernels/matmul_wq.cost: x,
+    the payload, the exponents and the output once).
     `parts`: the kernel's K parts."""
     from repro_torch.kernels import matmul_wq as mm
     from repro_torch.quant import weights as wq
@@ -1106,8 +1121,8 @@ def time_matmul_wq(torch, dev, shapes, wname, M, bits):
     x, ws = matmul_wq_case(torch, dev, shapes, wname, M, bits)
     kern = [(lambda w=w: mm.matmul_wq(x, w)) for w in ws]
     dense = [wq.dense(w, torch.bfloat16) for w in ws]
-    nbytes = x.numel() * 2 + ws[0].q.numel() + ws[0].e.numel() + M * N * 2
-    t_bound, by = bound(nbytes, 2 * M * K * N, "bf16")
+    t_bound, by = cost_bound(mm.cost(x, ws[0].q, ws[0].e, K, None,
+                                     torch.bfloat16))
     return {"weight": wname, "M": M, "K": K, "N": N, "bits": bits,
             "parts": mm.plan_parts(M, N, K, ws[0].tile,
                                    sm_count(torch, dev))[0],
@@ -1219,7 +1234,7 @@ def time_matmul_grau(torch, dev, spec, M, K, N):
     regs = spec.packed(dev)
     kw = dict(num_exponents=spec.num_exponents, qmin=spec.qmin,
               qmax=spec.qmax)
-    t_bound, by = bound(M * K + K * N + M * N, 2 * M * K * N, "int8")
+    t_bound, by = cost_bound(mg.cost(M, K, N))
     # cuBLASLt's int8 kernels take both operands K-major: beside w as the
     # kernel takes it (row-major), time a column-major copy of it too
     kmajor = [w.t().contiguous().t() for w in ws]
@@ -1373,10 +1388,10 @@ def time_flash(torch, dev, shape, causal=True, s_kv=None):
     `s_kv` keys, another shape of the served path): the kernel (CUDA-graph
     replay, and eager), its plain version and
     F.scaled_dot_product_attention(is_causal, enable_gqa) on (b, h, s, d)
-    copies made before timing (replay and eager too). The bound: q, k, v
-    read and o, lse written once over the memory rate, against 4 b h s
-    s_kv d operations (halved when causal) over the bf16 tensor-core
-    peak."""
+    copies made before timing (replay and eager too). The bound: the
+    wrapper's recorded cost (kernels/flash_attention.cost: q, k, v read and
+    o, lse written once over the memory rate, against 4 d operations a
+    causal (query, key) pair and head over the bf16 tensor-core peak)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1396,9 +1411,7 @@ def time_flash(torch, dev, shape, causal=True, s_kv=None):
                     2e-2)
     need(ok, f"the SDPA yardstick computes another function (off by "
          f"{err:.3g})")
-    nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * b * h * s
-    t_bound, by = bound(nbytes, 4 * b * h * s * skv * d / (2 if causal
-                                                           else 1), "bf16")
+    t_bound, by = cost_bound(fa.cost(q, k, causal, 0))
     kern = lambda: fa.flash_attention(q, k, v, causal=causal)  # noqa: E731
     return {"shape": [b, s, h, kvh, d] + ([] if s_kv is None else [skv]),
             "kernel": fa.kernel_for(q.dtype, d),
@@ -1491,9 +1504,7 @@ def check_flash_dense(torch, np, dev, timed):
             ok, lib_err = close(lib().transpose(1, 2), o, 2e-2, 2e-2)
             need(ok, f"flash {label}: the SDPA yardstick computes another "
                  f"function (off by {lib_err:.3g})")
-            nbytes = 2 * (2 * qb.numel() + 2 * kb.numel()) + 4 * b * h * sq
-            ops = 4 * b * h * sq * skv * d / (2 if causal else 1)
-            t_bound, by = bound(nbytes, ops, "bf16")
+            t_bound, by = cost_bound(fa.cost(qb, kb, causal, 0))
             kern = lambda qb=qb, kb=kb, vb=vb, causal=causal: (  # noqa: E731
                 fa.flash_attention(qb, kb, vb, causal=causal))
             row.update(
@@ -1743,8 +1754,11 @@ def slice_phase(torch, np, dev, args, rehearse):
     results = {}
     for label, c, extra in (("float", cfg, {}),
                             ("grau", gcfg, {"attn_grau": attn})):
+        build, after = (roofline_probe(torch, np, dev, args.roofline, label,
+                                       rehearse) if label == "grau"
+                        else (None, None))
         res, streams = serve(torch, np, dev, c, params, {**ecfg, **extra},
-                             reqs_fn)
+                             reqs_fn, build=build, after=after)
         la = res["launches"]
         # (a CPU rehearsal runs the plain versions: no launches to count)
         need(rehearse or (la["paged_attention"] > 0
@@ -1780,7 +1794,10 @@ def slice_phase(torch, np, dev, args, rehearse):
         torch.cuda.empty_cache()
     label = "wq4_kv4_grau"
     qcfg = {**ecfg, "attn_grau": attn, "weight_bits": 4, "kv_bits": 4}
-    res, streams = serve(torch, np, dev, gcfg, packed, qcfg, reqs_fn)
+    build, after = roofline_probe(torch, np, dev, args.roofline, label,
+                                  rehearse)
+    res, streams = serve(torch, np, dev, gcfg, packed, qcfg, reqs_fn,
+                         build=build, after=after)
     la = res["launches"]
     mlp_per_forward = 3 * gcfg.num_layers
     res["matmul_wq_launches_per_forward"] = mlp_per_forward
@@ -4250,6 +4267,7 @@ def train_slice(torch, np, dev, args, rehearse):
     from repro_torch.models import lm
     from repro_torch.models.config import GRAUConfig
     from repro_torch.nn.common import tree_flatten
+    from repro_torch.roofline import analyze as roof
     from repro_torch.train import optim
     from repro_torch.train.loop import LoopConfig, run
 
@@ -4333,13 +4351,14 @@ def train_slice(torch, np, dev, args, rehearse):
     out["train"] = {
         "losses": hist["losses"], "step_s": hist["times"],
         "median_step_s": step_s, "tokens_per_s": tokens / step_s,
-        "model_flops_per_step": train_flops(cfg, batch_size, seq),
+        "model_flops_per_step": roof.train_flops(cfg, batch_size, seq),
         "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                         if cuda else None),
         "flash_launches": launches["flash_attention"],
         "flash_launches_want": want}
     out["train"]["flops_share_of_989e12"] = (
-        out["train"]["model_flops_per_step"] / step_s / PEAK_OPS["bf16"])
+        out["train"]["model_flops_per_step"] / step_s
+        / roof.H100.ops_per_s["bf16"])
     out["train"]["card"] = args.card
     log(f"train[8 steps]: {json.dumps(out['train'])}")
 
@@ -4387,20 +4406,6 @@ def train_slice(torch, np, dev, args, rehearse):
     out["resume"] = resume_check(torch, dev, args, grau, sync)
     log(f"train[resume]: {json.dumps(out['resume'])}")
     return out
-
-
-def train_flops(cfg, batch, seq):
-    """Model FLOPs of one training step (no remat recompute): 6 per
-    parameter and token for the projections, MLP and tied head, and the
-    causal attention's 4 b h s^2 d / 2 forward times 3 (forward and the
-    two-product backward)."""
-    d, hd = cfg.d_model, cfg.head_dim
-    per_layer = (d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
-                 + 3 * d * cfg.d_ff)
-    matmul = 6 * batch * seq * (cfg.num_layers * per_layer
-                                + d * cfg.vocab_size)
-    attn = 3 * cfg.num_layers * 4 * batch * cfg.num_heads * seq * seq * hd / 2
-    return matmul + attn
 
 
 def resume_check(torch, dev, args, grau, sync):
@@ -4525,9 +4530,21 @@ def profile_serve(torch, dev, cfg, params, ecfg, reqs_fn, path, label,
     out = {"window_steps": window, "decode_ticks": ticks,
            "prefill_chunks": chunks, "wall_s": wall,
            "device_busy_s": busy_s, "device_busy_share": busy_s / wall,
-           "top": top}
+           "top": top, "host_top": host_table(prof)}
     log(f"profile[{label}]: " + json.dumps(out))
     return out
+
+
+def host_table(prof, top=12):
+    """The `top` host ops of a profiled window by their own host time
+    (self CPU time: each op's dispatch, without the ops it calls)."""
+    from torch.autograd import DeviceType
+    rows = sorted(((evt.self_cpu_time_total, evt.key, evt.count)
+                   for evt in prof.key_averages()
+                   if evt.device_type == DeviceType.CPU
+                   and evt.self_cpu_time_total > 0), reverse=True)
+    return [{"op": key[:80], "self_ms": us / 1e3, "calls": n}
+            for us, key, n in rows[:top]]
 
 
 def kernel_table(prof, path, top=10):
@@ -5383,6 +5400,8 @@ def slice_l_rank(rank, seed, rehearse, card, shared, one_n):
 
         def after(eng, label=label):
             got = {}
+            if label == "grau":
+                got["roofline"] = roofline_collectives(torch, dev, eng)
             if label == "wq4_kv4_grau":
                 got["packed_digests"] = packed_digests(torch, eng.params)
             if label == "dense":
@@ -6042,6 +6061,7 @@ def mesh_slice(torch, np, dev, args, rehearse):
             need(rehearse or (la["paged_attention_epilogue"] > 0
                               and la["paged_prefill_epilogue"] > 0),
                  f"mesh (1, 2) grau: the fused epilogue did not run: {la}")
+            out["roofline_l"] = [p.pop("roofline") for p in per]
         row = {"requests": n, "first_decode_logits_rel_l2": rel,
                "greedy_identical_share": compare_streams(
                    per[0]["streams"], one[label]),
@@ -6161,30 +6181,6 @@ def o_config(rehearse, layers, grau=True):
     return cfg.replace(groups=dense_groups(min(layers, cfg.num_layers)))
 
 
-class CollectiveCount:
-    """Counts the collectives (c10d ops but barriers) issued inside the
-    block, through a torch dispatch mode."""
-
-    def __init__(self):
-        from torch.utils._python_dispatch import TorchDispatchMode
-
-        class Mode(TorchDispatchMode):
-            def __torch_dispatch__(mode, func, types, args=(), kwargs=None):
-                if (func.namespace == "c10d"
-                        and "barrier" not in func.__name__):
-                    self.n += 1
-                return func(*args, **(kwargs or {}))
-        self.n = 0
-        self.mode = Mode()
-
-    def __enter__(self):
-        self.mode.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        self.mode.__exit__(*exc)
-
-
 def tree_digest(torch, tree):
     """sha256 over every tensor's bytes, in tree order."""
     import hashlib
@@ -6204,8 +6200,9 @@ def o_train(torch, rank, mesh, cfg, dtype, rows, seq, seed, dev, steps_n):
     takes its shard of the same draw (shard_train_params) and trains
     `steps_n` steps on the mesh: the flash launches counted from 0 just
     before step 0 and read after the last step; step 0's collectives,
-    counted under CollectiveCount (a dispatch mode that sends every aten op
-    through Python, so step 0's seconds are kept apart), and the later
+    counted under roofline/count.count (a dispatch mode that sends every
+    aten op through Python, so step 0's seconds are kept apart), and the
+    later
     steps' seconds, timed without it. Step 0's gradient shard is held
     against the same piece of the one-card gradient: each leaf's sums of
     squared differences and of squares over the rank's distinct piece (a
@@ -6218,6 +6215,7 @@ def o_train(torch, rank, mesh, cfg, dtype, rows, seq, seed, dev, steps_n):
     from repro_torch.models import lm
     from repro_torch.nn import shard_ctx
     from repro_torch.nn.common import tree_flatten
+    from repro_torch.roofline import count as rcount
     from repro_torch.train import optim
     from repro_torch.train.fsdp import local_piece
 
@@ -6256,7 +6254,7 @@ def o_train(torch, rank, mesh, cfg, dtype, rows, seq, seed, dev, steps_n):
     times, losses = [], []
     kernels.reset_launches()
     t0 = time.perf_counter()
-    with CollectiveCount() as cc, shard_ctx.use(mesh):
+    with rcount.count() as cc, shard_ctx.use(mesh):
         loss, grads = grads_fn(shards, steps.data_rows(pipe.batch(0), mesh))
         loss = shard_ctx.sum_data(loss)
         shards, opt, _ = optim.adamw_update(opt_cfg, shards, grads, opt,
@@ -6274,7 +6272,8 @@ def o_train(torch, rank, mesh, cfg, dtype, rows, seq, seed, dev, steps_n):
     out.update(losses=losses, step0_counted_s=step0_s, step_s=times,
                median_step_s=(float(sorted(times)[len(times) // 2])
                               if times else None),
-               collectives_a_step=cc.n,
+               collectives_a_step=cc.collectives,
+               collective_bytes_a_step=cc.collective,
                peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
                             if cuda else None))
     coords = (shard_ctx.data_rank(mesh), shard_ctx.model_rank(mesh))
@@ -6475,6 +6474,300 @@ def check_slice_o(torch, ranks, rehearse):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase roofline: the work count (roofline/) held against the card
+# ---------------------------------------------------------------------------
+
+ROOF_TICKS = 8          # decode ticks timed a bucket (their median)
+ROOF_BUDGET_S = 30.0    # the phase's share of the script's time limit
+
+
+def roofline_probe(torch, np, dev, store, label, rehearse):
+    """(build, after) for serve() on (b)'s and (c)'s 28-layer engines.
+    `build` wraps the engine's decode tick: each tick with a live slot
+    (warmup's ticks run on an idle engine and are passed by) notes its
+    bucket, the decoding slots, the kernels it launched (launch_counts()'s
+    delta over the tick) and its time: CUDA events around it on the card,
+    read once the run is over (the engine keeps up to max_pending_ticks
+    ticks in flight, so a synchronize a tick would change the run it
+    measures), the host clock on the CPU, where every op is synchronous.
+    `after` (the run over) keeps, in store[label], the served ticks by
+    bucket, the engine's meta copy (ServeEngine.meta_copy: no device
+    memory), whose decode_cost roofline_counts takes, metrics()' weight
+    bytes, and the seconds it took."""
+    from repro_torch import kernels
+    cuda = dev.type == "cuda"
+    ticks = {}      # bucket -> [(start, end, decoding slots, launches)]
+
+    def build(make):
+        eng = make()
+        tick = eng._decode_tick
+
+        def noted(width, force=None):
+            if all(r is None for r in eng.slot_req):
+                return tick(width, force)
+            live = sum(r is not None and not r.pending_chunks
+                       for r in eng.slot_req)
+            before = kernels.launch_counts()
+            if cuda:
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0.record()
+            else:
+                t0 = time.perf_counter()
+            out = tick(width, force)
+            if cuda:
+                t1.record()
+            else:
+                t1 = time.perf_counter()
+            launched = {k: v - before[k] for k, v in
+                        kernels.launch_counts().items() if v != before[k]}
+            ticks.setdefault(width, []).append((t0, t1, live, launched))
+            return out
+        eng._decode_tick = noted
+        return eng
+
+    def after(eng):
+        t0 = time.perf_counter()
+        need(ticks, f"roofline {label}: the served window ticked no slot")
+        # the class's tick again: the wrapper holds the engine, which the
+        # copy would keep alive (its weights and pools on the card)
+        del eng._decode_tick
+        store[label] = {
+            "served": {b: {"ms": [a.elapsed_time(z) if cuda
+                                  else (z - a) * 1e3 for a, z, _, _ in xs],
+                           "decoding_slots": [x[2] for x in xs],
+                           "launches": [x[3] for x in xs]}
+                       for b, xs in sorted(ticks.items())},
+            "engine": eng.meta_copy(),
+            "weight_bytes_metrics": eng.metrics()["weight_bytes"],
+            "seconds": time.perf_counter() - t0}
+        return {}
+    return build, after
+
+
+def roofline_counts(np, label, probe, card, rehearse):
+    """At each bucket the served window ticked in (roofline_probe's
+    store[label]): decode_cost of the engine's meta copy, its launches by
+    kernel held against every served tick's there; at each bucket with
+    ROOF_TICKS or more served ticks their median set against the count's
+    roofline bound (a share above 1.0 would mean the count is too high).
+    The bound counts every slot's K/V over the whole bucket; a served
+    tick reads its live blocks, at most that."""
+    rows = {}
+    for b, served in probe["served"].items():
+        c = probe["engine"].decode_cost(b)
+        want = {k: v for k, v in c["launches"].items() if v}
+        seen = served["launches"][0]
+        need(all(x == seen for x in served["launches"]),
+             f"roofline {label} bucket {b}: the served ticks launched "
+             f"{served['launches']}")
+        need(rehearse or seen == want, f"roofline {label} bucket {b}: "
+             f"decode_cost counts launches {want}, a served tick launched "
+             f"{seen}")
+        r = c["roofline"]
+        ms = served["ms"]
+        rows[b] = {"launches": want, "launches_served_tick": seen,
+                   "ticks": len(ms),
+                   "decoding_slots": served["decoding_slots"],
+                   "flops": c["flops"], "bytes": c["bytes"],
+                   "dot_bytes": c["dot_bytes"],
+                   "gather_bytes": c["gather_bytes"],
+                   "weight_bytes": c["weight_bytes"],
+                   "param_bytes": c["param_bytes"],
+                   "bound_ms": r["bound_s"] * 1e3,
+                   "bound_kind": r["dominant"]}
+        if len(ms) < ROOF_TICKS:
+            continue
+        med = float(np.median(ms))
+        share = r["bound_s"] * 1e3 / med
+        need(share <= 1.0, f"roofline {label} bucket {b}: the count's "
+             f"bound {r['bound_s'] * 1e3:.3f} ms exceeds the served "
+             f"tick's median {med:.3f} ms: the count is too high")
+        rows[b].update(tick_ms_median=med, tick_ms=ms, share=share)
+        log(f"roofline {label} bucket {b} ({card}): bound "
+            f"{r['bound_s'] * 1e3:.4f} ms ({r['dominant']}), median of "
+            f"{len(ms)} served ticks {med:.3f} ms (decoding slots "
+            f"{min(served['decoding_slots'])}-"
+            f"{max(served['decoding_slots'])}), share {share:.4f}; "
+            f"launches {want}")
+    need(any("share" in r for r in rows.values()),
+         f"roofline {label}: no bucket served {ROOF_TICKS} ticks: "
+         f"{ {b: r['ticks'] for b, r in rows.items()} }")
+    return {"buckets": rows, "weight_bytes_decode_cost": c["weight_bytes"],
+            "weight_bytes_metrics": probe["weight_bytes_metrics"]}
+
+
+def roofline_collectives(torch, dev, eng):
+    """On a mesh rank (slice (l)'s (1, 2) engine in (b)'s setup, the run
+    over): decode_cost's count of one tick at the narrowest bucket (its
+    collectives recorded, not issued) beside the count of one real tick
+    there (issued over gloo), the collectives by op, their bytes and
+    their number."""
+    from repro_torch.roofline import count as rcount
+    t0 = time.perf_counter()
+    b = eng.decode_buckets[0]
+    meta = eng.decode_cost(b)
+    with rcount.count() as t:
+        eng._decode_tick(b)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return {"bucket": b,
+            "meta": {k: meta[k] for k in ("collectives", "collective_bytes",
+                                          "collective_count")},
+            "real": {"collectives": dict(t.collective_by_op),
+                     "collective_bytes": t.collective,
+                     "collective_count": t.collectives},
+            "seconds": time.perf_counter() - t0}
+
+
+def roofline_phase(torch, np, dev, args, rehearse, mesh):
+    """Phase roofline (its (b), (c) and (l) parts ran inside those slices,
+    roofline_probe and roofline_collectives; their seconds are counted
+    here): (b)'s and (c)'s decode counts (roofline_counts), (c)'s weight
+    bytes by decode_cost equal to metrics()'s; (l)'s collectives by
+    decode_cost equal to a real tick's on each rank; (o)'s rank parameter
+    and moment bytes by launch/steps.build_cell (meta, no processes) equal
+    to what each rank held on the card; (e)'s one remat "full" step
+    counted on the meta device beside model_flops and train_flops
+    (printed, not gated); and, in a process of its own running beside
+    those counts, `python -m repro_torch.launch.dryrun --arch llama3.2-3b
+    --mesh single`, which must exit 0."""
+    # the dry-run sweep, in a process of its own beside the counts below
+    # (a thread notes its exit)
+    import threading
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           "llama3.2-3b", "--mesh", "single"]
+    if rehearse:
+        cmd += ["--shape", "decode_32k"]
+    dry_dir = tempfile.mkdtemp(prefix="chip-smoke-dryrun-")
+    dry = {"start": time.perf_counter()}
+    proc = subprocess.Popen(
+        cmd + ["--out", dry_dir], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+
+    def wait():
+        dry["io"] = proc.communicate(timeout=300)
+        dry["end"] = time.perf_counter()
+    waiter = threading.Thread(target=wait, daemon=True)
+    waiter.start()
+    try:
+        out = roofline_checks(torch, np, dev, args, rehearse, mesh)
+        waiter.join(310)
+        need("end" in dry, "roofline: the dry run did not end in 300 s")
+        stdout, stderr = dry["io"]
+        cells = {p.name: json.loads(p.read_text())
+                 for p in Path(dry_dir).glob("*.json")}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(dry_dir, ignore_errors=True)
+    dry_s = dry["end"] - dry["start"]
+    need(proc.returncode == 0, f"roofline: the dry run exited "
+         f"{proc.returncode}: {stdout[-2000:]} {stderr[-2000:]}")
+    out["dryrun"] = {"seconds": dry_s, "lines": stdout.splitlines(),
+                     "cells": {k: {f: v[f] for f in (
+                         "flops", "bytes_accessed", "collective_bytes",
+                         "memory", "roofline", "build_s", "count_s")}
+                         for k, v in cells.items()}}
+    log(f"roofline: dry run of llama3.2-3b on the (16, 16) mesh: "
+        f"{dry_s:.1f} s, exit 0; " + " | ".join(stdout.splitlines()))
+    return out
+
+
+def roofline_checks(torch, np, dev, args, rehearse, mesh):
+    """roofline_phase's counts and gates (everything but the dry run)."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.config import GRAUConfig
+    from repro_torch.nn.common import tree_flatten
+    from repro_torch.roofline import analyze as roof
+    from repro_torch.roofline import count as rcount
+    from repro_torch.train import optim
+
+    store = args.roofline
+    out = {"card": args.card}
+    for label in ("grau", "wq4_kv4_grau"):
+        out[label] = roofline_counts(np, label, store[label], args.card,
+                                     rehearse)
+        out[label]["probe_seconds"] = store[label]["seconds"]
+    c = out["wq4_kv4_grau"]
+    need(c["weight_bytes_decode_cost"] == c["weight_bytes_metrics"],
+         f"roofline (c): decode_cost's weight bytes "
+         f"{c['weight_bytes_decode_cost']} against metrics()' "
+         f"{c['weight_bytes_metrics']}")
+    shares = [row["share"] for lab in ("grau", "wq4_kv4_grau")
+              for row in out[lab]["buckets"].values() if "share" in row]
+    out["share_range"] = [min(shares), max(shares)]
+    log(f"roofline (b), (c) ({args.card}): decode buckets "
+        f"{sorted(out['grau']['buckets'])} / "
+        f"{sorted(out['wq4_kv4_grau']['buckets'])}, shares of the bound "
+        f"{min(shares):.4f}-{max(shares):.4f}, weight bytes (c) "
+        f"{c['weight_bytes_metrics']} by decode_cost and metrics()")
+    # (l): each rank's counted collectives against its real tick's
+    for i, r in enumerate(mesh["roofline_l"]):
+        need(r["meta"] == r["real"], f"roofline (l) rank {i}: decode_cost's "
+             f"collectives {r['meta']} against a real tick's {r['real']}")
+        need(r["real"]["collective_count"] > 0,
+             f"roofline (l) rank {i}: a (1, 2) tick issued no collective")
+    out["l"] = mesh["roofline_l"]
+    log(f"roofline (l): a (1, 2) rank's tick at bucket "
+        f"{out['l'][0]['bucket']}: {json.dumps(out['l'][0]['real'])}, "
+        "decode_cost's the same on both ranks")
+    # (o): build_cell's rank bytes against the bytes each rank held
+    cfg = o_config(rehearse, O_LAYERS)
+    dtype = torch.float32 if rehearse else torch.bfloat16
+    out["o"] = {}
+    for label, shape, rows, seq in O_SHAPES:
+        got = []
+        for p in mesh["o"][label]["ranks"]:
+            coords = (p["rank"], 0) if shape[0] > 1 else (0, p["rank"])
+            b = steps.build_cell(cfg, ShapeSpec("o", seq, rows, "train"),
+                                 shape, dtype=dtype, rank=coords)
+            mem = b.memory
+            need(mem["param_bytes"] == p["param_bytes"]
+                 and mem["moment_bytes"] == p["moment_bytes"],
+                 f"roofline (o) {label} rank {p['rank']}: build_cell's "
+                 f"{mem['param_bytes']} / {mem['moment_bytes']} bytes "
+                 f"against the card's {p['param_bytes']} / "
+                 f"{p['moment_bytes']}")
+            got.append({"rank": p["rank"], **mem})
+        out["o"][label] = got
+        log(f"roofline (o) {label}: build_cell's rank bytes "
+            f"{got[0]['param_bytes'] / 1e9:.3f} / "
+            f"{got[0]['moment_bytes'] / 1e9:.3f} GB, the ranks' own")
+    # (e): one remat "full" step of (e)'s model counted on the meta device
+    grau = GRAUConfig(mode="apot", segments=6, num_exponents=8)
+    ecfg = get_config("llama3.2-3b", smoke=rehearse).replace(grau=grau)
+    seq, rows = (64, 2) if rehearse else (4096, 1)
+    chunk = min(1024, seq)
+    params = lm.init_lm(ecfg, dtype=dtype, device="meta")
+    batch = {k: torch.empty((rows, seq), dtype=torch.int64, device="meta")
+             for k in ("tokens", "labels")}
+    step = steps.make_train_step(ecfg, optim.AdamWConfig(), remat="full",
+                                 q_chunk=chunk, kv_chunk=chunk)
+    t0 = time.perf_counter()
+    with rcount.count() as t:
+        step(params, optim.init_opt_state(params), batch)
+    n_params = sum(x.numel() for _, x in tree_flatten(params))
+    e = {"counted_flops": t.flops,
+         "train_flops": roof.train_flops(ecfg, rows, seq),
+         "model_flops": roof.model_flops(n_params, rows * seq),
+         "launches": t.launches, "count_s": time.perf_counter() - t0}
+    e["counted_over_train_flops"] = e["counted_flops"] / e["train_flops"]
+    e["counted_over_model_flops"] = e["counted_flops"] / e["model_flops"]
+    out["e"] = e
+    log(f"roofline (e): one remat full step counts {e['counted_flops']:.4e} "
+        f"FLOPs against train_flops {e['train_flops']:.4e} (ratio "
+        f"{e['counted_over_train_flops']:.4f}) and 6 N D "
+        f"{e['model_flops']:.4e} ({e['counted_over_model_flops']:.4f})")
+    return out
+
+
 def time_kernels_from(torch, np, dev, args):
     """--kernels-from: the graph-replay times of the matmul_wq, decode,
     prefill, flash, matmul_grau and GRAU-unit rows at the main paths'
@@ -6489,6 +6782,7 @@ def time_kernels_from(torch, np, dev, args):
     torch.manual_seed(args.seed)
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul_wq as mm
+    from repro_torch.roofline.analyze import bound
     rows = []
     for wname in s["mlp"]:
         for bits in (4, 8):
@@ -6621,6 +6915,8 @@ def main(argv=None) -> int:
         return time_kernels_from(torch, np, dev, args)
     report = {}
     args.card = "cpu rehearsal"
+    # the roofline phase's parts that run in (b), (c) and (l)
+    args.roofline = {"card": args.card}
     if timed:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
@@ -6628,6 +6924,7 @@ def main(argv=None) -> int:
         card = smi.stdout.strip().splitlines()[0] if smi.stdout else "?"
         log(card)
         report["card"] = args.card = card
+        args.roofline["card"] = card
         # the host's and the card's memory: slice (n)'s ranks draw their
         # shards on the card, so no host holds two whole trees
         mem = Path("/proc/meminfo")
@@ -6751,6 +7048,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         mesh = phase("slice_l", lambda: mesh_slice(
             torch, np, dev, args, args.rehearse))
+        roofline = phase("roofline", lambda: roofline_phase(
+            torch, np, dev, args, args.rehearse, mesh))
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6765,6 +7064,21 @@ def main(argv=None) -> int:
     report["moe_llava"] = moe_llava
     report["dense"] = dense
     report["mesh"] = mesh
+    # the roofline phase's parts that ran inside (b), (c) and (l) are its
+    # seconds, not theirs
+    inner = {"slices_abc": sum(args.roofline[k]["seconds"] for k in (
+        "grau", "wq4_kv4_grau")),
+        "slice_l": max(r["seconds"] for r in mesh["roofline_l"])}
+    for name, sec in inner.items():
+        phase_s[name] -= sec
+        phase_s["roofline"] += sec
+    roofline["seconds"] = phase_s["roofline"]
+    report["roofline"] = roofline
+    log(f"phase roofline: {phase_s['roofline']:.1f} s in all (budget "
+        f"{ROOF_BUDGET_S:.0f} s; the dry run "
+        f"{roofline['dryrun']['seconds']:.1f} s of it, beside the counts; "
+        "within: "
+        f"{phase_s['roofline'] <= ROOF_BUDGET_S})")
     # launches on the main paths: the 16-bit attention rows from (b), where
     # the GRAU datapath runs fused in the attention kernels' epilogue; the
     # 4-bit attention rows and matmul_wq from (c); the GRAU unit and

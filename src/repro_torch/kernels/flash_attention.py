@@ -19,7 +19,9 @@ head_dim of HEAD_DIMS (the reference's archs').
 
 `flash_attention` launches the kernel for CUDA tensors and runs
 `ref.flash_attention_plain` for CPU tensors; both return (o, lse) with lse
-(b, h, s_q) the row logsumexp of the scaled, masked scores.
+(b, h, s_q) the row logsumexp of the scaled, masked scores (meta tensors
+get empty ones; roofline/count.py counts every call through `cost`, and
+the backward through `backward_cost`).
 `flash_attention.launches` counts kernel launches.
 
 The reference has no backward kernel: its gradient is XLA's autodiff of the
@@ -38,6 +40,7 @@ import torch
 
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.ref import NEG_INF, flash_attention_plain
+from repro_torch.roofline import count as rcount
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {"flash_attention_launch": (
@@ -78,8 +81,41 @@ def _check(q, k, v, q_offset: int) -> None:
     if q.dtype != k.dtype or q.dtype != v.dtype:
         raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
+
+
+def pairs(s_q: int, s_kv: int, causal: bool, q_offset: int = 0) -> int:
+    """The (query, key) pairs a head attends: s_q s_kv, or under the causal
+    mask the sum over query rows r of min(s_kv, q_offset + r + 1)."""
+    if not causal:
+        return s_q * s_kv
+    full = max(0, min(s_q, s_kv - q_offset))    # rows r with r + off < s_kv
+    tri = full * q_offset + full * (full + 1) // 2
+    return tri + (s_q - full) * s_kv
+
+
+def cost(q, k, causal: bool, q_offset: int) -> rcount.Cost:
+    """The forward's work: 4 d operations a (query, key) pair and query
+    head (Q K^T and P V) at q's type; q, k, v read once, o and the f32 lse
+    written once."""
+    b, s_q, h, d = q.shape
+    n = b * h * pairs(s_q, k.shape[1], causal, q_offset)
+    return rcount.Cost(flops=4.0 * n * d, kind=rcount.OP_KIND[q.dtype],
+                       reads=rcount.nbytes(q) + 2 * rcount.nbytes(k),
+                       writes=rcount.nbytes(q) + 4 * b * h * s_q)
+
+
+def backward_cost(q, k, causal: bool, q_offset: int) -> rcount.Cost:
+    """The backward's work: 10 d operations a pair and query head (the
+    scores again, dV, dP, dQ and dK); q, k, v, o, lse and dO read once, dq,
+    dk and dv written once."""
+    b, s_q, h, d = q.shape
+    n = b * h * pairs(s_q, k.shape[1], causal, q_offset)
+    qb, kb = rcount.nbytes(q), rcount.nbytes(k)
+    return rcount.Cost(flops=10.0 * n * d, kind=rcount.OP_KIND[q.dtype],
+                       reads=3 * qb + 2 * kb + 4 * b * h * s_q,
+                       writes=qb + 2 * kb)
 
 
 def _rows_aligned(x: torch.Tensor) -> torch.Tensor:
@@ -114,9 +150,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tensors."""
     _check(q, k, v, q_offset)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                     q_offset=q_offset)
+    with rcount.kernel("flash_attention",
+                       lambda: cost(q, k, causal, q_offset)):
+        if q.is_meta:
+            b, s_q, h, _ = q.shape
+            return (torch.empty_like(q), torch.empty(
+                (b, h, s_q), dtype=torch.float32, device="meta"))
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                         q_offset=q_offset)
+        return _launch(q, k, v, causal=causal, scale=scale,
+                       q_offset=q_offset)
+
+
+def _launch(q, k, v, *, causal, scale, q_offset):
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"dtype {q.dtype}: the kernel takes float32 or "
                          "bfloat16")
@@ -148,7 +195,21 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
                              q_chunk: int = 1024, kv_chunk: int = 1024):
     """(dq, dk, dv) of the flash forward from its saved (o, lse), in f32
     (float64 for float64 inputs) over (q_chunk x kv_chunk) tiles, skipping
-    tiles wholly above the diagonal; cast to the inputs' dtypes."""
+    tiles wholly above the diagonal; cast to the inputs' dtypes (empty ones
+    for meta inputs)."""
+    with rcount.kernel("flash_attention_backward",
+                       lambda: backward_cost(q, k, causal, q_offset),
+                       launch=False):
+        if q.is_meta:
+            return (torch.empty_like(q), torch.empty_like(k),
+                    torch.empty_like(v))
+        return _backward(q, k, v, o, lse, do, causal=causal, scale=scale,
+                         q_offset=q_offset, q_chunk=q_chunk,
+                         kv_chunk=kv_chunk)
+
+
+def _backward(q, k, v, o, lse, do, *, causal, scale, q_offset, q_chunk,
+              kv_chunk):
     b, s_q, h, d = q.shape
     s_kv, kvh = k.shape[1], k.shape[2]
     g = h // kvh

@@ -16,23 +16,31 @@ file (runtime data, spec.packed) in shared memory; see the source note in
 csrc/grau.cu.
 
 `grau_unit` launches the kernel for a CUDA tensor and runs `grau_plain`, the
-same datapath in plain torch, for a CPU tensor; `grau_unit.launches` counts
-kernel launches.
+same datapath in plain torch, for a CPU tensor; for a meta tensor it returns
+an empty output (roofline/count.py counts the call through `cost`).
+`grau_unit.launches` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.core.grau import shift_term
 from repro_torch.kernels import build as kbuild
+from repro_torch.roofline import count as rcount
 from repro_torch.pwlf.spec import (MAX_SEGMENTS, REG_BIAS, REG_BP, REG_ENC,
                                    REG_PRE, REG_SIGN, REG_WORDS)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {"grau_launch": (_P, _P, ctypes.c_longlong, _P, _I, _I, _I, _I,
                                _P)}
+# Integer operations of the datapath an element, as csrc/grau_datapath.cuh
+# runs it: 7 compares and 7 adds (the comparator bank), 3 table selects,
+# the enc mask, the multiply-add and 2 clamps; then 4 a fired stage (find
+# the lowest set bit, shift, add, clear the bit).
+OPS_BASE, OPS_STAGE = 21, 4
 
 
 def out_dtype(qmin: int) -> torch.dtype:
@@ -59,6 +67,18 @@ def grau_plain(x: torch.Tensor, regs: torch.Tensor, *, num_exponents: int,
     return torch.clamp(sign * acc + bias, qmin, qmax)
 
 
+def cost(n: int, num_exponents: int,
+         stages: Optional[int] = None) -> rcount.Cost:
+    """The unit's work on n elements: 4 bytes read and 1 written an element
+    (and the 128-byte register file), OPS_BASE integer operations an element
+    plus OPS_STAGE a fired stage: `stages` where the caller counted them
+    from the data, else every element's num_exponents stages (the most the
+    register file can fire)."""
+    fired = n * num_exponents if stages is None else stages
+    return rcount.Cost(kind="int32", ops=OPS_BASE * n + OPS_STAGE * fired,
+                       reads=4 * n + 4 * REG_WORDS, writes=n)
+
+
 def grau_unit(x: torch.Tensor, regs: torch.Tensor, *, num_exponents: int,
               qmin: int, qmax: int) -> torch.Tensor:
     """Apply a packed GRAU register file to a 2-D int32 tensor; returns the
@@ -69,7 +89,15 @@ def grau_unit(x: torch.Tensor, regs: torch.Tensor, *, num_exponents: int,
                          f"{tuple(x.shape)} {x.dtype}")
     if regs.shape != (REG_WORDS,) or regs.dtype != torch.int32:
         raise ValueError("regs must be the (32,) int32 packed register file")
+    with rcount.kernel("grau", lambda: cost(x.numel(), num_exponents)):
+        return _grau_unit(x, regs, num_exponents=num_exponents, qmin=qmin,
+                          qmax=qmax)
+
+
+def _grau_unit(x, regs, *, num_exponents, qmin, qmax):
     odt = out_dtype(qmin)
+    if x.is_meta:
+        return torch.empty(x.shape, dtype=odt, device="meta")
     if x.device.type == "cpu":
         return grau_plain(x, regs, num_exponents=num_exponents, qmin=qmin,
                           qmax=qmax).to(odt)

@@ -18,7 +18,8 @@ gives the same integers) before the datapath. The kernel masks its own
 ragged edges, so no operand is padded.
 
 `matmul_grau` launches the kernel for CUDA tensors and runs
-`matmul_grau_plain` for CPU tensors; `matmul_grau.launches` counts kernel
+`matmul_grau_plain` for CPU tensors (an empty output for meta tensors;
+roofline/count.py counts the call through `cost`); `matmul_grau.launches` counts kernel
 launches (one per call, whatever the part count).
 """
 from __future__ import annotations
@@ -33,6 +34,7 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.grau import grau_plain, out_dtype
 from repro_torch.kernels.ref import wrap_int32
 from repro_torch.pwlf.spec import REG_WORDS
+from repro_torch.roofline import count as rcount
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, w, out, ws, M, N, K, bm, parts, spp, regs, num_exponents, qmin, qmax,
@@ -81,8 +83,15 @@ def _check(x: torch.Tensor, w: torch.Tensor, regs: torch.Tensor) -> None:
     devs = {x.device, w.device, regs.device}
     if len(devs) != 1:
         raise ValueError(f"x, w and regs must share one device, got {devs}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"matmul_grau: unsupported device {x.device}")
+
+
+def cost(m: int, k: int, n: int) -> rcount.Cost:
+    """The product's 2 M K N int8 operations; x, w and the register file
+    read once, the 8-bit bus written once."""
+    return rcount.Cost(flops=2.0 * m * k * n, kind="int8",
+                       reads=m * k + k * n + 4 * REG_WORDS, writes=m * n)
 
 
 def matmul_grau_plain(x: torch.Tensor, w: torch.Tensor, regs: torch.Tensor,
@@ -103,9 +112,19 @@ def matmul_grau(x: torch.Tensor, w: torch.Tensor, regs: torch.Tensor, *,
     kernel for CUDA tensors, the plain version for CPU tensors. See
     ops.matmul_grau for the user-facing wrapper (any rank, spec packing)."""
     _check(x, w, regs)
-    if x.device.type == "cpu":
-        return matmul_grau_plain(x, w, regs, num_exponents=num_exponents,
-                                 qmin=qmin, qmax=qmax)
+    (m, k), n = x.shape, w.shape[1]
+    with rcount.kernel("matmul_grau", lambda: cost(m, k, n)):
+        if x.is_meta:
+            return torch.empty((m, n), dtype=out_dtype(qmin), device="meta")
+        if x.device.type == "cpu":
+            return matmul_grau_plain(x, w, regs,
+                                     num_exponents=num_exponents, qmin=qmin,
+                                     qmax=qmax)
+        return _launch(x, w, regs, num_exponents=num_exponents, qmin=qmin,
+                       qmax=qmax)
+
+
+def _launch(x, w, regs, *, num_exponents, qmin, qmax):
     x, w = x.contiguous(), w.contiguous()
     (m, k), n = x.shape, w.shape[1]
     out = torch.empty((m, n), dtype=out_dtype(qmin), device=x.device)

@@ -22,7 +22,9 @@ reference's own padding — and the output sliced back (a copy of the
 weight per call: no served shape has such an N).
 
 `matmul_wq` launches the kernel for CUDA tensors and runs `matmul_wq_plain`
-(the same per-tile f32 accumulation in torch) for CPU tensors; it counts
+(the same per-tile f32 accumulation in torch) for CPU tensors, and returns
+an empty output for meta tensors (roofline/count.py counts every call
+through `cost`); it counts
 `.launches` (one per call, whatever the part count) and
 `.epilogue_launches` (those with the fused GRAU datapath).
 """
@@ -37,8 +39,9 @@ import torch
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.grau import out_dtype as grau_out_dtype
 from repro_torch.kernels.ref import attn_output_quant, inv_scale
-from repro_torch.pwlf.spec import GRAUSpec
+from repro_torch.pwlf.spec import REG_WORDS, GRAUSpec
 from repro_torch.quant.pot import dequantize_pot, unpack_int4
+from repro_torch.roofline import count as rcount
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # x, q, e, out, ws, M, N, K, tile, bits, dtype, out_kind, parts, tpp, regs,
@@ -94,7 +97,7 @@ def _check(x, q, e, bits: int, kdim: int) -> int:
     if len(devs) != 1:
         raise ValueError(f"all inputs must share one device, got {devs}")
     dev = x.device
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda":
         for name, t in (("q", q), ("e", e)):
@@ -166,6 +169,21 @@ def _launch(x, q, e, *, bits, kdim, tile, spec, s_in, out_dtype):
     return out if n == n_out else out[:, :n_out].contiguous()
 
 
+def cost(x: torch.Tensor, q: torch.Tensor, e: torch.Tensor, kdim: int,
+         spec: Optional[GRAUSpec], out_dtype: torch.dtype) -> rcount.Cost:
+    """x (M, K) @ the packed (K, N) weight: 2 M K N operations at x's type;
+    x, the payload and the exponents (and the GRAU register file) read
+    once, the output written once."""
+    m, n = x.shape[0], e.shape[1]
+    out = (1 if spec is not None else
+           torch.empty((), dtype=out_dtype).element_size())
+    regs = 4 * REG_WORDS if spec is not None else 0
+    return rcount.Cost(flops=2.0 * m * kdim * n,
+                       kind=rcount.OP_KIND[x.dtype],
+                       reads=rcount.nbytes(x) + rcount.nbytes(q)
+                       + rcount.nbytes(e) + regs, writes=m * n * out)
+
+
 def matmul_wq(x: torch.Tensor, w, spec: Optional[GRAUSpec] = None, *,
               s_in: float = 1.0,
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -183,14 +201,22 @@ def matmul_wq(x: torch.Tensor, w, spec: Optional[GRAUSpec] = None, *,
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     tile = _check(x2, w.q, w.e, w.bits, w.kdim)
-    if x2.device.type == "cpu":
-        out = matmul_wq_plain(x2, w.q, w.e, bits=w.bits, kdim=w.kdim,
-                              spec=spec, s_in=s_in, out_dtype=out_dtype)
-    else:
-        out = _launch(x2.contiguous(), w.q, w.e, bits=w.bits, kdim=w.kdim,
-                      tile=tile, spec=spec, s_in=s_in, out_dtype=out_dtype)
-        matmul_wq.launches += 1
-        matmul_wq.epilogue_launches += spec is not None
+    with rcount.kernel("matmul_wq", lambda: cost(x2, w.q, w.e, w.kdim, spec,
+                                                 out_dtype),
+                       ("epilogue",) if spec is not None else ()):
+        if x2.is_meta:
+            odt = out_dtype if spec is None else grau_out_dtype(spec.qmin)
+            out = torch.empty((x2.shape[0], w.e.shape[1]), dtype=odt,
+                              device="meta")
+        elif x2.device.type == "cpu":
+            out = matmul_wq_plain(x2, w.q, w.e, bits=w.bits, kdim=w.kdim,
+                                  spec=spec, s_in=s_in, out_dtype=out_dtype)
+        else:
+            out = _launch(x2.contiguous(), w.q, w.e, bits=w.bits,
+                          kdim=w.kdim, tile=tile, spec=spec, s_in=s_in,
+                          out_dtype=out_dtype)
+            matmul_wq.launches += 1
+            matmul_wq.epilogue_launches += spec is not None
     return out.reshape(*lead, out.shape[-1])
 
 

@@ -39,7 +39,10 @@ shared GRAU datapath (csrc/grau_datapath.cuh), emitting the 8-bit bus.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain torch
 version (`*_plain`: the same online-softmax recurrence over the live blocks)
-for CPU tensors. `.launches` counts wrapper calls that launched the kernels
+for CPU tensors; for meta tensors it returns an empty output, and
+roofline/count.py counts every call through `cost`: the blocks of the
+table it is given (the live-block bucket the host chose), never the
+pool's capacity. `.launches` counts wrapper calls that launched the kernels
 (one per call, whatever the CUDA launches), `.epilogue_launches` those
 that ran the fused GRAU datapath, and `.kv8_launches` / `.kv4_launches`
 those on 8- and 4-bit pools.
@@ -55,8 +58,9 @@ import torch
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.grau import out_dtype as grau_out_dtype
 from repro_torch.kernels.ref import NEG_INF, attn_output_quant, inv_scale
-from repro_torch.pwlf.spec import GRAUSpec
+from repro_torch.pwlf.spec import REG_WORDS, GRAUSpec
 from repro_torch.quant import kv as kvq
+from repro_torch.roofline import count as rcount
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # q, k, v, k_exp, v_exp, kv_bits, table, stride, start/len, out
@@ -182,7 +186,7 @@ def _check(q, k_pool, v_pool, block_table, start, *, rows_dim: int,
     if len(devs) != 1:
         raise ValueError(f"all inputs must share one device, got {devs}")
     dev = q.device
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda":
         if d not in HEAD_DIMS:
@@ -198,6 +202,43 @@ def _check(q, k_pool, v_pool, block_table, start, *, rows_dim: int,
             raise ValueError(f"pools must start on a {vec}-byte boundary "
                              f"(the kernels read their rows in {vec}-byte "
                              "vectors)")
+
+
+def cost(q, k_pool, block_table, start, *, spec, out_dtype, k_exp=None,
+         live_blocks: Optional[int] = None) -> rcount.Cost:
+    """One call's work over the blocks its table maps — `live_blocks` (the
+    blocks all rows cover together) where the caller knows them from the
+    data, else every row's whole table (the bucket: what the host decided,
+    on any device, with no read of the lengths): each block's K and V
+    payload (and their exponent planes on 8/4-bit pools), also counted as
+    gathered; q, the table's entries for those blocks, the lengths or
+    starts (and the GRAU register file) read once; the output written
+    once; 4 d operations a (query row, position) pair and head (Q K^T and
+    P V) at q's type."""
+    rows, width = block_table.shape
+    chunk = 1 if q.dim() == 3 else q.shape[1]
+    h, d = q.shape[-2], q.shape[-1]
+    bs, kvh = k_pool.shape[1], k_pool.shape[2]
+    blocks = rows * width if live_blocks is None else live_blocks
+    kv = 2 * blocks * bs * kvh * k_pool.shape[3] * k_pool.element_size()
+    if k_exp is not None:
+        kv += 2 * blocks * kvh * k_exp.element_size()
+    out = (1 if spec is not None else
+           torch.empty((), dtype=out_dtype).element_size())
+    return rcount.Cost(
+        flops=4.0 * chunk * h * d * blocks * bs,
+        kind=rcount.OP_KIND[q.dtype],
+        reads=(rcount.nbytes(q) + blocks * block_table.element_size()
+               + rcount.nbytes(start) + kv
+               + (4 * REG_WORDS if spec is not None else 0)),
+        writes=q.numel() * out, gather=kv)
+
+
+def _subcounts(spec, kv_bits: int):
+    """The launch_counts() sub-counts a call adds to (_count's)."""
+    return (("epilogue",) * (spec is not None)
+            + (("kv8",) if kv_bits == 8 else ("kv4",) if kv_bits == 4
+               else ()))
 
 
 def _block_loader(k_pool, v_pool, k_exp, v_exp, kv_bits):
@@ -405,10 +446,25 @@ def paged_attention(
     _check(q, k_pool, v_pool, block_table, lengths, rows_dim=1,
            out_dtype=out_dtype, **kw)
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
-    if q.device.type == "cpu":
-        return paged_attention_plain(q, k_pool, v_pool, block_table, lengths,
-                                     scale=scale, spec=spec, s_in=s_in,
-                                     out_dtype=out_dtype, **kw)
+    with rcount.kernel("paged_attention", lambda: cost(
+            q, k_pool, block_table, lengths, spec=spec, out_dtype=out_dtype,
+            k_exp=k_exp), _subcounts(spec, kv_bits)):
+        if q.is_meta:
+            return _meta_output(q, spec, out_dtype)
+        if q.device.type == "cpu":
+            return paged_attention_plain(q, k_pool, v_pool, block_table,
+                                         lengths, scale=scale, spec=spec,
+                                         s_in=s_in, out_dtype=out_dtype,
+                                         **kw)
+        return _decode(q, k_pool, v_pool, block_table, lengths,
+                       scale=scale, spec=spec, s_in=s_in,
+                       out_dtype=out_dtype, plan_kvh=plan_kvh,
+                       plan_batch=plan_batch, **kw)
+
+
+def _decode(q, k_pool, v_pool, block_table, lengths, *, scale, spec, s_in,
+            out_dtype, plan_kvh, plan_batch, **kw):
+    kv_bits = kw["kv_bits"]
     slots, h, _ = q.shape
     if q.dtype == torch.bfloat16:          # the served dtype: tensor cores
         out = _launch_bf16(q, k_pool, v_pool, block_table, lengths,
@@ -455,10 +511,23 @@ def paged_prefill_attention(
     _check(q, k_pool, v_pool, block_table, start, rows_dim=2,
            out_dtype=out_dtype, **kw)
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
-    if q.device.type == "cpu":
-        return paged_prefill_plain(q, k_pool, v_pool, block_table, start,
-                                   scale=scale, spec=spec, s_in=s_in,
-                                   out_dtype=out_dtype, **kw)
+    with rcount.kernel("paged_prefill", lambda: cost(
+            q, k_pool, block_table, start, spec=spec, out_dtype=out_dtype,
+            k_exp=k_exp), _subcounts(spec, kv_bits)):
+        if q.is_meta:
+            return _meta_output(q, spec, out_dtype)
+        if q.device.type == "cpu":
+            return paged_prefill_plain(q, k_pool, v_pool, block_table,
+                                       start, scale=scale, spec=spec,
+                                       s_in=s_in, out_dtype=out_dtype, **kw)
+        return _prefill(q, k_pool, v_pool, block_table, start, scale=scale,
+                        spec=spec, s_in=s_in, out_dtype=out_dtype,
+                        plan_kvh=plan_kvh, **kw)
+
+
+def _prefill(q, k_pool, v_pool, block_table, start, *, scale, spec, s_in,
+             out_dtype, plan_kvh, **kw):
+    kv_bits = kw["kv_bits"]
     b, chunk, h, _ = q.shape
     if q.dtype == torch.bfloat16:          # the served dtype: tensor cores
         out = _launch_bf16(q, k_pool, v_pool, block_table, start,
@@ -470,6 +539,11 @@ def paged_prefill_attention(
                       spec=spec, s_in=s_in, out_dtype=out_dtype, **kw)
     _count(paged_prefill_attention, spec, kv_bits)
     return out
+
+
+def _meta_output(q, spec, out_dtype):
+    dtype = grau_out_dtype(spec.qmin) if spec is not None else out_dtype
+    return torch.empty(q.shape, dtype=dtype, device="meta")
 
 
 def _count(fn, spec, kv_bits: int) -> None:

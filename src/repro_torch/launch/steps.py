@@ -9,13 +9,13 @@ weights (serve/sharding.place_params: heads, d_ff, vocabulary) and over
 `data` on the d_model axis (FSDP, train/fsdp.py); every rank of a model
 column takes its data rank's share of each microbatch's rows; the model
 code issues its own collectives (nn/shard_ctx.py) and autograd their
-backward. The dry run's cell builders are not ported (ROADMAP A11).
-PyTorch runs eagerly: the step is a plain function, and its GRAU register
+backward. PyTorch runs eagerly: the step is a plain function, and its GRAU register
 file is built once per device, on the host, as the reference builds it
 once outside its trace.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -250,18 +250,20 @@ def data_rows(batch: Dict[str, torch.Tensor], mesh,
 
 def make_loss_and_grads(cfg: ModelConfig, *, remat: Optional[str] = "full",
                         q_chunk: int = 1024, kv_chunk: int = 1024,
-                        attn_impl: str = "kernel", mesh=None) -> Callable:
+                        attn_impl: str = "kernel", mesh=None,
+                        fsdp: bool = True) -> Callable:
     """(params, batch) -> (loss, grads): lm_loss and its gradient with
     respect to every parameter leaf (grads in the leaves' dtypes). The
     parameters need not require grad: the gradient is taken through
     detached aliases of them. With `mesh` (run it under
     shard_ctx.use(mesh)), `params` are this rank's shards (train_config's
-    tree), `batch` its rows, the loss its share of the global mean and
-    each gradient its shard's, summed over the data ranks (train/fsdp.py)."""
+    tree, cut by param_placement(fsdp=fsdp)), `batch` its rows, the loss
+    its share of the global mean and each gradient its shard's, summed
+    over the data ranks (train/fsdp.py)."""
     acts = {}
     gather = None
     if mesh is not None:
-        placement = param_placement(cfg, mesh)
+        placement = param_placement(cfg, mesh, fsdp=fsdp)
         gather = gatherer(placement, mesh)
         cfg = train_config(cfg, mesh)
 
@@ -286,7 +288,8 @@ def make_loss_and_grads(cfg: ModelConfig, *, remat: Optional[str] = "full",
 def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, *,
                     remat: Optional[str] = "full", q_chunk: int = 1024,
                     kv_chunk: int = 1024, microbatches: int = 1,
-                    attn_impl: str = "kernel", mesh=None) -> Callable:
+                    attn_impl: str = "kernel", mesh=None,
+                    fsdp: bool = True) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics); the
     parameters and moments are updated in place (train/optim.py). With
     `microbatches` > 1 the batch splits along its first axis, the gradients
@@ -294,15 +297,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, *,
 
     With `mesh` (a launch/mesh.make_mesh (data, model) mesh) `params` and
     `opt_state` are this rank's shards (shard_train_params,
-    optim.init_opt_state of the shards) and `batch` is the global batch:
+    optim.init_opt_state of the shards; each leaf cut over data only with
+    `fsdp`, as param_placement) and `batch` is the global batch:
     the step runs under shard_ctx.use(mesh), takes the rank's rows
     (data_rows), sums the loss's shares over the data axis (every rank
     reports the same bits) and clips by the norm of the whole gradient
     (optim.adamw_update(placement=))."""
     loss_and_grads = make_loss_and_grads(cfg, remat=remat, q_chunk=q_chunk,
                                          kv_chunk=kv_chunk,
-                                         attn_impl=attn_impl, mesh=mesh)
-    placement = None if mesh is None else param_placement(cfg, mesh)
+                                         attn_impl=attn_impl, mesh=mesh,
+                                         fsdp=fsdp)
+    placement = (None if mesh is None
+                 else param_placement(cfg, mesh, fsdp=fsdp))
 
     def train_step(params, opt_state, batch):
         with shard_ctx.use(mesh):
@@ -336,3 +342,201 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, *,
         return params, opt_state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# The dry run's cells: one rank's shard on the meta device
+# ---------------------------------------------------------------------------
+
+class NotPorted(NotImplementedError):
+    """A cell, or a feature of one, that the port does not build yet; the
+    message names the ROADMAP item that queues it."""
+
+
+@dataclasses.dataclass(frozen=True)
+class StepBundle:
+    """One rank's step of an (arch x shape x mesh) cell: `fn(*args)` runs
+    it on meta tensors under the cell's CountMesh (run it inside a
+    roofline count: it moves no bytes and issues no collective), `cfg` is
+    the config the rank computes (its heads padded to the model axis) and
+    `memory` the bytes the rank holds: parameters, AdamW moments, caches
+    and its rows of the batch."""
+    fn: Callable
+    args: Tuple
+    cfg: ModelConfig
+    memory: Dict[str, int]
+
+
+def _bytes(tree) -> int:
+    from repro_torch.roofline import count as rcount
+    t = rcount.Totals()
+    rcount.add_params(t, tree)
+    return int(t.param_bytes)
+
+
+def _rows(batch: int, mesh) -> int:
+    """A data rank's rows of a batch: batch / D where D divides it, else
+    all of it (replicated, the reference's divisibility fallback)."""
+    nd = shard_ctx.data_size(mesh)
+    return batch // nd if batch % nd == 0 else batch
+
+
+def train_batch_specs(cfg: ModelConfig, shape,
+                      dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """The global batch of a train cell on the meta device (the step
+    takes its rank's rows, data_rows): tokens and labels (b, s) int32,
+    and Whisper's frames or LLaVA's patch embeddings (b, n, d_model)."""
+    b, s = shape.global_batch, shape.seq_len
+    meta = dict(device="meta")
+    batch = {"tokens": torch.empty((b, s), dtype=torch.int32, **meta),
+             "labels": torch.empty((b, s), dtype=torch.int32, **meta)}
+    if cfg.encoder is not None:
+        batch["encoder_frames"] = torch.empty(
+            (b, cfg.encoder.num_frames, cfg.d_model), dtype=dtype, **meta)
+    if cfg.vision is not None:
+        batch["patch_embeds"] = torch.empty(
+            (b, cfg.vision.num_patches, cfg.d_model), dtype=dtype, **meta)
+    return batch
+
+
+def abstract_caches(cfg: ModelConfig, mesh, batch: int, max_seq: int, *,
+                    dtype=torch.bfloat16):
+    """A rank's dense caches on the meta device: its data rank's rows of
+    `batch` and, over the model axis, its KV heads and SSM share
+    (serve/sharding.local_caches); cfg is the rank's (padded) config."""
+    from repro_torch.serve.sharding import local_caches
+    return lm.init_caches(cfg, _rows(batch, mesh), max_seq, dtype=dtype,
+                          device="meta",
+                          **local_caches(cfg, shard_ctx.model_size(mesh)))
+
+
+def make_prefill_step(cfg: ModelConfig, *, q_chunk: int = 1024,
+                      kv_chunk: int = 1024) -> Callable:
+    """(params, tokens, caches, extras) -> (last logits, caches): the
+    whole prompt (after LLaVA's patch prefix, with Whisper's frames
+    through the encoder) into the dense caches."""
+    def prefill_step(params, tokens, caches, extras):
+        patches = extras.get("patch_embeds")
+        s = tokens.shape[1] + (0 if patches is None else patches.shape[1])
+        logits, caches, _ = lm.apply_lm(
+            params, cfg, tokens, mode="prefill", caches=caches,
+            positions=torch.arange(s, device=tokens.device),
+            encoder_frames=extras.get("encoder_frames"),
+            patch_embeds=patches, q_chunk=q_chunk, kv_chunk=kv_chunk)
+        return logits[:, -1:], caches
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig) -> Callable:
+    """(params, tokens, caches, extras) -> (logits, caches): one decode
+    step over the dense caches (a cross-attention layer reads its cached
+    K/V); a data rank's MoE layers route the whole batch (split_rows)."""
+    def serve_step(params, tokens, caches, extras):
+        del extras
+        with shard_ctx.split_rows():
+            return lm.decode_step(params, cfg, tokens, caches)
+    return serve_step
+
+
+def _on_mesh(fn: Callable, mesh) -> Callable:
+    def run(*args):
+        with shard_ctx.use(mesh):
+            return fn(*args)
+    return run
+
+
+def build_cell(arch_cfg: ModelConfig, shape, mesh, *, fsdp: bool = True,
+               remat: Optional[str] = "full", dtype=torch.bfloat16,
+               q_chunk: int = 1024, kv_chunk: int = 1024,
+               microbatches: int = 1, pad_heads: bool = False,
+               ep_full: bool = False, mla_cache_shard: bool = False,
+               rank: Tuple[int, int] = (0, 0)) -> StepBundle:
+    """One rank's step of an (arch x shape) cell on a (data, model) mesh
+    (`mesh`: a pair, or a shard_ctx.CountMesh), built on the meta device
+    without processes: the rank's shard of the parameters (train:
+    param_placement's cuts through train/elasticity.shard_shapes, FSDP
+    over data with `fsdp`; serving: serve/sharding.shard_params' slice of
+    the heads, d_ff, experts and vocabulary), of the AdamW moments and of
+    the caches (local_caches), and its rows of the batch. Attention heads
+    are always padded to the model axis where they do not divide it (the
+    port's one rule, pad_heads_for: `pad_heads` is kept for the
+    reference's signature). Raises NotPorted for what the port lacks:
+    training MoE, MLA, Mamba-2 or the encoder-decoder over a mesh, the
+    sequence-sharded decode cache of long_500k, `ep_full` and
+    `mla_cache_shard`."""
+    from repro_torch.serve import sharding
+    from repro_torch.train import elasticity
+    del pad_heads
+    if ep_full:
+        raise NotPorted("--ep-full (experts over every mesh axis) is not "
+                        "ported (ROADMAP A13)")
+    if mla_cache_shard:
+        raise NotPorted("--mla-cache-shard (the MLA latent cache's sequence "
+                        "over model) is not ported (ROADMAP A13)")
+    cm = (mesh if isinstance(mesh, shard_ctx.CountMesh)
+          else shard_ctx.CountMesh(*mesh, *rank))
+    nd, nm = mesh_shape(cm)
+    if shape.kind == "train":
+        try:
+            check_trainable(arch_cfg)
+        except NotImplementedError as e:
+            raise NotPorted(f"{e} (ROADMAP A11 item 5)") from None
+        if train_config(arch_cfg, cm).kv_heads_phys % nm:
+            raise NotPorted(
+                f"{arch_cfg.name}: {arch_cfg.num_kv_heads} KV heads under a "
+                f"model axis of {nm} (heads that divide it are not padded): "
+                "a training mesh that replicates KV heads is not ported "
+                "(ROADMAP A13)")
+        shapes, placement = elasticity.reshard_plan(arch_cfg, (nd, nm),
+                                                    fsdp=fsdp, dtype=dtype)
+        params = tree_map(lambda x, c: local_piece(
+            x, c, (shard_ctx.data_rank(cm), shard_ctx.model_rank(cm)),
+            (nd, nm)), shapes, placement)
+        opt = optim.init_opt_state(params)
+        batch = train_batch_specs(arch_cfg, shape, dtype)
+        step = make_train_step(arch_cfg, optim.AdamWConfig(), remat=remat,
+                               q_chunk=q_chunk, kv_chunk=kv_chunk,
+                               microbatches=microbatches, mesh=cm,
+                               fsdp=fsdp)
+        rows = {k: _rows(v.shape[0], cm) * (v.numel() // v.shape[0])
+                * v.element_size() for k, v in batch.items()}
+        return StepBundle(
+            fn=step, args=(params, opt, batch), cfg=train_config(arch_cfg, cm),
+            memory={"param_bytes": _bytes(params),
+                             "moment_bytes": _bytes((opt.m, opt.v)),
+                             "cache_bytes": 0,
+                             "batch_bytes": sum(rows.values())})
+    if shape.kind == "decode" and shape.seq_len >= 262144:
+        raise NotPorted("the sequence-sharded decode cache of long_500k "
+                        "(shard_seq) is not ported (ROADMAP A13)")
+    cfg = sharding.serving_config(arch_cfg, cm)
+    params = sharding.shard_params(lm.init_lm(arch_cfg, dtype=dtype,
+                                              device="meta"), cfg, cm)
+    b = shape.global_batch
+    rows = _rows(b, cm)
+    meta = dict(device="meta")
+    extras: Dict[str, torch.Tensor] = {}
+    if shape.kind == "prefill":
+        max_seq = shape.seq_len + (cfg.vision.num_patches if cfg.vision
+                                   else 0)
+        tokens = torch.empty((rows, shape.seq_len), dtype=torch.int32,
+                             **meta)
+        if cfg.encoder is not None:
+            extras["encoder_frames"] = torch.empty(
+                (rows, cfg.encoder.num_frames, cfg.d_model), dtype=dtype,
+                **meta)
+        if cfg.vision is not None:
+            extras["patch_embeds"] = torch.empty(
+                (rows, cfg.vision.num_patches, cfg.d_model), dtype=dtype,
+                **meta)
+        fn = make_prefill_step(cfg, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    else:
+        max_seq = shape.seq_len
+        tokens = torch.empty((rows, 1), dtype=torch.int64, **meta)
+        fn = make_serve_step(cfg)
+    caches = abstract_caches(cfg, cm, b, max_seq, dtype=dtype)
+    return StepBundle(
+        fn=_on_mesh(fn, cm), args=(params, tokens, caches, extras), cfg=cfg,
+        memory={"param_bytes": _bytes(params), "moment_bytes": 0,
+                         "cache_bytes": _bytes(caches),
+                         "batch_bytes": _bytes((tokens, extras))})

@@ -75,7 +75,8 @@ def chunked_attention(
 
     impl="kernel": on a CUDA tensor the forward is the flash kernel
     (kernels/flash_attention.FlashAttention, differentiated from its saved
-    lse over (q_chunk x kv_chunk) tiles); on a CPU tensor it is the plain
+    lse over (q_chunk x kv_chunk) tiles), and so on a meta tensor (a
+    roofline count of the card's route); on a CPU tensor it is the plain
     scan below. impl="plain": the plain scan on any device — the
     reference's online-softmax recurrence over query chunks with an inner
     loop over KV chunks, differentiated by autograd."""
@@ -87,7 +88,7 @@ def chunked_attention(
     kv_chunk = _largest_divisor(s_kv, kv_chunk)
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    if impl == "kernel" and q.device.type == "cuda":
+    if impl == "kernel" and q.device.type in ("cuda", "meta"):
         from repro_torch.kernels.flash_attention import FlashAttention
         return FlashAttention.apply(q, k, v, causal, scale, q_offset,
                                     q_chunk, kv_chunk)

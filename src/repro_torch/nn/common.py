@@ -25,7 +25,10 @@ _PHI_HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))    # Phi(+2)
 def trunc_normal(shape, stddev: float, gen: torch.Generator, *, device,
                  dtype) -> torch.Tensor:
     """stddev * (standard normal truncated to [-2, 2]), by inverse-CDF
-    sampling from `gen` on `device` (drawn in f32, then cast)."""
+    sampling from `gen` on `device` (drawn in f32, then cast); on the meta
+    device an empty tensor of the shape, nothing drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     u = torch.empty(shape, dtype=torch.float32, device=device)
     u.uniform_(2.0 * _PHI_LO - 1.0, 2.0 * _PHI_HI - 1.0, generator=gen)
     x = u.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)

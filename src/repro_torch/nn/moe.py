@@ -45,6 +45,8 @@ def _expert_leaf(shape, gen, *, device, dtype) -> torch.Tensor:
     in is shape[0] = E: drawn expert by expert into the preallocated
     target, so the f32 transient is one (a, b) slice, not the whole leaf."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:                 # shapes only: nothing to draw
+        return out
     std = 1.0 / np.sqrt(max(shape[0], 1))
     for i in range(shape[0]):
         out[i] = trunc_normal(shape[1:], std, gen, device=device, dtype=dtype)

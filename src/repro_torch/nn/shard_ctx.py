@@ -48,6 +48,14 @@ sharded at all; serve/sharding.py places the weights by the same rules.
 The reference's `constrain` and its activation rules instruct GSPMD's
 partitioner, which torch has no counterpart of: they are not ported
 (ROADMAP C).
+
+Every tensor collective of the port goes through `all_reduce_` and
+`all_gather_into` here (train/fsdp.py's too). On meta tensors, or under a
+`CountMesh` — a (data, model) mesh's shape and one rank's coordinates,
+with no process group behind it (launch/steps.build_cell's dry run) —
+they issue nothing: they record the collective's output bytes in the open
+roofline count (roofline/count.py) and leave the outputs as they are, so a
+rank's count of a mesh step runs in one process, on the meta device.
 """
 from __future__ import annotations
 
@@ -58,8 +66,62 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.quant.weights import QuantWeight
+from repro_torch.roofline import count as rcount
 
 _STATE = threading.local()
+
+
+class _CountGroup:
+    """A CountMesh axis's stand-in for a process group."""
+
+
+class CountMesh:
+    """A (data, model) mesh's shape and this rank's place on it, with no
+    process group: what the model code reads of a DeviceMesh (sizes, local
+    ranks, groups). Collectives under it are recorded, not issued."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, data: int, model: int, data_rank: int = 0,
+                 model_rank: int = 0):
+        self.shape = (data, model)
+        self._ranks = (data_rank, model_rank)
+
+    def size(self, dim: int) -> int:
+        return self.shape[dim]
+
+    def get_local_rank(self, name: str) -> int:
+        return self._ranks[self.mesh_dim_names.index(name)]
+
+    def get_group(self, name: str) -> _CountGroup:
+        return _CountGroup()
+
+
+def _recorded(group, *tensors) -> bool:
+    """Whether a collective on `tensors` over `group` is recorded rather
+    than issued: meta tensors, or a CountMesh's group."""
+    return isinstance(group, _CountGroup) or any(t.is_meta for t in tensors)
+
+
+def all_reduce_(y: torch.Tensor, group) -> torch.Tensor:
+    """Sum y over `group` in place (recorded only, see the module's
+    docstring); returns y."""
+    if _recorded(group, y):
+        rcount.collective("all-reduce", rcount.nbytes(y))
+        return y
+    import torch.distributed as dist
+    dist.all_reduce(y, group=group)
+    return y
+
+
+def all_gather_into(parts, x: torch.Tensor, group) -> None:
+    """Fill `parts` (one tensor like x a rank) with the ranks' x, in rank
+    order (recorded only, see the module's docstring)."""
+    if _recorded(group, x):
+        rcount.collective("all-gather", sum(rcount.nbytes(p) for p in parts))
+        return
+    import torch.distributed as dist
+    dist.all_gather(parts, x, group=group)
 
 
 def active_mesh():
@@ -261,10 +323,10 @@ def row_partial(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     reduce_model to sum: in f32 where the model axis has several ranks (on
     the card through torch.mm's f32 output, so the partials are summed
     before the one rounding to a's dtype), in a's dtype on one rank (the
-    unsharded product's bits)."""
+    unsharded product's bits); on the meta device as on the card."""
     if model_size() == 1 or a.dtype == torch.float32:
         return a @ w
-    if a.is_cuda:
+    if a.is_cuda or a.is_meta:
         a2 = a.reshape(-1, a.shape[-1])
         if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
             out = _PartialMM.apply(a2, w)
@@ -279,9 +341,7 @@ def _grad_on(*xs) -> bool:
 
 
 def _all_reduce(y: torch.Tensor, axis: str, group=None) -> torch.Tensor:
-    import torch.distributed as dist
-    dist.all_reduce(y, group=group or active_mesh().get_group(axis))
-    return y
+    return all_reduce_(y, group or active_mesh().get_group(axis))
 
 
 class _SumModel(torch.autograd.Function):
@@ -382,19 +442,17 @@ def gather_data(x: torch.Tensor, dim: int) -> torch.Tensor:
     mesh = active_mesh()
     if mesh is None or data_size(mesh) == 1:
         return x
-    import torch.distributed as dist
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(data_size(mesh))]
-    dist.all_gather(parts, x, group=mesh.get_group("data"))
+    all_gather_into(parts, x, mesh.get_group("data"))
     return torch.cat(parts, dim=dim)
 
 
 def _gather_model_last(x: torch.Tensor) -> torch.Tensor:
-    import torch.distributed as dist
     mesh = active_mesh()
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(model_size(mesh))]
-    dist.all_gather(parts, x, group=mesh.get_group("model"))
+    all_gather_into(parts, x, mesh.get_group("model"))
     return torch.cat(parts, dim=-1)
 
 

@@ -266,6 +266,20 @@ def _leaves(tree):
         yield tree
 
 
+def to_meta(tree):
+    """`tree` with every tensor (and every packed leaf's planes) replaced by
+    an empty tensor of its shape and dtype on the meta device; other leaves
+    are kept."""
+    def one(x):
+        if isinstance(x, QuantWeight):
+            return dataclasses.replace(x, q=one(x.q), e=one(x.e))
+        if isinstance(x, torch.Tensor):
+            return torch.empty_like(x, device="meta")
+        return x
+    from repro_torch.nn.common import tree_map
+    return tree_map(one, tree)
+
+
 def packed_param_bytes(params) -> int:
     """Bytes of the parameter tree as stored (packed payloads + exponent
     planes + float leaves)."""

@@ -2313,6 +2313,74 @@ class ServeEngine:
 
     # --- introspection ------------------------------------------------------
 
+    def meta_copy(self) -> "ServeEngine":
+        """A shallow copy of the engine whose parameters, caches, slot state,
+        sampler state and block table are meta tensors of the same shapes
+        and dtypes: it holds no device memory, and its decode_cost is this
+        engine's, at any later time. Its host bookkeeping is this engine's
+        own (shared): run nothing on it but decode_cost."""
+        import copy
+        probe = copy.copy(self)
+        meta = wq_lib.to_meta
+        probe.device = torch.device("meta")
+        probe.params, probe.caches = meta(self.params), meta(self.caches)
+        probe._state = meta(self._state)
+        probe._key = meta(self._key)
+        probe._sp_dev = meta(self._sp_dev)
+        probe._act = lm.make_act(self.cfg, "meta")
+        if self._attn_quant is not None:
+            probe._attn_quant = self._attn_quant._replace(
+                spec=self._attn_quant.spec.to("meta"))
+        if self.paged:
+            probe._table_dev = meta(self._table_dev)
+        return probe
+
+    def decode_cost(self, bucket: Optional[int] = None) -> Dict[str, Any]:
+        """The work of one decode tick at decode bucket `bucket` (default
+        the widest; the dense backend has none), counted by
+        roofline/count.py on meta copies of the engine's parameters,
+        caches, slot state and block table: no device work, no host sync,
+        and the engine's state as it was. The tick is the engine's own
+        (_decode_tick), with its sampler setting and, under a mesh, this
+        rank's shard and the collectives it issues (recorded, not issued).
+
+        `gather_bytes` is the paged K/V read traffic (the blocks the bucket
+        maps, never the pool's capacity); `bytes` the read-once plus
+        written-once proxy at every counted op (an upper bound);
+        `weight_bytes` the parameter tree as stored (packed payloads and
+        exponent planes at weight_bits < 16: quant/weights.py's
+        packed_param_bytes); `param_bytes` every tensor the tick receives
+        (parameters, caches, slot state, table), by dtype. Beyond the
+        reference's keys: `collective_bytes`, `collectives` (by op, and
+        `collective_count`), `launches` by kernel (launch_counts()'s
+        names) and `roofline` (roofline/analyze.py's terms against the
+        H100's peaks, with the dominant one)."""
+        from repro_torch import kernels
+        from repro_torch.roofline import analyze
+        from repro_torch.roofline import count as rcount
+        width = None
+        if self.paged:
+            width = bucket or self.decode_buckets[-1]
+        probe = self.meta_copy()
+        with rcount.count() as t:
+            ServeEngine._decode_tick(probe, width)
+        rcount.add_params(t, probe.params, probe.caches, probe._state,
+                          probe._table_dev[:, :width] if self.paged
+                          else None)
+        launches = {k: 0 for k in kernels.launch_counts()}
+        launches.update(t.launches)
+        out = rcount.decode_keys(t)
+        out.update(
+            weight_bytes=float(wq_lib.packed_param_bytes(self.params)),
+            collective_bytes=t.collective,
+            collectives=dict(t.collective_by_op),
+            collective_count=t.collectives, launches=launches,
+            roofline=analyze.roofline_terms(
+                flops=t.flops, bytes_accessed=t.bytes,
+                collective_bytes=t.collective, chips=_mesh_ranks(self.mesh),
+                ops_by_kind=t.ops_by_kind))
+        return out
+
     def metrics(self) -> Dict[str, Any]:
         """Snapshot of the serving metrics, merged over the scheduler's
         lifecycle aggregates: the reference engine's key set (the port has

@@ -46,19 +46,17 @@ class Cut:
 
 def all_gather(x: torch.Tensor, axis: int, group, n: int) -> torch.Tensor:
     """The n ranks' x concatenated along `axis`, in rank order."""
-    import torch.distributed as dist
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=group)
+    shard_ctx.all_gather_into(parts, x, group)
     return torch.cat(parts, dim=axis)
 
 
 def reduce_scatter(g: torch.Tensor, axis: int, group, n: int,
                    r: int) -> torch.Tensor:
     """This rank's (r of n) slice along `axis` of g summed over `group`."""
-    import torch.distributed as dist
     g = g.contiguous().clone()
-    dist.all_reduce(g, group=group)
+    shard_ctx.all_reduce_(g, group)
     k = g.shape[axis] // n
     return g.narrow(axis, r * k, k).contiguous()
 
@@ -88,9 +86,8 @@ class _SumGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        import torch.distributed as dist
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        shard_ctx.all_reduce_(g, ctx.group)
         return g, None
 
 
@@ -153,7 +150,6 @@ def cut_sums(tree, placement, mesh) -> torch.Tensor:
     those (a replicated leaf's local sum is already its whole). The groups
     of leaves (by the axes they are cut on) are reduced in a fixed order,
     so every rank gets the same bits."""
-    import torch.distributed as dist
     m, d = shard_ctx.model_size(mesh), shard_ctx.data_size(mesh)
     cuts = dict(tree_flatten(placement))
     sums: dict = {}
@@ -167,6 +163,6 @@ def cut_sums(tree, placement, mesh) -> torch.Tensor:
         s = sums[key]
         for on, name in zip(key, ("model", "data")):
             if on:
-                dist.all_reduce(s, group=mesh.get_group(name))
+                shard_ctx.all_reduce_(s, mesh.get_group(name))
         total = s if total is None else total + s
     return total

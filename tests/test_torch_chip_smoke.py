@@ -5,8 +5,9 @@ the glm4 / qwen archs (g), sampled decoding, telemetry and fault
 containment (h), durable serving (i), MoE / LLaVA (j), the dense
 backend (k), tensor-parallel serving over a mesh (l), the mesh's data
 axis with durable serving and the front door under it (m), the mesh
-for MoE, MLA, Mamba-2 and the encoder-decoder (n) and training over a
-(data, model) mesh (o) — hold together end to end in a
+for MoE, MLA, Mamba-2 and the encoder-decoder (n), training over a
+(data, model) mesh (o) and the roofline count (decode_cost, the dry
+run) — hold together end to end in a
 CPU rehearsal at smoke size (plain kernel versions, no timings; exit 1 by
 design)."""
 import importlib.util
@@ -356,6 +357,46 @@ def test_cpu_rehearsal_runs_every_phase(capsys, tmp_path):
     # (l) and (m) inside the phase as before; (n) and (o) bounded above
     assert report["phase_s"]["slice_l"] - n["seconds"] - o["seconds"] < 60
     assert 0 < o["seconds"] < 30
+    # the roofline phase: decode_cost at every bucket (b) and (c) served a
+    # tick in (warmup's idle ticks not among them), their launches (none
+    # on the CPU) and the shares of the buckets that served ROOF_TICKS
+    # ticks or more; (c)'s weight bytes;
+    # (l)'s collectives counted as a real tick issues them; (o)'s rank
+    # bytes by build_cell; (e)'s counted step; the dry run
+    roof = report["roofline"]
+    for label in ("grau", "wq4_kv4_grau"):
+        rows = roof[label]["buckets"]
+        assert rows and all(r["bound_ms"] > 0
+                            and r["launches_served_tick"] == {}
+                            and r["ticks"] == len(r["decoding_slots"])
+                            and min(r["decoding_slots"]) >= 1
+                            for r in rows.values())
+        assert sum(r["ticks"] for r in rows.values()) == (
+            report["slice"][label]["ticks"])
+        timed = [b for b, r in rows.items() if "share" in r]
+        assert timed and timed == [b for b, r in rows.items()
+                                   if r["ticks"] >= mod.ROOF_TICKS]
+        assert all(0 < rows[b]["share"] <= 1.0
+                   and len(rows[b]["tick_ms"]) == rows[b]["ticks"]
+                   for b in timed)
+        assert all(r["launches"]["paged_attention"] == 2
+                   for r in rows.values())
+    assert all(r["launches"]["matmul_wq"] == 6
+               for r in roof["wq4_kv4_grau"]["buckets"].values())
+    c = roof["wq4_kv4_grau"]
+    assert c["weight_bytes_decode_cost"] == c["weight_bytes_metrics"] == (
+        report["slice"]["wq4_kv4_grau"]["weight_bytes"])
+    assert [r["meta"] == r["real"] for r in roof["l"]] == [True, True]
+    assert roof["l"][0]["real"]["collectives"].keys() == {"all-reduce",
+                                                          "all-gather"}
+    for label in ("1x2", "2x1"):
+        assert [r["param_bytes"] for r in roof["o"][label]] == [
+            r["param_bytes"] for r in o[label]["ranks"]]
+    assert roof["e"]["counted_flops"] > roof["e"]["train_flops"] > 0
+    assert roof["e"]["launches"] == {"flash_attention": 2 * 2}
+    assert roof["dryrun"]["lines"][0].startswith(
+        "OK    llama3.2-3b x decode_32k x single")
+    assert 0 < report["phase_s"]["roofline"] < mod.ROOF_BUDGET_S
     assert '"ok"' not in out.out
 
 

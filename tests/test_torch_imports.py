@@ -48,7 +48,9 @@ def test_port_files_exist():
                  "serve/journal.py", "serve/frontdoor.py", "nn/moe.py",
                  "nn/mamba2.py", "nn/blocks.py", "models/config.py",
                  "configs/archs.py", "serve/kv_cache.py", "launch/mesh.py",
-                 "nn/shard_ctx.py", "serve/sharding.py"):
+                 "nn/shard_ctx.py", "serve/sharding.py",
+                 "roofline/__init__.py", "roofline/analyze.py",
+                 "roofline/count.py", "launch/dryrun.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
 
